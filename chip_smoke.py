@@ -1,0 +1,318 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero; there is no CPU fallback):
+
+  1. the device: torch's name for it and nvidia-smi's name and power limit;
+  2. build the CUDA kernels from dostransformer_tpu_torch/csrc with nvcc;
+  3. each kernel against its plain PyTorch version on the card at the
+     shapes the flagship eDOS serving forward gives it (f32, TF32 off),
+     including a short batch whose dummy graph has every key masked; max
+     abs/rel error against the stated tolerance, and the median time of
+     kernel and plain version over 50 runs (CUDA events);
+  4. the main path through the entry points a user calls: a flagship
+     DOSTransformerEDOS (hidden 256, 3 processors, 2 transformer layers per
+     stack, 201 bins; random weights from a seeded torch.Generator) is saved
+     with torch.save, synthetic eDOS samples are written as npz, and
+     requests are served through cli.main_predict and Predictor.predict: 96
+     samples, 5 samples (a short batch) and a mix of small and large
+     crystals (two atom buckets). Every output must be [N, 201], finite and
+     >= 0 (the eDOS clamp); the kernel launch counters must show exactly 3
+     fused_mp_edge and 6 fused_attention launches per batch; and the outputs
+     must match the same model run on the CPU through the plain versions;
+  5. samples/s for the 96-sample request.
+
+The line before the last is a JSON object with each kernel's launches on the
+main path, error and times; the last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+if not torch.cuda.is_available():
+    sys.exit("chip_smoke: no CUDA device visible (torch.cuda.is_available() "
+             "is False); this script runs the port on the card only")
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from dostransformer_tpu_torch.cli import main_predict  # noqa: E402
+from dostransformer_tpu_torch.data.graph import bucket_size  # noqa: E402
+from dostransformer_tpu_torch.data.io import save_samples  # noqa: E402
+from dostransformer_tpu_torch.data.synthetic import (  # noqa: E402
+    synthetic_edos_samples,
+)
+from dostransformer_tpu_torch.models.registry import build_model  # noqa: E402
+from dostransformer_tpu_torch.ops import kernels  # noqa: E402
+from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
+    dot_product_attention,
+    fused_attention,
+)
+from dostransformer_tpu_torch.ops.fused_mp import (  # noqa: E402
+    fused_mp_edge,
+    mp_edge_reference,
+)
+from dostransformer_tpu_torch.serve import Predictor  # noqa: E402
+
+# flagship eDOS serving forward (cli/main_predict defaults) at batch 8
+HIDDEN, LAYERS, T_LAYERS, BINS, BATCH = 256, 3, 2, 201, 8
+# kernel vs plain version, f32 on the card: the two sum in different orders
+# (and the kernel's agg avoids atomics), so they differ by f32 rounding only;
+# 1e-5 relative to the output's magnitude leaves > 20x headroom over the
+# errors seen at these shapes
+KERNEL_RTOL = 1e-5
+# whole forward on the card (kernels + cuBLAS) vs on the CPU (plain versions
+# + CPU BLAS): f32 rounding accumulated through 3 processors and 6
+# transformer layers
+MODEL_ATOL = MODEL_RTOL = 1e-3
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def median_ms(fn, runs: int = 50, warmup: int = 5) -> float:
+    """Median device time of fn() over ``runs`` runs, by CUDA events. Before
+    each run a spin kernel (about a millisecond) keeps the card busy while
+    the host queues the start event, fn's launches and the end event, so the
+    events bracket device work only and not the host's launch latency."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def compare(name, kernel_fn, plain_fn):
+    """Run kernel and plain version on the same inputs; returns
+    (max abs err, max rel err, kernel ms, plain ms)."""
+    got = kernel_fn()
+    want = plain_fn()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    abs_err = rel_err = 0.0
+    for g, w in zip(got, want):
+        check(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
+        err = (g - w).abs().max().item()
+        scale = max(1.0, w.abs().max().item())
+        check(err <= KERNEL_RTOL * scale,
+              f"{name}: max abs err {err:.3e} > {KERNEL_RTOL} x {scale:.3g}")
+        abs_err = max(abs_err, err)
+        rel_err = max(rel_err, err / scale)
+    ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn)
+    print(f"  {name}: max abs err {abs_err:.3e}, rel {rel_err:.3e} "
+          f"(tol {KERNEL_RTOL} rel); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (median of 50)")
+    return abs_err, rel_err, ms, plain_ms
+
+
+def phase_kernels(dev):
+    g = torch.Generator().manual_seed(0)
+    rand = lambda *s: torch.randn(*s, generator=g).to(dev)
+    out = {}
+
+    # A: one processor's edge pipeline at B=8, A=32, E=384, M=2H=512, H=256
+    b, a, e, m, h = BATCH, 32, 384, 2 * HIDDEN, HIDDEN
+    idx = lambda: torch.randint(0, a, (b, e), generator=g,
+                                dtype=torch.int32).to(dev)
+    mask = (torch.rand(b, e, generator=g) > 0.25).float()
+    mask[-1] = 0.0  # a dummy graph of a short batch: no real edges
+    args = (rand(b, a, m), rand(b, a, m), rand(b, e, m), idx(), idx(),
+            mask.to(dev), rand(m).abs() + 0.5, rand(m) * 0.1,
+            torch.tensor([0.25], device=dev), rand(h, m) * m ** -0.5,
+            rand(h) * 0.1)
+    print(f"fused_mp_edge B={b} A={a} E={e} M={m} H={h}")
+    out["fused_mp_edge"] = compare("fused_mp_edge",
+                                   lambda: fused_mp_edge(*args),
+                                   lambda: mp_edge_reference(*args))
+
+    # B: the three stacks' attention shapes, D=256: cross (B, 201 x 32),
+    # self on the 2B head batch (2B, 201 x 201), source (2B, 201 x 32)
+    shapes = {"cross": (BATCH, BINS, 32), "self": (2 * BATCH, BINS, BINS),
+              "source": (2 * BATCH, BINS, 32)}
+    per_shape = {}
+    for label, (bb, lq, lk) in shapes.items():
+        q, k, v = rand(bb, lq, HIDDEN), rand(bb, lk, HIDDEN), rand(bb, lk, HIDDEN)
+        km = None
+        if lk != lq:  # atom keys: pad atoms masked, last graph all masked
+            n_real = torch.randint(4, lk + 1, (bb,), generator=g)
+            km = torch.arange(lk)[None] < n_real[:, None]
+            km[-1] = False
+            km = km.to(dev)
+        print(f"fused_attention {label}: B={bb} Lq={lq} Lk={lk} D={HIDDEN}"
+              f"{' (last graph fully masked)' if km is not None else ''}")
+        per_shape[label] = compare(
+            f"fused_attention[{label}]",
+            lambda: fused_attention(q, k, v, km),
+            lambda: dot_product_attention(q, k, v, km))
+    # the JSON line reports the time per call averaged over a forward's six
+    # calls, two at each of the three shapes
+    out["fused_attention"] = tuple(
+        f(r[i] for r in per_shape.values())
+        for i, f in ((0, max), (1, max), (2, statistics.mean),
+                     (3, statistics.mean)))
+    return out
+
+
+def serve_requests():
+    big = synthetic_edos_samples(96, seed=0)
+    short = synthetic_edos_samples(5, seed=1)
+    small = synthetic_edos_samples(10, seed=2, min_atoms=3, max_atoms=6)
+    large = synthetic_edos_samples(6, seed=3, min_atoms=40, max_atoms=60)
+    mixed = [s for pair in zip(small, large) for s in pair] + small[6:]
+    return {"96": big, "5 (short batch)": short, "16 mixed": mixed}
+
+
+def expected_batches(samples) -> int:
+    groups = {}
+    for s in samples:
+        groups[bucket_size(s.n_nodes)] = groups.get(bucket_size(s.n_nodes), 0) + 1
+    return sum(math.ceil(n / BATCH) for n in groups.values())
+
+
+def check_dos(label, dos, n):
+    check(dos.shape == (n, BINS), f"{label}: shape {dos.shape} != {(n, BINS)}")
+    check(bool(np.isfinite(dos).all()), f"{label}: non-finite output")
+    check(bool((dos >= 0).all()), f"{label}: negative output despite clamp")
+
+
+def phase_main_path(workdir):
+    gen = torch.Generator().manual_seed(0)
+    model = build_model("edos", layers=LAYERS, t_layers=T_LAYERS,
+                        hidden=HIDDEN, generator=gen)
+    weights = os.path.join(workdir, "edos_flagship.pt")
+    torch.save(model.state_dict(), weights)
+    requests = serve_requests()
+    paths = {}
+    for label, samples in requests.items():
+        paths[label] = os.path.join(workdir, f"request_{len(samples)}.npz")
+        save_samples(paths[label], samples)
+
+    gpu = Predictor.from_torch(weights, task="edos", example=requests["96"][0],
+                               layers=LAYERS, t_layers=T_LAYERS,
+                               hidden=HIDDEN, batch_size=BATCH, device="cuda")
+    cpu = Predictor.from_torch(weights, task="edos", example=requests["96"][0],
+                               layers=LAYERS, t_layers=T_LAYERS,
+                               hidden=HIDDEN, batch_size=BATCH, device="cpu")
+
+    fused_mp_edge.launches = fused_attention.launches = 0
+    outputs, total_batches = {}, 0
+    for label, samples in requests.items():
+        before = (fused_mp_edge.launches, fused_attention.launches)
+        if label == "96":
+            out_path = os.path.join(workdir, "preds_96.npz")
+            main_predict.main([
+                "--task", "edos", "--torch_state_dict", weights,
+                "--input", paths[label], "--output", out_path,
+                "--layers", str(LAYERS), "--transformer", str(T_LAYERS),
+                "--hidden", str(HIDDEN), "--batch_size", str(BATCH),
+                "--device", "cuda"])
+            with np.load(out_path) as z:
+                dos = z["dos"]
+                check(list(z["sample_id"]) == [s.sample_id for s in samples],
+                      "CLI output sample_id order")
+                check(list(z["mp_id"]) == [s.mp_id for s in samples],
+                      "CLI output mp_id order")
+        else:
+            dos = gpu.predict(samples)
+        n_batches = expected_batches(samples)
+        total_batches += n_batches
+        mp = fused_mp_edge.launches - before[0]
+        attn = fused_attention.launches - before[1]
+        print(f"request {label}: {n_batches} batches, fused_mp_edge "
+              f"launches {mp}, fused_attention launches {attn}")
+        check(mp == LAYERS * n_batches,
+              f"{label}: {mp} fused_mp_edge launches, expected "
+              f"{LAYERS * n_batches}")
+        check(attn == 3 * T_LAYERS * n_batches,
+              f"{label}: {attn} fused_attention launches, expected "
+              f"{3 * T_LAYERS * n_batches}")
+        check_dos(label, dos, len(samples))
+        outputs[label] = dos
+    launches = {"fused_mp_edge": fused_mp_edge.launches,
+                "fused_attention": fused_attention.launches}
+    print(f"main path: {total_batches} batches, launches {launches}")
+
+    for label, samples in requests.items():
+        ref = cpu.predict(samples)
+        err = float(np.abs(outputs[label] - ref).max())
+        print(f"request {label}: card vs CPU plain max abs err {err:.3e} "
+              f"(atol {MODEL_ATOL} + rtol {MODEL_RTOL})")
+        check(np.allclose(outputs[label], ref, atol=MODEL_ATOL,
+                          rtol=MODEL_RTOL),
+              f"{label}: card output differs from the CPU run by {err:.3e}")
+
+    samples = requests["96"]
+    gpu.predict(samples)  # warm
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        gpu.predict(samples)  # ends in one copy to the host: synchronised
+        times.append(time.perf_counter() - t0)
+    return launches, len(samples) / statistics.median(times)
+
+
+def main():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(f"device: {kind} (torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}); name and power limit from nvidia-smi:")
+    print(smi)
+
+    _, seconds = kernels.build(force=True)
+    kernels.library()
+    print(f"built {len(kernels.SOURCES)} CUDA sources for sm_90a in "
+          f"{seconds:.1f} s")
+
+    results = phase_kernels(dev)
+    with tempfile.TemporaryDirectory() as workdir:
+        launches, rate = phase_main_path(workdir)
+    print(f"{rate:.1f} samples/s serving the 96-sample request (eDOS "
+          f"flagship, batch {BATCH}, f32) on {smi}")
+
+    sources = {"fused_mp_edge": ("dostransformer_tpu_torch/csrc/fused_mp.cu",
+                                 "dostransformer_tpu/ops/fused_mp.py:79"),
+               "fused_attention": ("dostransformer_tpu_torch/csrc/attention.cu",
+                                   "dostransformer_tpu/ops/attention.py:80")}
+    rows = []
+    for name, (err, _, ms, plain_ms) in results.items():
+        check(launches[name] > 0, f"{name} never launched on the main path")
+        rows.append({"name": name, "route": "cuda", "source": sources[name][0],
+                     "replaces": sources[name][1], "launches": launches[name],
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,58 @@
+"""Synthetic eDOS samples for tests and benchmarks.
+
+Counterpart of dostransformer_tpu/data/synthetic.py `synthetic_edos_samples`:
+the same numpy RandomState draws in the same order, so a seed gives the same
+arrays in both packages.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+
+from dostransformer_tpu_torch.data.graph import GraphSample
+
+
+def synthetic_edos_samples(
+    n_samples: int,
+    seed: int = 0,
+    min_atoms: int = 4,
+    max_atoms: int = 24,
+    n_atom_feats: int = 200,
+    n_bond_feats: int = 41,
+    max_num_nbr: int = 12,
+    n_bins: int = 201,
+) -> List[GraphSample]:
+    """eDOS-style samples: matscholar-width node features plus one all-zero
+    prompt-node row with no incident edges; each real atom has exactly
+    max_num_nbr outgoing edges; Gaussian-expanded distances as edge
+    features; glob = 2 features; y normalised to max 1."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n_samples):
+        n_atoms = int(rng.randint(min_atoms, max_atoms + 1))
+        x = rng.randn(n_atoms, n_atom_feats).astype(np.float32)
+        x = np.vstack([x, np.zeros((1, n_atom_feats), np.float32)])
+
+        senders = np.repeat(np.arange(n_atoms), max_num_nbr)
+        receivers = rng.randint(0, n_atoms, size=n_atoms * max_num_nbr)
+        edge_index = np.stack([senders, receivers]).astype(np.int64)
+
+        dists = rng.uniform(0.8, 8.0, size=n_atoms * max_num_nbr)
+        centers = np.arange(0.0, 8.2, 0.2)
+        edge_attr = np.exp(-((dists[:, None] - centers) ** 2)
+                           / 0.2 ** 2).astype(np.float32)
+        if edge_attr.shape[1] != n_bond_feats:
+            raise ValueError(f"the Gaussian expansion has "
+                             f"{edge_attr.shape[1]} centres, not "
+                             f"n_bond_feats={n_bond_feats}")
+
+        y = np.abs(rng.randn(n_bins)).astype(np.float32)
+        y = y / y.max()
+        out.append(GraphSample(
+            x=x, edge_index=edge_index, edge_attr=edge_attr,
+            glob=rng.randn(2).astype(np.float32),
+            y=y, system=int(rng.randint(0, 7)), sample_id=i, mp_id=f"syn-{i}",
+        ))
+    return out

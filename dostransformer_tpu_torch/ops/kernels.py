@@ -1,0 +1,122 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources in ``dostransformer_tpu_torch/csrc/*.cu`` have a plain C
+interface. At first use they are compiled with ``nvcc`` for ``sm_90a`` into
+one shared library under ``build/torch_kernels/`` of the checkout, named by a
+hash of the sources and flags, and loaded with ``ctypes``. A later process
+finds the library and skips the build. Nothing here runs at import: the CPU
+tests import every module on machines without ``nvcc``.
+
+The wrappers in ``ops/fused_mp.py`` and ``ops/attention.py`` pass every
+pointer, and PyTorch's current CUDA stream, as ``c_void_p``; each entry point
+returns the CUDA error code of its launches, and :func:`check` raises on a
+non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+SOURCES = ("runtime.cu", "fused_mp.cu", "attention.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "dostpu_error_string": ([_I], ctypes.c_char_p),
+    "dostpu_fused_mp_edge_smem_bytes": ([_I], ctypes.c_size_t),
+    # src_proj dst_proj edge_proj senders receivers edge_mask ln_scale
+    # ln_bias alpha w1 b1 e_out agg B A E M H stream
+    "dostpu_fused_mp_edge_fwd": ([_P] * 13 + [_I] * 5 + [_P], _I),
+    "dostpu_attention_max_dim": ([], _I),
+    # q k v bias out B Lq Lk D scale stream
+    "dostpu_attention_fwd": ([_P] * 5 + [_I] * 4 + [ctypes.c_float, _P], _I),
+}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        candidate = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(candidate):
+            return candidate
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libdostpu_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(force: bool = False) -> tuple[Path, float]:
+    """Compile the kernels unless the library for these sources exists (or
+    ``force``). Returns (library path, seconds spent compiling, 0.0 when
+    cached)."""
+    so = library_path()
+    if so.exists() and not force:
+        return so, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / name) for name in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    return so, time.perf_counter() - t0
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    so, _ = build()
+    lib = ctypes.CDLL(str(so))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def require(kernel: str, arg: str, t, *, device, dtype, shape) -> None:
+    """Raise unless ``t`` is a contiguous, 16-byte aligned ``dtype`` tensor
+    of ``shape`` on ``device``: what a kernel's C entry point assumes of
+    every pointer it is given."""
+    if t.device != device:
+        raise ValueError(f"{kernel}: {arg} is on {t.device}, expected "
+                         f"{device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{kernel}: {arg} is {t.dtype}, the kernel takes "
+                        f"{dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {arg} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{kernel}: {arg} must be contiguous and 16-byte "
+                         f"aligned")
+
+
+def check(code: int, kernel: str) -> None:
+    if code != 0:
+        msg = library().dostpu_error_string(code).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
+                           f"{code} ({msg})")

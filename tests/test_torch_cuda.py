@@ -1,0 +1,98 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card
+(marker ``cuda``; they skip where no CUDA device is visible). The kernels
+have no CPU mode, so these are the only tests that run them; chip_smoke.py
+runs the same comparison at the flagship shapes.
+
+f32 on the card with TF32 off; the kernel and the plain version sum in
+different orders, so atol 1e-5 on outputs of magnitude ~1 (rtol 1e-5)."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
+    dot_product_attention,
+    fused_attention,
+)
+from dostransformer_tpu_torch.ops.fused_mp import (  # noqa: E402
+    fused_mp_edge,
+    mp_edge_reference,
+)
+
+pytestmark = pytest.mark.cuda
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _mp_args(dev, b, a, e, m, h, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)
+    idx = lambda: torch.randint(0, a, (b, e), generator=g, dtype=torch.int32)
+    mask = (torch.rand(b, e, generator=g) > 0.2).float()
+    args = (r(b, a, m), r(b, a, m), r(b, e, m), idx(), idx(), mask,
+            torch.rand(m, generator=g) + 0.5, r(m) * 0.1, torch.tensor([0.3]),
+            r(h, m) * m ** -0.5, r(h) * 0.1)
+    return [t.to(dev) for t in args]
+
+
+@pytest.mark.parametrize("shape", [(8, 32, 384, 512, 256), (3, 13, 70, 48, 24),
+                                   (2, 5, 17, 600, 300)])
+def test_fused_mp_edge_matches_plain(dev, shape):
+    args = _mp_args(dev, *shape)
+    before = fused_mp_edge.launches
+    e_out, agg = fused_mp_edge(*args)
+    assert fused_mp_edge.launches == before + 1
+    want_e, want_agg = mp_edge_reference(*args)
+    torch.testing.assert_close(e_out, want_e, **TOL)
+    torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-4)
+    again = fused_mp_edge(*args)  # deterministic: no float atomics
+    assert torch.equal(again[0], e_out) and torch.equal(again[1], agg)
+
+
+def test_fused_mp_edge_out_of_range_index_reads_nothing(dev):
+    args = _mp_args(dev, 2, 5, 9, 32, 16)
+    args[3][0, 0] = 99  # sender out of range: contributes a zero row
+    args[4][1, 2] = -1  # receiver out of range: reaches no node
+    e_out, agg = fused_mp_edge(*args)
+    assert torch.isfinite(e_out).all() and torch.isfinite(agg).all()
+
+
+def test_fused_mp_edge_rejects_wrong_dtype(dev):
+    args = _mp_args(dev, 2, 5, 9, 32, 16)
+    args[3] = args[3].long()
+    with pytest.raises(TypeError):
+        fused_mp_edge(*args)
+
+
+@pytest.mark.parametrize("shape", [(8, 201, 32, 256), (16, 201, 201, 256),
+                                   (3, 5, 70, 96), (2, 40, 33, 512)])
+def test_fused_attention_matches_plain(dev, shape):
+    b, lq, lk, d = shape
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(b, n, d, generator=g).to(dev)
+               for n in (lq, lk, lk))
+    km = (torch.rand(b, lk, generator=g) > 0.3).to(dev)
+    km[-1] = False  # fully masked row: uniform average, never NaN
+    for mask in (km, None):
+        before = fused_attention.launches
+        got = fused_attention(q, k, v, mask)
+        assert fused_attention.launches == before + 1
+        torch.testing.assert_close(got, dot_product_attention(q, k, v, mask),
+                                   **TOL)
+
+
+def test_fused_attention_rejects_wrong_dtype_and_width(dev):
+    q = torch.randn(2, 4, 64, device=dev)
+    with pytest.raises(TypeError):
+        fused_attention(q.double(), q.double(), q.double())
+    q = torch.randn(2, 4, 40, device=dev)
+    with pytest.raises(ValueError):
+        fused_attention(q, q, q)

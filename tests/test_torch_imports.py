@@ -1,0 +1,71 @@
+"""The PyTorch port stands alone: importing it (and its serving and CLI
+modules) pulls in neither jax, flax nor the JAX package, because the machine
+with the card has none of them."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULES = [
+    "dostransformer_tpu_torch",
+    "dostransformer_tpu_torch.data.graph",
+    "dostransformer_tpu_torch.data.synthetic",
+    "dostransformer_tpu_torch.data.io",
+    "dostransformer_tpu_torch.data.datasets",
+    "dostransformer_tpu_torch.nn.init",
+    "dostransformer_tpu_torch.nn.layernorm",
+    "dostransformer_tpu_torch.nn.modules",
+    "dostransformer_tpu_torch.nn.transformer",
+    "dostransformer_tpu_torch.ops.kernels",
+    "dostransformer_tpu_torch.ops.segment",
+    "dostransformer_tpu_torch.ops.fused_mp",
+    "dostransformer_tpu_torch.ops.attention",
+    "dostransformer_tpu_torch.models.dostransformer",
+    "dostransformer_tpu_torch.models.registry",
+    "dostransformer_tpu_torch.models.import_torch",
+    "dostransformer_tpu_torch.serve",
+    "dostransformer_tpu_torch.cli.main_predict",
+]
+PROBE = f"""
+import importlib, sys
+for name in {MODULES!r}:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "dostransformer_tpu"))
+print(",".join(bad))
+"""
+
+
+def test_port_imports_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", PROBE], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", (
+        f"the port imported {out.stdout.strip()}")
+
+
+def test_kernel_library_is_keyed_by_the_sources(tmp_path, monkeypatch):
+    """A changed CUDA source gets a new library name, so a stale build is
+    never loaded."""
+    import shutil
+
+    from dostransformer_tpu_torch.ops import kernels
+
+    for name in kernels.SOURCES:
+        shutil.copy(kernels.CSRC / name, tmp_path / name)
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    before = kernels.library_path()
+    assert before.parent == kernels.BUILD_DIR
+    assert kernels.library_path() == before
+    with open(tmp_path / "attention.cu", "a") as f:
+        f.write("\n// edited\n")
+    assert kernels.library_path() != before
