@@ -5,13 +5,18 @@
 Phases (any failure raises and exits non-zero; there is no CPU fallback):
 
   1. the device: torch's name for it and nvidia-smi's name and power limit;
-  2. build the CUDA kernels from dostransformer_tpu_torch/csrc with nvcc;
-  3. each kernel against its plain PyTorch version on the card at the
-     shapes the flagship eDOS serving forward gives it (f32, TF32 off),
+  2. build the CUDA kernels from dostransformer_tpu_torch/csrc with nvcc
+     (one nvcc per source, all at once);
+  3. each forward kernel against its plain PyTorch version on the card at
+     the shapes the flagship eDOS forward gives it (f32, TF32 off),
      including a short batch whose dummy graph has every key masked; max
      abs/rel error against the stated tolerance, and the median time of
      kernel and plain version over 50 runs (CUDA events);
-  4. the main path through the entry points a user calls: a flagship
+  3b. each backward kernel against its plain backward at the training
+     shapes (a dummy graph, random nonzero upstream gradients, a fully
+     masked attention row), run twice and required to repeat bit for bit,
+     timed as in 3;
+  4. the serving path through the entry points a user calls: a flagship
      DOSTransformerEDOS (hidden 256, 3 processors, 2 transformer layers per
      stack, 201 bins; random weights from a seeded torch.Generator) is saved
      with torch.save, synthetic eDOS samples are written as npz, and
@@ -19,17 +24,32 @@ Phases (any failure raises and exits non-zero; there is no CPU fallback):
      samples, 5 samples (a short batch) and a mix of small and large
      crystals (two atom buckets). Every output must be [N, 201], finite and
      >= 0 (the eDOS clamp); the kernel launch counters must show exactly 3
-     fused_mp_edge and 6 fused_attention launches per batch; and the outputs
-     must match the same model run on the CPU through the plain versions;
-  5. samples/s for the 96-sample request.
+     fused_mp_edge and 6 fused_attention launches per batch and no backward
+     launch; and the outputs must match the same model run on the CPU
+     through the plain versions;
+  5. samples/s for the 96-sample request;
+  6. the training path through its entry point: cli.main_edos on 96
+     learnable synthetic samples, 3 epochs, eval every epoch, at the full
+     width (main_edos defaults, batch 8, f32). Every train step must launch
+     exactly 3 + 6 forward and 3 + 6 backward kernels, every eval batch 3 + 6
+     forward and no backward; the losses must be finite, the test metrics
+     present and the experiments_DOSTransformer.txt block written;
+  7. card against CPU: one seeded model copied to both devices, 3
+     Trainer.train_steps on the same 3 batches (the last one short, with
+     dummy graphs); the first step's gradients and every step's loss must
+     agree within the stated tolerances;
+  8. training samples/s at batch 8 over 20 steps (host collation and upload
+     included, synchronised at both ends), with the card's name and power
+     limit.
 
 The line before the last is a JSON object with each kernel's launches on the
-main path, error and times; the last line is
+training path, error and times; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -48,35 +68,55 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from dostransformer_tpu_torch.cli import main_predict  # noqa: E402
+from dostransformer_tpu_torch.cli import main_edos, main_predict  # noqa: E402
+from dostransformer_tpu_torch.data.datasets import (  # noqa: E402
+    GraphLoader,
+    edos_random_split,
+)
 from dostransformer_tpu_torch.data.graph import bucket_size  # noqa: E402
 from dostransformer_tpu_torch.data.io import save_samples  # noqa: E402
 from dostransformer_tpu_torch.data.synthetic import (  # noqa: E402
+    synthetic_edos_learnable,
     synthetic_edos_samples,
 )
 from dostransformer_tpu_torch.models.registry import build_model  # noqa: E402
 from dostransformer_tpu_torch.ops import kernels  # noqa: E402
 from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
+    attention_bwd_reference,
     dot_product_attention,
     fused_attention,
+    fused_attention_bwd,
+    key_bias,
 )
 from dostransformer_tpu_torch.ops.fused_mp import (  # noqa: E402
     fused_mp_edge,
+    fused_mp_edge_bwd,
+    mp_edge_bwd_reference,
     mp_edge_reference,
 )
 from dostransformer_tpu_torch.serve import Predictor  # noqa: E402
+from dostransformer_tpu_torch.train.trainer import Trainer  # noqa: E402
 
 # flagship eDOS serving forward (cli/main_predict defaults) at batch 8
 HIDDEN, LAYERS, T_LAYERS, BINS, BATCH = 256, 3, 2, 201, 8
 # kernel vs plain version, f32 on the card: the two sum in different orders
 # (and the kernel's agg avoids atomics), so they differ by f32 rounding only;
 # 1e-5 relative to the output's magnitude leaves > 20x headroom over the
-# errors seen at these shapes
+# errors seen at these shapes. The same bound holds per element for the
+# backward kernels; their parameter gradients sum over all B*E = 3072 edges
+# (the message-passing backward), so those get 1e-4
 KERNEL_RTOL = 1e-5
+PARAM_GRAD_RTOL = 1e-4
 # whole forward on the card (kernels + cuBLAS) vs on the CPU (plain versions
 # + CPU BLAS): f32 rounding accumulated through 3 processors and 6
 # transformer layers
 MODEL_ATOL = MODEL_RTOL = 1e-3
+# train step on the card vs on the CPU: first-step gradients within
+# atol 1e-3 + rtol 1e-3 (as the forward), per-step losses within rtol 1e-3
+GRAD_ATOL = GRAD_RTOL = 1e-3
+LOSS_RTOL = 1e-3
+KERNELS = (fused_mp_edge, fused_attention, fused_mp_edge_bwd,
+           fused_attention_bwd)
 
 
 def check(ok: bool, what: str) -> None:
@@ -105,28 +145,64 @@ def median_ms(fn, runs: int = 50, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-def compare(name, kernel_fn, plain_fn):
-    """Run kernel and plain version on the same inputs; returns
+def reset_launches():
+    for k in KERNELS:
+        k.launches = 0
+
+
+def read_launches() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def compare(name, kernel_fn, plain_fn, rtols=None, repeat=False):
+    """Run kernel and plain version on the same inputs; each output must be
+    within its rtol (default KERNEL_RTOL) x max(1, max|plain|); with
+    ``repeat`` a second kernel run must give the same bits. Returns
     (max abs err, max rel err, kernel ms, plain ms)."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
+    rtols = rtols or (KERNEL_RTOL,) * len(want)
     abs_err = rel_err = 0.0
-    for g, w in zip(got, want):
+    for i, (g, w, tol) in enumerate(zip(got, want, rtols)):
+        check(g.shape == w.shape, f"{name}: output {i} shape {tuple(g.shape)}"
+                                  f" != {tuple(w.shape)}")
         check(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
         err = (g - w).abs().max().item()
         scale = max(1.0, w.abs().max().item())
-        check(err <= KERNEL_RTOL * scale,
-              f"{name}: max abs err {err:.3e} > {KERNEL_RTOL} x {scale:.3g}")
+        check(err <= tol * scale,
+              f"{name}: output {i} max abs err {err:.3e} > {tol} x "
+              f"{scale:.3g}")
         abs_err = max(abs_err, err)
         rel_err = max(rel_err, err / scale)
+    if repeat:
+        again = kernel_fn()
+        again = again if isinstance(again, tuple) else (again,)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{name}: a second run differs (not deterministic)")
     ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn)
     print(f"  {name}: max abs err {abs_err:.3e}, rel {rel_err:.3e} "
-          f"(tol {KERNEL_RTOL} rel); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms (median of 50)")
+          f"(tol {'/'.join(map(str, sorted(set(rtols))))} rel)"
+          f"{', repeats bit-identically' if repeat else ''}; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 50)")
     return abs_err, rel_err, ms, plain_ms
+
+
+def attention_shapes():
+    """The three stacks' attention shapes, D=256: cross (B, 201 x 32), self
+    on the 2B head batch (2B, 201 x 201), source (2B, 201 x 32)."""
+    return {"cross": (BATCH, BINS, 32), "self": (2 * BATCH, BINS, BINS),
+            "source": (2 * BATCH, BINS, 32)}
+
+
+def per_forward(per_shape):
+    """Max errors and the mean time per call over a forward's six calls,
+    two at each of the three shapes."""
+    return tuple(f(r[i] for r in per_shape.values())
+                 for i, f in ((0, max), (1, max), (2, statistics.mean),
+                              (3, statistics.mean)))
 
 
 def phase_kernels(dev):
@@ -149,12 +225,9 @@ def phase_kernels(dev):
                                    lambda: fused_mp_edge(*args),
                                    lambda: mp_edge_reference(*args))
 
-    # B: the three stacks' attention shapes, D=256: cross (B, 201 x 32),
-    # self on the 2B head batch (2B, 201 x 201), source (2B, 201 x 32)
-    shapes = {"cross": (BATCH, BINS, 32), "self": (2 * BATCH, BINS, BINS),
-              "source": (2 * BATCH, BINS, 32)}
+    # B: the three stacks' attention shapes
     per_shape = {}
-    for label, (bb, lq, lk) in shapes.items():
+    for label, (bb, lq, lk) in attention_shapes().items():
         q, k, v = rand(bb, lq, HIDDEN), rand(bb, lk, HIDDEN), rand(bb, lk, HIDDEN)
         km = None
         if lk != lq:  # atom keys: pad atoms masked, last graph all masked
@@ -168,12 +241,50 @@ def phase_kernels(dev):
             f"fused_attention[{label}]",
             lambda: fused_attention(q, k, v, km),
             lambda: dot_product_attention(q, k, v, km))
-    # the JSON line reports the time per call averaged over a forward's six
-    # calls, two at each of the three shapes
-    out["fused_attention"] = tuple(
-        f(r[i] for r in per_shape.values())
-        for i, f in ((0, max), (1, max), (2, statistics.mean),
-                     (3, statistics.mean)))
+    out["fused_attention"] = per_forward(per_shape)
+    return out
+
+
+def phase_backward_kernels(dev):
+    g = torch.Generator().manual_seed(1)
+    rand = lambda *s: torch.randn(*s, generator=g).to(dev)
+    out = {}
+
+    # A: one processor's edge backward at B=8, A=32, E=384, M=512, H=256
+    b, a, e, m, h = BATCH, 32, 384, 2 * HIDDEN, HIDDEN
+    idx = lambda: torch.randint(0, a, (b, e), generator=g,
+                                dtype=torch.int32).to(dev)
+    mask = (torch.rand(b, e, generator=g) > 0.25).float()
+    mask[-1] = 0.0  # a dummy graph: every edge is padding
+    args = (rand(b, a, m), rand(b, a, m), rand(b, e, m), idx(), idx(),
+            mask.to(dev), rand(m).abs() + 0.5, rand(m) * 0.1,
+            torch.tensor([0.25], device=dev), rand(h, m) * m ** -0.5,
+            rand(b, e, h), rand(b, a, h))
+    print(f"fused_mp_edge_bwd B={b} A={a} E={e} M={m} H={h} (last graph a "
+          f"dummy, nonzero upstream gradients everywhere)")
+    out["fused_mp_edge_bwd"] = compare(
+        "fused_mp_edge_bwd", lambda: fused_mp_edge_bwd(*args),
+        lambda: mp_edge_bwd_reference(*args),
+        rtols=(KERNEL_RTOL,) * 3 + (PARAM_GRAD_RTOL,) * 5, repeat=True)
+
+    # B: attention backward at the three shapes, the last graph fully masked
+    per_shape = {}
+    for label, (bb, lq, lk) in attention_shapes().items():
+        q, k, v, go = (rand(bb, n, HIDDEN) for n in (lq, lk, lk, lq))
+        km = torch.ones(bb, lk, dtype=torch.bool)
+        if lk != lq:
+            n_real = torch.randint(4, lk + 1, (bb,), generator=g)
+            km = torch.arange(lk)[None] < n_real[:, None]
+        km[-1] = False
+        bias = key_bias(km.to(dev))
+        o = fused_attention(q, k, v, km.to(dev))
+        print(f"fused_attention_bwd {label}: B={bb} Lq={lq} Lk={lk} "
+              f"D={HIDDEN} (last graph fully masked)")
+        per_shape[label] = compare(
+            f"fused_attention_bwd[{label}]",
+            lambda: fused_attention_bwd(q, k, v, bias, o, go),
+            lambda: attention_bwd_reference(q, k, v, bias, go), repeat=True)
+    out["fused_attention_bwd"] = per_forward(per_shape)
     return out
 
 
@@ -218,7 +329,7 @@ def phase_main_path(workdir):
                                layers=LAYERS, t_layers=T_LAYERS,
                                hidden=HIDDEN, batch_size=BATCH, device="cpu")
 
-    fused_mp_edge.launches = fused_attention.launches = 0
+    reset_launches()
     outputs, total_batches = {}, 0
     for label, samples in requests.items():
         before = (fused_mp_edge.launches, fused_attention.launches)
@@ -252,9 +363,10 @@ def phase_main_path(workdir):
               f"{3 * T_LAYERS * n_batches}")
         check_dos(label, dos, len(samples))
         outputs[label] = dos
-    launches = {"fused_mp_edge": fused_mp_edge.launches,
-                "fused_attention": fused_attention.launches}
-    print(f"main path: {total_batches} batches, launches {launches}")
+    launches = read_launches()
+    print(f"serving path: {total_batches} batches, launches {launches}")
+    check(launches["fused_mp_edge_bwd"] == launches["fused_attention_bwd"]
+          == 0, "serving launched a backward kernel")
 
     for label, samples in requests.items():
         ref = cpu.predict(samples)
@@ -273,6 +385,110 @@ def phase_main_path(workdir):
         gpu.predict(samples)  # ends in one copy to the host: synchronised
         times.append(time.perf_counter() - t0)
     return launches, len(samples) / statistics.median(times)
+
+
+def phase_training_path(workdir):
+    """cli.main_edos at the full width; per-call launch counts of every
+    train and eval step."""
+    per_call = {"train": [], "eval": []}
+    originals = (Trainer.train_step, Trainer.eval_step)
+
+    def counted(kind, fn):
+        def wrapper(self, batch):
+            before = read_launches()
+            out = fn(self, batch)
+            per_call[kind].append({k: v - before[k]
+                                   for k, v in read_launches().items()})
+            return out
+        return wrapper
+
+    log = os.path.join(workdir, "train.jsonl")
+    Trainer.train_step = counted("train", originals[0])
+    Trainer.eval_step = counted("eval", originals[1])
+    reset_launches()
+    try:
+        result = main_edos.main([
+            "--synthetic", "96", "--synthetic_learnable", "--epochs", "3",
+            "--eval", "1", "--layers", str(LAYERS), "--transformer",
+            str(T_LAYERS), "--hidden", str(HIDDEN), "--batch_size",
+            str(BATCH), "--device", "cuda", "--results_dir", workdir,
+            "--log_jsonl", log])
+    finally:
+        Trainer.train_step, Trainer.eval_step = originals
+    launches = read_launches()
+    print(f"\ntraining path: {len(per_call['train'])} train steps, "
+          f"{len(per_call['eval'])} eval batches, launches {launches}")
+    want_train = {"fused_mp_edge": LAYERS, "fused_attention": 3 * T_LAYERS,
+                  "fused_mp_edge_bwd": LAYERS,
+                  "fused_attention_bwd": 3 * T_LAYERS}
+    want_eval = dict(want_train, fused_mp_edge_bwd=0, fused_attention_bwd=0)
+    n_train = len(edos_random_split(range(96))[0])  # main_edos's split
+    check(len(per_call["train"]) == 3 * math.ceil(n_train / BATCH),
+          f"{len(per_call['train'])} train steps, expected "
+          f"{3 * math.ceil(n_train / BATCH)}")
+    for kind, want in (("train", want_train), ("eval", want_eval)):
+        bad = [c for c in per_call[kind] if c != want]
+        check(not bad, f"{kind} step launches {bad[:1]}, expected {want}")
+    check(per_call["eval"], "no eval batch ran")
+    with open(log) as f:
+        losses = [json.loads(line)["loss"] for line in f if '"loss"' in line]
+    print(f"epoch losses {losses}; test metrics {result['test']}")
+    check(len(losses) == 3 and all(math.isfinite(x) for x in losses),
+          f"epoch losses {losses}")
+    check(result["test"] is not None
+          and all(math.isfinite(v) for v in result["test"].values()),
+          f"test metrics {result['test']}")
+    with open(os.path.join(workdir, "experiments_DOSTransformer.txt")) as f:
+        block = f.read()
+    check("best RMSE : " in block and "hidden(256)" in block,
+          f"experiments block: {block!r}")
+    return launches
+
+
+def phase_card_vs_cpu():
+    """3 Trainer.train_steps of one seeded model on both devices."""
+    cpu_model = build_model("edos", layers=LAYERS, t_layers=T_LAYERS,
+                            hidden=HIDDEN,
+                            generator=torch.Generator().manual_seed(1))
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    batches = list(GraphLoader(synthetic_edos_learnable(21, seed=5), BATCH))
+    cpu, gpu = Trainer(cpu_model), Trainer(gpu_model)
+    for step, batch in enumerate(batches):
+        lc = cpu.train_step(batch)["loss"].item()
+        lg = gpu.train_step(batch)["loss"].item()
+        print(f"  step {step}: loss card {lg:.7f}, CPU {lc:.7f}")
+        check(abs(lg - lc) <= LOSS_RTOL * abs(lc),
+              f"step {step}: card loss {lg} vs CPU {lc}")
+        if step == 0:
+            worst, worst_name = 0.0, ""
+            for (name, pc), pg in zip(cpu_model.named_parameters(),
+                                      gpu_model.parameters()):
+                gg = pg.grad.cpu()
+                err = (gg - pc.grad).abs().max().item()
+                if err > worst:
+                    worst, worst_name = err, name
+                check(torch.allclose(gg, pc.grad, atol=GRAD_ATOL,
+                                     rtol=GRAD_RTOL),
+                      f"first-step gradient of {name} differs by {err:.3e}")
+            print(f"  first-step gradients: card vs CPU max abs err "
+                  f"{worst:.3e} ({worst_name}; atol {GRAD_ATOL} + rtol "
+                  f"{GRAD_RTOL})")
+
+
+def phase_train_rate(steps: int = 20) -> float:
+    model = build_model("edos", layers=LAYERS, t_layers=T_LAYERS,
+                        hidden=HIDDEN, device="cuda",
+                        generator=torch.Generator().manual_seed(2))
+    trainer = Trainer(model)
+    batches = list(GraphLoader(synthetic_edos_learnable(96, seed=0), BATCH))
+    for batch in batches[:2]:  # warm
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        trainer.train_step(batches[i % len(batches)])
+    torch.cuda.synchronize()
+    return steps * BATCH / (time.perf_counter() - t0)
 
 
 def main():
@@ -294,20 +510,38 @@ def main():
           f"{seconds:.1f} s")
 
     results = phase_kernels(dev)
+    results.update(phase_backward_kernels(dev))
     with tempfile.TemporaryDirectory() as workdir:
-        launches, rate = phase_main_path(workdir)
+        serving, rate = phase_main_path(workdir)
     print(f"{rate:.1f} samples/s serving the 96-sample request (eDOS "
           f"flagship, batch {BATCH}, f32) on {smi}")
+    with tempfile.TemporaryDirectory() as workdir:
+        training = phase_training_path(workdir)
+    print("card vs CPU, 3 train steps:")
+    phase_card_vs_cpu()
+    rate = phase_train_rate()
+    print(f"{rate:.1f} samples/s training (eDOS flagship, batch {BATCH}, "
+          f"f32, 20 steps, host collation and upload included) on {smi}")
 
-    sources = {"fused_mp_edge": ("dostransformer_tpu_torch/csrc/fused_mp.cu",
-                                 "dostransformer_tpu/ops/fused_mp.py:79"),
-               "fused_attention": ("dostransformer_tpu_torch/csrc/attention.cu",
-                                   "dostransformer_tpu/ops/attention.py:80")}
+    sources = {
+        "fused_mp_edge": ("dostransformer_tpu_torch/csrc/fused_mp.cu",
+                          "dostransformer_tpu/ops/fused_mp.py:79"),
+        "fused_attention": ("dostransformer_tpu_torch/csrc/attention.cu",
+                            "dostransformer_tpu/ops/attention.py:80"),
+        "fused_mp_edge_bwd": ("dostransformer_tpu_torch/csrc/fused_mp_bwd.cu",
+                              "dostransformer_tpu/ops/fused_mp.py:112"),
+        "fused_attention_bwd": (
+            "dostransformer_tpu_torch/csrc/attention_bwd.cu",
+            "dostransformer_tpu/ops/attention.py:317")}
     rows = []
     for name, (err, _, ms, plain_ms) in results.items():
-        check(launches[name] > 0, f"{name} never launched on the main path")
+        check(training[name] > 0, f"{name} never launched on the training "
+                                  f"path")
+        if name in ("fused_mp_edge", "fused_attention"):
+            check(serving[name] > 0, f"{name} never launched on the serving "
+                                     f"path")
         rows.append({"name": name, "route": "cuda", "source": sources[name][0],
-                     "replaces": sources[name][1], "launches": launches[name],
+                     "replaces": sources[name][1], "launches": training[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Synthetic eDOS samples for tests and benchmarks.
 
-Counterpart of dostransformer_tpu/data/synthetic.py `synthetic_edos_samples`:
-the same numpy RandomState draws in the same order, so a seed gives the same
-arrays in both packages.
+Counterpart of dostransformer_tpu/data/synthetic.py `synthetic_edos_samples`
+and `synthetic_edos_learnable`: the same numpy RandomState draws in the same
+order, so a seed gives the same arrays in both packages.
 """
 
 from __future__ import annotations
@@ -56,3 +56,22 @@ def synthetic_edos_samples(
             y=y, system=int(rng.randint(0, 7)), sample_id=i, mp_id=f"syn-{i}",
         ))
     return out
+
+
+def synthetic_edos_learnable(n_samples: int, seed: int = 0,
+                             **kwargs) -> List[GraphSample]:
+    """eDOS samples whose targets are a deterministic smooth function of the
+    graph's node features: a task whose loss can fall (the targets of
+    :func:`synthetic_edos_samples` are noise)."""
+    samples = synthetic_edos_samples(n_samples, seed=seed, **kwargs)
+    rng = np.random.RandomState(seed + 1)
+    n_bins = samples[0].y.shape[-1]
+    w = rng.randn(samples[0].x.shape[1], 8) * 0.3
+    centers = np.linspace(0, 1, 8)[None, :]
+    grid = np.linspace(0, 1, n_bins)[:, None]
+    for s in samples:
+        feats = np.tanh(s.x[:-1].mean(axis=0) @ w)  # [8], without the prompt row
+        mix = np.exp(-((grid - centers) ** 2) / 0.02) @ (feats + 1.1)
+        y = np.abs(mix).astype(np.float32)
+        s.y = y / y.max()
+    return samples

@@ -20,6 +20,10 @@ Returns (dos_global [B, bins], node_embeddings [B, A, h], dos_system
 spelling — ``fc``, ``fc_prompt``, ``out_layer``), so a reference-trained
 state_dict loads directly (see models/import_torch.py).
 
+The forward serves (under ``torch.inference_mode``) and trains: every path
+keeps autograd, and on the card the fused message-passing and attention
+kernels run forward and backward (``torch.autograd.Function``s in ``ops/``).
+
 Parameters are created on the meta device and then materialised on
 ``device`` and drawn from ``generator`` (on the CPU, so a seed gives the same
 weights on every device).
@@ -51,7 +55,7 @@ _LATER = "ROADMAP.md queue 1"
 
 
 class DOSTransformerEDOS(nn.Module):
-    """eDOS flagship (201 bins), float32, serving forward."""
+    """eDOS flagship (201 bins), float32, serving and training."""
 
     def __init__(
         self,
@@ -76,13 +80,14 @@ class DOSTransformerEDOS(nn.Module):
         if padding not in ("mask", "ref"):
             raise ValueError(f"unknown padding {padding!r}; expected 'mask' "
                              f"or 'ref'")
-        unported = {"attn_drop > 0 (item 4, train step)": attn_drop > 0.0,
+        unported = {"attn_drop > 0 (item 2, attention dropout)":
+                        attn_drop > 0.0,
                     "dtype other than float32 (bf16 slice)":
                         dtype != "float32",
                     "bins_pad (TPU lane alignment; not ported)":
                         bins_pad is not None,
                     "tp_axis (item 9, parallelism)": tp_axis is not None,
-                    "remat (item 4, train step)": remat}
+                    "remat (item 6, training runtime)": remat}
         for what, given in unported.items():
             if given:
                 raise NotImplementedError(

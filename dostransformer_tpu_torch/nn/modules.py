@@ -15,7 +15,10 @@ The EdgeModel runs through :func:`~dostransformer_tpu_torch.ops.fused_mp.
 fused_mp_edge`: the first Linear is projected at node count (project, then
 gather), and the gathers, LayerNorm, PReLU, second Linear and the masked
 edge->receiver sum run in the fused kernel on the card, or in its plain
-version on the CPU. The NodeModel consumes that sum.
+version on the CPU; its backward is the fused backward kernel on the card.
+The NodeModel consumes that sum. Every path keeps autograd: the projected
+weight slices, the row gathers and the single PReLU slope (passed to the
+kernel as ``alpha``) all receive gradients.
 """
 
 from __future__ import annotations

@@ -11,8 +11,11 @@ Counterpart of dostransformer_tpu/nn/transformer.py, batch-first ([B, L, D]):
   * A final LayerNorm (layer_norm) closes the stack.
 
 Attention runs through :func:`~dostransformer_tpu_torch.ops.attention.
-fused_attention`: the CUDA kernel on the card, its plain version on the CPU.
-Dropout is not ported (serving runs without it).
+fused_attention`: the CUDA kernels (forward and backward) on the card, their
+plain versions on the CPU. The shared LayerNorm of q, k and v is one module
+applied three times, so its parameter gradient sums the three uses; when k
+and v are one tensor, ln0 runs once for both. Attention dropout is not
+ported (ROADMAP.md queue 1 item 2); training runs without it.
 """
 
 from __future__ import annotations

@@ -1,16 +1,17 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources in ``dostransformer_tpu_torch/csrc/*.cu`` have a plain C
-interface. At first use they are compiled with ``nvcc`` for ``sm_90a`` into
+interface. At first use each is compiled with ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together), and the objects are linked into
 one shared library under ``build/torch_kernels/`` of the checkout, named by a
 hash of the sources and flags, and loaded with ``ctypes``. A later process
 finds the library and skips the build. Nothing here runs at import: the CPU
 tests import every module on machines without ``nvcc``.
 
-The wrappers in ``ops/fused_mp.py`` and ``ops/attention.py`` pass every
-pointer, and PyTorch's current CUDA stream, as ``c_void_p``; each entry point
-returns the CUDA error code of its launches, and :func:`check` raises on a
-non-zero code.
+The wrappers in ``ops/fused_mp.py`` and ``ops/attention.py`` (forward and
+backward kernels alike) pass every pointer, and PyTorch's current CUDA
+stream, as ``c_void_p``; each entry point returns the CUDA error code of its
+launches, and :func:`check` raises on a non-zero code.
 """
 
 from __future__ import annotations
@@ -26,9 +27,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("runtime.cu", "fused_mp.cu", "attention.cu")
+SOURCES = ("runtime.cu", "fused_mp.cu", "fused_mp_bwd.cu", "attention.cu",
+           "attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,9 +40,17 @@ _SIGNATURES = {
     # src_proj dst_proj edge_proj senders receivers edge_mask ln_scale
     # ln_bias alpha w1 b1 e_out agg B A E M H stream
     "dostpu_fused_mp_edge_fwd": ([_P] * 13 + [_I] * 5 + [_P], _I),
+    "dostpu_fused_mp_edge_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
+    "dostpu_fused_mp_edge_bwd_scratch_floats": ([_I] * 4, ctypes.c_size_t),
+    # src_proj dst_proj edge_proj senders receivers edge_mask ln_scale
+    # ln_bias alpha w1 g_eout g_agg | g_src_proj g_dst_proj g_edge_proj
+    # g_ln_scale g_ln_bias g_alpha g_w1 g_b1 scratch | B A E M H stream
+    "dostpu_fused_mp_edge_bwd": ([_P] * 21 + [_I] * 5 + [_P], _I),
     "dostpu_attention_max_dim": ([], _I),
     # q k v bias out B Lq Lk D scale stream
     "dostpu_attention_fwd": ([_P] * 5 + [_I] * 4 + [ctypes.c_float, _P], _I),
+    # q k v bias o g dq dk dv stats B Lq Lk D scale stream
+    "dostpu_attention_bwd": ([_P] * 10 + [_I] * 4 + [ctypes.c_float, _P], _I),
 }
 
 
@@ -73,15 +83,36 @@ def build(force: bool = False) -> tuple[Path, float]:
     if so.exists() and not force:
         return so, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    objs, procs = [], []
+    for name in SOURCES:
+        obj = BUILD_DIR / f"{tag}.{Path(name).stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)))
+    failed = []
+    for cmd, proc in procs:  # wait for every compile, then report
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = so.with_name(f"{tag}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *(str(o) for o in objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return so, time.perf_counter() - t0
 
 

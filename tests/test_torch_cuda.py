@@ -4,7 +4,9 @@ have no CPU mode, so these are the only tests that run them; chip_smoke.py
 runs the same comparison at the flagship shapes.
 
 f32 on the card with TF32 off; the kernel and the plain version sum in
-different orders, so atol 1e-5 on outputs of magnitude ~1 (rtol 1e-5)."""
+different orders, so atol 1e-5 on outputs of magnitude ~1 (rtol 1e-5).
+Parameter gradients of the message-passing backward are sums over every
+edge of the batch: rtol 1e-4 against their largest element."""
 
 import pytest
 
@@ -12,11 +14,16 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
+    attention_bwd_reference,
     dot_product_attention,
     fused_attention,
+    fused_attention_bwd,
+    key_bias,
 )
 from dostransformer_tpu_torch.ops.fused_mp import (  # noqa: E402
     fused_mp_edge,
+    fused_mp_edge_bwd,
+    mp_edge_bwd_reference,
     mp_edge_reference,
 )
 
@@ -29,6 +36,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -96,3 +104,81 @@ def test_fused_attention_rejects_wrong_dtype_and_width(dev):
     q = torch.randn(2, 4, 40, device=dev)
     with pytest.raises(ValueError):
         fused_attention(q, q, q)
+
+
+def _close_scaled(got, want, rtol):
+    """max |got - want| <= rtol * max(1, max |want|)."""
+    err = (got - want).abs().max().item()
+    assert err <= rtol * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.parametrize("shape", [(8, 32, 384, 512, 256), (3, 13, 70, 48, 24),
+                                   (2, 5, 17, 600, 300)])
+def test_fused_mp_edge_bwd_matches_plain(dev, shape):
+    b, a, e, m, h = shape
+    args = _mp_args(dev, *shape)
+    args[5][-1] = 0.0  # a dummy graph: every edge is padding
+    g = torch.Generator().manual_seed(5)
+    cot = (torch.randn(b, e, h, generator=g).to(dev),
+           torch.randn(b, a, h, generator=g).to(dev))
+    fwd = args[:10]
+    before = fused_mp_edge_bwd.launches
+    got = fused_mp_edge_bwd(*fwd, *cot)
+    assert fused_mp_edge_bwd.launches == before + 1
+    want = mp_edge_bwd_reference(*fwd, *cot)
+    for i, (x, w) in enumerate(zip(got, want)):
+        assert x.shape == w.shape
+        _close_scaled(x, w, 1e-5 if i < 3 else 1e-4)
+    again = fused_mp_edge_bwd(*fwd, *cot)  # deterministic: no float atomics
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_fused_mp_edge_is_differentiable_on_the_card(dev):
+    args = _mp_args(dev, 3, 13, 70, 48, 24)
+    leaves = [t.clone().requires_grad_(t.is_floating_point() and i != 5)
+              for i, t in enumerate(args)]
+    e_out, agg = fused_mp_edge(*leaves)
+    (e_out.square().sum() + agg.sum()).backward()
+    ref = [t.clone().requires_grad_(t.is_floating_point() and i != 5)
+           for i, t in enumerate(args)]
+    e_ref, agg_ref = mp_edge_reference(*ref)
+    (e_ref.square().sum() + agg_ref.sum()).backward()
+    for x, w in zip(leaves, ref):
+        if w.grad is not None:
+            _close_scaled(x.grad, w.grad, 1e-4)
+
+
+@pytest.mark.parametrize("shape", [(8, 201, 32, 256), (16, 201, 201, 256),
+                                   (3, 5, 70, 96), (2, 40, 33, 512)])
+def test_fused_attention_bwd_matches_plain(dev, shape):
+    b, lq, lk, d = shape
+    g = torch.Generator().manual_seed(2)
+    q, k, v, go = (torch.randn(b, n, d, generator=g).to(dev)
+                   for n in (lq, lk, lk, lq))
+    km = (torch.rand(b, lk, generator=g) > 0.3).to(dev)
+    km[-1] = False  # fully masked row: p = 1/Lk on every key
+    for mask in (km, None):
+        bias = (key_bias(mask) if mask is not None
+                else torch.zeros(b, lk, device=dev))
+        o = fused_attention(q, k, v, mask)
+        before = fused_attention_bwd.launches
+        got = fused_attention_bwd(q, k, v, bias, o, go)
+        assert fused_attention_bwd.launches == before + 1
+        want = attention_bwd_reference(q, k, v, bias, go)
+        for x, w in zip(got, want):
+            _close_scaled(x, w, 1e-5)
+        again = fused_attention_bwd(q, k, v, bias, o, go)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_fused_attention_is_differentiable_on_the_card(dev):
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(4, 9, 64, generator=g).to(dev).requires_grad_()
+    kv = torch.randn(4, 6, 64, generator=g).to(dev).requires_grad_()
+    km = torch.ones(4, 6, dtype=torch.bool, device=dev)
+    km[-1] = False
+    fused_attention(q, kv, kv, km).square().sum().backward()
+    q2, kv2 = q.detach().clone().requires_grad_(), kv.detach().clone().requires_grad_()
+    dot_product_attention(q2, kv2, kv2, km).square().sum().backward()
+    _close_scaled(q.grad, q2.grad, 1e-5)
+    _close_scaled(kv.grad, kv2.grad, 1e-5)  # k and v are one tensor

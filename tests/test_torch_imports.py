@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: importing it (and its serving and CLI
-modules) pulls in neither jax, flax nor the JAX package, because the machine
-with the card has none of them."""
+"""The PyTorch port stands alone: importing it (and its serving, training
+and CLI modules) pulls in neither jax, flax nor the JAX package, because the
+machine with the card has none of them."""
 
 import os
 import subprocess
@@ -31,7 +31,16 @@ MODULES = [
     "dostransformer_tpu_torch.models.registry",
     "dostransformer_tpu_torch.models.import_torch",
     "dostransformer_tpu_torch.serve",
+    "dostransformer_tpu_torch.config",
+    "dostransformer_tpu_torch.train.loss",
+    "dostransformer_tpu_torch.train.metrics",
+    "dostransformer_tpu_torch.train.optim",
+    "dostransformer_tpu_torch.train.trainer",
+    "dostransformer_tpu_torch.train.early_stop",
+    "dostransformer_tpu_torch.train.logging",
+    "dostransformer_tpu_torch.cli.common",
     "dostransformer_tpu_torch.cli.main_predict",
+    "dostransformer_tpu_torch.cli.main_edos",
 ]
 PROBE = f"""
 import importlib, sys

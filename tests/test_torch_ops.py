@@ -1,8 +1,11 @@
 """The PyTorch port's ops against the JAX package, on the CPU: the plain
-versions of the two CUDA kernels against the JAX Pallas kernels (interpret
-mode, set by tests/conftest.py) and the segment ops and LayerNorm against
-their JAX counterparts. Inputs are numpy arrays from a seed; f32 on both
-sides, atol 1e-5 (rtol 1e-5): the two differ only in summation order."""
+versions of the four CUDA kernels (two forward, two backward) against the
+JAX Pallas kernels (interpret mode, set by tests/conftest.py) and their
+VJPs, the segment ops and LayerNorm against their JAX counterparts, and
+torch.autograd.gradcheck of the two differentiable ops in f64. Inputs are
+numpy arrays from a seed; f32 on both sides, atol 1e-5 (rtol 1e-5): the two
+differ only in summation order. Parameter gradients of the message-passing
+backward sum over every edge of the batch: atol 1e-4 (rtol 1e-5)."""
 
 import numpy as np
 import pytest
@@ -62,6 +65,51 @@ def test_fused_mp_edge_on_cpu_is_the_plain_version():
     assert fused_mp.fused_mp_edge.launches == before  # no kernel ran
 
 
+def test_mp_edge_bwd_reference_matches_jax_vjp():
+    """Against jax.vjp of the JAX fused_mp_edge, whose backward is the
+    Pallas _bwd_kernel; nonzero cotangents on every edge, pad edges and the
+    dummy graph's included."""
+    x = _mp_inputs(3)
+    b, e = x["senders"].shape
+    a, h = x["src_proj"].shape[1], x["w1"].shape[1]
+    rng = np.random.RandomState(4)
+    g_eout = rng.randn(b, e, h).astype(np.float32)
+    g_agg = rng.randn(b, a, h).astype(np.float32)
+    names = ("src_proj", "dst_proj", "edge_proj", "ln_scale", "ln_bias",
+             "alpha", "w1", "b1")
+
+    def f(*diff):
+        kw = {k: jnp.asarray(v) for k, v in x.items()}
+        kw.update(zip(names, diff))
+        return jmp.fused_mp_edge(**kw)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(x[k]) for k in names))
+    want = vjp((jnp.asarray(g_eout), jnp.asarray(g_agg)))
+    t = _torch_mp_args(x)
+    t.pop("b1")
+    got = fused_mp.mp_edge_bwd_reference(**t, g_eout=torch.from_numpy(g_eout),
+                                         g_agg=torch.from_numpy(g_agg))
+    for name, g, w in zip(names, got, want):
+        w = np.asarray(w)
+        if name == "w1":
+            w = w.T  # the port's [H, M] layout
+        tol = TOL if name in ("src_proj", "dst_proj", "edge_proj") else dict(
+            rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(g.numpy(), w, err_msg=name, **tol)
+
+
+def test_fused_mp_edge_gradcheck_f64():
+    """The autograd.Function is differentiable on the CPU: its backward
+    (mp_edge_bwd_reference) against finite differences, f64."""
+    x = _torch_mp_args(_mp_inputs(5, b=2, a=5, e=9, m=8, h=4))
+    args = [v.double().requires_grad_() if v.is_floating_point()
+            and k != "edge_mask" else (v.double() if k == "edge_mask" else v)
+            for k, v in x.items()]
+    before = fused_mp.fused_mp_edge_bwd.launches
+    assert torch.autograd.gradcheck(fused_mp.fused_mp_edge, args)
+    assert fused_mp.fused_mp_edge_bwd.launches == before  # no kernel ran
+
+
 def _attn_inputs(seed, b, lq, lk, d):
     rng = np.random.RandomState(seed)
     q, k, v = (rng.randn(b, n, d).astype(np.float32) for n in (lq, lk, lk))
@@ -106,6 +154,63 @@ def test_fused_attention_on_cpu_is_the_plain_version():
                                attention.dot_product_attention(q, k, v, mask),
                                rtol=0, atol=0)
     assert attention.fused_attention.launches == before
+
+
+def _jax_attention_grads(q, k, v, mask, g):
+    bias = np.where(mask, 0.0, -1e30).astype(np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: jattn._fused_attention(
+        q, k, v, jnp.asarray(bias)), *(jnp.asarray(t) for t in (q, k, v)))
+    return [np.asarray(t) for t in vjp(jnp.asarray(g))], bias
+
+
+@pytest.mark.parametrize("nopad", ["0", "1"], ids=["padded", "nopad"])
+@pytest.mark.parametrize("shape", [(3, 9, 5, 32), (2, 17, 17, 64)])
+def test_attention_bwd_reference_matches_jax_pallas_bwd(shape, nopad,
+                                                         monkeypatch):
+    """Against the JAX Pallas backward kernel (forced on), in its padded and
+    no-pad forms, on partly masked rows; the no-pad form also on a fully
+    masked row (the padded form averages such a row over its 128
+    lane-padded keys instead)."""
+    monkeypatch.setenv("DOSTPU_ATTN_PALLAS_BWD", "1")
+    monkeypatch.setenv("DOSTPU_ATTN_NOPAD", nopad)
+    q, k, v, mask = _attn_inputs(6, *shape)
+    if nopad == "0":
+        mask[-1, 0] = True  # every row keeps a key
+    g = np.random.RandomState(7).randn(*q.shape).astype(np.float32)
+    want, bias = _jax_attention_grads(q, k, v, mask, g)
+    got = attention.attention_bwd_reference(
+        *(torch.from_numpy(t) for t in (q, k, v, bias, g)))
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(x.numpy(), w, err_msg=name, **TOL)
+
+
+def test_fused_attention_backward_on_cpu_is_the_plain_version():
+    q, k, v, mask = (torch.from_numpy(t) for t in _attn_inputs(8, 2, 7, 6, 32))
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(0))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = attention.fused_attention_bwd.launches
+    got = torch.autograd.grad(attention.fused_attention(*leaves, mask), leaves,
+                              g)
+    want = attention.attention_bwd_reference(q, k, v,
+                                             attention.key_bias(mask), g)
+    for x, w in zip(got, want):
+        torch.testing.assert_close(x, w, rtol=0, atol=0)
+    assert attention.fused_attention_bwd.launches == before
+
+
+def test_fused_attention_gradcheck_f64():
+    """The autograd.Function is differentiable on the CPU, f64, with k and v
+    one tensor as in the model. The softmax runs at exactly f32 by contract,
+    so finite differences carry ~6e-8 / eps of rounding noise: eps 1e-2,
+    atol 1e-4. Rows keep at least one key (a fully masked row's forward is
+    flat in floating point; its gradient is pinned against JAX above)."""
+    q, kv, _, mask = _attn_inputs(9, 2, 5, 6, 32)
+    mask[:, 0] = True
+    km = torch.from_numpy(mask)
+    q, kv = (torch.from_numpy(t).double().requires_grad_() for t in (q, kv))
+    assert torch.autograd.gradcheck(
+        lambda q, kv: attention.fused_attention(q, kv, kv, km), (q, kv),
+        eps=1e-2, atol=1e-4, rtol=1e-3)
 
 
 def test_segment_ops_match_jax():
