@@ -1,8 +1,9 @@
 """Shared CLI plumbing: the flag surface and the epoch/eval/early-stop loop.
 
 Counterpart of dostransformer_tpu/cli/common.py on its host-loader path
-(reference main_eDOS.py:95-188): epochs over shuffled train batches
-collated on the host and uploaded per step; every ``--eval`` epochs the
+(reference main_eDOS.py:95-188, main_phDOS.py:54-130), for both tasks:
+epochs over shuffled train batches collated on the host and uploaded per
+step; every ``--eval`` epochs the
 valid set, the three-branch best tracking (a test-set eval on improvement)
 and the plateau early stop; at the end the reference's
 ``experiments_{embedder}.txt`` block, byte for byte, plus an optional JSONL
@@ -45,7 +46,7 @@ _NOT_PORTED = {
                      f"{_Q1} item 6 (training runtime: artifacts)"),
     "profile_dir": (lambda a: a.profile_dir is not None,
                     f"{_Q1} item 10 (benchmark: torch.profiler)"),
-    "x64": (lambda a: a.x64, f"{_Q1} item 5 (phDOS, f64)"),
+    "x64": (lambda a: a.x64, f"{_Q1} item 5, f64 phDOS (--x64)"),
     "remat": (lambda a: a.remat, f"{_Q1} item 6 (training runtime)"),
     "compile_cache": (lambda a: a.compile_cache is not None,
                       "ROADMAP.md's do-not-port list (an XLA cache)"),
@@ -175,13 +176,16 @@ def run_training(task: str, cfg: TrainConfig, train: Sequence[GraphSample],
                  device="cpu", results_dir: str = ".",
                  init_torch: Optional[str] = None,
                  debug_nans: bool = False) -> dict:
-    """Train, evaluate and early-stop; returns the final best metrics."""
+    """Train, evaluate and early-stop; returns the final best metrics.
+    eDOS clamps its training targets and its eval predictions at 0; phDOS
+    clamps neither (reference utils.py:76)."""
     device = torch.device(device)
     is_edos = task == "edos"
     loader = GraphLoader(train, batch_size=cfg.batch_size, shuffle=True,
                          seed=cfg.seed)
     # the input widths come from a batch (as the JAX package's lazy init
-    # takes them); drawing it advances the shuffle as the JAX loop does
+    # takes them; a phDOS batch has neither edge features nor globals);
+    # drawing it advances the shuffle as the JAX loop does
     example = next(iter(loader))
     widths = {"node_in": example.nodes.shape[-1]}
     if example.edges is not None:

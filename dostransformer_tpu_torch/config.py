@@ -1,7 +1,8 @@
-"""Training configuration.
+"""Training configuration and data constants.
 
-Counterpart of dostransformer_tpu/config.py `TrainConfig` and
-`exp_get_name`, copied because importing the JAX package needs jax. The
+Counterpart of dostransformer_tpu/config.py `TrainConfig`, `exp_get_name`,
+`PhDOSDataConfig` and `crystal_system_id`, copied because importing the JAX
+package needs jax. The
 reference's flag defaults (utils.py:25-43) and the run-name key order
 (utils.py:51-59) are the same, so both packages write the same
 ``experiments_{embedder}.txt`` configuration line. The JAX package's
@@ -46,3 +47,34 @@ def exp_get_name(cfg: TrainConfig) -> str:
             "lr", "batch_size", "hidden", "random_state", "dataset")
     d = dataclasses.asdict(cfg)
     return "".join(f"{k}({d[k]})_" for k in keys)
+
+
+@dataclasses.dataclass
+class PhDOSDataConfig:
+    """phDOS featurisation constants (reference main_phDOS.py:21,
+    utils.py:249-303)."""
+
+    n_bins: int = 51           # embedder_phDOS/DOSTransformer_phonon.py:19
+    r_max: float = 4.0         # main_phDOS.py:21
+    n_atom_feats: int = 118    # row of diag(atomic_mass), Z in 1..118
+    n_bond_feats: int = 4      # SH l<=1 "component" norm: 1x0e + 1x1o
+    batch_size: int = 1        # main_phDOS.py:52 (hard-coded in reference)
+
+
+CRYSTAL_SYSTEMS_EDOS = (
+    "cubic", "hexagonal", "tetragonal", "trigonal", "orthorhombic",
+    "monoclinic",
+)  # ids 0..5; anything else -> 6 (mat2graph.py:94-107)
+
+CRYSTAL_SYSTEMS_PHDOS = (
+    "Cubic", "Hexagonal", "Tetragonal", "Trigonal", "Orthorhombic",
+    "Monoclinic",
+)  # ids 0..5; anything else -> 6 (utils.py:277-290)
+
+
+def crystal_system_id(name: str, *, phonon: bool = False) -> int:
+    table = CRYSTAL_SYSTEMS_PHDOS if phonon else CRYSTAL_SYSTEMS_EDOS
+    try:
+        return table.index(name)
+    except ValueError:
+        return 6

@@ -9,6 +9,9 @@ Counterpart of dostransformer_tpu/data/datasets.py:
   * :func:`edos_random_split` (80/10/10, main_eDOS.py:42-48) and
     :func:`edos_ood_split` (valid/test = halves of the OOD test set,
     main_eDOS.py:34-39);
+  * :func:`read_index_file` (phDOS's idx_{train,valid,test}.txt,
+    main_phDOS.py:47-49) and :func:`element_balanced_split`, the reference's
+    splitter that writes them (utils.py:176-245), order for order;
   * :class:`GraphLoader`: every batch padded to the same atom and edge slots
     (the samples' maxima rounded to padding buckets, or pinned), a short
     final batch padded with dummy graphs (graph_mask 0) unless dropped, and
@@ -19,7 +22,7 @@ Counterpart of dostransformer_tpu/data/datasets.py:
 from __future__ import annotations
 
 import math
-from typing import Iterator, Optional, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -57,6 +60,56 @@ def edos_ood_split(train_dataset, test_dataset, random_state: int = 0):
     set."""
     valid, test = train_test_split(test_dataset, 0.5, random_state)
     return list(train_dataset), valid, test
+
+
+def read_index_file(path: str) -> List[int]:
+    """idx_{train,valid,test}.txt reader (main_phDOS.py:47-49)."""
+    with open(path) as f:
+        return [int(line.split("\n")[0]) for line in f.readlines()]
+
+
+def element_balanced_split(species_per_sample: Sequence[Sequence[str]],
+                           valid_size: float = 0.1, test_size: float = 0.1,
+                           seed: int = 12):
+    """Element-balanced train/valid/test index lists (utils.py:176-194):
+    for each element, by sample count ascending, split its sample indices
+    with :func:`train_test_split` and keep only indices not yet assigned;
+    leftovers go to train. Count ties break in numpy quicksort order over
+    the alphabetical species table, as the reference's pandas
+    ``sort_values('count')`` breaks them; an element with too few samples to
+    split is skipped (utils.py:230-233)."""
+    species = sorted({sp for row in species_per_sample for sp in row})
+    all_idx = list(range(len(species_per_sample)))
+
+    def split_level(universe: List[int], frac: float):
+        stats = []
+        for sp in species:
+            members = [i for i in universe if sp in species_per_sample[i]]
+            if members:
+                stats.append(members)
+        order = np.argsort(np.array([len(m) for m in stats]),
+                           kind="quicksort")
+        idx_train: List[int] = []
+        idx_test: List[int] = []
+        for j in order:
+            try:
+                tr, te = train_test_split(stats[j], frac, seed)
+            except ValueError:
+                continue
+            assigned = set(idx_train) | set(idx_test)
+            idx_train += [k for k in tr
+                          if k not in assigned and k not in idx_train]
+            assigned = set(idx_train) | set(idx_test)
+            idx_test += [k for k in te
+                         if k not in assigned and k not in idx_test]
+        return idx_train, idx_test
+
+    dev_size = valid_size + test_size
+    idx_train, idx_dev = split_level(all_idx, dev_size)
+    idx_valid, idx_test = split_level(idx_dev, test_size / dev_size)
+    assigned = set(idx_train) | set(idx_valid) | set(idx_test)
+    idx_train += [i for i in all_idx if i not in assigned]
+    return idx_train, idx_valid, idx_test
 
 
 class GraphLoader:

@@ -1,7 +1,9 @@
-"""DOSTransformer, eDOS flagship: prompt-guided multimodal transformer.
+"""DOSTransformer flagships, eDOS and phDOS: prompt-guided multimodal
+transformer.
 
 Counterpart of dostransformer_tpu/models/dostransformer.py
-`DOSTransformerEDOS` (and the parts of `_DOSTransformerBase` it uses):
+`DOSTransformerEDOS`, `DOSTransformerPhDOS` and the parts of
+`_DOSTransformerBase` they use:
 
   * a learned per-energy-bin embedding table provides "energy tokens";
   * a crystal-graph message-passing GNN encodes atoms over fixed-shape
@@ -13,16 +15,25 @@ Counterpart of dostransformer_tpu/models/dostransformer.py
     self/source transformer stacks and the output linear are shared by the
     two heads, which run as ONE 2B-batch pass.
 
+The two flagships differ in their encoders, aggregation and readout: eDOS
+(201 bins) encodes node, edge and global features, sums messages and reads
+out [global embedding, pooled nodes]; phDOS (51 bins) computes its edge
+features in the model from the edge vectors (SH l<=1 x smooth cutoff, f32),
+has no global features, averages messages (scatter-mean) and reads out the
+pooled nodes.
+
 Returns (dos_global [B, bins], node_embeddings [B, A, h], dos_system
 [B, bins]). Submodules are named as the reference's state_dict names them
 (``GN_encoder.node_encoder.0``, ``stacked_processor.{i}``,
-``transformer.layers.{i}.layer_norms.{0,1}``, ``promt_token`` — the eDOS
-spelling — ``fc``, ``fc_prompt``, ``out_layer``), so a reference-trained
-state_dict loads directly (see models/import_torch.py).
+``transformer.layers.{i}.layer_norms.{0,1}``, ``fc``, ``fc_prompt``,
+``out_layer``, and the prompt table ``promt_token`` in eDOS's spelling,
+``prompt_token`` in phDOS's), so a reference-trained state_dict loads
+directly (see models/import_torch.py).
 
 The forward serves (under ``torch.inference_mode``) and trains: every path
 keeps autograd, and on the card the fused message-passing and attention
-kernels run forward and backward (``torch.autograd.Function``s in ``ops/``).
+kernels run forward and backward, and phDOS's edge count runs through the
+segment-sum kernel (``torch.autograd.Function``s in ``ops/``).
 
 Parameters are created on the meta device and then materialised on
 ``device`` and drawn from ``generator`` (on the CPU, so a seed gives the same
@@ -31,7 +42,7 @@ weights on every device).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -41,7 +52,9 @@ from dostransformer_tpu_torch.data.graph import GraphBatch
 from dostransformer_tpu_torch.nn.init import embedding_
 from dostransformer_tpu_torch.nn.modules import (
     GraphDecoderEDOS,
+    GraphDecoderPhDOS,
     GraphEncoderEDOS,
+    GraphEncoderPhDOS,
     Processor,
     TorchLinear,
     run_message_passing,
@@ -50,32 +63,25 @@ from dostransformer_tpu_torch.nn.transformer import (
     TransformerEncoder,
     XavierLinear,
 )
+from dostransformer_tpu_torch.ops.geometry import edge_geometry_phdos
 
 _LATER = "ROADMAP.md queue 1"
 
 
-class DOSTransformerEDOS(nn.Module):
-    """eDOS flagship (201 bins), float32, serving and training."""
+class _DOSTransformerBase(nn.Module):
+    """What both flagships share: the energy tokens, the processors, the
+    three transformer stacks, the padding modes and the 2B-batch heads."""
 
-    def __init__(
-        self,
-        layers: int = 3,
-        t_layers: int = 2,
-        hidden: int = 256,
-        n_bins: int = 201,
-        padding: str = "mask",
-        node_in: int = 200,
-        edge_in: int = 41,
-        glob_in: int = 2,
-        *,
-        attn_drop: float = 0.0,
-        dtype: str = "float32",
-        bins_pad: Optional[int] = None,
-        tp_axis: Optional[str] = None,
-        remat: bool = False,
-        device=None,
-        generator: Optional[torch.Generator] = None,
-    ):
+    _PROMPT = "promt_token"  # the prompt table's name in the reference
+
+    def __init__(self, layers: int, t_layers: int, hidden: int, n_bins: int,
+                 padding: str, aggregation: str,
+                 encoder: Callable[[], nn.Module],
+                 decoder: Callable[[], nn.Module], *,
+                 attn_drop: float = 0.0, dtype: str = "float32",
+                 bins_pad: Optional[int] = None,
+                 tp_axis: Optional[str] = None, remat: bool = False,
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         if padding not in ("mask", "ref"):
             raise ValueError(f"unknown padding {padding!r}; expected 'mask' "
@@ -91,19 +97,18 @@ class DOSTransformerEDOS(nn.Module):
         for what, given in unported.items():
             if given:
                 raise NotImplementedError(
-                    f"DOSTransformerEDOS: {what} is not in the port yet; see "
-                    f"{_LATER}")
+                    f"{type(self).__name__}: {what} is not in the port yet; "
+                    f"see {_LATER}")
         self.n_bins = n_bins
         self.hidden = hidden
         self.padding = padding
         with torch.device("meta"):
             self.embeddings = nn.Embedding(n_bins, hidden)
-            self.promt_token = nn.Embedding(7, hidden // 2)
-            self.GN_encoder = GraphEncoderEDOS(node_in, edge_in, glob_in,
-                                               hidden)
+            setattr(self, self._PROMPT, nn.Embedding(7, hidden // 2))
+            self.GN_encoder = encoder()
             self.stacked_processor = nn.ModuleList(
-                Processor(hidden) for _ in range(layers))
-            self.GN_decoder = GraphDecoderEDOS(hidden)
+                Processor(hidden, aggregation) for _ in range(layers))
+            self.GN_decoder = decoder()
             self.transformer = TransformerEncoder(hidden, t_layers)
             self.transformer_self = TransformerEncoder(hidden, t_layers)
             self.transformer_source = TransformerEncoder(hidden, t_layers)
@@ -123,12 +128,12 @@ class DOSTransformerEDOS(nn.Module):
             elif isinstance(m, (nn.LayerNorm, nn.PReLU)):
                 m.reset_parameters()
 
-    def forward(self, g: GraphBatch):
+    def _run(self, g: GraphBatch, x, edge_attr, readout):
+        """Everything after the encoders: message passing, the
+        cross-attention stack, the readout ``readout(x) -> [B, h]`` and the
+        heads."""
         b = g.num_graphs
-        energies = self.embeddings.weight.expand(b, -1, -1)
-        x, edge_attr, u = self.GN_encoder(g.nodes, g.edges, g.glob)
-        x, edge_attr = run_message_passing(self.stacked_processor, g, x,
-                                           edge_attr)
+        x, _ = run_message_passing(self.stacked_processor, g, x, edge_attr)
 
         # to_dense_batch is the identity in batch-leading layout; zero the
         # pad rows as torch to_dense_batch does
@@ -136,10 +141,10 @@ class DOSTransformerEDOS(nn.Module):
         # "mask": pad atoms are masked out of the keys; "ref": zero pad rows
         # act as keys, as in the reference (which builds no key mask)
         key_mask = g.node_mask > 0.5 if self.padding == "mask" else None
+        energies = self.embeddings.weight.expand(b, -1, -1)
         energies = self.transformer(energies, x_dense, x_dense, key_mask)
 
-        graph = self.GN_decoder(x, u, g.node_mask)
-        graph = graph[:, None, :].expand(b, self.n_bins, self.hidden)
+        graph = readout(x)[:, None, :].expand(b, self.n_bins, self.hidden)
         dos_global, dos_system = self._heads(g, energies, graph, x_dense,
                                              key_mask)
         return dos_global, x, dos_system
@@ -150,7 +155,7 @@ class DOSTransformerEDOS(nn.Module):
         batch element, so both heads run as ONE 2B-batch pass."""
         b = energies.shape[0]
         dos_in_g = F.leaky_relu(self.fc(torch.cat([energies, graph], -1)))
-        prompt = self.promt_token(g.system.long())
+        prompt = getattr(self, self._PROMPT)(g.system.long())
         prompt = prompt[:, None, :].expand(b, self.n_bins, prompt.shape[-1])
         dos_in_s = F.leaky_relu(
             self.fc_prompt(torch.cat([energies, graph, prompt], -1)))
@@ -162,3 +167,45 @@ class DOSTransformerEDOS(nn.Module):
         both = self.transformer_source(both, kv, kv, km)
         both = self.out_layer(both)[..., 0]                  # [2B, bins]
         return both[:b], both[b:]
+
+
+class DOSTransformerEDOS(_DOSTransformerBase):
+    """eDOS flagship (201 bins, scatter-sum), float32, serving and
+    training."""
+
+    def __init__(self, layers: int = 3, t_layers: int = 2, hidden: int = 256,
+                 n_bins: int = 201, padding: str = "mask", node_in: int = 200,
+                 edge_in: int = 41, glob_in: int = 2, **options):
+        super().__init__(
+            layers, t_layers, hidden, n_bins, padding, "sum",
+            lambda: GraphEncoderEDOS(node_in, edge_in, glob_in, hidden),
+            lambda: GraphDecoderEDOS(hidden), **options)
+
+    def forward(self, g: GraphBatch):
+        x, edge_attr, u = self.GN_encoder(g.nodes, g.edges, g.glob)
+        return self._run(g, x, edge_attr,
+                         lambda x: self.GN_decoder(x, u, g.node_mask))
+
+
+class DOSTransformerPhDOS(_DOSTransformerBase):
+    """phDOS flagship (51 bins, scatter-mean), float32, serving and
+    training. Node features are 118 atomic-mass rows; the 4 edge features
+    are computed from ``g.edge_vec`` with cutoff radius ``r_max``."""
+
+    _PROMPT = "prompt_token"
+    EDGE_FEATURES = 4  # SH l<=1: 1x0e + 1x1o
+
+    def __init__(self, layers: int = 3, t_layers: int = 2, hidden: int = 256,
+                 n_bins: int = 51, padding: str = "mask", node_in: int = 118,
+                 r_max: float = 4.0, **options):
+        super().__init__(
+            layers, t_layers, hidden, n_bins, padding, "mean",
+            lambda: GraphEncoderPhDOS(node_in, self.EDGE_FEATURES, hidden),
+            lambda: GraphDecoderPhDOS(hidden), **options)
+        self.r_max = r_max
+
+    def forward(self, g: GraphBatch):
+        edge_attr = edge_geometry_phdos(g.edge_vec, self.r_max)
+        x, edge_attr = self.GN_encoder(g.nodes, edge_attr)
+        return self._run(g, x, edge_attr,
+                         lambda x: self.GN_decoder(x, g.node_mask))

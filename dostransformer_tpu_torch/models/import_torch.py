@@ -10,7 +10,8 @@ names, so the two packages can be run on identical weights:
   JAX tree                          port state_dict key
   --------------------------------  ------------------------------------
   embeddings                        embeddings.weight
-  prompt_token                      promt_token.weight (eDOS spelling)
+  prompt_token                      promt_token.weight (eDOS spelling),
+                                    prompt_token.weight (phDOS spelling)
   GN_encoder.node_encoder.lin0      GN_encoder.node_encoder.0
     .prelu / .lin1                    .1 / .2   (Linear, PReLU, Linear)
   processor{i}                      stacked_processor.{i}
@@ -32,9 +33,11 @@ import torch
 
 _ENCODER_SEQ = {"lin0": "0", "prelu": "1", "lin1": "2"}
 _MLP_BLOCK_SEQ = {"lin0": "0", "ln": "1", "prelu": "2", "lin1": "3"}
+# the reference spells the prompt table per task
+_PROMPT = {"edos": "promt_token", "phdos": "prompt_token"}
 
 
-def _rename(key: str, siblings: set) -> List[str]:
+def _rename(key: str, siblings: set, task: str) -> List[str]:
     """Port name components for one JAX tree key."""
     for seq in (_ENCODER_SEQ, _MLP_BLOCK_SEQ):
         if siblings == set(seq):
@@ -45,13 +48,19 @@ def _rename(key: str, siblings: set) -> List[str]:
             return [name, key[len(prefix):]]
     return {"ln0": ["layer_norms", "0"], "ln1": ["layer_norms", "1"],
             "ln": [], "final_ln": ["layer_norm"], "mlp": ["mlp", "0"],
-            "prompt_token": ["promt_token"]}.get(key, [key])
+            "prompt_token": [_PROMPT[task]]}.get(key, [key])
 
 
-def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """The JAX package's DOSTransformerEDOS params (``{"params": tree}`` or
-    the bare tree, nested dicts of arrays) as the port's state_dict of CPU
-    tensors."""
+def state_dict_from_jax(params: Mapping,
+                        task: str = "edos") -> Dict[str, torch.Tensor]:
+    """The JAX package's params of a flagship of ``task`` ("edos" or
+    "phdos"), or of one of its modules (``{"params": tree}`` or the bare
+    tree, nested dicts of arrays), as the port's state_dict of CPU tensors.
+    ``task`` picks the prompt table's spelling."""
+    task = task.lower()
+    if task not in _PROMPT:
+        raise ValueError(f"unknown task {task!r}; expected one of "
+                         f"{sorted(_PROMPT)}")
     tree = params["params"] if set(params) == {"params"} else params
     out: Dict[str, torch.Tensor] = {}
 
@@ -76,7 +85,7 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
             put(name + ["weight"], node["alpha"])
         else:
             for k, child in node.items():
-                walk(child, name + _rename(k, keys))
+                walk(child, name + _rename(k, keys, task))
 
     walk(tree, [])
     return out
@@ -95,9 +104,18 @@ def load_reference_state_dict(model: torch.nn.Module,
                               state_dict: Mapping[str, torch.Tensor],
                               strict: bool = True):
     """Load a reference-format state_dict into a port model, dropping the
-    reference's dead parameters first. Returns load_state_dict's result."""
-    live = {k: v for k, v in state_dict.items()
-            if not _is_dead_reference_key(k)}
+    reference's dead parameters first. Floating tensors are cast to the
+    model's dtype: the reference trains phDOS in float64
+    (main_phDOS.py:14-16), the port runs float32. Returns load_state_dict's
+    result."""
+    own = model.state_dict()
+    live = {}
+    for k, v in state_dict.items():
+        if _is_dead_reference_key(k):
+            continue
+        if k in own and v.is_floating_point():
+            v = v.to(own[k].dtype)
+        live[k] = v
     return model.load_state_dict(live, strict=strict)
 
 

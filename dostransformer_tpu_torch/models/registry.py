@@ -1,13 +1,18 @@
 """Model registry: (task, embedder) -> model.
 
 Counterpart of dostransformer_tpu/models/registry.py. The port has the eDOS
-flagship only; every other family raises NotImplementedError naming the
-ROADMAP item that brings it.
+and phDOS flagships; every other family raises NotImplementedError naming
+the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
 
-from dostransformer_tpu_torch.models.dostransformer import DOSTransformerEDOS
+from torch import nn
+
+from dostransformer_tpu_torch.models.dostransformer import (
+    DOSTransformerEDOS,
+    DOSTransformerPhDOS,
+)
 
 _FAMILIES = {
     "edos": ("dostransformer", "graphnetwork", "graphnetwork2", "mlp",
@@ -15,11 +20,14 @@ _FAMILIES = {
     "phdos": ("dostransformer", "dostransformer_phonon", "graphnetwork",
               "graphnetwork2", "mlp", "mlp2"),
 }
+_PORTED = {("edos", "dostransformer"): DOSTransformerEDOS,
+           ("phdos", "dostransformer"): DOSTransformerPhDOS,
+           ("phdos", "dostransformer_phonon"): DOSTransformerPhDOS}
 
 
 def build_model(task: str, embedder: str = "DOSTransformer", *,
                 layers: int = 3, t_layers: int = 2, hidden: int = 256,
-                **kwargs) -> DOSTransformerEDOS:
+                **kwargs) -> nn.Module:
     """Instantiate a model by (task, embedder) name (case-insensitive).
     ``kwargs`` go to the model: padding, input widths, device, generator,
     and the options that are not ported yet (which raise)."""
@@ -31,11 +39,9 @@ def build_model(task: str, embedder: str = "DOSTransformer", *,
     if name not in family:
         raise ValueError(f"Inappropriate model name {embedder!r} for task "
                          f"{task!r}; choose from {sorted(family)}")
-    if task.lower() != "edos" or name != "dostransformer":
-        item = ("item 5 (phDOS flagship)" if name.startswith("dostransformer")
-                else "item 7 (baselines)")
+    model = _PORTED.get((task.lower(), name))
+    if model is None:
         raise NotImplementedError(
             f"({task!r}, {embedder!r}) is not in the PyTorch port yet; see "
-            f"ROADMAP.md queue 1 {item}")
-    return DOSTransformerEDOS(layers=layers, t_layers=t_layers,
-                              hidden=hidden, **kwargs)
+            f"ROADMAP.md queue 1 item 7 (baselines)")
+    return model(layers=layers, t_layers=t_layers, hidden=hidden, **kwargs)

@@ -16,9 +16,11 @@ fused_mp_edge`: the first Linear is projected at node count (project, then
 gather), and the gathers, LayerNorm, PReLU, second Linear and the masked
 edge->receiver sum run in the fused kernel on the card, or in its plain
 version on the CPU; its backward is the fused backward kernel on the card.
-The NodeModel consumes that sum. Every path keeps autograd: the projected
-weight slices, the row gathers and the single PReLU slope (passed to the
-kernel as ``alpha``) all receive gradients.
+The NodeModel consumes that sum, divided for phDOS's scatter-mean by the
+count of real edges per receiver (the segment-sum kernel on the card).
+Every path keeps autograd: the projected weight slices, the row gathers and
+the single PReLU slope (passed to the kernel as ``alpha``) all receive
+gradients.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from torch import nn
 from dostransformer_tpu_torch.nn.init import torch_linear_
 from dostransformer_tpu_torch.nn.layernorm import LayerNorm
 from dostransformer_tpu_torch.ops.fused_mp import fused_mp_edge, gather_rows
+from dostransformer_tpu_torch.ops.segment import batched_segment_sum
 
 Parts = Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]]
 
@@ -112,29 +115,40 @@ class EdgeModel(nn.Module):
 
 
 class NodeModel(nn.Module):
-    """x' = MLP([x, agg]) with agg the masked sum of the edge features onto
-    their receivers (the eDOS scatter_sum), as the EdgeModel returns it."""
+    """x' = MLP([x, agg]) with agg the edge features aggregated onto their
+    receivers: their masked sum as the EdgeModel returns it ("sum", eDOS's
+    scatter_sum), or that sum over the count of real edges per receiver
+    ("mean", phDOS's scatter_mean; a node with no edge gets 0). The count is
+    the segment-sum op on the edge mask: the kernel on the card."""
 
-    def __init__(self, hidden: int):
+    def __init__(self, hidden: int, aggregation: str = "sum"):
         super().__init__()
+        if aggregation not in ("sum", "mean"):
+            raise ValueError(f"unknown aggregation {aggregation!r}; expected "
+                             f"'sum' or 'mean'")
+        self.aggregation = aggregation
         self.node_mlp_2 = MLPBlock(2 * hidden, 2 * hidden, hidden)
 
-    def forward(self, x, agg):
+    def forward(self, x, agg, receivers, edge_mask):
+        if self.aggregation == "mean":
+            count = batched_segment_sum(edge_mask[..., None].to(agg.dtype),
+                                        receivers, x.shape[1])
+            agg = agg / torch.clamp(count, min=1.0)
         return self.node_mlp_2(((x, None), (agg, None)))
 
 
 class Processor(nn.Module):
     """One message-passing step; the residual is applied by the caller."""
 
-    def __init__(self, hidden: int):
+    def __init__(self, hidden: int, aggregation: str = "sum"):
         super().__init__()
         self.edge_model = EdgeModel(hidden)
-        self.node_model = NodeModel(hidden)
+        self.node_model = NodeModel(hidden, aggregation)
 
     def forward(self, x, senders, receivers, edge_attr, edge_mask):
         edge_attr, agg = self.edge_model(x, senders, receivers, edge_attr,
                                          edge_mask)
-        return self.node_model(x, agg), edge_attr
+        return self.node_model(x, agg, receivers, edge_mask), edge_attr
 
 
 def run_message_passing(processors: Sequence[Processor], g, x, edge_attr):
@@ -161,6 +175,18 @@ class GraphEncoderEDOS(nn.Module):
                 self.global_encoder(glob))
 
 
+class GraphEncoderPhDOS(nn.Module):
+    """phDOS Encoder: node and edge MLPs, no global features."""
+
+    def __init__(self, node_in: int, edge_in: int, hidden: int):
+        super().__init__()
+        self.node_encoder = MLP2(node_in, hidden)
+        self.edge_encoder = MLP2(edge_in, hidden)
+
+    def forward(self, x, edge_attr):
+        return self.node_encoder(x), self.edge_encoder(edge_attr)
+
+
 def masked_node_pool(x: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
     """scatter_sum(x, batch) in batch-leading layout: masked sum over the
     node axis. x [B, A, h] -> [B, h]."""
@@ -176,3 +202,14 @@ class GraphDecoderEDOS(nn.Module):
 
     def forward(self, x, u, node_mask):
         return self.mlp(torch.cat([u, masked_node_pool(x, node_mask)], dim=-1))
+
+
+class GraphDecoderPhDOS(nn.Module):
+    """Linear(h->h)(pooled nodes)."""
+
+    def __init__(self, hidden: int):
+        super().__init__()
+        self.mlp = nn.Sequential(TorchLinear(hidden, hidden))
+
+    def forward(self, x, node_mask):
+        return self.mlp(masked_node_pool(x, node_mask))

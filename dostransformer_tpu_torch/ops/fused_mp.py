@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from dostransformer_tpu_torch.ops import kernels
-from dostransformer_tpu_torch.ops.segment import batched_segment_sum
+from dostransformer_tpu_torch.ops.segment import segment_sum_reference
 
 LN_EPS = 1e-5
 
@@ -51,8 +51,8 @@ def mp_edge_reference(src_proj, dst_proj, edge_proj, senders, receivers,
     norm = (mid - mu) * torch.rsqrt(var + LN_EPS) * ln_scale + ln_bias
     act = torch.clamp(norm, min=0.0) + alpha * torch.clamp(norm, max=0.0)
     e_out = torch.nn.functional.linear(act, w1, b1)
-    agg = batched_segment_sum(e_out * edge_mask[..., None], receivers,
-                              src_proj.shape[1])
+    agg = segment_sum_reference(e_out * edge_mask[..., None], receivers,
+                                src_proj.shape[1])
     return e_out, agg
 
 
@@ -92,8 +92,8 @@ def mp_edge_bwd_reference(src_proj, dst_proj, edge_proj, senders, receivers,
     g_xhat = g_norm * ln_scale
     g_mid = rstd * (g_xhat - g_xhat.mean(-1, keepdim=True)
                     - xhat * (g_xhat * xhat).mean(-1, keepdim=True))
-    g_src = batched_segment_sum(g_mid, senders, a)
-    g_dst = batched_segment_sum(g_mid, receivers, a)
+    g_src = segment_sum_reference(g_mid, senders, a)
+    g_dst = segment_sum_reference(g_mid, receivers, a)
     return g_src, g_dst, g_mid, g_ln_scale, g_ln_bias, g_alpha, g_w1, g_b1
 
 

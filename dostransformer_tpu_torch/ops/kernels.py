@@ -8,10 +8,10 @@ hash of the sources and flags, and loaded with ``ctypes``. A later process
 finds the library and skips the build. Nothing here runs at import: the CPU
 tests import every module on machines without ``nvcc``.
 
-The wrappers in ``ops/fused_mp.py`` and ``ops/attention.py`` (forward and
-backward kernels alike) pass every pointer, and PyTorch's current CUDA
-stream, as ``c_void_p``; each entry point returns the CUDA error code of its
-launches, and :func:`check` raises on a non-zero code.
+The wrappers in ``ops/fused_mp.py``, ``ops/attention.py`` (forward and
+backward kernels alike) and ``ops/segment.py`` pass every pointer, and
+PyTorch's current CUDA stream, as ``c_void_p``; each entry point returns the
+CUDA error code of its launches, and :func:`check` raises on a non-zero code.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("runtime.cu", "fused_mp.cu", "fused_mp_bwd.cu", "attention.cu",
-           "attention_bwd.cu")
+           "attention_bwd.cu", "segment_sum.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -51,6 +51,8 @@ _SIGNATURES = {
     "dostpu_attention_fwd": ([_P] * 5 + [_I] * 4 + [ctypes.c_float, _P], _I),
     # q k v bias o g dq dk dv stats B Lq Lk D scale stream
     "dostpu_attention_bwd": ([_P] * 10 + [_I] * 4 + [ctypes.c_float, _P], _I),
+    # data ids out B E F N stream
+    "dostpu_segment_sum": ([_P] * 3 + [_I] * 4 + [_P], _I),
 }
 
 

@@ -7,7 +7,8 @@ batches. Requests are grouped by atom padding bucket, so a mixed request of
 small and large crystals pads each group only to its own shape; results come
 back in input order with the dummy-graph rows of short batches dropped.
 Outputs stay on the device until the whole request is done and are copied
-to the host once per call.
+to the host once per call. eDOS predictions are clamped at 0 (the
+reference's eval clamp); phDOS predictions are not.
 
 Example:
     predictor = Predictor.from_torch("model.pt", task="edos",
@@ -43,7 +44,7 @@ class Predictor:
                  clamp: bool = False):
         self.model = model.eval()
         self.batch_size = batch_size
-        self.clamp = clamp  # eDOS eval clamps predictions at 0
+        self.clamp = clamp  # eDOS eval clamps predictions at 0, phDOS not
         self.device = next(model.parameters()).device
 
     @classmethod
@@ -64,7 +65,9 @@ class Predictor:
         """Serve a ``torch.save``d state_dict in the reference's module
         naming (the port's own state_dicts use the same names). ``example``
         gives the input feature widths; the model-shape args must match the
-        weights (a mismatch raises with the offending key)."""
+        weights (a mismatch raises with the offending key). ``task`` is
+        "edos" or "phdos"; phDOS weights saved in float64 by the reference
+        load into the float32 model."""
         widths = {"node_in": example.x.shape[1]}
         if example.edge_attr is not None:
             widths["edge_in"] = example.edge_attr.shape[1]

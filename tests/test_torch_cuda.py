@@ -6,7 +6,12 @@ runs the same comparison at the flagship shapes.
 f32 on the card with TF32 off; the kernel and the plain version sum in
 different orders, so atol 1e-5 on outputs of magnitude ~1 (rtol 1e-5).
 Parameter gradients of the message-passing backward are sums over every
-edge of the batch: rtol 1e-4 against their largest element."""
+edge of the batch: rtol 1e-4 against their largest element. The segment sum
+adds the same terms as its plain version in another order: 1e-5 of the
+largest output; at F = 1 over 0/1 edge masks (the phDOS count) the sums are
+small integers and must be exact. The phDOS shapes: queries Lq = 51 against
+8-16 atom keys or 51 energy tokens, batches 1, 8 and 16, and the edge counts
+of synthetic (128 slots) and featurised crystals (up to 2,048)."""
 
 import pytest
 
@@ -25,6 +30,10 @@ from dostransformer_tpu_torch.ops.fused_mp import (  # noqa: E402
     fused_mp_edge_bwd,
     mp_edge_bwd_reference,
     mp_edge_reference,
+)
+from dostransformer_tpu_torch.ops.segment import (  # noqa: E402
+    batched_segment_sum,
+    segment_sum_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -52,7 +61,9 @@ def _mp_args(dev, b, a, e, m, h, seed=0):
 
 
 @pytest.mark.parametrize("shape", [(8, 32, 384, 512, 256), (3, 13, 70, 48, 24),
-                                   (2, 5, 17, 600, 300)])
+                                   (2, 5, 17, 600, 300),
+                                   (8, 16, 128, 512, 256),
+                                   (1, 64, 2048, 512, 256)])
 def test_fused_mp_edge_matches_plain(dev, shape):
     args = _mp_args(dev, *shape)
     before = fused_mp_edge.launches
@@ -81,7 +92,9 @@ def test_fused_mp_edge_rejects_wrong_dtype(dev):
 
 
 @pytest.mark.parametrize("shape", [(8, 201, 32, 256), (16, 201, 201, 256),
-                                   (3, 5, 70, 96), (2, 40, 33, 512)])
+                                   (3, 5, 70, 96), (2, 40, 33, 512),
+                                   (8, 51, 16, 256), (16, 51, 51, 256),
+                                   (1, 51, 8, 256), (2, 51, 51, 256)])
 def test_fused_attention_matches_plain(dev, shape):
     b, lq, lk, d = shape
     g = torch.Generator().manual_seed(1)
@@ -113,7 +126,9 @@ def _close_scaled(got, want, rtol):
 
 
 @pytest.mark.parametrize("shape", [(8, 32, 384, 512, 256), (3, 13, 70, 48, 24),
-                                   (2, 5, 17, 600, 300)])
+                                   (2, 5, 17, 600, 300),
+                                   (8, 16, 128, 512, 256),
+                                   (1, 64, 2048, 512, 256)])
 def test_fused_mp_edge_bwd_matches_plain(dev, shape):
     b, a, e, m, h = shape
     args = _mp_args(dev, *shape)
@@ -149,7 +164,9 @@ def test_fused_mp_edge_is_differentiable_on_the_card(dev):
 
 
 @pytest.mark.parametrize("shape", [(8, 201, 32, 256), (16, 201, 201, 256),
-                                   (3, 5, 70, 96), (2, 40, 33, 512)])
+                                   (3, 5, 70, 96), (2, 40, 33, 512),
+                                   (8, 51, 16, 256), (16, 51, 51, 256),
+                                   (1, 51, 8, 256), (2, 51, 51, 256)])
 def test_fused_attention_bwd_matches_plain(dev, shape):
     b, lq, lk, d = shape
     g = torch.Generator().manual_seed(2)
@@ -182,3 +199,47 @@ def test_fused_attention_is_differentiable_on_the_card(dev):
     dot_product_attention(q2, kv2, kv2, km).square().sum().backward()
     _close_scaled(q.grad, q2.grad, 1e-5)
     _close_scaled(kv.grad, kv2.grad, 1e-5)  # k and v are one tensor
+
+
+def _segment_args(dev, b, e, f, n, seed=0):
+    """Edge rows masked as the model masks them (a dummy graph last), ids
+    with out-of-range and negative entries."""
+    g = torch.Generator().manual_seed(seed)
+    mask = (torch.rand(b, e, generator=g) > 0.25).float()
+    mask[-1] = 0.0
+    data = (mask[..., None] if f == 1
+            else torch.randn(b, e, f, generator=g) * mask[..., None])
+    ids = torch.randint(-2, n + 2, (b, e), generator=g, dtype=torch.int32)
+    return data.to(dev), ids.to(dev)
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 1, 16), (1, 2048, 1, 64),
+                                   (8, 384, 256, 32), (3, 70, 5, 13),
+                                   (2, 17, 300, 5), (2, 0, 4, 3)])
+def test_batched_segment_sum_matches_plain(dev, shape):
+    b, e, f, n = shape
+    data, ids = _segment_args(dev, b, e, f, n)
+    before = batched_segment_sum.launches
+    got = batched_segment_sum(data, ids, n)
+    assert batched_segment_sum.launches == before + 1
+    want = segment_sum_reference(data, ids, n)
+    assert got.shape == want.shape == (b, n, f)
+    if f == 1:
+        assert torch.equal(got, want)  # integer counts: exact
+    else:
+        _close_scaled(got, want, 1e-5)
+    assert torch.equal(batched_segment_sum(data, ids, n), got)  # no atomics
+
+
+def test_batched_segment_sum_is_differentiable_and_checked(dev):
+    data, ids = _segment_args(dev, 3, 70, 5, 13)
+    leaf = data.clone().requires_grad_()
+    g = torch.randn(3, 13, 5, device=dev)
+    batched_segment_sum(leaf, ids, 13).backward(g)
+    ref = data.clone().requires_grad_()
+    segment_sum_reference(ref, ids, 13).backward(g)
+    assert torch.equal(leaf.grad, ref.grad)  # a gather: exact
+    with pytest.raises(TypeError):
+        batched_segment_sum(data, ids.long(), 13)
+    with pytest.raises(TypeError):
+        batched_segment_sum(data.double(), ids, 13)

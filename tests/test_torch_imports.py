@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: importing it (and its serving, training
-and CLI modules) pulls in neither jax, flax nor the JAX package, because the
-machine with the card has none of them."""
+"""The PyTorch port stands alone: importing it (and its serving, training,
+featurising and CLI modules) pulls in neither jax, flax, pandas nor the JAX
+package, because the machine with the card has none of them."""
 
 import os
 import subprocess
@@ -19,6 +19,9 @@ MODULES = [
     "dostransformer_tpu_torch.data.synthetic",
     "dostransformer_tpu_torch.data.io",
     "dostransformer_tpu_torch.data.datasets",
+    "dostransformer_tpu_torch.data.elements",
+    "dostransformer_tpu_torch.data.neighbors",
+    "dostransformer_tpu_torch.data.featurize_phdos",
     "dostransformer_tpu_torch.nn.init",
     "dostransformer_tpu_torch.nn.layernorm",
     "dostransformer_tpu_torch.nn.modules",
@@ -27,6 +30,7 @@ MODULES = [
     "dostransformer_tpu_torch.ops.segment",
     "dostransformer_tpu_torch.ops.fused_mp",
     "dostransformer_tpu_torch.ops.attention",
+    "dostransformer_tpu_torch.ops.geometry",
     "dostransformer_tpu_torch.models.dostransformer",
     "dostransformer_tpu_torch.models.registry",
     "dostransformer_tpu_torch.models.import_torch",
@@ -41,13 +45,15 @@ MODULES = [
     "dostransformer_tpu_torch.cli.common",
     "dostransformer_tpu_torch.cli.main_predict",
     "dostransformer_tpu_torch.cli.main_edos",
+    "dostransformer_tpu_torch.cli.main_phdos",
 ]
 PROBE = f"""
 import importlib, sys
 for name in {MODULES!r}:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "dostransformer_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "pandas",
+                                    "dostransformer_tpu"))
 print(",".join(bad))
 """
 

@@ -182,7 +182,7 @@ def test_unported_options_raise(kwargs):
         build_model("edos", hidden=H, layers=1, t_layers=1, **kwargs)
 
 
-@pytest.mark.parametrize("task,embedder", [("phdos", "DOSTransformer"),
+@pytest.mark.parametrize("task,embedder", [("phdos", "graphnetwork"),
                                            ("edos", "graphnetwork"),
                                            ("phdos", "mlp2")])
 def test_registry_other_families_raise(task, embedder):
