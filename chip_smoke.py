@@ -70,11 +70,59 @@ transformer layers per stack, 51 bins, r_max 4.0, f32, scatter-mean):
   11. card against CPU: 3 phDOS Trainer.train_steps as in 7;
   12. phDOS training samples/s at batch 8 as in 8.
 
+The LayerNorm levers of the transformer layer (off by default; the paths
+above must launch neither of their kernels):
+
+  3e. the LN-fused attention forward kernel against its plain version
+     (the shared LayerNorm three times, then the plain attention) at the
+     six attention shapes of the two flagships as the model calls it (keys
+     and values one tensor, pad atoms masked, the last graph fully masked),
+     a self-attention on ONE tensor and a call with three distinct
+     tensors; tolerance as 3; beside it the unfused layer's composition on
+     the card (F.layer_norm per distinct tensor, then the attention kernel)
+     and, as the library yardstick, F.layer_norm +
+     F.scaled_dot_product_attention;
+  3f. the LayerNorm backward kernel against its plain version at
+     rows x 256 for the row counts of a train step (8*201, 16*201, 8*32,
+     16*51, 8*16), f32 (dx within 1e-5, dscale and dbias within 1e-4) and
+     bf16 operands (within 3% of the largest value: the kernel keeps
+     g = dy * scale in f32 where the plain version rounds it), each run
+     twice and required to repeat bit for bit; beside it
+     aten.native_layer_norm_backward on the same rows;
+  13. serving with fuse_ln_attn: the 96-sample requests through
+     cli.main_predict with DOSTPU_FUSE_LN_ATTN=1 in the environment and 5
+     samples through Predictor(fuse_ln_attn=True), eDOS and phDOS: per
+     batch exactly 3 fused_mp_edge, 6 fused_attention_ln, no fused_attention
+     and no backward launch (phDOS: plus 3 batched_segment_sum); outputs
+     against the same model on the CPU and against the unfused card
+     outputs of 4 and 9; samples/s fused and unfused, six readings each
+     taken in turns;
+  14. training with both switches through cli.main_edos and cli.main_phdos
+     (DOSTPU_FUSE_LN_ATTN=1, DOSTPU_LN_PALLAS=1; 3 epochs at batch 8): per
+     train step 3 fused_mp_edge, 6 fused_attention_ln, 3 fused_mp_edge_bwd,
+     6 fused_attention_bwd and 20 layer_norm_bwd launches (per layer one
+     for each distinct tensor among ln0's inputs and one for ln1, per stack
+     one for the final LayerNorm; the self stack's first layer has one
+     input tensor), no fused_attention; per eval batch the forward's and
+     no backward; epoch losses within LOSS_RTOL of the unfused runs of 6
+     and 10 (same seed); then 3 Trainer.train_steps card against CPU;
+  15. training samples/s at batch 8 over 20 steps with the levers off,
+     ln_lp only and both on, four readings each taken in turns in one
+     process, eDOS and phDOS.
+
 The eDOS paths must launch no batched_segment_sum (eDOS sums its messages
-in the fused kernel). The line before the last is a JSON object with each
-kernel's launches on the phDOS training path (and per path), error and
-times (at the eDOS flagship shapes; the phDOS shapes' mean per call as
-``ms_phdos``); the last line is
+in the fused kernel). The line before the last is a JSON object with one row
+per kernel: error and times at the eDOS flagship shapes (the phDOS shapes'
+mean per call as ``ms_phdos``), ``bound_ms`` (the larger of this run's bytes
+over 3.35 TB/s and its f32 operations over 67 TFLOP/s, ``bound_by`` saying
+which), ``library_ms`` (one PyTorch call computing the same function, timed
+here and used nowhere in the port; null where there is none) and
+``launches_by_path``, the launches on each of the eight paths driven (each
+with the counts set to 0 just before and read just after). ``launches`` is
+the count on the phDOS training path with both levers on, the only path
+that launches six of the seven kernels; for fused_attention, which that path
+replaces, it is the count on the phDOS training path with the levers off
+(``launches_path`` names the path). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -92,6 +140,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device visible (torch.cuda.is_available() "
@@ -117,13 +166,19 @@ from dostransformer_tpu_torch.data.synthetic import (  # noqa: E402
     synthetic_phdos_samples,
 )
 from dostransformer_tpu_torch.models.registry import build_model  # noqa: E402
+from dostransformer_tpu_torch.nn.layernorm import (  # noqa: E402
+    layer_norm_bwd,
+    ln_bwd_reference,
+)
 from dostransformer_tpu_torch.ops import kernels  # noqa: E402
 from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
     attention_bwd_reference,
     dot_product_attention,
     fused_attention,
     fused_attention_bwd,
+    fused_attention_ln,
     key_bias,
+    ln_attention_reference,
 )
 from dostransformer_tpu_torch.ops.fused_mp import (  # noqa: E402
     fused_mp_edge,
@@ -159,7 +214,20 @@ LOSS_RTOL = 1e-3
 # the phDOS flagship (main_phdos defaults but the batch): 51 bins
 PH_BINS = 51
 KERNELS = (fused_mp_edge, fused_attention, fused_mp_edge_bwd,
-           fused_attention_bwd, batched_segment_sum)
+           fused_attention_bwd, batched_segment_sum, fused_attention_ln,
+           layer_norm_bwd)
+BACKWARD = ("fused_mp_edge_bwd", "fused_attention_bwd", "layer_norm_bwd")
+# bf16 operands of the LayerNorm backward: the kernel keeps g = dy * scale in
+# f32 where the plain version rounds it to bf16, so within 3% of the largest
+# value (the JAX package's bound for the same comparison)
+BF16_RTOL = 0.03
+# the card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# bytes/s and f32 FLOP/s outside the tensor cores; every kernel here is f32
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# the JAX package's lever names, as a user sets them
+FUSE_ENV = {"DOSTPU_FUSE_LN_ATTN": "1"}
+LEVERS_ENV = {"DOSTPU_FUSE_LN_ATTN": "1", "DOSTPU_LN_PALLAS": "1"}
 
 
 def check(ok: bool, what: str) -> None:
@@ -197,11 +265,44 @@ def read_launches() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-def compare(name, kernel_fn, plain_fn, rtols=None, repeat=False):
+def launch_counts(**counts) -> dict:
+    """A count for every kernel: those given, 0 for the rest."""
+    return {**dict.fromkeys((k.__name__ for k in KERNELS), 0), **counts}
+
+
+def step_launches(task: str, levers: bool) -> dict:
+    """Kernel launches of one train step at the flagship depth. With both
+    LayerNorm levers on, the attention forward is the LN-fused kernel and
+    every LayerNorm backward is a layer_norm_bwd launch: per layer one for
+    each distinct tensor among ln0's inputs (keys and values are one tensor
+    everywhere; in the self stack's first layer the queries are that tensor
+    too) and one for ln1, per stack one for the final LayerNorm."""
+    attn = 3 * T_LAYERS
+    want = launch_counts(fused_mp_edge=LAYERS, fused_mp_edge_bwd=LAYERS,
+                         fused_attention_bwd=attn,
+                         batched_segment_sum=LAYERS if task == "phdos" else 0)
+    if levers:
+        want.update(fused_attention_ln=attn,
+                    layer_norm_bwd=3 * (3 * T_LAYERS + 1) - 1)
+    else:
+        want.update(fused_attention=attn)
+    return want
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the distinct tensors given (each read or written once)."""
+    seen = {t.data_ptr(): t.numel() * t.element_size() for t in tensors}
+    return sum(seen.values())
+
+
+def compare(name, kernel_fn, plain_fn, rtols=None, repeat=False, work=None,
+            library_fn=None, floor=1.0):
     """Run kernel and plain version on the same inputs; each output must be
-    within its rtol (default KERNEL_RTOL) x max(1, max|plain|); with
-    ``repeat`` a second kernel run must give the same bits. Returns
-    (max abs err, max rel err, kernel ms, plain ms)."""
+    within its rtol (default KERNEL_RTOL) x max(floor, max|plain|); with
+    ``repeat`` a second kernel run must give the same bits. ``work`` is
+    (bytes moved, f32 operations) for these inputs; ``library_fn`` the one
+    PyTorch call that computes the same function. Returns a dict: err, rel,
+    ms, plain_ms, bytes_ms, ops_ms (the two lower bounds), library_ms."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -212,9 +313,11 @@ def compare(name, kernel_fn, plain_fn, rtols=None, repeat=False):
     for i, (g, w, tol) in enumerate(zip(got, want, rtols)):
         check(g.shape == w.shape, f"{name}: output {i} shape {tuple(g.shape)}"
                                   f" != {tuple(w.shape)}")
+        check(g.dtype == w.dtype, f"{name}: output {i} is {g.dtype}, plain "
+                                  f"{w.dtype}")
         check(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
-        err = (g - w).abs().max().item()
-        scale = max(1.0, w.abs().max().item())
+        err = (g.float() - w.float()).abs().max().item()
+        scale = max(floor, w.float().abs().max().item())
         check(err <= tol * scale,
               f"{name}: output {i} max abs err {err:.3e} > {tol} x "
               f"{scale:.3g}")
@@ -225,12 +328,25 @@ def compare(name, kernel_fn, plain_fn, rtols=None, repeat=False):
         again = again if isinstance(again, tuple) else (again,)
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"{name}: a second run differs (not deterministic)")
-    ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn)
+    out = {"err": abs_err, "rel": rel_err, "ms": median_ms(kernel_fn),
+           "plain_ms": median_ms(plain_fn), "bytes_ms": 0.0, "ops_ms": 0.0,
+           "library_ms": None}
+    if work is not None:
+        out["bytes_ms"] = work[0] / HBM_BYTES_PER_S * 1e3
+        out["ops_ms"] = work[1] / F32_FLOPS_PER_S * 1e3
+    if library_fn is not None:
+        out["library_ms"] = median_ms(library_fn)
+    lib = ("" if library_fn is None
+           else f", library call {out['library_ms']:.4f} ms")
+    bound = ("" if work is None else
+             f"; bound {max(out['bytes_ms'], out['ops_ms']):.4f} ms "
+             f"({work[0] / 1e6:.2f} MB, {work[1] / 1e9:.3f} GFLOP)")
     print(f"  {name}: max abs err {abs_err:.3e}, rel {rel_err:.3e} "
           f"(tol {'/'.join(map(str, sorted(set(rtols))))} rel)"
           f"{', repeats bit-identically' if repeat else ''}; kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 50)")
-    return abs_err, rel_err, ms, plain_ms
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms{lib} (median "
+          f"of 50){bound}")
+    return out
 
 
 def attention_shapes():
@@ -240,12 +356,59 @@ def attention_shapes():
             "source": (2 * BATCH, BINS, 32)}
 
 
+def phdos_attention_shapes():
+    return {"cross B=8": (BATCH, PH_BINS, 16),
+            "self 2B": (2 * BATCH, PH_BINS, PH_BINS),
+            "source 2B": (2 * BATCH, PH_BINS, 16)}
+
+
 def per_forward(per_shape):
-    """Max errors and the mean time per call over a forward's six calls,
-    two at each of the three shapes."""
-    return tuple(f(r[i] for r in per_shape.values())
-                 for i, f in ((0, max), (1, max), (2, statistics.mean),
-                              (3, statistics.mean)))
+    """Over a forward's calls (two at each of the shapes given): the largest
+    errors and the mean per call of every time and bound."""
+    runs = list(per_shape.values())
+    out = {k: max(r[k] for r in runs) for k in ("err", "rel")}
+    for k in ("ms", "plain_ms", "bytes_ms", "ops_ms"):
+        out[k] = statistics.mean(r[k] for r in runs)
+    lib = [r["library_ms"] for r in runs]
+    out["library_ms"] = None if None in lib else statistics.mean(lib)
+    return out
+
+
+def mp_work(args, outputs, backward=False):
+    """(bytes, f32 operations) of the fused message-passing kernel on these
+    inputs: per REAL edge (the mask's) the [M] x [M, H] product (twice in
+    the backward: the gradient of the activations and of W1) and ~12 (~30)
+    elementwise operations per feature for the gather, LayerNorm and PReLU
+    (and their backward)."""
+    m, h = args[0].shape[-1], args[9].shape[0]
+    real = float(args[5].sum().item())
+    flops = real * ((4 * m * h + 30 * m) if backward
+                    else (2 * m * h + 12 * m + 2 * h))
+    return nbytes(*args) + nbytes(*outputs), flops
+
+
+def attention_work(b, lq, lk, d, inputs, outputs, backward=False):
+    """(bytes, f32 operations): 2 products of 2 * Lq * Lk * D in the
+    forward, 5 in the backward (scores again, dp, dv, dq, dk). ``outputs``
+    are tensors of the outputs' shapes."""
+    return (nbytes(*inputs) + nbytes(*outputs),
+            (10 if backward else 4) * b * lq * lk * d)
+
+
+def sdpa(q, k, v, bias):
+    """The library yardstick: one F.scaled_dot_product_attention call, one
+    head, the additive key bias as its mask."""
+    return F.scaled_dot_product_attention(
+        q[:, None], k[:, None], v[:, None],
+        attn_mask=bias[:, None, None, :])[:, 0]
+
+
+def sdpa_backward(q, k, v, bias, go):
+    """A callable that runs the backward of :func:`sdpa` for the upstream
+    gradient go (the graph is built once, outside the timing)."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    o = sdpa(*leaves, bias)
+    return lambda: torch.autograd.grad(o, leaves, go, retain_graph=True)
 
 
 def phase_kernels(dev):
@@ -264,9 +427,10 @@ def phase_kernels(dev):
             torch.tensor([0.25], device=dev), rand(h, m) * m ** -0.5,
             rand(h) * 0.1)
     print(f"fused_mp_edge B={b} A={a} E={e} M={m} H={h}")
-    out["fused_mp_edge"] = compare("fused_mp_edge",
-                                   lambda: fused_mp_edge(*args),
-                                   lambda: mp_edge_reference(*args))
+    out["fused_mp_edge"] = compare(
+        "fused_mp_edge", lambda: fused_mp_edge(*args),
+        lambda: mp_edge_reference(*args),
+        work=mp_work(args, fused_mp_edge(*args)))
 
     # B: the three stacks' attention shapes
     per_shape = {}
@@ -278,12 +442,16 @@ def phase_kernels(dev):
             km = torch.arange(lk)[None] < n_real[:, None]
             km[-1] = False
             km = km.to(dev)
+        bias = (key_bias(km) if km is not None
+                else torch.zeros(bb, lk, device=dev))
         print(f"fused_attention {label}: B={bb} Lq={lq} Lk={lk} D={HIDDEN}"
               f"{' (last graph fully masked)' if km is not None else ''}")
         per_shape[label] = compare(
             f"fused_attention[{label}]",
             lambda: fused_attention(q, k, v, km),
-            lambda: dot_product_attention(q, k, v, km))
+            lambda: dot_product_attention(q, k, v, km),
+            work=attention_work(bb, lq, lk, HIDDEN, (q, k, v, bias), (q,)),
+            library_fn=lambda: sdpa(q, k, v, bias))
     out["fused_attention"] = per_forward(per_shape)
     return out
 
@@ -308,7 +476,8 @@ def phase_backward_kernels(dev):
     out["fused_mp_edge_bwd"] = compare(
         "fused_mp_edge_bwd", lambda: fused_mp_edge_bwd(*args),
         lambda: mp_edge_bwd_reference(*args),
-        rtols=(KERNEL_RTOL,) * 3 + (PARAM_GRAD_RTOL,) * 5, repeat=True)
+        rtols=(KERNEL_RTOL,) * 3 + (PARAM_GRAD_RTOL,) * 5, repeat=True,
+        work=mp_work(args, fused_mp_edge_bwd(*args), backward=True))
 
     # B: attention backward at the three shapes, the last graph fully masked
     per_shape = {}
@@ -326,7 +495,10 @@ def phase_backward_kernels(dev):
         per_shape[label] = compare(
             f"fused_attention_bwd[{label}]",
             lambda: fused_attention_bwd(q, k, v, bias, o, go),
-            lambda: attention_bwd_reference(q, k, v, bias, go), repeat=True)
+            lambda: attention_bwd_reference(q, k, v, bias, go), repeat=True,
+            work=attention_work(bb, lq, lk, HIDDEN, (q, k, v, bias, o, go),
+                                (q, k, v), True),
+            library_fn=sdpa_backward(q, k, v, bias, go))
     out["fused_attention_bwd"] = per_forward(per_shape)
     return out
 
@@ -366,12 +538,16 @@ def check_served(gpu, cpu, requests, outputs, task="") -> float:
                           rtol=MODEL_RTOL),
               f"{task}{label}: card output differs from the CPU run by "
               f"{err:.3e}")
-    samples = requests["96"]
-    gpu.predict(samples)  # warm
+    return serving_rate(gpu, requests["96"])
+
+
+def serving_rate(predictor, samples) -> float:
+    """Samples/s of one request: median of 5 calls after a warm one."""
+    predictor.predict(samples)  # warm
     times = []
     for _ in range(5):
         t0 = time.perf_counter()
-        gpu.predict(samples)  # ends in one copy to the host: synchronised
+        predictor.predict(samples)  # ends in one copy to the host: synchronised
         times.append(time.perf_counter() - t0)
     return len(samples) / statistics.median(times)
 
@@ -388,12 +564,10 @@ def phase_main_path(workdir):
         paths[label] = os.path.join(workdir, f"request_{len(samples)}.npz")
         save_samples(paths[label], samples)
 
-    gpu = Predictor.from_torch(weights, task="edos", example=requests["96"][0],
-                               layers=LAYERS, t_layers=T_LAYERS,
-                               hidden=HIDDEN, batch_size=BATCH, device="cuda")
-    cpu = Predictor.from_torch(weights, task="edos", example=requests["96"][0],
-                               layers=LAYERS, t_layers=T_LAYERS,
-                               hidden=HIDDEN, batch_size=BATCH, device="cpu")
+    kw = dict(task="edos", example=requests["96"][0], layers=LAYERS,
+              t_layers=T_LAYERS, hidden=HIDDEN, batch_size=BATCH)
+    gpu = Predictor.from_torch(weights, device="cuda", **kw)
+    cpu = Predictor.from_torch(weights, device="cpu", **kw)
 
     reset_launches()
     outputs, total_batches = {}, 0
@@ -436,13 +610,32 @@ def phase_main_path(workdir):
     check(launches["batched_segment_sum"] == 0,
           "eDOS serving launched batched_segment_sum (eDOS sums messages)")
 
-    return launches, check_served(gpu, cpu, requests, outputs)
+    served = dict(kw=kw, weights=weights, requests=requests,
+                  request_path=paths["96"], outputs=outputs, gpu=gpu,
+                  bins=BINS)
+    return launches, check_served(gpu, cpu, requests, outputs), served
 
 
-def run_counted(cli, argv):
-    """Run a training entry point with the kernel launches of every
-    Trainer.train_step and Trainer.eval_step counted, the counts set to 0
-    just before; returns (result, per-call launches, the run's launches)."""
+def with_env(env, fn, *args):
+    """fn(*args) with ``env`` added to os.environ, as a user would set the
+    JAX package's lever names; the environment is restored afterwards."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn(*args)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_counted(cli, argv, env=None):
+    """Run a training entry point (with ``env`` in its environment) with the
+    kernel launches of every Trainer.train_step and Trainer.eval_step
+    counted, the counts set to 0 just before; returns (result, per-call
+    launches, the run's launches)."""
     per_call = {"train": [], "eval": []}
     originals = (Trainer.train_step, Trainer.eval_step)
 
@@ -459,7 +652,7 @@ def run_counted(cli, argv):
     Trainer.eval_step = counted("eval", originals[1])
     reset_launches()
     try:
-        result = cli.main(argv)
+        result = with_env(env or {}, cli.main, argv)
     finally:
         Trainer.train_step, Trainer.eval_step = originals
     return result, per_call, read_launches()
@@ -469,10 +662,10 @@ def check_training_run(label, result, per_call, want_train, n_steps, log,
                        workdir, epochs):
     """Launches per train step (want_train) and per eval batch (the same
     forward, no backward), the step count, finite epoch losses, test
-    metrics and the experiments block."""
+    metrics and the experiments block. Returns the epoch losses."""
     print(f"\n{label}: {len(per_call['train'])} train steps, "
           f"{len(per_call['eval'])} eval batches")
-    want_eval = dict(want_train, fused_mp_edge_bwd=0, fused_attention_bwd=0)
+    want_eval = dict(want_train, **dict.fromkeys(BACKWARD, 0))
     check(len(per_call["train"]) == n_steps,
           f"{label}: {len(per_call['train'])} train steps, expected "
           f"{n_steps}")
@@ -493,37 +686,41 @@ def check_training_run(label, result, per_call, want_train, n_steps, log,
         block = f.read()
     check("best RMSE : " in block and "hidden(256)" in block,
           f"{label}: experiments block: {block!r}")
+    return losses
 
 
-def phase_training_path(workdir):
-    """cli.main_edos at the full width; per-call launch counts of every
-    train and eval step."""
+def phase_training_path(workdir, env=None):
+    """cli.main_edos at the full width (with ``env``, the LayerNorm levers,
+    in its environment); per-call launch counts of every train and eval
+    step. Returns (the run's launches, its epoch losses)."""
     log = os.path.join(workdir, "train.jsonl")
     result, per_call, launches = run_counted(main_edos, [
         "--synthetic", "96", "--synthetic_learnable", "--epochs", "3",
         "--eval", "1", "--layers", str(LAYERS), "--transformer",
         str(T_LAYERS), "--hidden", str(HIDDEN), "--batch_size", str(BATCH),
-        "--device", "cuda", "--results_dir", workdir, "--log_jsonl", log])
-    print(f"\ntraining path: launches {launches}")
-    want_train = {"fused_mp_edge": LAYERS, "fused_attention": 3 * T_LAYERS,
-                  "fused_mp_edge_bwd": LAYERS,
-                  "fused_attention_bwd": 3 * T_LAYERS,
-                  "batched_segment_sum": 0}
+        "--device", "cuda", "--results_dir", workdir, "--log_jsonl", log],
+        env)
+    label = f"eDOS training path{' (both levers)' if env else ''}"
+    print(f"\n{label}: launches {launches}")
     n_train = len(edos_random_split(range(96))[0])  # main_edos's split
-    check_training_run("eDOS training path", result, per_call, want_train,
-                       3 * math.ceil(n_train / BATCH), log, workdir, 3)
-    return launches
+    losses = check_training_run(label, result, per_call,
+                                step_launches("edos", bool(env)),
+                                3 * math.ceil(n_train / BATCH), log, workdir,
+                                3)
+    return launches, losses
 
 
-def phase_card_vs_cpu(task: str):
+def phase_card_vs_cpu(task: str, **levers):
     """3 Trainer.train_steps of one seeded model on both devices, the last
-    batch short (dummy graphs); eDOS clamps its targets, phDOS does not."""
+    batch short (dummy graphs); eDOS clamps its targets, phDOS does not.
+    ``levers`` are the model's LayerNorm switches."""
     learnable = (synthetic_edos_learnable if task == "edos"
                  else synthetic_phdos_learnable)
     clamp = task == "edos"
     cpu_model = build_model(task, layers=LAYERS, t_layers=T_LAYERS,
                             hidden=HIDDEN,
-                            generator=torch.Generator().manual_seed(1))
+                            generator=torch.Generator().manual_seed(1),
+                            **levers)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     batches = list(GraphLoader(learnable(21, seed=5), BATCH))
     cpu = Trainer(cpu_model, clamp_targets=clamp, eval_clamp=clamp)
@@ -551,13 +748,13 @@ def phase_card_vs_cpu(task: str):
                   f"{GRAD_RTOL})")
 
 
-def phase_train_rate(task: str, steps: int = 20) -> float:
+def phase_train_rate(task: str, steps: int = 20, **levers) -> float:
     learnable = (synthetic_edos_learnable if task == "edos"
                  else synthetic_phdos_learnable)
     clamp = task == "edos"
     model = build_model(task, layers=LAYERS, t_layers=T_LAYERS,
                         hidden=HIDDEN, device="cuda",
-                        generator=torch.Generator().manual_seed(2))
+                        generator=torch.Generator().manual_seed(2), **levers)
     trainer = Trainer(model, clamp_targets=clamp, eval_clamp=clamp)
     batches = list(GraphLoader(learnable(96, seed=0), BATCH))
     for batch in batches[:2]:  # warm
@@ -584,10 +781,34 @@ def phase_segment_sum(dev):
     count = batch.edge_mask[..., None]
     print(f"batched_segment_sum phDOS count: B={b} E={e} F=1 N={a} (the "
           f"edge mask onto the receivers)")
-    runs = [compare("batched_segment_sum[count]",
-                    lambda: batched_segment_sum(count, batch.receivers, a),
-                    lambda: segment_sum_reference(count, batch.receivers, a),
-                    repeat=True)]
+    def index_add(data, ids, n):
+        """The library yardstick: zeros + index_add_ on the flattened batch
+        (the flat index, with dropped ids sent to a spare row, is built
+        outside the timing)."""
+        bb, ee, f = data.shape
+        ok = (ids >= 0) & (ids < n)
+        flat = torch.where(ok, ids + torch.arange(bb, device=dev)[:, None] * n,
+                           bb * n).reshape(-1).long()
+        rows = data.reshape(bb * ee, f)
+        return lambda: torch.zeros(bb * n + 1, f, device=dev).index_add_(
+            0, flat, rows)[:-1].view(bb, n, f)
+
+    def work(data, ids, n):
+        """One add per feature of every row whose id names a segment."""
+        kept = float(((ids >= 0) & (ids < n)).sum().item())
+        out_bytes = data.shape[0] * n * data.shape[2] * 4
+        return nbytes(data, ids) + out_bytes, kept * data.shape[2]
+
+    def run(name, data, ids, n):
+        lib = index_add(data, ids, n)
+        check(torch.allclose(lib(), segment_sum_reference(data, ids, n),
+                             atol=1e-4), f"{name}: the index_add_ yardstick "
+                                         f"computes another function")
+        return compare(name, lambda: batched_segment_sum(data, ids, n),
+                       lambda: segment_sum_reference(data, ids, n),
+                       repeat=True, work=work(data, ids, n), library_fn=lib)
+
+    runs = [run("batched_segment_sum[count]", count, batch.receivers, a)]
     check(torch.equal(batched_segment_sum(count, batch.receivers, a),
                       segment_sum_reference(count, batch.receivers, a)),
           "batched_segment_sum: the F=1 edge counts are not exact")
@@ -596,10 +817,7 @@ def phase_segment_sum(dev):
     ids = torch.randint(0, 32, (BATCH, 384), generator=g,
                         dtype=torch.int32).to(dev)
     print(f"batched_segment_sum wide: B={BATCH} E=384 F={HIDDEN} N=32")
-    runs.append(compare(f"batched_segment_sum[F={HIDDEN}]",
-                        lambda: batched_segment_sum(data, ids, 32),
-                        lambda: segment_sum_reference(data, ids, 32),
-                        repeat=True))
+    runs.append(run(f"batched_segment_sum[F={HIDDEN}]", data, ids, 32))
 
     short = collate(synthetic_phdos_samples(BATCH - 1, seed=1),
                     num_graphs=BATCH).to(dev)
@@ -610,13 +828,12 @@ def phase_segment_sum(dev):
     mask = short.edge_mask[..., None]
     print(f"batched_segment_sum edge cases: B={BATCH} (last graph a dummy) "
           f"E={ids.shape[1]} F=1 N={n}, ids -1 and N+3 dropped")
-    runs.append(compare("batched_segment_sum[dropped ids, dummy graph]",
-                        lambda: batched_segment_sum(mask, ids, n),
-                        lambda: segment_sum_reference(mask, ids, n),
-                        repeat=True))
-    err = max(r[0] for r in runs)
-    rel = max(r[1] for r in runs)
-    return {"batched_segment_sum": (err, rel, runs[0][2], runs[0][3])}
+    runs.append(run("batched_segment_sum[dropped ids, dummy graph]", mask,
+                    ids, n))
+    # the row of the kernels line: the phDOS count, the path's only call
+    return {"batched_segment_sum": dict(
+        runs[0], err=max(r["err"] for r in runs),
+        rel=max(r["rel"] for r in runs))}
 
 
 def phase_phdos_kernels(dev):
@@ -641,16 +858,16 @@ def phase_phdos_kernels(dev):
         print(f"fused_mp_edge phDOS {label}: A={a} E={e} M={m} H={h}")
         runs["fused_mp_edge"][label] = compare(
             f"fused_mp_edge[phDOS {label}]", lambda: fused_mp_edge(*fwd),
-            lambda: mp_edge_reference(*fwd))
+            lambda: mp_edge_reference(*fwd),
+            work=mp_work(fwd, fused_mp_edge(*fwd)))
         runs["fused_mp_edge_bwd"][label] = compare(
             f"fused_mp_edge_bwd[phDOS {label}]",
             lambda: fused_mp_edge_bwd(*bwd),
             lambda: mp_edge_bwd_reference(*bwd),
-            rtols=(KERNEL_RTOL,) * 3 + (PARAM_GRAD_RTOL,) * 5, repeat=True)
+            rtols=(KERNEL_RTOL,) * 3 + (PARAM_GRAD_RTOL,) * 5, repeat=True,
+            work=mp_work(bwd, fused_mp_edge_bwd(*bwd), backward=True))
 
-    shapes = {"cross B=8": (BATCH, PH_BINS, 16), "self 2B": (2 * BATCH,
-              PH_BINS, PH_BINS), "source 2B": (2 * BATCH, PH_BINS, 16),
-              "cross B=1": (1, PH_BINS, 8)}
+    shapes = dict(phdos_attention_shapes(), **{"cross B=1": (1, PH_BINS, 8)})
     for label, (bb, lq, lk) in shapes.items():
         q, k, v, go = (rand(bb, n, HIDDEN) for n in (lq, lk, lk, lq))
         km = None
@@ -668,11 +885,16 @@ def phase_phdos_kernels(dev):
         runs["fused_attention"][label] = compare(
             f"fused_attention[phDOS {label}]",
             lambda: fused_attention(q, k, v, km),
-            lambda: dot_product_attention(q, k, v, km))
+            lambda: dot_product_attention(q, k, v, km),
+            work=attention_work(bb, lq, lk, HIDDEN, (q, k, v, bias), (q,)),
+            library_fn=lambda: sdpa(q, k, v, bias))
         runs["fused_attention_bwd"][label] = compare(
             f"fused_attention_bwd[phDOS {label}]",
             lambda: fused_attention_bwd(q, k, v, bias, o, go),
-            lambda: attention_bwd_reference(q, k, v, bias, go), repeat=True)
+            lambda: attention_bwd_reference(q, k, v, bias, go), repeat=True,
+            work=attention_work(bb, lq, lk, HIDDEN, (q, k, v, bias, o, go),
+                                (q, k, v), True),
+            library_fn=sdpa_backward(q, k, v, bias, go))
     return {name: per_forward(r) for name, r in runs.items()}
 
 
@@ -714,9 +936,9 @@ def phase_phdos_serving(workdir):
             dos = gpu.predict(samples)
         n = expected_batches(samples)
         got = {k: v - before[k] for k, v in read_launches().items()}
-        want = {"fused_mp_edge": LAYERS * n, "fused_attention": 3 * T_LAYERS * n,
-                "fused_mp_edge_bwd": 0, "fused_attention_bwd": 0,
-                "batched_segment_sum": LAYERS * n}
+        want = dict.fromkeys(got, 0)
+        want.update(fused_mp_edge=LAYERS * n, fused_attention=3 * T_LAYERS * n,
+                    batched_segment_sum=LAYERS * n)
         print(f"phDOS request {label}: {n} batches, launches {got}")
         check(got == want, f"phDOS request {label}: launches {got}, expected "
                            f"{want}")
@@ -728,22 +950,25 @@ def phase_phdos_serving(workdir):
     print(f"phDOS serving path: launches {launches}; outputs below 0 (no "
           f"clamp): {int((outputs['96'] < 0).sum())} of {outputs['96'].size}")
 
-    return launches, check_served(gpu, cpu, requests, outputs, "phDOS ")
+    served = dict(kw=kw, weights=weights, requests=requests,
+                  request_path=path, outputs=outputs, gpu=gpu, bins=PH_BINS)
+    return (launches, check_served(gpu, cpu, requests, outputs, "phDOS "),
+            served)
 
 
-def phase_phdos_training(workdir):
+def phase_phdos_training(workdir, env=None):
     """10: cli.main_phdos at the full width, batch 8, 3 epochs; then one
-    epoch at the CLI's default batch size 1. Returns the launches of both
-    runs together."""
-    want_train = {"fused_mp_edge": LAYERS, "fused_attention": 3 * T_LAYERS,
-                  "fused_mp_edge_bwd": LAYERS,
-                  "fused_attention_bwd": 3 * T_LAYERS,
-                  "batched_segment_sum": LAYERS}
+    epoch at the CLI's default batch size 1. With ``env`` (14: the
+    LayerNorm levers in the environment) the batch-8 run only. Returns (the
+    launches of the runs together, the batch-8 run's epoch losses)."""
+    want_train = step_launches("phdos", bool(env))
     width = ["--layers", str(LAYERS), "--transformer", str(T_LAYERS),
              "--hidden", str(HIDDEN), "--device", "cuda"]
-    totals = {k.__name__: 0 for k in KERNELS}
-    for label, n, epochs, batch in (("batch 8", 96, 3, BATCH),
-                                    ("batch 1", 24, 1, 1)):
+    totals = launch_counts()
+    runs = (("batch 8", 96, 3, BATCH), ("batch 1", 24, 1, 1))
+    batch8_losses = None
+    for label, n, epochs, batch in runs[:1] if env else runs:
+        label += " (both levers)" if env else ""
         run_dir = os.path.join(workdir, f"phdos_b{batch}")
         log = os.path.join(run_dir, "train.jsonl")
         argv = ["--synthetic", str(n), "--synthetic_learnable", "--epochs",
@@ -752,16 +977,199 @@ def phase_phdos_training(workdir):
         if batch != 1:  # batch 1 is main_phdos's default
             argv += ["--batch_size", str(batch)]
         os.makedirs(run_dir)
-        result, per_call, launches = run_counted(main_phdos, argv)
+        result, per_call, launches = run_counted(main_phdos, argv, env)
         n_train = len(edos_random_split(range(n))[0])  # main_phdos's split
-        check_training_run(f"phDOS training path ({label})", result,
-                           per_call, want_train,
-                           epochs * math.ceil(n_train / batch), log, run_dir,
-                           epochs)
+        losses = check_training_run(f"phDOS training path ({label})", result,
+                                    per_call, want_train,
+                                    epochs * math.ceil(n_train / batch), log,
+                                    run_dir, epochs)
         print(f"phDOS training path ({label}): launches {launches}")
         for k, v in launches.items():
             totals[k] += v
-    return totals
+        if batch == BATCH:
+            batch8_losses = losses
+    return totals, batch8_losses
+
+
+# --- the LayerNorm levers of the transformer layer ------------------------
+
+
+def phase_attention_ln_kernel(dev):
+    """3e: the LN-fused attention forward against its plain version, beside
+    the unfused layer's composition and the library yardstick."""
+    g = torch.Generator().manual_seed(6)
+    rand = lambda *s: (torch.randn(*s, generator=g) * 2 + 0.5).to(dev)
+    lns = (torch.rand(HIDDEN, generator=g) + 0.5).to(dev)
+    lnb = (torch.randn(HIDDEN, generator=g) * 0.1).to(dev)
+    ln = lambda t: F.layer_norm(t, (HIDDEN,), lns, lnb, 1e-5)
+
+    def run(label, bb, lq, lk, tensors):
+        """tensors: 'kv' (keys and values one tensor, as the model calls
+        it), 'one' (queries too) or 'three' (all distinct)."""
+        x = rand(bb, lq, HIDDEN)
+        xk = x if tensors == "one" else rand(bb, lk, HIDDEN)
+        xv = rand(bb, lk, HIDDEN) if tensors == "three" else xk
+        km = None
+        if lk != lq:  # atom keys: pad atoms masked, last graph all masked
+            n_real = torch.randint(4, lk + 1, (bb,), generator=g)
+            km = torch.arange(lk)[None] < n_real[:, None]
+            km[-1] = False
+            km = km.to(dev)
+        bias = (key_bias(km) if km is not None
+                else torch.zeros(bb, lk, device=dev))
+
+        def norms():  # one LayerNorm per distinct tensor, as the layer does
+            q = ln(x)
+            k = q if xk is x else ln(xk)
+            return q, k, (k if xv is xk else ln(xv))
+
+        print(f"fused_attention_ln {label}: B={bb} Lq={lq} Lk={lk} D={HIDDEN}"
+              f", {tensors}{', last graph fully masked' if km is not None else ''}")
+        rows = bb * (lq + {"one": 0, "kv": lk, "three": 2 * lk}[tensors])
+        work = (nbytes(x, xk, xv, lns, lnb, bias) + nbytes(x),
+                4 * bb * lq * lk * HIDDEN + 8 * rows * HIDDEN)
+        out = compare(
+            f"fused_attention_ln[{label}]",
+            lambda: fused_attention_ln(x, xk, xv, lns, lnb, km),
+            lambda: ln_attention_reference(x, xk, xv, lns, lnb, km),
+            work=work, library_fn=lambda: sdpa(*norms(), bias))
+        out["unfused_ms"] = median_ms(
+            lambda: fused_attention(*norms(), km))
+        print(f"  unfused layer (F.layer_norm per distinct tensor + the "
+              f"attention kernel): {out['unfused_ms']:.4f} ms")
+        return out
+
+    edos = {label: run(label, *shape, "kv")
+            for label, shape in attention_shapes().items()}
+    phdos = {label: run(f"phDOS {label}", *shape, "kv")
+             for label, shape in phdos_attention_shapes().items()}
+    extra = [run("self, one tensor", 2 * BATCH, BINS, BINS, "one"),
+             run("cross, three tensors", BATCH, BINS, 32, "three")]
+    out, out_ph = per_forward(edos), per_forward(phdos)
+    for agg, runs in ((out, edos), (out_ph, phdos)):
+        agg["unfused_ms"] = statistics.mean(r["unfused_ms"]
+                                            for r in runs.values())
+    out["err"] = max([out["err"]] + [r["err"] for r in extra])
+    return {"fused_attention_ln": out}, {"fused_attention_ln": out_ph}
+
+
+def phase_layer_norm_bwd_kernel(dev):
+    """3f: the LayerNorm backward against its plain version at the row
+    counts of a train step, f32 and bf16 operands, beside
+    aten.native_layer_norm_backward on the same rows."""
+    g = torch.Generator().manual_seed(7)
+    d = HIDDEN
+    scale = (torch.rand(d, generator=g) + 0.5).to(dev)
+    lnb = torch.zeros(d, device=dev)
+    row_counts = {"8*201": BATCH * BINS, "16*201": 2 * BATCH * BINS,
+                  "8*32": BATCH * 32, "16*51": 2 * BATCH * PH_BINS,
+                  "8*16": BATCH * 16}
+    runs = {}
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for label, rows in row_counts.items():
+            x = (torch.randn(rows, d, generator=g) * 3 + 1).to(dev, dtype)
+            dy = torch.randn(rows, d, generator=g).to(dev, dtype)
+            _, mean, rstd = torch.native_layer_norm(x.float(), (d,), scale,
+                                                    lnb, 1e-5)
+            xhat = ((x.float() - mean) * rstd).to(dtype)
+            # the library call's own operands: parameters in x's dtype
+            w_lib, b_lib = scale.to(dtype), lnb.to(dtype)
+            _, mean_lib, rstd_lib = torch.native_layer_norm(x, (d,), w_lib,
+                                                            b_lib, 1e-5)
+            f32 = dtype == torch.float32
+            print(f"layer_norm_bwd {name} rows={label} D={d}")
+            runs[name, label] = compare(
+                f"layer_norm_bwd[{name}, {label}]",
+                lambda: layer_norm_bwd(xhat, rstd, scale, dy),
+                lambda: ln_bwd_reference(xhat, rstd, scale, dy),
+                rtols=((KERNEL_RTOL, PARAM_GRAD_RTOL, PARAM_GRAD_RTOL)
+                       if f32 else (BF16_RTOL,) * 3),
+                floor=1.0 if f32 else 1e-3, repeat=True,
+                work=(nbytes(xhat, dy, rstd, scale) + nbytes(dy)
+                      + 2 * d * 4, 11 * rows * d),
+                library_fn=lambda: torch.ops.aten.native_layer_norm_backward(
+                    dy, x, [d], mean_lib, rstd_lib, w_lib, b_lib,
+                    [True, True, True]))
+    # the row of the kernels line: f32 at the largest row count of a step
+    out = dict(runs["f32", "16*201"],
+               err=max(r["err"] for (n, _), r in runs.items() if n == "f32"),
+               rel=max(r["rel"] for (n, _), r in runs.items() if n == "f32"))
+    out["ms_by_rows"] = {f"{n} {label}": r["ms"]
+                         for (n, label), r in runs.items()}
+    out["bf16_max_rel_err"] = max(r["rel"] for (n, _), r in runs.items()
+                                  if n == "bf16")
+    return {"layer_norm_bwd": out}
+
+
+def phase_fused_serving(task, served, workdir):
+    """13: the serving path with fuse_ln_attn: the 96-sample request through
+    cli.main_predict with DOSTPU_FUSE_LN_ATTN=1 in its environment, 5
+    samples through Predictor(fuse_ln_attn=True). Returns (launches,
+    {"fused": [samples/s, ...], "unfused": [...]}, six readings each)."""
+    kw, weights, requests = served["kw"], served["weights"], served["requests"]
+    gpu = Predictor.from_torch(weights, device="cuda", fuse_ln_attn=True, **kw)
+    cpu = Predictor.from_torch(weights, device="cpu", fuse_ln_attn=True, **kw)
+    reset_launches()
+    for label in ("96", "5 (short batch)"):
+        samples = requests[label]
+        before = read_launches()
+        if label == "96":
+            out_path = os.path.join(workdir, f"{task}_fused_preds_96.npz")
+            with_env(FUSE_ENV, main_predict.main, [
+                "--task", task, "--torch_state_dict", weights,
+                "--input", served["request_path"], "--output", out_path,
+                "--layers", str(LAYERS), "--transformer", str(T_LAYERS),
+                "--hidden", str(HIDDEN), "--batch_size", str(BATCH),
+                "--device", "cuda"])
+            with np.load(out_path) as z:
+                dos = z["dos"]
+        else:
+            dos = gpu.predict(samples)
+        n = expected_batches(samples)
+        got = {k: v - before[k] for k, v in read_launches().items()}
+        want = launch_counts(
+            fused_mp_edge=LAYERS * n, fused_attention_ln=3 * T_LAYERS * n,
+            batched_segment_sum=LAYERS * n if task == "phdos" else 0)
+        print(f"{task} fused request {label}: {n} batches, launches {got}")
+        check(got == want, f"{task} fused request {label}: launches {got}, "
+                           f"expected {want}")
+        check(dos.shape == (len(samples), served["bins"])
+              and bool(np.isfinite(dos).all()),
+              f"{task} fused {label}: shape {dos.shape} or non-finite")
+        for what, ref in (("the CPU run", cpu.predict(samples)),
+                          ("the unfused card run", served["outputs"][label])):
+            err = float(np.abs(dos - ref).max())
+            print(f"  vs {what}: max abs err {err:.3e} (atol {MODEL_ATOL} + "
+                  f"rtol {MODEL_RTOL})")
+            check(np.allclose(dos, ref, atol=MODEL_ATOL, rtol=MODEL_RTOL),
+                  f"{task} fused {label}: differs from {what} by {err:.3e}")
+    launches = read_launches()
+    # unfused, fused, fused, unfused, three times over: each reading the
+    # median of 5 calls (the host's clock moves more than the levers do)
+    order = (("unfused", served["gpu"]), ("fused", gpu), ("fused", gpu),
+             ("unfused", served["gpu"])) * 3
+    rates = {"fused": [], "unfused": []}
+    for name, predictor in order:
+        rates[name].append(serving_rate(predictor, requests["96"]))
+    return launches, rates
+
+
+def phase_lever_train_rates(task):
+    """15: train samples/s with the levers off, ln_lp only and both on, in
+    turns (off, lp, both, both, lp, off, twice over) in this process;
+    returns the four readings of each setting."""
+    settings = {"off": {}, "ln_lp": {"ln_lp": True},
+                "both": {"ln_lp": True, "fuse_ln_attn": True}}
+    rates = {name: [] for name in settings}
+    for name in (*settings, *reversed(settings)) * 2:
+        rates[name].append(phase_train_rate(task, **settings[name]))
+    return rates
+
+
+def spread(readings) -> str:
+    """'median (least-most)' of a setting's samples/s readings."""
+    return (f"{statistics.median(readings):.1f} ({min(readings):.1f}-"
+            f"{max(readings):.1f})")
 
 
 def main():
@@ -786,30 +1194,75 @@ def main():
     results.update(phase_backward_kernels(dev))
     results.update(phase_segment_sum(dev))
     phdos_results = phase_phdos_kernels(dev)
-    paths = {}
-    with tempfile.TemporaryDirectory() as workdir:
-        paths["edos_serving"], rate = phase_main_path(workdir)
-    print(f"{rate:.1f} samples/s serving the 96-sample request (eDOS "
-          f"flagship, batch {BATCH}, f32) on {smi}")
-    with tempfile.TemporaryDirectory() as workdir:
-        paths["edos_training"] = phase_training_path(workdir)
-    print("card vs CPU, 3 eDOS train steps:")
-    phase_card_vs_cpu("edos")
-    rate = phase_train_rate("edos")
-    print(f"{rate:.1f} samples/s training (eDOS flagship, batch {BATCH}, "
-          f"f32, 20 steps, host collation and upload included) on {smi}")
+    ln_results, ln_phdos = phase_attention_ln_kernel(dev)
+    results.update(ln_results)
+    phdos_results.update(ln_phdos)
+    results.update(phase_layer_norm_bwd_kernel(dev))
 
-    with tempfile.TemporaryDirectory() as workdir:
-        paths["phdos_serving"], rate = phase_phdos_serving(workdir)
-    print(f"{rate:.1f} samples/s serving the 96-sample request (phDOS "
-          f"flagship, batch {BATCH}, f32) on {smi}")
-    with tempfile.TemporaryDirectory() as workdir:
-        paths["phdos_training"] = phase_phdos_training(workdir)
-    print("card vs CPU, 3 phDOS train steps:")
-    phase_card_vs_cpu("phdos")
-    rate = phase_train_rate("phdos")
-    print(f"{rate:.1f} samples/s training (phDOS flagship, batch {BATCH}, "
-          f"f32, 20 steps, host collation and upload included) on {smi}")
+    paths, losses = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        def subdir(name):
+            path = os.path.join(root, name)
+            os.makedirs(path)
+            return path
+
+        paths["edos_serving"], rate, edos_served = phase_main_path(
+            subdir("edos_serving"))
+        print(f"{rate:.1f} samples/s serving the 96-sample request (eDOS "
+              f"flagship, batch {BATCH}, f32) on {smi}")
+        paths["edos_training"], losses["edos"] = phase_training_path(
+            subdir("edos_training"))
+        print("card vs CPU, 3 eDOS train steps:")
+        phase_card_vs_cpu("edos")
+        rate = phase_train_rate("edos")
+        print(f"{rate:.1f} samples/s training (eDOS flagship, batch {BATCH}, "
+              f"f32, 20 steps, host collation and upload included) on {smi}")
+
+        paths["phdos_serving"], rate, phdos_served = phase_phdos_serving(
+            subdir("phdos_serving"))
+        print(f"{rate:.1f} samples/s serving the 96-sample request (phDOS "
+              f"flagship, batch {BATCH}, f32) on {smi}")
+        paths["phdos_training"], losses["phdos"] = phase_phdos_training(
+            subdir("phdos_training"))
+        print("card vs CPU, 3 phDOS train steps:")
+        phase_card_vs_cpu("phdos")
+        rate = phase_train_rate("phdos")
+        print(f"{rate:.1f} samples/s training (phDOS flagship, batch {BATCH}, "
+              f"f32, 20 steps, host collation and upload included) on {smi}")
+
+        # 13: serving with the LayerNorm fused into the attention forward
+        for task, served in (("edos", edos_served), ("phdos", phdos_served)):
+            paths[f"{task}_serving_fused"], rates = phase_fused_serving(
+                task, served, subdir(f"{task}_serving_fused"))
+            print(f"{task} serving samples/s, 96-sample request, batch "
+                  f"{BATCH}, f32, median (least-most) of 6 readings taken in "
+                  f"turns in one process: fuse_ln_attn "
+                  f"{spread(rates['fused'])}, unfused "
+                  f"{spread(rates['unfused'])} on {smi}")
+
+        # 14: training with both levers on, against the unfused runs above
+        trainings = (("edos", phase_training_path),
+                     ("phdos", phase_phdos_training))
+        for task, phase in trainings:
+            name = f"{task}_training_levers"
+            paths[name], got = phase(subdir(name), LEVERS_ENV)
+            print(f"{task} epoch losses, both levers {got} vs levers off "
+                  f"{losses[task]} (rtol {LOSS_RTOL})")
+            check(all(abs(a - b) <= LOSS_RTOL * abs(b)
+                      for a, b in zip(got, losses[task])),
+                  f"{task}: epoch losses with both levers {got} differ from "
+                  f"the unfused run's {losses[task]}")
+            print(f"card vs CPU, 3 {task} train steps, both levers:")
+            phase_card_vs_cpu(task, fuse_ln_attn=True, ln_lp=True)
+
+    # 15: what the levers do to the training rate
+    for task in ("edos", "phdos"):
+        rates = phase_lever_train_rates(task)
+        print(f"{task} training samples/s (batch {BATCH}, f32, 20 steps, "
+              f"median (least-most) of 4 readings taken in turns): levers "
+              f"off {spread(rates['off'])}, ln_lp only "
+              f"{spread(rates['ln_lp'])}, fuse_ln_attn + ln_lp "
+              f"{spread(rates['both'])} on {smi}")
 
     csrc, tpu = "dostransformer_tpu_torch/csrc", "dostransformer_tpu"
     sources = {
@@ -821,33 +1274,54 @@ def main():
         "fused_attention_bwd": (f"{csrc}/attention_bwd.cu",
                                 f"{tpu}/ops/attention.py:317"),
         "batched_segment_sum": (f"{csrc}/segment_sum.cu",
-                                f"{tpu}/ops/segment.py:98")}
-    # where each kernel must run: every path its model and mode reach
-    forward = ("fused_mp_edge", "fused_attention", "batched_segment_sum")
-    runs_on = {path: [k for k in sources
-                      if (k in forward or path.endswith("training"))
-                      and (k != "batched_segment_sum"
-                           or path.startswith("phdos"))]
-               for path in paths}
-    for path, names in runs_on.items():
+                                f"{tpu}/ops/segment.py:98"),
+        "fused_attention_ln": (f"{csrc}/attention_ln.cu",
+                               f"{tpu}/ops/attention.py:474"),
+        "layer_norm_bwd": (f"{csrc}/layernorm_bwd.cu",
+                           f"{tpu}/nn/layernorm.py:99")}
+    # where each kernel must run, and nowhere else: every path its model,
+    # mode and lever setting reach
+    for path, counts in paths.items():
+        task, mode, *lever = path.split("_")
+        want = step_launches(task, bool(lever))
+        if mode == "serving":
+            want.update(dict.fromkeys(BACKWARD, 0))
         for name in sources:
-            launched = paths[path][name]
-            if name in names:
-                check(launched > 0, f"{name} never launched on {path}")
+            if want[name]:
+                check(counts[name] > 0, f"{name} never launched on {path}")
             else:
-                check(launched == 0, f"{name} launched {launched} times on "
-                                     f"{path}")
+                check(counts[name] == 0, f"{name} launched {counts[name]} "
+                                         f"times on {path}")
     rows = []
-    for name, (err, _, ms, plain_ms) in results.items():
+    for name, r in results.items():
+        # the one path that launches six of the seven kernels; the unfused
+        # attention forward, which it replaces, on its lever-off twin
+        on = ("phdos_training" if name == "fused_attention"
+              else "phdos_training_levers")
         row = {"name": name, "route": "cuda", "source": sources[name][0],
-               "replaces": sources[name][1],
-               "launches": paths["phdos_training"][name],
-               "max_abs_err": max(err, phdos_results.get(name, (0.0,))[0]),
-               "ms": ms, "plain_ms": plain_ms,
+               "replaces": sources[name][1], "launches": paths[on][name],
+               "launches_path": on,
+               "max_abs_err": max(r["err"],
+                                  phdos_results.get(name, {"err": 0.0})["err"]),
+               "ms": r["ms"], "plain_ms": r["plain_ms"],
+               "bound_ms": max(r["bytes_ms"], r["ops_ms"]),
+               "bound_by": ("bytes" if r["bytes_ms"] >= r["ops_ms"]
+                            else "operations"),
+               "library_ms": r["library_ms"],
                "launches_by_path": {p: c[name] for p, c in paths.items()}}
+        check(row["launches"] > 0, f"{name} never launched on {on}")
+        for key in ("unfused_ms", "ms_by_rows", "bf16_max_rel_err"):
+            if key in r:
+                row[key] = r[key]
         if name in phdos_results:
-            row["ms_phdos"], row["plain_ms_phdos"] = phdos_results[name][2:]
+            ph = phdos_results[name]
+            row.update(ms_phdos=ph["ms"], plain_ms_phdos=ph["plain_ms"],
+                       bound_ms_phdos=max(ph["bytes_ms"], ph["ops_ms"]),
+                       library_ms_phdos=ph["library_ms"])
+            if "unfused_ms" in ph:
+                row["unfused_ms_phdos"] = ph["unfused_ms"]
         rows.append(row)
+    check(len(rows) == len(KERNELS), f"{len(rows)} kernel rows")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -9,6 +9,8 @@ and the plateau early stop; at the end the reference's
 ``experiments_{embedder}.txt`` block, byte for byte, plus an optional JSONL
 log. The flags are the JAX package's, plus ``--device``. Flags whose feature
 is not in the port yet are rejected with the ROADMAP item that brings it.
+The JAX package's LayerNorm levers are selected as its users select them,
+through the environment (:func:`ln_levers_from_env`); there is no flag.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import argparse
 import os
 import sys
 import time
-from typing import Optional, Sequence
+from typing import Mapping, Optional, Sequence
 
 import torch
 
@@ -69,6 +71,22 @@ _NOT_PORTED = {
                    "ROADMAP.md's do-not-port list (dispatch rules): a CUDA "
                    "tensor always takes the kernels"),
 }
+
+
+def ln_levers_from_env(environ: Optional[Mapping[str, str]] = None) -> dict:
+    """The model's LayerNorm switches from the JAX package's lever names,
+    read once at start-up: ``DOSTPU_FUSE_LN_ATTN=1`` -> ``fuse_ln_attn``
+    (LayerNorm fused into the attention forward kernel); ``DOSTPU_LN_LP=1``
+    or ``DOSTPU_LN_PALLAS=1`` -> ``ln_lp`` (the low-precision-residual
+    LayerNorm). In the JAX package the second name additionally moves the
+    backward into its kernel; here a CUDA tensor's ``layer_norm_lp``
+    backward is always the kernel and a CPU tensor's always the plain
+    version, so the two names mean the same. Returns keyword arguments for
+    ``build_model``."""
+    env = os.environ if environ is None else environ
+    on = lambda name: env.get(name) == "1"
+    return {"fuse_ln_attn": on("DOSTPU_FUSE_LN_ATTN"),
+            "ln_lp": on("DOSTPU_LN_LP") or on("DOSTPU_LN_PALLAS")}
 
 
 def build_arg_parser(task: str) -> argparse.ArgumentParser:
@@ -175,10 +193,12 @@ def run_training(task: str, cfg: TrainConfig, train: Sequence[GraphSample],
                  valid: Sequence[GraphSample], test: Sequence[GraphSample],
                  device="cpu", results_dir: str = ".",
                  init_torch: Optional[str] = None,
-                 debug_nans: bool = False) -> dict:
+                 debug_nans: bool = False, fuse_ln_attn: bool = False,
+                 ln_lp: bool = False) -> dict:
     """Train, evaluate and early-stop; returns the final best metrics.
     eDOS clamps its training targets and its eval predictions at 0; phDOS
-    clamps neither (reference utils.py:76)."""
+    clamps neither (reference utils.py:76). ``fuse_ln_attn`` and ``ln_lp``
+    are the model's LayerNorm switches (:func:`ln_levers_from_env`)."""
     device = torch.device(device)
     is_edos = task == "edos"
     loader = GraphLoader(train, batch_size=cfg.batch_size, shuffle=True,
@@ -197,7 +217,7 @@ def run_training(task: str, cfg: TrainConfig, train: Sequence[GraphSample],
                         attn_drop=cfg.attn_drop, padding=cfg.padding,
                         dtype=cfg.dtype, device=device,
                         generator=torch.Generator().manual_seed(cfg.seed),
-                        **widths)
+                        fuse_ln_attn=fuse_ln_attn, ln_lp=ln_lp, **widths)
     if init_torch:
         from dostransformer_tpu_torch.models.import_torch import (
             load_reference_state_dict,

@@ -29,6 +29,7 @@ import torch
 from dostransformer_tpu_torch.cli.common import (
     build_arg_parser,
     config_from_args,
+    ln_levers_from_env,
     parse_args,
     run_training,
 )
@@ -73,11 +74,14 @@ def _csv_splits(data_dir: str, random_state: int):
 def main(argv=None):
     args = parse_args(build_arg_parser("phdos"), argv)
     cfg = config_from_args(args)
+    levers = ln_levers_from_env()
     device = torch.device(args.device or ("cuda" if torch.cuda.is_available()
                                           else "cpu"))
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"device: {device} ({name})")
+    if any(levers.values()):
+        print(f"LayerNorm levers: {levers}")
 
     if args.synthetic:
         make = (synthetic_phdos_learnable if args.synthetic_learnable
@@ -91,7 +95,7 @@ def main(argv=None):
     result = run_training("phdos", cfg, train, valid, test, device=device,
                           results_dir=args.results_dir,
                           init_torch=args.init_torch,
-                          debug_nans=args.debug_nans)
+                          debug_nans=args.debug_nans, **levers)
     print(f"\nbest epoch {result['best_epoch']} | test {result['test']} | "
           f"{result['samples_per_sec']:.1f} samples/sec")
     return result

@@ -9,7 +9,9 @@ Counterpart of dostransformer_tpu/cli/main_predict.py for weights saved with
         --device cuda
 
 The output npz holds ``dos`` [N, bins], ``sample_id`` and ``mp_id``, as the
-JAX package's main_predict writes them.
+JAX package's main_predict writes them. ``DOSTPU_FUSE_LN_ATTN=1`` in the
+environment serves through the LN-fused attention kernel
+(cli/common.py ``ln_levers_from_env``).
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ def main(argv=None):
             p.error(f"--{flag} is not in the PyTorch port yet; see "
                     f"ROADMAP.md {item}")
 
+    from dostransformer_tpu_torch.cli.common import ln_levers_from_env
     from dostransformer_tpu_torch.data.io import load_samples
     from dostransformer_tpu_torch.serve import Predictor
 
@@ -64,7 +67,8 @@ def main(argv=None):
     predictor = Predictor.from_torch(
         args.torch_state_dict, task=args.task, example=samples[0],
         embedder=args.embedder, layers=args.layers, t_layers=args.transformer,
-        hidden=args.hidden, batch_size=args.batch_size, device=device)
+        hidden=args.hidden, batch_size=args.batch_size, device=device,
+        **ln_levers_from_env())
     dos = predictor.predict(samples)
     np.savez_compressed(
         args.output, dos=dos,

@@ -33,7 +33,11 @@ directly (see models/import_torch.py).
 The forward serves (under ``torch.inference_mode``) and trains: every path
 keeps autograd, and on the card the fused message-passing and attention
 kernels run forward and backward, and phDOS's edge count runs through the
-segment-sum kernel (``torch.autograd.Function``s in ``ops/``).
+segment-sum kernel (``torch.autograd.Function``s in ``ops/``). The options
+``fuse_ln_attn`` and ``ln_lp`` (both off by default) switch the three
+transformer stacks to the LN-fused attention forward and to the
+single-pass LayerNorm backward (see nn/transformer.py); the state_dict is
+the same either way.
 
 Parameters are created on the meta device and then materialised on
 ``device`` and drawn from ``generator`` (on the CPU, so a seed gives the same
@@ -81,6 +85,7 @@ class _DOSTransformerBase(nn.Module):
                  attn_drop: float = 0.0, dtype: str = "float32",
                  bins_pad: Optional[int] = None,
                  tp_axis: Optional[str] = None, remat: bool = False,
+                 fuse_ln_attn: bool = False, ln_lp: bool = False,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         if padding not in ("mask", "ref"):
@@ -109,9 +114,10 @@ class _DOSTransformerBase(nn.Module):
             self.stacked_processor = nn.ModuleList(
                 Processor(hidden, aggregation) for _ in range(layers))
             self.GN_decoder = decoder()
-            self.transformer = TransformerEncoder(hidden, t_layers)
-            self.transformer_self = TransformerEncoder(hidden, t_layers)
-            self.transformer_source = TransformerEncoder(hidden, t_layers)
+            # the LayerNorm levers of nn/transformer.py, for all three stacks
+            self.transformer, self.transformer_self, self.transformer_source = (
+                TransformerEncoder(hidden, t_layers, fuse_ln_attn, ln_lp)
+                for _ in range(3))
             self.fc = TorchLinear(2 * hidden, hidden)
             self.fc_prompt = TorchLinear(2 * hidden + hidden // 2, hidden)
             self.out_layer = TorchLinear(hidden, 1)

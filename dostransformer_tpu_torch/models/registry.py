@@ -30,7 +30,8 @@ def build_model(task: str, embedder: str = "DOSTransformer", *,
                 **kwargs) -> nn.Module:
     """Instantiate a model by (task, embedder) name (case-insensitive).
     ``kwargs`` go to the model: padding, input widths, device, generator,
-    and the options that are not ported yet (which raise)."""
+    the LayerNorm levers ``fuse_ln_attn`` and ``ln_lp``, and the options
+    that are not ported yet (which raise)."""
     family = _FAMILIES.get(task.lower())
     if family is None:
         raise ValueError(f"unknown task {task!r}; choose from "

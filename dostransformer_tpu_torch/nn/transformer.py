@@ -16,6 +16,22 @@ plain versions on the CPU. The shared LayerNorm of q, k and v is one module
 applied three times, so its parameter gradient sums the three uses; when k
 and v are one tensor, ln0 runs once for both. Attention dropout is not
 ported (ROADMAP.md queue 1 item 2); training runs without it.
+
+Two switches, both off by default, are the JAX package's LayerNorm levers
+(there read from ``DOSTPU_FUSE_LN_ATTN`` and ``DOSTPU_LN_LP`` /
+``DOSTPU_LN_PALLAS`` inside the layer, here explicit arguments; the CLIs map
+the environment names, see ``cli/common.py``):
+
+  * ``fuse_ln_attn``: layer_norms.0's weight and bias go into
+    :func:`~dostransformer_tpu_torch.ops.attention.fused_attention_ln`, which
+    normalises q, k and v inside the attention forward kernel;
+  * ``ln_lp``: layer_norms.0, layer_norms.1 and the stack's final LayerNorm
+    are :class:`~dostransformer_tpu_torch.nn.layernorm.LayerNormLP`, whose
+    backward is the single-pass kernel on the card.
+
+With both on, layer_norms.0 lives in the fused kernel and layer_norms.1 and
+the final LayerNorm go through ``layer_norm_lp``. Parameters and state_dict
+keys are the same under every setting.
 """
 
 from __future__ import annotations
@@ -27,8 +43,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from dostransformer_tpu_torch.nn.init import xavier_linear_
-from dostransformer_tpu_torch.nn.layernorm import LayerNorm
-from dostransformer_tpu_torch.ops.attention import fused_attention
+from dostransformer_tpu_torch.nn.layernorm import LayerNorm, LayerNormLP
+from dostransformer_tpu_torch.ops.attention import (
+    fused_attention,
+    fused_attention_ln,
+)
 
 
 class XavierLinear(nn.Linear):
@@ -40,18 +59,24 @@ class XavierLinear(nn.Linear):
 
 
 class TransformerEncoderLayer(nn.Module):
-    def __init__(self, embed_dim: int):
+    def __init__(self, embed_dim: int, fuse_ln_attn: bool = False,
+                 ln_lp: bool = False):
         super().__init__()
+        norm = LayerNormLP if ln_lp else LayerNorm
+        self.fuse_ln_attn = fuse_ln_attn
         self.fc1 = XavierLinear(embed_dim, 4 * embed_dim)
         self.fc2 = XavierLinear(4 * embed_dim, embed_dim)
-        self.layer_norms = nn.ModuleList([LayerNorm(embed_dim),
-                                          LayerNorm(embed_dim)])
+        self.layer_norms = nn.ModuleList([norm(embed_dim), norm(embed_dim)])
 
     def forward(self, x, x_k, x_v, key_mask: Optional[torch.Tensor] = None):
         ln0, ln1 = self.layer_norms
-        k = ln0(x_k)
-        v = k if x_v is x_k else ln0(x_v)
-        x = x + fused_attention(ln0(x), k, v, key_mask)
+        if self.fuse_ln_attn:
+            x = x + fused_attention_ln(x, x_k, x_v, ln0.weight, ln0.bias,
+                                       key_mask)
+        else:
+            k = ln0(x_k)
+            v = k if x_v is x_k else ln0(x_v)
+            x = x + fused_attention(ln0(x), k, v, key_mask)
         return x + self.fc2(F.relu(self.fc1(ln1(x))))
 
 
@@ -59,11 +84,13 @@ class TransformerEncoder(nn.Module):
     """Stack of TransformerEncoderLayers + final LayerNorm. k/v inputs are
     fixed across layers; with neither given the stack self-attends."""
 
-    def __init__(self, embed_dim: int, layers: int = 2):
+    def __init__(self, embed_dim: int, layers: int = 2,
+                 fuse_ln_attn: bool = False, ln_lp: bool = False):
         super().__init__()
-        self.layers = nn.ModuleList(TransformerEncoderLayer(embed_dim)
-                                    for _ in range(layers))
-        self.layer_norm = LayerNorm(embed_dim)
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(embed_dim, fuse_ln_attn, ln_lp)
+            for _ in range(layers))
+        self.layer_norm = (LayerNormLP if ln_lp else LayerNorm)(embed_dim)
 
     def forward(self, x_in, x_in_k=None, x_in_v=None,
                 key_mask: Optional[torch.Tensor] = None):

@@ -15,15 +15,27 @@ the kernel in ``csrc/attention_bwd.cu``, at every shape; for CPU tensors
 they are :func:`dot_product_attention` and :func:`attention_bwd_reference`.
 Nothing else chooses the path. Layout is batch-first ``[B, L, D]`` as in the
 JAX package.
+
+:func:`fused_attention_ln` is the LayerNorm-fused variant (the JAX package's
+``fused_attention_ln``): one shared LayerNorm applied to the query, key and
+value inputs and then the same attention, differentiable in the three inputs
+and the LayerNorm's scale and bias. For CUDA tensors its forward is the
+kernel in ``csrc/attention_ln.cu`` (no LayerNorm output reaches device
+memory) and its backward recomputes q, k and v and runs the attention
+backward kernel and the LayerNorm backward kernel
+(``csrc/layernorm_bwd.cu``); for CPU tensors both are the plain composition
+:func:`ln_attention_reference`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dostransformer_tpu_torch.nn.layernorm import ln_backward
 from dostransformer_tpu_torch.ops import kernels
 
 NEG_INF = -1e30
+LN_EPS_ATTN = 1e-5  # the transformer's LayerNorm eps (nn.LayerNorm default)
 
 
 def key_bias(key_mask: torch.Tensor) -> torch.Tensor:
@@ -175,3 +187,135 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 fused_attention.launches = 0
+
+
+def _ln_apply(x, scale, bias):
+    """The shared LayerNorm of the attention inputs, eps 1e-5, statistics in
+    f32 or wider. Returns (y in x's dtype, xhat and rstd in f32 or wider)."""
+    f = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(f)
+    y, mu, rstd = torch.native_layer_norm(xf, xf.shape[-1:], scale.to(f),
+                                          bias.to(f), LN_EPS_ATTN)
+    return y.to(x.dtype), (xf - mu) * rstd, rstd
+
+
+def ln_attention_reference(x: torch.Tensor, x_k: torch.Tensor,
+                           x_v: torch.Tensor, ln_scale: torch.Tensor,
+                           ln_bias: torch.Tensor,
+                           key_mask: torch.Tensor | None = None):
+    """Plain composition: the shared LayerNorm on x [B, Lq, D], x_k and x_v
+    [B, Lk, D], then :func:`dot_product_attention` -> [B, Lq, D] in x's
+    dtype."""
+    q, k, v = (_ln_apply(t, ln_scale, ln_bias)[0] for t in (x, x_k, x_v))
+    return dot_product_attention(q, k, v, key_mask)
+
+
+def _fused_attention_ln_fwd(x, x_k, x_v, ln_scale, ln_bias, bias):
+    """Launch the LN-fused forward kernel (CUDA tensors only)."""
+    b, lq, d = x.shape
+    lk = x_k.shape[1]
+    _check_width("fused_attention_ln", d)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_attention_ln: x is {x.dtype}, the kernel "
+                        f"takes float32 or bfloat16")
+    operands = {"x": (x, x.dtype, (b, lq, d)), "x_k": (x_k, x.dtype,
+                (b, lk, d)), "x_v": (x_v, x.dtype, (b, lk, d)),
+                "ln_scale": (ln_scale, torch.float32, (d,)),
+                "ln_bias": (ln_bias, torch.float32, (d,)),
+                "key_mask": (bias, torch.float32, (b, lk))}
+    for arg, (t, dtype, shape) in operands.items():
+        kernels.require("fused_attention_ln", arg, t, device=x.device,
+                        dtype=dtype, shape=shape)
+    out = torch.empty_like(x)
+    # per-row (mean, rstd) of the three inputs: the only LN data in memory
+    stats = torch.empty((2 * b * (lq + 2 * lk),), device=x.device,
+                        dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = kernels.library().dostpu_attention_ln_fwd(
+            x.data_ptr(), x_k.data_ptr(), x_v.data_ptr(), ln_scale.data_ptr(),
+            ln_bias.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            stats.data_ptr(), b, lq, lk, d, d ** -0.5, LN_EPS_ATTN,
+            int(x.dtype == torch.bfloat16), stream)
+    kernels.check(code, "fused_attention_ln")
+    fused_attention_ln.launches += 1
+    return out
+
+
+class _FusedAttentionLN(torch.autograd.Function):
+    """Saves the raw inputs, the LayerNorm parameters, the key mask and the
+    output o: no LayerNorm output is kept. The backward recomputes q, k, v
+    and their xhat and rstd with plain tensor code (as the JAX package
+    does), takes dq, dk, dv from the attention backward (the kernel needs o
+    for its row statistics, so o is saved rather than recomputed) and runs
+    one LayerNorm backward per distinct input tensor: the LayerNorm backward
+    is linear in its upstream gradient, so inputs that are one tensor have
+    their gradients added first."""
+
+    @staticmethod
+    def forward(ctx, x, x_k, x_v, ln_scale, ln_bias, key_mask):
+        ctx.k_is_q = x_k is x
+        ctx.v_is_k = x_v is x_k
+        ctx.v_is_q = x_v is x
+        # the kernels take contiguous rows (an expanded token table is not);
+        # tensors that were one stay one
+        x = x.contiguous()
+        x_k = x if ctx.k_is_q else x_k.contiguous()
+        x_v = (x_k if ctx.v_is_k else x if ctx.v_is_q
+               else x_v.contiguous())
+        if x.is_cuda:
+            o = _fused_attention_ln_fwd(x, x_k, x_v, ln_scale, ln_bias,
+                                        _bias(x, x_k.shape[1], key_mask))
+        else:
+            o = ln_attention_reference(x, x_k, x_v, ln_scale, ln_bias,
+                                       key_mask)
+        ctx.save_for_backward(x, x_k, x_v, ln_scale, ln_bias, key_mask, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        x, x_k, x_v, ln_scale, ln_bias, key_mask, o = ctx.saved_tensors
+        lnq = _ln_apply(x, ln_scale, ln_bias)
+        lnk = lnq if ctx.k_is_q else _ln_apply(x_k, ln_scale, ln_bias)
+        lnv = (lnk if ctx.v_is_k else lnq if ctx.v_is_q
+               else _ln_apply(x_v, ln_scale, ln_bias))
+        bias = _bias(x, x_k.shape[1], key_mask)
+        if x.is_cuda:
+            dq, dk, dv = fused_attention_bwd(lnq[0], lnk[0], lnv[0], bias, o,
+                                             g)
+        else:
+            dq, dk, dv = attention_bwd_reference(lnq[0], lnk[0], lnv[0],
+                                                 bias, g)
+        # fold the gradients of inputs that are one tensor into one slot
+        if ctx.v_is_k:
+            dk, dv = dk + dv, None
+        elif ctx.v_is_q:
+            dq, dv = dq + dv, None
+        if ctx.k_is_q:
+            dq, dk = dq + dk, None
+        grads, dscale, dbias = [], 0.0, 0.0
+        for dy, (_, xhat, rstd) in ((dq, lnq), (dk, lnk), (dv, lnv)):
+            if dy is None:
+                grads.append(None)
+                continue
+            dx, ds, db = ln_backward(xhat.to(dy.dtype), rstd, ln_scale, dy)
+            grads.append(dx)
+            dscale, dbias = dscale + ds, dbias + db
+        return (*grads, dscale, dbias, None)
+
+
+def fused_attention_ln(x: torch.Tensor, x_k: torch.Tensor, x_v: torch.Tensor,
+                       ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                       key_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Same contract as :func:`ln_attention_reference`, differentiable in x,
+    x_k, x_v, ln_scale and ln_bias; x_k, x_v and x may be one tensor.
+
+    CUDA tensors go through the kernels (inputs of one dtype, float32 or
+    bfloat16, ln_scale and ln_bias float32, D a multiple of 32; anything
+    else raises; the backward kernels take float32), CPU tensors through
+    the plain versions. ``fused_attention_ln.launches`` counts forward
+    kernel launches."""
+    return _FusedAttentionLN.apply(x, x_k, x_v, ln_scale, ln_bias, key_mask)
+
+
+fused_attention_ln.launches = 0

@@ -9,7 +9,8 @@ finds the library and skips the build. Nothing here runs at import: the CPU
 tests import every module on machines without ``nvcc``.
 
 The wrappers in ``ops/fused_mp.py``, ``ops/attention.py`` (forward and
-backward kernels alike) and ``ops/segment.py`` pass every pointer, and
+backward kernels alike), ``ops/segment.py`` and ``nn/layernorm.py`` pass
+every pointer, and
 PyTorch's current CUDA stream, as ``c_void_p``; each entry point returns the
 CUDA error code of its launches, and :func:`check` raises on a non-zero code.
 """
@@ -28,7 +29,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("runtime.cu", "fused_mp.cu", "fused_mp_bwd.cu", "attention.cu",
-           "attention_bwd.cu", "segment_sum.cu")
+           "attention_bwd.cu", "segment_sum.cu", "attention_ln.cu",
+           "layernorm_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -53,6 +55,12 @@ _SIGNATURES = {
     "dostpu_attention_bwd": ([_P] * 10 + [_I] * 4 + [ctypes.c_float, _P], _I),
     # data ids out B E F N stream
     "dostpu_segment_sum": ([_P] * 3 + [_I] * 4 + [_P], _I),
+    # x xk xv ln_scale ln_bias bias out stats B Lq Lk D scale eps bf16 stream
+    "dostpu_attention_ln_fwd": ([_P] * 8 + [_I] * 4 + [ctypes.c_float] * 2
+                                + [_I, _P], _I),
+    "dostpu_layer_norm_bwd_blocks": ([_I], _I),
+    # xhat rstd dy scale dx dscale dbias partial rows D bf16 stream
+    "dostpu_layer_norm_bwd": ([_P] * 8 + [_I] * 3 + [_P], _I),
 }
 
 

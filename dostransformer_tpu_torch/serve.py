@@ -60,6 +60,8 @@ class Predictor:
         batch_size: int = 8,
         device="cpu",
         strict: bool = True,
+        fuse_ln_attn: bool = False,
+        ln_lp: bool = False,
         **model_kwargs,
     ) -> "Predictor":
         """Serve a ``torch.save``d state_dict in the reference's module
@@ -67,14 +69,17 @@ class Predictor:
         gives the input feature widths; the model-shape args must match the
         weights (a mismatch raises with the offending key). ``task`` is
         "edos" or "phdos"; phDOS weights saved in float64 by the reference
-        load into the float32 model."""
+        load into the float32 model. ``fuse_ln_attn`` and ``ln_lp`` are the
+        model's LayerNorm switches (nn/transformer.py); the weights load the
+        same either way."""
         widths = {"node_in": example.x.shape[1]}
         if example.edge_attr is not None:
             widths["edge_in"] = example.edge_attr.shape[1]
         if example.glob is not None:
             widths["glob_in"] = example.glob.shape[-1]
         model = build_model(task, embedder, layers=layers, t_layers=t_layers,
-                            hidden=hidden, device=device, **widths,
+                            hidden=hidden, device=device,
+                            fuse_ln_attn=fuse_ln_attn, ln_lp=ln_lp, **widths,
                             **model_kwargs)
         load_reference_state_dict(model, load_torch_state_dict(state_dict_path),
                                   strict=strict)

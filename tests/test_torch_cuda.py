@@ -11,19 +11,35 @@ adds the same terms as its plain version in another order: 1e-5 of the
 largest output; at F = 1 over 0/1 edge masks (the phDOS count) the sums are
 small integers and must be exact. The phDOS shapes: queries Lq = 51 against
 8-16 atom keys or 51 energy tokens, batches 1, 8 and 16, and the edge counts
-of synthetic (128 slots) and featurised crystals (up to 2,048)."""
+of synthetic (128 slots) and featurised crystals (up to 2,048).
+
+The LN-fused attention forward and the LayerNorm backward take f32 and bf16
+operands: f32 as above (the LayerNorm's parameter gradients, sums over every
+row, 1e-4 of their largest element); bf16 outputs within 2 bf16 ulps (2^-6)
+of the largest plain value for the attention (the kernel keeps the softmax
+weights in f32 where the plain version rounds them to bf16), and within 3%
+of it for the LayerNorm backward (the kernel keeps g = dy * scale in f32
+where the plain version rounds it: the JAX package's own bound)."""
 
 import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from dostransformer_tpu_torch.nn.layernorm import (  # noqa: E402
+    layer_norm,
+    layer_norm_bwd,
+    layer_norm_lp,
+    ln_bwd_reference,
+)
 from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
     attention_bwd_reference,
     dot_product_attention,
     fused_attention,
     fused_attention_bwd,
+    fused_attention_ln,
     key_bias,
+    ln_attention_reference,
 )
 from dostransformer_tpu_torch.ops.fused_mp import (  # noqa: E402
     fused_mp_edge,
@@ -243,3 +259,134 @@ def test_batched_segment_sum_is_differentiable_and_checked(dev):
         batched_segment_sum(data, ids.long(), 13)
     with pytest.raises(TypeError):
         batched_segment_sum(data.double(), ids, 13)
+
+
+def _ln_attn_inputs(dev, b, lq, lk, d, dtype=torch.float32, seed=6):
+    g = torch.Generator().manual_seed(seed)
+    x, xk, xv = ((torch.randn(b, n, d, generator=g) * 2 + 0.5).to(dev, dtype)
+                 for n in (lq, lk, lk))
+    scale = (torch.rand(d, generator=g) + 0.5).to(dev)
+    bias = (torch.randn(d, generator=g) * 0.1).to(dev)
+    km = (torch.rand(b, lk, generator=g) > 0.3).to(dev)
+    km[-1] = False  # fully masked row: the mean of the normalised values
+    return x, xk, xv, scale, bias, km
+
+
+@pytest.mark.parametrize("shape", [(8, 201, 32, 256), (16, 201, 201, 256),
+                                   (3, 5, 70, 96), (2, 40, 33, 512),
+                                   (8, 51, 16, 256), (16, 51, 51, 256),
+                                   (1, 51, 8, 256), (2, 17, 17, 32)])
+def test_fused_attention_ln_matches_plain(dev, shape):
+    b, lq, lk, d = shape
+    x, xk, xv, scale, bias, km = _ln_attn_inputs(dev, *shape)
+    cases = [(x, xk, xv), (x, xk, xk)]  # distinct k and v; one tensor
+    if lq == lk:
+        cases.append((x, x, x))  # self-attention on one tensor
+    for args in cases:
+        for mask in (km, None):
+            before = fused_attention_ln.launches, fused_attention.launches
+            got = fused_attention_ln(*args, scale, bias, mask)
+            assert fused_attention_ln.launches == before[0] + 1
+            assert fused_attention.launches == before[1]
+            want = ln_attention_reference(*args, scale, bias, mask)
+            _close_scaled(got, want, 1e-5)
+    # aliasing changes no bit: equal but distinct tensors give the same
+    assert torch.equal(fused_attention_ln(x, xk, xk, scale, bias, km),
+                       fused_attention_ln(x, xk, xk.clone(), scale, bias, km))
+
+
+def test_fused_attention_ln_bf16_and_rejections(dev):
+    x, xk, xv, scale, bias, km = _ln_attn_inputs(dev, 8, 51, 16, 256,
+                                                 torch.bfloat16)
+    got = fused_attention_ln(x, xk, xv, scale, bias, km)
+    want = ln_attention_reference(x, xk, xv, scale, bias, km)
+    assert got.dtype == torch.bfloat16
+    _close_scaled(got.float(), want.float(), 2.0 ** -6)
+    with pytest.raises(TypeError):
+        fused_attention_ln(x.double(), xk.double(), xv.double(), scale, bias)
+    with pytest.raises(TypeError):  # one operand dtype
+        fused_attention_ln(x, xk.float(), xv.float(), scale, bias)
+    with pytest.raises(TypeError):  # f32 LayerNorm parameters
+        fused_attention_ln(x, xk, xv, scale.bfloat16(), bias.bfloat16())
+    q = torch.randn(2, 4, 40, device=dev)
+    with pytest.raises(ValueError):
+        fused_attention_ln(q, q, q, scale[:40], bias[:40])
+
+
+def test_fused_attention_ln_is_differentiable_on_the_card(dev):
+    """Backward through kernels #4 and #7: one LayerNorm backward launch per
+    distinct input tensor, no forward attention launch."""
+    x, xk, _, scale, bias, km = _ln_attn_inputs(dev, 4, 9, 6, 64)
+    for shared_all in (False, True):
+        grads = []
+        for fn in (fused_attention_ln, ln_attention_reference):
+            leaves = [t.clone().requires_grad_() for t in (x, xk, scale, bias)]
+            tx, tk, ts, tb = leaves
+            args = (tx, tx, tx) if shared_all else (tx, tk, tk)
+            before = (layer_norm_bwd.launches, fused_attention_bwd.launches,
+                      fused_attention.launches)
+            fn(*args, ts, tb, None if shared_all else km).square().sum(
+                ).backward()
+            if fn is fused_attention_ln:
+                assert layer_norm_bwd.launches == before[0] + (
+                    1 if shared_all else 2)
+                assert fused_attention_bwd.launches == before[1] + 1
+                assert fused_attention.launches == before[2]
+            grads.append([t.grad for t in leaves if t.grad is not None])
+        for got, want in zip(*grads):
+            _close_scaled(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [(8, 201), (16, 201), (8, 32), (16, 51),
+                                  (8, 16), (1,), (3000, 3)])
+def test_layer_norm_bwd_matches_plain(dev, rows, dtype):
+    d = 256 if rows != (3000, 3) else 96
+    g = torch.Generator().manual_seed(8)
+    x = (torch.randn(*rows, d, generator=g) * 3 + 1).to(dev, dtype)
+    f = x.float()
+    mu = f.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(f.var(-1, unbiased=False, keepdim=True) + 1e-5)
+    xhat = ((f - mu) * rstd).to(dtype)
+    dy = torch.randn(*rows, d, generator=g).to(dev, dtype)
+    scale = (torch.rand(d, generator=g) + 0.5).to(dev)
+    before = layer_norm_bwd.launches
+    got = layer_norm_bwd(xhat, rstd, scale, dy)
+    assert layer_norm_bwd.launches == before + 1
+    want = ln_bwd_reference(xhat, rstd, scale, dy)
+    assert got[0].dtype == dtype and got[0].shape == dy.shape
+    assert got[1].dtype == got[2].dtype == torch.float32
+    if dtype == torch.float32:
+        _close_scaled(got[0], want[0], 1e-5)
+        _close_scaled(got[1], want[1], 1e-4)
+        _close_scaled(got[2], want[2], 1e-4)
+    else:
+        for a, w in zip(got, want):
+            assert ((a.float() - w.float()).abs().max()
+                    <= 0.03 * w.float().abs().max())
+    again = layer_norm_bwd(xhat, rstd, scale, dy)  # no float atomics
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_layer_norm_lp_on_the_card_and_rejections(dev):
+    g = torch.Generator().manual_seed(9)
+    x = (torch.randn(4, 9, 64, generator=g) * 2).to(dev)
+    w = (torch.rand(64, generator=g) + 0.5).to(dev)
+    b = torch.randn(64, generator=g).to(dev)
+    grads = []
+    for fn in (layer_norm_lp, layer_norm):
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        before = layer_norm_bwd.launches
+        y = fn(*leaves)
+        y.square().sum().backward()
+        assert layer_norm_bwd.launches == before + (fn is layer_norm_lp)
+        grads.append([y.detach()] + [t.grad for t in leaves])
+    for got, want in zip(*grads):
+        _close_scaled(got, want, 1e-4)
+    xd = x.double().requires_grad_()
+    with pytest.raises(TypeError):  # the kernel is f32/bf16
+        layer_norm_lp(xd, w.double(), b.double()).sum().backward()
+    q = torch.randn(5, 40, device=dev)
+    with pytest.raises(ValueError):
+        layer_norm_bwd(q, torch.ones(5, device=dev),
+                       torch.ones(40, device=dev), q)

@@ -84,3 +84,21 @@ def test_kernel_library_is_keyed_by_the_sources(tmp_path, monkeypatch):
     with open(tmp_path / "attention.cu", "a") as f:
         f.write("\n// edited\n")
     assert kernels.library_path() != before
+
+
+def test_every_bound_entry_point_is_defined_in_a_listed_source():
+    """Each C function the loader binds is an ``extern "C"`` function of one
+    of the sources it builds (there is no compiler here to say so), and every
+    source in ``csrc/`` is built."""
+    import re
+
+    from dostransformer_tpu_torch.ops import kernels
+
+    assert sorted(kernels.SOURCES) == sorted(
+        p.name for p in kernels.CSRC.glob("*.cu"))
+    defined = set()
+    for name in kernels.SOURCES:
+        text = (kernels.CSRC / name).read_text()
+        defined |= set(re.findall(r'extern "C"[^(;{]*?\b(dostpu_\w+)\s*\(',
+                                  text))
+    assert set(kernels._SIGNATURES) == defined
