@@ -7,16 +7,24 @@ The eDOS flagship:
 
   1. the device: torch's name for it and nvidia-smi's name and power limit;
   2. build the CUDA kernels from dostransformer_tpu_torch/csrc with nvcc
-     (one nvcc per source, all at once);
+     (one nvcc per source, all at once), and print the registers a thread
+     and the stack bytes of the attention kernels at the flagship width
+     (cuobjdump -res-usage on the built library);
   3. each forward kernel against its plain PyTorch version on the card at
      the shapes the flagship eDOS forward gives it (f32, TF32 off),
      including a short batch whose dummy graph has every key masked; max
      abs/rel error against the stated tolerance, and the median time of
-     kernel and plain version over 50 runs (CUDA events);
+     kernel and plain version over 50 runs (CUDA events); the attention
+     forward with keys and values as one tensor (the layer's call), and also
+     its row statistics (max and sum) against the plain scores', two copies
+     of the keys against the one tensor bit for bit, and the time of the op
+     with its mask-to-bias ops;
   3b. each backward kernel against its plain backward at the training
      shapes (a dummy graph, random nonzero upstream gradients, a fully
      masked attention row), run twice and required to repeat bit for bit,
-     timed as in 3;
+     timed as in 3; the attention backward as the default layer calls it
+     (keys and values one tensor, the forward's row statistics), and also
+     without the statistics and with two copies of the keys, bit-equal;
   4. the serving path through the entry points a user calls: a flagship
      DOSTransformerEDOS (hidden 256, 3 processors, 2 transformer layers per
      stack, 201 bins; random weights from a seeded torch.Generator) is saved
@@ -116,7 +124,11 @@ per kernel: error and times at the eDOS flagship shapes (the phDOS shapes'
 mean per call as ``ms_phdos``), ``bound_ms`` (the larger of this run's bytes
 over 3.35 TB/s and its f32 operations over 67 TFLOP/s, ``bound_by`` saying
 which), ``library_ms`` (one PyTorch call computing the same function, timed
-here and used nowhere in the port; null where there is none) and
+here and used nowhere in the port; null where there is none), for the two
+attention kernels ``by_shape`` (the same numbers per attention shape),
+``ms_two_tensors`` (keys and values as two tensors), ``ms_no_stats`` (the
+backward without the forward's row statistics), ``ms_op`` (the forward op
+with its mask-to-bias ops) and ``resources``, and
 ``launches_by_path``, the launches on each of the eight paths driven (each
 with the counts set to 0 just before and read just after). ``launches`` is
 the count on the phDOS training path with both levers on, the only path
@@ -132,6 +144,7 @@ import copy
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -173,9 +186,11 @@ from dostransformer_tpu_torch.nn.layernorm import (  # noqa: E402
 from dostransformer_tpu_torch.ops import kernels  # noqa: E402
 from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
     attention_bwd_reference,
+    attention_stats_reference,
     dot_product_attention,
     fused_attention,
     fused_attention_bwd,
+    fused_attention_fwd,
     fused_attention_ln,
     key_bias,
     ln_attention_reference,
@@ -216,6 +231,10 @@ PH_BINS = 51
 KERNELS = (fused_mp_edge, fused_attention, fused_mp_edge_bwd,
            fused_attention_bwd, batched_segment_sum, fused_attention_ln,
            layer_norm_bwd)
+# the __global__ functions behind the two attention wrappers, by width
+ATTENTION_KERNELS = {"fused_attention": ("attn_fwd_kernel",),
+                     "fused_attention_bwd": ("stats_kernel", "dq_kernel",
+                                             "dkv_kernel")}
 BACKWARD = ("fused_mp_edge_bwd", "fused_attention_bwd", "layer_norm_bwd")
 # bf16 operands of the LayerNorm backward: the kernel keeps g = dy * scale in
 # f32 where the plain version rounds it to bf16, so within 3% of the largest
@@ -371,6 +390,14 @@ def per_forward(per_shape):
         out[k] = statistics.mean(r[k] for r in runs)
     lib = [r["library_ms"] for r in runs]
     out["library_ms"] = None if None in lib else statistics.mean(lib)
+    for k in ("ms_two_tensors", "ms_op", "ms_no_stats"):  # attention's extras
+        if all(k in r for r in runs):
+            out[k] = statistics.mean(r[k] for r in runs)
+    out["by_shape"] = {label: {k: r[k] for k in (
+        "ms", "plain_ms", "library_ms", "ms_two_tensors", "ms_op",
+        "ms_no_stats") if k in r}
+        | {"bound_ms": max(r["bytes_ms"], r["ops_ms"]), "max_abs_err": r["err"]}
+        for label, r in per_shape.items()}
     return out
 
 
@@ -411,6 +438,69 @@ def sdpa_backward(q, k, v, bias, go):
     return lambda: torch.autograd.grad(o, leaves, go, retain_graph=True)
 
 
+def check_attention_forward(name, q, k, km, bias, out):
+    """What the tensor-core forward adds to the comparison of ``compare``
+    (which ran the kernel as the transformer layer calls it, keys and values
+    ONE tensor, staged once): its row statistics against the plain scores'
+    max and sum(exp(s - max)); two copies of the keys as k and v against the
+    one tensor, bit for bit; and the op a model calls, ``fused_attention``
+    with the boolean key mask, against the wrapper. Adds to ``out`` the
+    times ``ms_two_tensors`` and ``ms_op`` (the op: the kernel plus the two
+    eager ops that turn the mask into the additive bias)."""
+    shared, stats = fused_attention_fwd(q, k, k, bias, want_stats=True)
+    want = attention_stats_reference(q, k, bias)
+    dummy = (bias == bias.new_tensor(-1e30)).all(-1)  # every key masked
+    check(bool((stats[0][dummy] == -1e30).all())
+          and bool((stats[1][dummy] == k.shape[1]).all()),
+          f"{name}: a fully masked row's statistics are not (-1e30, Lk)")
+    real = ~dummy
+    for what, got_s, want_s in (
+            ("row max", stats[0][real], want[0][real]),
+            ("log-sum-exp", stats[0][real] + stats[1][real].log(),
+             want[0][real] + want[1][real].log())):
+        err = (got_s - want_s).abs().max().item()
+        scale = max(1.0, want_s.abs().max().item())
+        check(err <= KERNEL_RTOL * scale,
+              f"{name}: {what} max abs err {err:.3e} > {KERNEL_RTOL} x "
+              f"{scale:.3g}")
+    copy = k.clone()
+    check(torch.equal(shared, fused_attention_fwd(q, k, copy, bias)[0]),
+          f"{name}: v is k differs from two copies")
+    check(torch.equal(shared, fused_attention(q, k, k, km)),
+          f"{name}: the op differs from the kernel's wrapper")
+    out["ms_two_tensors"] = median_ms(
+        lambda: fused_attention_fwd(q, k, copy, bias))
+    out["ms_op"] = median_ms(lambda: fused_attention(q, k, k, km))
+    print(f"  {name}: row statistics within {KERNEL_RTOL} rel of the plain "
+          f"scores'; v is k bit-equal to two copies "
+          f"({out['ms_two_tensors']:.4f} ms with copies); the op with its "
+          f"mask-to-bias ops {out['ms_op']:.4f} ms")
+
+
+def check_attention_backward(name, q, k, bias, o, go, stats, got, out):
+    """What the tensor-core backward adds to the comparison of ``compare``
+    (which ran it as the default layer does: keys and values one tensor,
+    the forward's statistics): the same bits without the statistics (the
+    kernel then recomputes them: the LayerNorm-fused layer's call) and with
+    two copies of the keys as k and v. ``got`` is the compared result. Adds
+    ``ms_no_stats`` and ``ms_two_tensors`` to ``out``."""
+    copy = k.clone()
+    for what, other in (
+            ("without the forward's statistics",
+             fused_attention_bwd(q, k, k, bias, o, go)),
+            ("with two copies of the keys",
+             fused_attention_bwd(q, k, copy, bias, o, go, stats))):
+        check(all(torch.equal(a, b) for a, b in zip(got, other)),
+              f"{name}: the gradients differ {what}")
+    out["ms_no_stats"] = median_ms(
+        lambda: fused_attention_bwd(q, k, k, bias, o, go))
+    out["ms_two_tensors"] = median_ms(
+        lambda: fused_attention_bwd(q, k, copy, bias, o, go, stats))
+    print(f"  {name}: bit-equal without the forward's statistics "
+          f"({out['ms_no_stats']:.4f} ms) and with two copies of the keys "
+          f"({out['ms_two_tensors']:.4f} ms)")
+
+
 def phase_kernels(dev):
     g = torch.Generator().manual_seed(0)
     rand = lambda *s: torch.randn(*s, generator=g).to(dev)
@@ -435,7 +525,8 @@ def phase_kernels(dev):
     # B: the three stacks' attention shapes
     per_shape = {}
     for label, (bb, lq, lk) in attention_shapes().items():
-        q, k, v = rand(bb, lq, HIDDEN), rand(bb, lk, HIDDEN), rand(bb, lk, HIDDEN)
+        q, k = rand(bb, lq, HIDDEN), rand(bb, lk, HIDDEN)
+        v = k  # keys and values are one tensor, as the layer passes them
         km = None
         if lk != lq:  # atom keys: pad atoms masked, last graph all masked
             n_real = torch.randint(4, lk + 1, (bb,), generator=g)
@@ -448,10 +539,12 @@ def phase_kernels(dev):
               f"{' (last graph fully masked)' if km is not None else ''}")
         per_shape[label] = compare(
             f"fused_attention[{label}]",
-            lambda: fused_attention(q, k, v, km),
+            lambda: fused_attention_fwd(q, k, v, bias)[0],
             lambda: dot_product_attention(q, k, v, km),
             work=attention_work(bb, lq, lk, HIDDEN, (q, k, v, bias), (q,)),
             library_fn=lambda: sdpa(q, k, v, bias))
+        check_attention_forward(f"fused_attention[{label}]", q, k, km, bias,
+                                per_shape[label])
     out["fused_attention"] = per_forward(per_shape)
     return out
 
@@ -482,23 +575,28 @@ def phase_backward_kernels(dev):
     # B: attention backward at the three shapes, the last graph fully masked
     per_shape = {}
     for label, (bb, lq, lk) in attention_shapes().items():
-        q, k, v, go = (rand(bb, n, HIDDEN) for n in (lq, lk, lk, lq))
+        q, k, go = (rand(bb, n, HIDDEN) for n in (lq, lk, lq))
+        v = k  # keys and values are one tensor, as the layer passes them
         km = torch.ones(bb, lk, dtype=torch.bool)
         if lk != lq:
             n_real = torch.randint(4, lk + 1, (bb,), generator=g)
             km = torch.arange(lk)[None] < n_real[:, None]
         km[-1] = False
         bias = key_bias(km.to(dev))
-        o = fused_attention(q, k, v, km.to(dev))
+        o, stats = fused_attention_fwd(q, k, v, bias, want_stats=True)
         print(f"fused_attention_bwd {label}: B={bb} Lq={lq} Lk={lk} "
               f"D={HIDDEN} (last graph fully masked)")
         per_shape[label] = compare(
             f"fused_attention_bwd[{label}]",
-            lambda: fused_attention_bwd(q, k, v, bias, o, go),
+            lambda: fused_attention_bwd(q, k, v, bias, o, go, stats),
             lambda: attention_bwd_reference(q, k, v, bias, go), repeat=True,
             work=attention_work(bb, lq, lk, HIDDEN, (q, k, v, bias, o, go),
                                 (q, k, v), True),
             library_fn=sdpa_backward(q, k, v, bias, go))
+        check_attention_backward(
+            f"fused_attention_bwd[{label}]", q, k, bias, o, go, stats,
+            fused_attention_bwd(q, k, v, bias, o, go, stats),
+            per_shape[label])
     out["fused_attention_bwd"] = per_forward(per_shape)
     return out
 
@@ -869,7 +967,8 @@ def phase_phdos_kernels(dev):
 
     shapes = dict(phdos_attention_shapes(), **{"cross B=1": (1, PH_BINS, 8)})
     for label, (bb, lq, lk) in shapes.items():
-        q, k, v, go = (rand(bb, n, HIDDEN) for n in (lq, lk, lk, lq))
+        q, k, go = (rand(bb, n, HIDDEN) for n in (lq, lk, lq))
+        v = k  # keys and values are one tensor, as the layer passes them
         km = None
         if lk != lq:  # atom keys: pad atoms masked
             n_real = torch.randint(2, lk + 1, (bb,), generator=g)
@@ -879,22 +978,28 @@ def phase_phdos_kernels(dev):
             km = km.to(dev)
         bias = (key_bias(km) if km is not None
                 else torch.zeros(bb, lk, device=dev))
-        o = fused_attention(q, k, v, km)
+        o, stats = fused_attention_fwd(q, k, v, bias, want_stats=True)
         print(f"fused_attention phDOS {label}: B={bb} Lq={lq} Lk={lk} "
               f"D={HIDDEN}")
         runs["fused_attention"][label] = compare(
             f"fused_attention[phDOS {label}]",
-            lambda: fused_attention(q, k, v, km),
+            lambda: fused_attention_fwd(q, k, v, bias)[0],
             lambda: dot_product_attention(q, k, v, km),
             work=attention_work(bb, lq, lk, HIDDEN, (q, k, v, bias), (q,)),
             library_fn=lambda: sdpa(q, k, v, bias))
+        check_attention_forward(f"fused_attention[phDOS {label}]", q, k, km,
+                                bias, runs["fused_attention"][label])
         runs["fused_attention_bwd"][label] = compare(
             f"fused_attention_bwd[phDOS {label}]",
-            lambda: fused_attention_bwd(q, k, v, bias, o, go),
+            lambda: fused_attention_bwd(q, k, v, bias, o, go, stats),
             lambda: attention_bwd_reference(q, k, v, bias, go), repeat=True,
             work=attention_work(bb, lq, lk, HIDDEN, (q, k, v, bias, o, go),
                                 (q, k, v), True),
             library_fn=sdpa_backward(q, k, v, bias, go))
+        check_attention_backward(
+            f"fused_attention_bwd[phDOS {label}]", q, k, bias, o, go, stats,
+            fused_attention_bwd(q, k, v, bias, o, go, stats),
+            runs["fused_attention_bwd"][label])
     return {name: per_forward(r) for name, r in runs.items()}
 
 
@@ -1172,6 +1277,25 @@ def spread(readings) -> str:
             f"{max(readings):.1f})")
 
 
+def kernel_resources(so, wanted) -> dict:
+    """Registers a thread and stack bytes (a nonzero stack means spills or
+    local arrays) of the compiled kernels whose mangled names contain one of
+    ``wanted``, read from the built library with the toolkit's
+    ``cuobjdump -res-usage``. Empty when the toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-res-usage", str(so)], capture_output=True,
+                          text=True, timeout=120).stdout
+    found = {}
+    for name, reg, stack in re.findall(
+            r"Function (\S+?):\s*\n\s*REG:(\d+) STACK:(\d+)", text):
+        for label, part in wanted.items():
+            if part in name:
+                found[label] = {"registers": int(reg), "stack_bytes": int(stack)}
+    return found
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1189,6 +1313,12 @@ def main():
     kernels.library()
     print(f"built {len(kernels.SOURCES)} CUDA sources for sm_90a in "
           f"{seconds:.1f} s")
+    # the attention kernels at the flagship width (D = 256 = 32 x 8)
+    resources = kernel_resources(kernels.library_path(), {
+        k: f"{k}ILi{HIDDEN // 32}E"
+        for names in ATTENTION_KERNELS.values() for k in names})
+    print(f"attention kernels at D={HIDDEN}, registers a thread and stack "
+          f"bytes (cuobjdump -res-usage): {json.dumps(resources)}")
 
     results = phase_kernels(dev)
     results.update(phase_backward_kernels(dev))
@@ -1310,7 +1440,11 @@ def main():
                "library_ms": r["library_ms"],
                "launches_by_path": {p: c[name] for p, c in paths.items()}}
         check(row["launches"] > 0, f"{name} never launched on {on}")
-        for key in ("unfused_ms", "ms_by_rows", "bf16_max_rel_err"):
+        if name in ATTENTION_KERNELS:
+            row["resources"] = {k: resources[k] for k in ATTENTION_KERNELS[name]
+                                if k in resources}
+        for key in ("unfused_ms", "ms_by_rows", "bf16_max_rel_err",
+                    "ms_two_tensors", "ms_op", "ms_no_stats", "by_shape"):
             if key in r:
                 row[key] = r[key]
         if name in phdos_results:
@@ -1318,8 +1452,10 @@ def main():
             row.update(ms_phdos=ph["ms"], plain_ms_phdos=ph["plain_ms"],
                        bound_ms_phdos=max(ph["bytes_ms"], ph["ops_ms"]),
                        library_ms_phdos=ph["library_ms"])
-            if "unfused_ms" in ph:
-                row["unfused_ms_phdos"] = ph["unfused_ms"]
+            for key in ("unfused_ms", "ms_two_tensors", "ms_op",
+                        "ms_no_stats", "by_shape"):
+                if key in ph:
+                    row[f"{key}_phdos"] = ph[key]
         rows.append(row)
     check(len(rows) == len(KERNELS), f"{len(rows)} kernel rows")
     print(json.dumps({"kernels": rows}))

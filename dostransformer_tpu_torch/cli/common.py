@@ -26,7 +26,7 @@ import torch
 from dostransformer_tpu_torch.config import TrainConfig, exp_get_name
 from dostransformer_tpu_torch.data.datasets import GraphLoader
 from dostransformer_tpu_torch.data.graph import GraphSample
-from dostransformer_tpu_torch.models.registry import build_model
+from dostransformer_tpu_torch.models.registry import build_model, entry_device
 from dostransformer_tpu_torch.train.early_stop import BestTracker
 from dostransformer_tpu_torch.train.logging import (
     JSONLLogger,
@@ -161,20 +161,32 @@ def build_arg_parser(task: str) -> argparse.ArgumentParser:
     p.add_argument("--warmup_epochs", type=int, default=0,
                    help=argparse.SUPPRESS)
     p.add_argument("--cosine_lr", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--device", type=str, default=None,
-                   help="torch device; default cuda when a card is visible, "
-                        "else cpu")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device (default cuda; with no card visible "
+                        "the run stops unless --device cpu is given)")
     return p
+
+
+def cli_device(parser: argparse.ArgumentParser, device: str) -> torch.device:
+    """``--device`` as a torch device; a CUDA device with no card visible
+    ends the run (``parser.error``) with a message naming ``--device cpu``:
+    a CLI never falls back to the CPU unasked."""
+    try:
+        return entry_device(device, how="--device cpu")
+    except RuntimeError as e:
+        parser.error(str(e))
 
 
 def parse_args(parser: argparse.ArgumentParser, argv=None):
     """Parse, then reject the flags whose feature is not in the port
-    (SystemExit with the ROADMAP item)."""
+    (SystemExit with the ROADMAP item) and a ``--device`` that is not there
+    (:func:`cli_device`); ``args.device`` becomes a ``torch.device``."""
     args = parser.parse_args(argv)
     for flag, (given, item) in _NOT_PORTED.items():
         if given(args):
             parser.error(f"--{flag} is not in the PyTorch port yet; see "
                          f"{item}")
+    args.device = cli_device(parser, args.device)
     return args
 
 
@@ -191,15 +203,17 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
 
 def run_training(task: str, cfg: TrainConfig, train: Sequence[GraphSample],
                  valid: Sequence[GraphSample], test: Sequence[GraphSample],
-                 device="cpu", results_dir: str = ".",
+                 device="cuda", results_dir: str = ".",
                  init_torch: Optional[str] = None,
                  debug_nans: bool = False, fuse_ln_attn: bool = False,
                  ln_lp: bool = False) -> dict:
     """Train, evaluate and early-stop; returns the final best metrics.
     eDOS clamps its training targets and its eval predictions at 0; phDOS
     clamps neither (reference utils.py:76). ``fuse_ln_attn`` and ``ln_lp``
-    are the model's LayerNorm switches (:func:`ln_levers_from_env`)."""
-    device = torch.device(device)
+    are the model's LayerNorm switches (:func:`ln_levers_from_env`). Runs
+    on ``device``, the card by default; with no card visible this raises
+    unless ``device="cpu"`` is given."""
+    device = entry_device(device)
     is_edos = task == "edos"
     loader = GraphLoader(train, batch_size=cfg.batch_size, shuffle=True,
                          seed=cfg.seed)

@@ -46,8 +46,7 @@ def main(argv=None):
     args = parse_args(build_arg_parser("edos"), argv)
     cfg = config_from_args(args)
     levers = ln_levers_from_env()
-    device = torch.device(args.device or ("cuda" if torch.cuda.is_available()
-                                          else "cpu"))
+    device = args.device  # the card unless --device says otherwise
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"device: {device} ({name})")

@@ -19,7 +19,6 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
-import torch
 
 # flags of the JAX package's main_predict that the port does not have yet,
 # and where the ROADMAP brings them
@@ -46,9 +45,9 @@ def main(argv=None):
     p.add_argument("--transformer", type=int, default=2)
     p.add_argument("--hidden", type=int, default=256)
     p.add_argument("--batch_size", type=int, default=8)
-    p.add_argument("--device", default=None,
-                   help="torch device; default cuda when a card is visible, "
-                        "else cpu")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; with no card visible "
+                        "the run stops unless --device cpu is given)")
     for flag in _NOT_PORTED:
         p.add_argument(f"--{flag}", nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
@@ -58,11 +57,14 @@ def main(argv=None):
             p.error(f"--{flag} is not in the PyTorch port yet; see "
                     f"ROADMAP.md {item}")
 
-    from dostransformer_tpu_torch.cli.common import ln_levers_from_env
+    from dostransformer_tpu_torch.cli.common import (
+        cli_device,
+        ln_levers_from_env,
+    )
     from dostransformer_tpu_torch.data.io import load_samples
     from dostransformer_tpu_torch.serve import Predictor
 
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = cli_device(p, args.device)
     samples = load_samples(args.input)
     predictor = Predictor.from_torch(
         args.torch_state_dict, task=args.task, example=samples[0],

@@ -7,6 +7,7 @@ the ROADMAP item that brings it.
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from dostransformer_tpu_torch.models.dostransformer import (
@@ -46,3 +47,17 @@ def build_model(task: str, embedder: str = "DOSTransformer", *,
             f"({task!r}, {embedder!r}) is not in the PyTorch port yet; see "
             f"ROADMAP.md queue 1 item 7 (baselines)")
     return model(layers=layers, t_layers=t_layers, hidden=hidden, **kwargs)
+
+
+def entry_device(device="cuda", how: str = 'device="cpu"') -> torch.device:
+    """The device an entry point (a CLI, ``Predictor.from_torch``,
+    ``run_training``) runs on: the card unless the caller names another. A
+    CUDA device with no card visible raises and names ``how`` to ask for the
+    CPU; an entry point never carries on on the CPU unasked."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device is visible (torch.cuda.is_available() is "
+            f"False) and the device asked for is {str(device)!r}; pass "
+            f"{how} to run on the CPU")
+    return device

@@ -11,7 +11,9 @@ producing NaN.
 :func:`fused_attention` is differentiable in q, k and v (a
 ``torch.autograd.Function``; the key mask gets no gradient): for CUDA
 tensors its forward is the kernel in ``csrc/attention.cu`` and its backward
-the kernel in ``csrc/attention_bwd.cu``, at every shape; for CPU tensors
+the kernel in ``csrc/attention_bwd.cu`` (both 3xTF32 tensor-core products
+at f32 accuracy; the forward hands its row max and sum to the backward), at
+every shape; for CPU tensors
 they are :func:`dot_product_attention` and :func:`attention_bwd_reference`.
 Nothing else chooses the path. Layout is batch-first ``[B, L, D]`` as in the
 JAX package.
@@ -57,19 +59,41 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(weights.to(acc), v.to(acc)).to(q.dtype)
 
 
+def attention_stats_reference(q: torch.Tensor, k: torch.Tensor,
+                              bias: torch.Tensor) -> torch.Tensor:
+    """Plain version of the forward kernel's row statistics: [2, B, Lq] f32,
+    the row max m of ``s = q k^T * D^-0.5 + bias`` and the row sum l of
+    ``exp(s - m)``. They are kept apart, not as one log-sum-exp: a fully
+    masked row has m = -1e30 and l = Lk, and -1e30 + log(Lk) rounds back to
+    -1e30."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scale = q.shape[-1] ** -0.5
+    s = (torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
+         + bias[:, None, :].to(acc)).to(torch.float32)
+    m = s.amax(-1)
+    return torch.stack([m, torch.exp(s - m[..., None]).sum(-1)])
+
+
 def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, bias: torch.Tensor,
-                            g: torch.Tensor):
+                            g: torch.Tensor,
+                            stats: torch.Tensor | None = None):
     """Plain backward of ``softmax(q k^T * D^-0.5 + bias) v`` for the upstream
     gradient g [B, Lq, D]; bias [B, Lk] is additive (0 or NEG_INF). The
     counterpart of the JAX package's ``_softmax_attn_bwd``: scores and dp
     accumulate in at least f32, the softmax runs at f32, and
-    ``ds = p * (dp - rowsum(dp * p))``. Returns (dq, dk, dv)."""
+    ``ds = p * (dp - rowsum(dp * p))``. With ``stats`` (the forward's
+    [2, B, Lq] row max and row sum) the softmax is ``exp(s - m) / l``, as
+    the backward kernel forms it. Returns (dq, dk, dv)."""
     acc = torch.promote_types(q.dtype, torch.float32)
     scale = q.shape[-1] ** -0.5
     s = (torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
          + bias[:, None, :].to(acc))
-    p32 = torch.softmax(s.to(torch.float32), dim=-1)
+    if stats is None:
+        p32 = torch.softmax(s.to(torch.float32), dim=-1)
+    else:
+        p32 = (torch.exp(s.to(torch.float32) - stats[0][..., None])
+               / stats[1][..., None])
     p = p32.to(q.dtype)
     dv = torch.matmul(p.transpose(-1, -2), g)
     dp = torch.matmul(g.to(acc), v.to(acc).transpose(-1, -2))
@@ -86,8 +110,16 @@ def _check_width(kernel: str, d: int):
                          f"32 and at most {limit}")
 
 
-def _fused_attention_fwd(q, k, v, bias):
-    """Launch the forward kernel (CUDA tensors only)."""
+def fused_attention_fwd(q, k, v, bias, want_stats=False):
+    """The forward kernel (``csrc/attention.cu``) for an additive bias
+    [B, Lk]: returns (out, stats), stats the rows' [2, B, Lq] max and sum
+    for the backward kernel, or None unless ``want_stats``. k and v may be
+    one tensor (the kernel then stages each tile once). CUDA tensors only
+    (float32, contiguous, D a multiple of 32; anything else raises). Counted
+    in ``fused_attention.launches``."""
+    if not q.is_cuda:
+        raise ValueError("fused_attention_fwd: the kernel takes CUDA tensors; "
+                         "use dot_product_attention on the CPU")
     b, lq, d = q.shape
     lk = k.shape[1]
     _check_width("fused_attention", d)
@@ -97,22 +129,28 @@ def _fused_attention_fwd(q, k, v, bias):
         kernels.require("fused_attention", arg, t, device=q.device,
                         dtype=torch.float32, shape=shape)
     out = torch.empty_like(q)
+    stats = (torch.empty((2, b, lq), device=q.device, dtype=torch.float32)
+             if want_stats else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = kernels.library().dostpu_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, lq, lk, d, d ** -0.5, stream)
+            out.data_ptr(), stats.data_ptr() if want_stats else None, b, lq,
+            lk, d, d ** -0.5, stream)
     kernels.check(code, "fused_attention")
     fused_attention.launches += 1
-    return out
+    return out, stats
 
 
-def fused_attention_bwd(q, k, v, bias, o, g):
+def fused_attention_bwd(q, k, v, bias, o, g, stats=None):
     """The backward kernel (``csrc/attention_bwd.cu``): (dq, dk, dv) for the
     forward output o and upstream gradient g, both [B, Lq, D]; bias [B, Lk]
-    is additive. Same result as :func:`attention_bwd_reference`. CUDA
-    tensors only (float32, contiguous, D a multiple of 32; anything else
-    raises). ``fused_attention_bwd.launches`` counts kernel launches."""
+    is additive. ``stats`` is the forward kernel's [2, B, Lq] row max and
+    row sum; without it the kernel recomputes them first, to the same bits.
+    Same result as :func:`attention_bwd_reference`. CUDA tensors only
+    (float32, contiguous, D a multiple of 32; anything else raises).
+    ``fused_attention_bwd.launches`` counts calls that launched the
+    kernels (one per call, however many kernels it takes)."""
     if not q.is_cuda:
         raise ValueError("fused_attention_bwd: the kernel takes CUDA tensors; "
                          "use attention_bwd_reference on the CPU")
@@ -123,17 +161,24 @@ def fused_attention_bwd(q, k, v, bias, o, g):
     operands = {"q": (q, (b, lq, d)), "k": (k, (b, lk, d)),
                 "v": (v, (b, lk, d)), "bias": (bias, (b, lk)),
                 "o": (o, (b, lq, d)), "g": (g, (b, lq, d))}
+    if stats is not None:
+        operands["stats"] = (stats, (2, b, lq))
     for arg, (t, shape) in operands.items():
         kernels.require("fused_attention_bwd", arg, t, device=q.device,
                         dtype=torch.float32, shape=shape)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty((3 * b * lq,), device=q.device, dtype=torch.float32)
+    lib = kernels.library()
+    # row statistics and delta, and the query chunks' partial dk and dv
+    scratch = torch.empty(
+        (lib.dostpu_attention_bwd_scratch_floats(b, lq, lk, d),),
+        device=q.device, dtype=torch.float32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = kernels.library().dostpu_attention_bwd(
+        code = lib.dostpu_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             o.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), stats.data_ptr(), b, lq, lk, d, d ** -0.5, stream)
+            dv.data_ptr(), None if stats is None else stats.data_ptr(),
+            scratch.data_ptr(), b, lq, lk, d, d ** -0.5, stream)
     kernels.check(code, "fused_attention_bwd")
     fused_attention_bwd.launches += 1
     return dq, dk, dv
@@ -151,25 +196,29 @@ def _bias(q: torch.Tensor, lk: int, key_mask: torch.Tensor | None):
 
 class _FusedAttention(torch.autograd.Function):
     """Forward and backward through the kernels (CUDA) or the plain
-    versions (CPU). Saves q, k, v, the key mask and the output o (the
-    backward's row statistics use rowsum(g * o)). k and v may be one tensor;
+    versions (CPU). Saves q, k, v, the key mask, the output o (the
+    backward's delta is rowsum(g * o)) and, on the card when a gradient is
+    wanted, the forward kernel's row statistics. k and v may be one tensor;
     autograd then sums dk and dv."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask):
+        stats = None
         if q.is_cuda:
-            o = _fused_attention_fwd(q, k, v, _bias(q, k.shape[1], key_mask))
+            o, stats = fused_attention_fwd(
+                q, k, v, _bias(q, k.shape[1], key_mask),
+                want_stats=any(ctx.needs_input_grad[:3]))
         else:
             o = dot_product_attention(q, k, v, key_mask)
-        ctx.save_for_backward(q, k, v, key_mask, o)
+        ctx.save_for_backward(q, k, v, key_mask, o, stats)
         return o
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, key_mask, o = ctx.saved_tensors
+        q, k, v, key_mask, o, stats = ctx.saved_tensors
         bias = _bias(q, k.shape[1], key_mask)
         if q.is_cuda:
-            dq, dk, dv = fused_attention_bwd(q, k, v, bias, o, g)
+            dq, dk, dv = fused_attention_bwd(q, k, v, bias, o, g, stats)
         else:
             dq, dk, dv = attention_bwd_reference(q, k, v, bias, g)
         return dq, dk, dv, None

@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources in ``dostransformer_tpu_torch/csrc/*.cu`` have a plain C
-interface. At first use each is compiled with ``nvcc`` for ``sm_90a`` (one
-``nvcc`` per source, all started together), and the objects are linked into
-one shared library under ``build/torch_kernels/`` of the checkout, named by a
-hash of the sources and flags, and loaded with ``ctypes``. A later process
-finds the library and skips the build. Nothing here runs at import: the CPU
+interface (``*.cuh`` are headers they share). At first use each is compiled
+with ``nvcc`` for ``sm_90a`` (one ``nvcc`` per source, all started together),
+and the objects are linked into one shared library under
+``build/torch_kernels/`` of the checkout, named by a hash of the flags and of
+every file under ``csrc/``, and loaded with ``ctypes``. A later process finds
+the library and skips the build. Nothing here runs at import: the CPU
 tests import every module on machines without ``nvcc``.
 
 The wrappers in ``ops/fused_mp.py``, ``ops/attention.py`` (forward and
@@ -31,8 +32,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("runtime.cu", "fused_mp.cu", "fused_mp_bwd.cu", "attention.cu",
            "attention_bwd.cu", "segment_sum.cu", "attention_ln.cu",
            "layernorm_bwd.cu")
+# -split-compile 0 (nvcc >= 12.1): the kernels of one source are optimised on
+# every core; the attention sources instantiate 16 widths, and the whole
+# build waits for the slowest (51 s without the flag, 26 s with it, 8 cores)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-split-compile", "0", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,10 +53,12 @@ _SIGNATURES = {
     # g_ln_scale g_ln_bias g_alpha g_w1 g_b1 scratch | B A E M H stream
     "dostpu_fused_mp_edge_bwd": ([_P] * 21 + [_I] * 5 + [_P], _I),
     "dostpu_attention_max_dim": ([], _I),
-    # q k v bias out B Lq Lk D scale stream
-    "dostpu_attention_fwd": ([_P] * 5 + [_I] * 4 + [ctypes.c_float, _P], _I),
-    # q k v bias o g dq dk dv stats B Lq Lk D scale stream
-    "dostpu_attention_bwd": ([_P] * 10 + [_I] * 4 + [ctypes.c_float, _P], _I),
+    # q k v bias out stats|null B Lq Lk D scale stream
+    "dostpu_attention_fwd": ([_P] * 6 + [_I] * 4 + [ctypes.c_float, _P], _I),
+    # B Lq Lk D
+    "dostpu_attention_bwd_scratch_floats": ([_I] * 4, ctypes.c_size_t),
+    # q k v bias o g dq dk dv stats_in|null scratch B Lq Lk D scale stream
+    "dostpu_attention_bwd": ([_P] * 11 + [_I] * 4 + [ctypes.c_float, _P], _I),
     # data ids out B E F N stream
     "dostpu_segment_sum": ([_P] * 3 + [_I] * 4 + [_P], _I),
     # x xk xv ln_scale ln_bias bias out stats B Lq Lk D scale eps bf16 stream
@@ -79,9 +85,12 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
+    """Named by a hash of the flags and of every file under ``csrc/``, the
+    headers too: an edited header must not find a stale library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in CSRC.iterdir() if p.is_file()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_DIR / f"libdostpu_kernels_{h.hexdigest()[:16]}.so"
 
 

@@ -33,7 +33,10 @@ from dostransformer_tpu_torch.models.import_torch import (
     load_reference_state_dict,
     load_torch_state_dict,
 )
-from dostransformer_tpu_torch.models.registry import build_model
+from dostransformer_tpu_torch.models.registry import (
+    build_model,
+    entry_device,
+)
 
 
 class Predictor:
@@ -58,7 +61,7 @@ class Predictor:
         t_layers: int = 2,
         hidden: int = 256,
         batch_size: int = 8,
-        device="cpu",
+        device="cuda",
         strict: bool = True,
         fuse_ln_attn: bool = False,
         ln_lp: bool = False,
@@ -71,7 +74,9 @@ class Predictor:
         "edos" or "phdos"; phDOS weights saved in float64 by the reference
         load into the float32 model. ``fuse_ln_attn`` and ``ln_lp`` are the
         model's LayerNorm switches (nn/transformer.py); the weights load the
-        same either way."""
+        same either way. The model runs on ``device``, the card by default;
+        with no card visible this raises unless ``device="cpu"`` is given."""
+        device = entry_device(device)
         widths = {"node_in": example.x.shape[1]}
         if example.edge_attr is not None:
             widths["edge_in"] = example.edge_attr.shape[1]

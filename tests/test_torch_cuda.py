@@ -33,7 +33,9 @@ from dostransformer_tpu_torch.nn.layernorm import (  # noqa: E402
     ln_bwd_reference,
 )
 from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
+    fused_attention_fwd,
     attention_bwd_reference,
+    attention_stats_reference,
     dot_product_attention,
     fused_attention,
     fused_attention_bwd,
@@ -215,6 +217,77 @@ def test_fused_attention_is_differentiable_on_the_card(dev):
     dot_product_attention(q2, kv2, kv2, km).square().sum().backward()
     _close_scaled(q.grad, q2.grad, 1e-5)
     _close_scaled(kv.grad, kv2.grad, 1e-5)  # k and v are one tensor
+
+
+# the six attention calls of the two flagships, then ragged shapes and the
+# widest feature dimension
+TC_SHAPES = [(8, 201, 32, 256), (16, 201, 201, 256), (16, 201, 32, 256),
+             (8, 51, 16, 256), (16, 51, 51, 256), (16, 51, 16, 256),
+             (3, 13, 5, 64), (2, 1, 1, 32), (2, 40, 33, 512)]
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES)
+def test_attention_tensor_core_kernels(dev, shape):
+    """The forward and backward kernels (3xTF32 tensor-core products) at one
+    shape, pad keys masked and the last graph fully masked: outputs, row
+    statistics and gradients within 1e-5 x max(1, max|plain|); keys and
+    values as one tensor give the bits of two copies; the backward gives the
+    same bits with the forward's statistics and without, and on a second
+    run."""
+    b, lq, lk, d = shape
+    g = torch.Generator().manual_seed(11)
+    q, k, go = (torch.randn(b, n, d, generator=g).to(dev)
+                for n in (lq, lk, lq))
+    km = torch.arange(lk)[None] < torch.randint(1, lk + 1, (b, 1), generator=g)
+    km[-1] = False
+    km = km.to(dev)
+    bias = key_bias(km)
+    o, stats = fused_attention_fwd(q, k, k, bias, want_stats=True)
+    assert torch.isfinite(o).all()
+    _close_scaled(o, dot_product_attention(q, k, k, km), 1e-5)
+    want = attention_stats_reference(q, k, bias)
+    assert stats.shape == (2, b, lq)
+    assert (stats[0][-1] == -1e30).all() and (stats[1][-1] == lk).all()
+    _close_scaled(stats[0][:-1], want[0][:-1], 1e-5)
+    _close_scaled(stats[0][:-1] + stats[1][:-1].log(),
+                  want[0][:-1] + want[1][:-1].log(), 1e-5)
+    copy = k.clone()
+    o_copy, none = fused_attention_fwd(q, k, copy, bias)
+    assert none is None and torch.equal(o_copy, o)
+
+    got = fused_attention_bwd(q, k, k, bias, o, go, stats)
+    for x, w in zip(got, attention_bwd_reference(q, k, k, bias, go)):
+        assert torch.isfinite(x).all()
+        _close_scaled(x, w, 1e-5)
+    for other in (fused_attention_bwd(q, k, k, bias, o, go),         # no stats
+                  fused_attention_bwd(q, k, copy, bias, o, go, stats),
+                  fused_attention_bwd(q, k, k, bias, o, go, stats)):  # again
+        assert all(torch.equal(x, y) for x, y in zip(got, other))
+
+
+def test_attention_kernels_reject_what_they_do_not_take(dev):
+    q = torch.randn(2, 4, 64, device=dev)
+    bias = torch.zeros(2, 4, device=dev)
+    with pytest.raises(TypeError):
+        fused_attention_bwd(q.double(), q.double(), q.double(), bias, q, q)
+    with pytest.raises(TypeError):
+        fused_attention_bwd(q, q, q, bias, q, q, torch.zeros(2, 2, 4,
+                            device=dev, dtype=torch.float64))
+    narrow = torch.randn(2, 4, 40, device=dev)
+    with pytest.raises(ValueError):
+        fused_attention_bwd(narrow, narrow, narrow, bias, narrow, narrow)
+    strided = torch.randn(2, 4, 128, device=dev)[..., ::2]  # not contiguous
+    for args in ((strided, q, q), (q, strided, strided), (q, q, strided)):
+        with pytest.raises(ValueError):
+            fused_attention(*args)
+    expanded = torch.randn(4, 64, device=dev).expand(2, 4, 64)
+    with pytest.raises(ValueError):
+        fused_attention(expanded, q, q)
+    with pytest.raises(ValueError):
+        fused_attention_bwd(q, strided, strided, bias, q, q)
+    with pytest.raises(ValueError):  # the statistics of another shape
+        fused_attention_bwd(q, q, q, bias, q, q,
+                            torch.zeros(2, 2, 5, device=dev))
 
 
 def _segment_args(dev, b, e, f, n, seed=0):

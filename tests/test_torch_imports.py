@@ -69,21 +69,24 @@ def test_port_imports_without_jax():
 
 
 def test_kernel_library_is_keyed_by_the_sources(tmp_path, monkeypatch):
-    """A changed CUDA source gets a new library name, so a stale build is
-    never loaded."""
+    """A changed CUDA source or shared header gets a new library name, so a
+    stale build is never loaded."""
     import shutil
 
     from dostransformer_tpu_torch.ops import kernels
 
-    for name in kernels.SOURCES:
-        shutil.copy(kernels.CSRC / name, tmp_path / name)
+    for path in kernels.CSRC.iterdir():
+        shutil.copy(path, tmp_path / path.name)
     monkeypatch.setattr(kernels, "CSRC", tmp_path)
     before = kernels.library_path()
     assert before.parent == kernels.BUILD_DIR
     assert kernels.library_path() == before
-    with open(tmp_path / "attention.cu", "a") as f:
-        f.write("\n// edited\n")
-    assert kernels.library_path() != before
+    names = {before}
+    for edited in ("attention.cu", "attention_core.cuh"):
+        with open(tmp_path / edited, "a") as f:
+            f.write("\n// edited\n")
+        names.add(kernels.library_path())
+    assert len(names) == 3
 
 
 def test_every_bound_entry_point_is_defined_in_a_listed_source():

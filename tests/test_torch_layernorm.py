@@ -497,7 +497,7 @@ def test_predictor_from_torch_takes_the_switches(tmp_path):
     model = build_model("phdos", layers=2, t_layers=1, hidden=H)
     torch.save(model.state_dict(), tmp_path / "w.pt")
     kw = dict(task="phdos", example=samples[0], layers=2, t_layers=1,
-              hidden=H, batch_size=2)
+              hidden=H, batch_size=2, device="cpu")
     plain = Predictor.from_torch(tmp_path / "w.pt", **kw)
     fused = Predictor.from_torch(tmp_path / "w.pt", fuse_ln_attn=True,
                                  ln_lp=True, **kw)

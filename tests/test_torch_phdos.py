@@ -593,7 +593,8 @@ def test_phdos_predictor_and_cli_match_jax_unclamped(tmp_path):
     assert (want < 0).any()
     port = _port(request)
     pred = Predictor.from_torch(path, task="phdos", example=port[0],
-                                layers=2, t_layers=1, hidden=H, batch_size=3)
+                                layers=2, t_layers=1, hidden=H, batch_size=3,
+                                device="cpu")
     assert not pred.clamp
     got = pred.predict(port)
     assert got.shape == (6, 51)

@@ -54,7 +54,7 @@ def test_predict_matches_jax_predictor(weights):
     port = [GraphSample(**vars(s)) for s in request]
     pred = Predictor.from_torch(path, task="edos", example=port[0],
                                 layers=LAYERS, t_layers=T_LAYERS, hidden=H,
-                                batch_size=3)
+                                batch_size=3, device="cpu")
     got = pred.predict(port)
     assert got.shape == (6, 201) and (got >= 0).all()
     np.testing.assert_allclose(got, want, **TOL)
@@ -92,6 +92,66 @@ def test_cli_rejects_unported_flags(flag, capsys):
         main_predict.main(["--task", "edos", "--torch_state_dict", "w.pt",
                            "--input", "x.npz", "--output", "y.npz", *flag])
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+def _default_device_cases():
+    """Each entry point called as a user without a card would call it: no
+    ``--device`` and no ``device=``. The CLIs get arguments that would run
+    (synthetic data, a tiny model), so only the device can stop them."""
+    from dostransformer_tpu_torch.cli import main_edos, main_phdos
+    from dostransformer_tpu_torch.cli.common import run_training
+    from dostransformer_tpu_torch.config import TrainConfig
+
+    tiny = ["--synthetic", "8", "--epochs", "1", "--hidden", str(H),
+            "--layers", "1", "--transformer", "1"]
+    port = [GraphSample(**vars(s)) for s in _mixed_request()]
+    return {
+        "main_predict": lambda: main_predict.main(
+            ["--task", "edos", "--torch_state_dict", "w.pt", "--input",
+             "x.npz", "--output", "y.npz"]),
+        "main_edos": lambda: main_edos.main(tiny),
+        "main_phdos": lambda: main_phdos.main(tiny),
+        "Predictor.from_torch": lambda: Predictor.from_torch(
+            "w.pt", task="edos", example=port[0], hidden=H),
+        "run_training": lambda: run_training(
+            "edos", TrainConfig(epochs=1, hidden=H), port[:4], port[4:5],
+            port[5:]),
+    }
+
+
+@pytest.mark.parametrize("entry", ["main_predict", "main_edos", "main_phdos",
+                                   "Predictor.from_torch", "run_training"])
+def test_entry_points_default_to_the_card_and_refuse_without_one(
+        entry, capsys, monkeypatch, tmp_path):
+    """The entry points run on the card by default. Where no card is
+    visible they stop with a message that names how to ask for the CPU
+    (``--device cpu`` for the CLIs, ``device="cpu"`` for the functions) and
+    do no work: no model is built, nothing is written."""
+    from dostransformer_tpu_torch.cli import common
+    from dostransformer_tpu_torch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+
+    def never(*a, **k):
+        raise AssertionError(f"{entry} built a model without a card")
+
+    monkeypatch.setattr(common, "build_model", never)
+    monkeypatch.setattr(serve, "build_model", never)
+    call = _default_device_cases()[entry]
+    if entry.startswith("main_"):
+        with pytest.raises(SystemExit) as exc:
+            call()
+        assert exc.value.code == 2
+        message = capsys.readouterr().err
+        assert "--device cpu" in message
+    else:
+        with pytest.raises(RuntimeError) as exc:
+            call()
+        message = str(exc.value)
+        assert 'device="cpu"' in message
+    assert "no CUDA device is visible" in message
+    assert not list(tmp_path.iterdir())
 
 
 def test_reference_format_state_dict_loads(tmp_path):
