@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase; takes no arguments
 
 Phases (any failure raises and exits non-zero; there is no CPU fallback).
 The eDOS flagship:
@@ -8,8 +8,9 @@ The eDOS flagship:
   1. the device: torch's name for it and nvidia-smi's name and power limit;
   2. build the CUDA kernels from dostransformer_tpu_torch/csrc with nvcc
      (one nvcc per source, all at once), and print the registers a thread
-     and the stack bytes of the attention kernels at the flagship width
-     (cuobjdump -res-usage on the built library);
+     and the stack bytes of the attention kernels at the flagship width and
+     of every message-passing kernel (cuobjdump -res-usage on the built
+     library);
   3. each forward kernel against its plain PyTorch version on the card at
      the shapes the flagship eDOS forward gives it (f32, TF32 off),
      including a short batch whose dummy graph has every key masked; max
@@ -18,13 +19,19 @@ The eDOS flagship:
      forward with keys and values as one tensor (the layer's call), and also
      its row statistics (max and sum) against the plain scores', two copies
      of the keys against the one tensor bit for bit, and the time of the op
-     with its mask-to-bias ops;
+     with its mask-to-bias ops; the message-passing forward in the form its
+     widths take (tensor-core at M = 512, H = 256) bit-identical on a second
+     run, beside the generic (FMA) form on the same inputs, with the tile
+     taken and the shared memory a block takes, and at a width that keeps
+     the generic form (M = 600, H = 300);
   3b. each backward kernel against its plain backward at the training
      shapes (a dummy graph, random nonzero upstream gradients, a fully
      masked attention row), run twice and required to repeat bit for bit,
      timed as in 3; the attention backward as the default layer calls it
      (keys and values one tensor, the forward's row statistics), and also
-     without the statistics and with two copies of the keys, bit-equal;
+     without the statistics and with two copies of the keys, bit-equal; the
+     message-passing backward as its forward in 3 (both forms, the tile
+     and cluster shape taken);
   4. the serving path through the entry points a user calls: a flagship
      DOSTransformerEDOS (hidden 256, 3 processors, 2 transformer layers per
      stack, 201 bins; random weights from a seeded torch.Generator) is saved
@@ -61,9 +68,9 @@ transformer layers per stack, 51 bins, r_max 4.0, f32, scatter-mean):
      timed as in 3;
   3d. kernels 1-4 against their plain versions at the phDOS shapes:
      message passing on synthetic phDOS batches of 8 (a dummy graph last)
-     and of 1, attention at 51 queries against 16 atom keys (B=8, and the
-     2B head batch), 51 energy tokens (2B) and 8 keys (B=1), forward and
-     backward, with the tolerances of 3 and 3b;
+     and of 1 (forms and shapes as in 3 and 3b), attention at 51 queries
+     against 16 atom keys (B=8, and the 2B head batch), 51 energy tokens (2B)
+     and 8 keys (B=1), forward and backward, with the tolerances of 3 and 3b;
   9. phDOS serving: a seeded flagship saved with torch.save serves 96
      samples through cli.main_predict --task phdos and 5 through
      Predictor.predict; outputs [N, 51] and finite (no clamp: negative
@@ -116,7 +123,15 @@ above must launch neither of their kernels):
      and 10 (same seed); then 3 Trainer.train_steps card against CPU;
   15. training samples/s at batch 8 over 20 steps with the levers off,
      ln_lp only and both on, four readings each taken in turns in one
-     process, eDOS and phDOS.
+     process, eDOS and phDOS;
+  16. where the device time goes (last, because a process that has run
+     torch.profiler pays more for every later launch): train steps (the
+     batch uploaded per step, and already on the card) and serving forwards
+     of both flagships at
+     batch 8: wall time without the profiler, then under torch.profiler the
+     device time and device activities per step, the busy share, and the
+     kernels by device time; then the device time of each sub-kernel of the
+     message-passing calls of 3, 3b and 3d.
 
 The eDOS paths must launch no batched_segment_sum (eDOS sums its messages
 in the fused kernel). The line before the last is a JSON object with one row
@@ -125,6 +140,10 @@ mean per call as ``ms_phdos``), ``bound_ms`` (the larger of this run's bytes
 over 3.35 TB/s and its f32 operations over 67 TFLOP/s, ``bound_by`` saying
 which), ``library_ms`` (one PyTorch call computing the same function, timed
 here and used nowhere in the port; null where there is none), for the two
+message-passing kernels ``form``, ``tile``, ``smem_bytes``, ``ms_generic``
+(the generic form on the same inputs), ``sub_kernels_ms``,
+``generic_width`` (the row of the width that keeps the generic form) and
+``by_shape_phdos`` (batch 8 and batch 1), for the two
 attention kernels ``by_shape`` (the same numbers per attention shape),
 ``ms_two_tensors`` (keys and values as two tensors), ``ms_no_stats`` (the
 backward without the forward's row statistics), ``ms_op`` (the forward op
@@ -196,8 +215,14 @@ from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
     ln_attention_reference,
 )
 from dostransformer_tpu_torch.ops.fused_mp import (  # noqa: E402
+    FORM_GENERIC,
+    _fused_mp_edge_fwd as fused_mp_forward_kernel,
     fused_mp_edge,
+    fused_mp_bwd_form,
     fused_mp_edge_bwd,
+    fused_mp_edge_bwd_tile,
+    fused_mp_edge_tile,
+    fused_mp_form,
     mp_edge_bwd_reference,
     mp_edge_reference,
 )
@@ -236,6 +261,19 @@ ATTENTION_KERNELS = {"fused_attention": ("attn_fwd_kernel",),
                      "fused_attention_bwd": ("stats_kernel", "dq_kernel",
                                              "dkv_kernel")}
 BACKWARD = ("fused_mp_edge_bwd", "fused_attention_bwd", "layer_norm_bwd")
+# what compare_mp adds to a message-passing row
+MP_EXTRAS = ("form", "tile", "smem_bytes", "ms_generic", "sub_kernels_ms")
+# the __global__ functions of the two message-passing sources whose
+# registers and stack phase 2 prints (template arguments as nvcc mangles them)
+MP_KERNELS = {
+    "edge_tc_kernel<1,2,4> 32x256": "edge_tc_kernelILi1ELi2ELi4E",
+    "edge_tc_kernel<1,1,1> 16x64": "edge_tc_kernelILi1ELi1ELi1E",
+    "edge_bwd_tc_kernel<1,4>": "edge_bwd_tc_kernelILi1ELi4E",
+    "edge_bwd_tc_kernel<2,4>": "edge_bwd_tc_kernelILi2ELi4E",
+    "edge_bwd_tc_kernel<1,2>": "edge_bwd_tc_kernelILi1ELi2E",
+    "gw1_tc_kernel": "gw1_tc_kernel", "edge_kernel": "11edge_kernel",
+    "edge_bwd_kernel": "15edge_bwd_kernel", "gw1_kernel": "10gw1_kernel",
+    "agg_kernel": "agg_kernel", "tail_kernel": "11tail_kernel"}
 # bf16 operands of the LayerNorm backward: the kernel keeps g = dy * scale in
 # f32 where the plain version rounds it to bf16, so within 3% of the largest
 # value (the JAX package's bound for the same comparison)
@@ -395,7 +433,7 @@ def per_forward(per_shape):
             out[k] = statistics.mean(r[k] for r in runs)
     out["by_shape"] = {label: {k: r[k] for k in (
         "ms", "plain_ms", "library_ms", "ms_two_tensors", "ms_op",
-        "ms_no_stats") if k in r}
+        "ms_no_stats", *MP_EXTRAS) if k in r}
         | {"bound_ms": max(r["bytes_ms"], r["ops_ms"]), "max_abs_err": r["err"]}
         for label, r in per_shape.items()}
     return out
@@ -412,6 +450,111 @@ def mp_work(args, outputs, backward=False):
     flops = real * ((4 * m * h + 30 * m) if backward
                     else (2 * m * h + 12 * m + 2 * h))
     return nbytes(*args) + nbytes(*outputs), flops
+
+
+def device_kernel_times(fn, runs: int = 10) -> dict:
+    """Device time in ms per call of fn(), by kernel name (up to the first
+    '(' or '<'), from torch.profiler over ``runs`` calls after a warm one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    times = {}
+    for _ in range(3):  # a profile now and then comes back empty
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        for name, ms in device_events(prof):
+            times[name] = times.get(name, 0.0) + ms / runs
+        if times:
+            break
+    check(bool(times), "the profile shows no device activity")
+    return times
+
+
+def device_events(prof):
+    """(short kernel name, device ms) of every device activity (kernels and
+    memory copies) the profile recorded."""
+    from torch.autograd import DeviceType
+
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "device_time", None)
+        if us is None:
+            us = ev.cuda_time
+        name = re.sub(r"^void ", "", ev.name)
+        name = name.replace("(anonymous namespace)::", "")
+        yield re.split(r"[(<]", name)[0], us / 1e3
+
+
+# (label, call, row) of every message-passing comparison, for phase_sub_kernels
+SUB_KERNEL_JOBS = []
+
+
+def phase_sub_kernels():
+    """16a: the device time of each sub-kernel of every message-passing call
+    compared in 3, 3b and 3d (torch.profiler), into the rows'
+    ``sub_kernels_ms``."""
+    print("message-passing sub-kernels, device ms a call (torch.profiler):")
+    for label, call, row in SUB_KERNEL_JOBS:
+        row["sub_kernels_ms"].update(device_kernel_times(call))
+        print(f"  {label} ({row['ms']:.4f} ms the whole call): "
+              + ", ".join(f"{k} {v:.4f}"
+                          for k, v in row["sub_kernels_ms"].items()))
+
+
+def compare_mp(label, args, backward):
+    """Kernel #1 (or #2 with ``backward``) at one shape: the form the widths
+    take against the plain version (a second run must repeat the bits),
+    beside the generic form on the same inputs (the FMA design every width
+    took before the tensor-core form existed); the device time of each
+    sub-kernel of the call is taken later, by :func:`phase_sub_kernels`."""
+    name = "fused_mp_edge_bwd" if backward else "fused_mp_edge"
+    kernel = fused_mp_edge_bwd if backward else fused_mp_forward_kernel
+    wrapper = fused_mp_edge_bwd if backward else fused_mp_edge
+    plain = mp_edge_bwd_reference if backward else mp_edge_reference
+    rtols = ((KERNEL_RTOL,) * 3 + (PARAM_GRAD_RTOL,) * 5 if backward
+             else (KERNEL_RTOL,) * 2)
+    b, e = args[3].shape
+    m, h = args[0].shape[-1], args[9].shape[0]
+    form_of = fused_mp_bwd_form if backward else fused_mp_form
+    tc = form_of(m, h) != FORM_GENERIC
+    out = compare(f"{name}[{label}]", lambda: wrapper(*args),
+                  lambda: plain(*args), rtols=rtols, repeat=True,
+                  work=mp_work(args, wrapper(*args), backward=backward))
+    out["form"] = "tensor-core" if tc else "generic"
+    out["sub_kernels_ms"] = {}  # filled in place: copies of the row share it
+    # profiled at the end of the run (phase_sub_kernels): once torch.profiler
+    # has run in a process, every later launch costs the host more
+    SUB_KERNEL_JOBS.append((f"{name}[{label}]", lambda: wrapper(*args), out))
+    line = f"  {name}[{label}]: form {out['form']}"
+    if tc:
+        generic = lambda: kernel(*args, form=FORM_GENERIC)
+        for i, (g, w, tol) in enumerate(zip(generic(), plain(*args), rtols)):
+            err = (g - w).abs().max().item()
+            check(err <= tol * max(1.0, w.abs().max().item()),
+                  f"{name}[{label}]: generic form, output {i} max abs err "
+                  f"{err:.3e}")
+        out["ms_generic"] = median_ms(generic)
+        lib = kernels.library()
+        if backward:
+            te, cluster, splits = fused_mp_edge_bwd_tile(b, e, m, h)
+            out["tile"] = (f"{te} edges x {cluster} blocks, {splits} g_W1 "
+                           f"splits")
+            out["smem_bytes"] = lib.dostpu_fused_mp_edge_bwd_smem_bytes(
+                b, e, m, h, -1)
+        else:
+            out["tile"] = "{}x{}".format(*fused_mp_edge_tile(b, e, m, h))
+            out["smem_bytes"] = lib.dostpu_fused_mp_edge_smem_bytes(
+                b, e, m, h, -1)
+        line += (f"; generic (FMA) form on the same inputs "
+                 f"{out['ms_generic']:.4f} ms; tile taken {out['tile']} "
+                 f"({out['smem_bytes']} B of shared memory a block)")
+    print(line)
+    return out
 
 
 def attention_work(b, lq, lk, d, inputs, outputs, backward=False):
@@ -501,6 +644,22 @@ def check_attention_backward(name, q, k, bias, o, go, stats, got, out):
           f"({out['ms_two_tensors']:.4f} ms)")
 
 
+def generic_width_args(g, dev, backward=False):
+    """Message-passing operands at a width that keeps the generic (FMA)
+    form, with ragged tiles everywhere: B=2 A=5 E=17 M=600 H=300."""
+    b, a, e, m, h = 2, 5, 17, 600, 300
+    rand = lambda *s: torch.randn(*s, generator=g).to(dev)
+    idx = lambda: torch.randint(0, a, (b, e), generator=g,
+                                dtype=torch.int32).to(dev)
+    args = (rand(b, a, m), rand(b, a, m), rand(b, e, m), idx(), idx(),
+            (torch.rand(b, e, generator=g) > 0.25).float().to(dev),
+            rand(m).abs() + 0.5, rand(m) * 0.1,
+            torch.tensor([0.25], device=dev), rand(h, m) * m ** -0.5)
+    if backward:
+        return args + (rand(b, e, h), rand(b, a, h))
+    return args + (rand(h) * 0.1,)
+
+
 def phase_kernels(dev):
     g = torch.Generator().manual_seed(0)
     rand = lambda *s: torch.randn(*s, generator=g).to(dev)
@@ -517,10 +676,10 @@ def phase_kernels(dev):
             torch.tensor([0.25], device=dev), rand(h, m) * m ** -0.5,
             rand(h) * 0.1)
     print(f"fused_mp_edge B={b} A={a} E={e} M={m} H={h}")
-    out["fused_mp_edge"] = compare(
-        "fused_mp_edge", lambda: fused_mp_edge(*args),
-        lambda: mp_edge_reference(*args),
-        work=mp_work(args, fused_mp_edge(*args)))
+    out["fused_mp_edge"] = compare_mp("eDOS", args, False)
+    odd = generic_width_args(g, dev)
+    out["fused_mp_edge"]["generic_width"] = compare_mp(
+        "B=2 A=5 E=17 M=600 H=300", odd, False)
 
     # B: the three stacks' attention shapes
     per_shape = {}
@@ -566,11 +725,10 @@ def phase_backward_kernels(dev):
             rand(b, e, h), rand(b, a, h))
     print(f"fused_mp_edge_bwd B={b} A={a} E={e} M={m} H={h} (last graph a "
           f"dummy, nonzero upstream gradients everywhere)")
-    out["fused_mp_edge_bwd"] = compare(
-        "fused_mp_edge_bwd", lambda: fused_mp_edge_bwd(*args),
-        lambda: mp_edge_bwd_reference(*args),
-        rtols=(KERNEL_RTOL,) * 3 + (PARAM_GRAD_RTOL,) * 5, repeat=True,
-        work=mp_work(args, fused_mp_edge_bwd(*args), backward=True))
+    out["fused_mp_edge_bwd"] = compare_mp("eDOS", args, True)
+    odd = generic_width_args(g, dev, backward=True)
+    out["fused_mp_edge_bwd"]["generic_width"] = compare_mp(
+        "B=2 A=5 E=17 M=600 H=300", odd, True)
 
     # B: attention backward at the three shapes, the last graph fully masked
     per_shape = {}
@@ -954,16 +1112,10 @@ def phase_phdos_kernels(dev):
                rand(h, m) * m ** -0.5, rand(h) * 0.1)
         bwd = fwd[:10] + (rand(b, e, h), rand(b, a, h))
         print(f"fused_mp_edge phDOS {label}: A={a} E={e} M={m} H={h}")
-        runs["fused_mp_edge"][label] = compare(
-            f"fused_mp_edge[phDOS {label}]", lambda: fused_mp_edge(*fwd),
-            lambda: mp_edge_reference(*fwd),
-            work=mp_work(fwd, fused_mp_edge(*fwd)))
-        runs["fused_mp_edge_bwd"][label] = compare(
-            f"fused_mp_edge_bwd[phDOS {label}]",
-            lambda: fused_mp_edge_bwd(*bwd),
-            lambda: mp_edge_bwd_reference(*bwd),
-            rtols=(KERNEL_RTOL,) * 3 + (PARAM_GRAD_RTOL,) * 5, repeat=True,
-            work=mp_work(bwd, fused_mp_edge_bwd(*bwd), backward=True))
+        runs["fused_mp_edge"][label] = compare_mp(f"phDOS {label}", fwd,
+                                                  False)
+        runs["fused_mp_edge_bwd"][label] = compare_mp(f"phDOS {label}", bwd,
+                                                      True)
 
     shapes = dict(phdos_attention_shapes(), **{"cross B=1": (1, PH_BINS, 8)})
     for label, (bb, lq, lk) in shapes.items():
@@ -1271,6 +1423,69 @@ def phase_lever_train_rates(task):
     return rates
 
 
+def phase_profile():
+    """16b: where the device time goes: train steps and serving forwards of
+    both flagships at batch 8 (levers off). First the wall time of every
+    case without the profiler (host clock, synchronised at both ends; taken
+    before torch.profiler runs at all, which slows every later launch), then
+    each case under torch.profiler: the device time and the device
+    activities per step or forward, the busy share (device time over that
+    wall time) and the kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cases = []
+    for task in ("edos", "phdos"):
+        learnable = (synthetic_edos_learnable if task == "edos"
+                     else synthetic_phdos_learnable)
+        clamp = task == "edos"
+        model = build_model(task, layers=LAYERS, t_layers=T_LAYERS,
+                            hidden=HIDDEN, device="cuda",
+                            generator=torch.Generator().manual_seed(2))
+        trainer = Trainer(model, clamp_targets=clamp, eval_clamp=clamp)
+        batches = list(GraphLoader(learnable(96, seed=0), BATCH))[:8]
+        on_card = [b.to("cuda") for b in batches]
+
+        def forward(batch, model=model):
+            model.eval()
+            with torch.no_grad():
+                return model(batch)[2]
+
+        for label, fn, inputs in (
+                ("train step, host batch uploaded per step",
+                 trainer.train_step, batches),
+                ("train step, batch on the card", trainer.train_step, on_card),
+                ("serving forward, batch on the card", forward, on_card)):
+            for x in inputs[:3]:  # warm
+                fn(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for x in inputs:
+                fn(x)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / len(inputs) * 1e3
+            cases.append((f"{task} {label}", fn, inputs, wall))
+
+    print(f"profile, both flagships, batch {BATCH}, f32, levers off:")
+    for label, fn, inputs, wall in cases:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for x in inputs:
+                fn(x)
+            torch.cuda.synchronize()
+        by_name, ops = {}, 0
+        for name, ms in device_events(prof):
+            by_name[name] = by_name.get(name, 0.0) + ms / len(inputs)
+            ops += 1
+        device = sum(by_name.values())
+        check(device > 0, f"{label}: the profile shows no device time")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
+        print(f"  {label}: wall {wall:.3f} ms, device {device:.3f} ms over "
+              f"{ops / len(inputs):.0f} device activities, busy "
+              f"{100 * device / wall:.1f}%; by kernel (ms, share of device "
+              f"time): " + "; ".join(f"{k} {v:.4f} ({100 * v / device:.1f}%)"
+                                     for k, v in top))
+
+
 def spread(readings) -> str:
     """'median (least-most)' of a setting's samples/s readings."""
     return (f"{statistics.median(readings):.1f} ({min(readings):.1f}-"
@@ -1297,6 +1512,8 @@ def kernel_resources(so, wanted) -> dict:
 
 
 def main():
+    if sys.argv[1:]:
+        sys.exit(f"chip_smoke: takes no arguments, got {sys.argv[1:]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1319,6 +1536,9 @@ def main():
         for names in ATTENTION_KERNELS.values() for k in names})
     print(f"attention kernels at D={HIDDEN}, registers a thread and stack "
           f"bytes (cuobjdump -res-usage): {json.dumps(resources)}")
+    mp_resources = kernel_resources(kernels.library_path(), MP_KERNELS)
+    print(f"message-passing kernels, registers a thread and stack bytes: "
+          f"{json.dumps(mp_resources)}")
 
     results = phase_kernels(dev)
     results.update(phase_backward_kernels(dev))
@@ -1394,6 +1614,10 @@ def main():
               f"{spread(rates['ln_lp'])}, fuse_ln_attn + ln_lp "
               f"{spread(rates['both'])} on {smi}")
 
+    # 16: where the device time goes (last: the profiler slows what follows)
+    phase_profile()
+    phase_sub_kernels()
+
     csrc, tpu = "dostransformer_tpu_torch/csrc", "dostransformer_tpu"
     sources = {
         "fused_mp_edge": (f"{csrc}/fused_mp.cu", f"{tpu}/ops/fused_mp.py:79"),
@@ -1443,8 +1667,13 @@ def main():
         if name in ATTENTION_KERNELS:
             row["resources"] = {k: resources[k] for k in ATTENTION_KERNELS[name]
                                 if k in resources}
+        if name.startswith("fused_mp_edge"):
+            row["resources"] = mp_resources
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     r["generic_width"]["err"])
         for key in ("unfused_ms", "ms_by_rows", "bf16_max_rel_err",
-                    "ms_two_tensors", "ms_op", "ms_no_stats", "by_shape"):
+                    "ms_two_tensors", "ms_op", "ms_no_stats", "by_shape",
+                    "generic_width", *MP_EXTRAS):
             if key in r:
                 row[key] = r[key]
         if name in phdos_results:

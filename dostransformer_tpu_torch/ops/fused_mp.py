@@ -19,9 +19,19 @@ Layout: batch-leading, as in the JAX package, except that ``w1`` is torch's
 Linear weight ``[H, M]`` (out, in) — the JAX functions take the flax kernel
 ``[M, H]``. The kernel reads it as it lies, so no transpose is copied per
 call.
+
+Each kernel has two hand-written forms, chosen by the widths alone
+(:func:`fused_mp_form` for the forward, :func:`fused_mp_bwd_form` for the
+backward): where M and H are multiples of 32 and a block of the kernel fits
+in shared memory, the three matrix products run on the tensor cores (3xTF32,
+f32-accurate); at every other width as FMA loops. ``form`` (a keyword of
+the two kernel wrappers, for measurements and tests) overrides the choice
+with ``FORM_GENERIC`` or ``FORM_TENSOR_CORE``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,6 +39,33 @@ from dostransformer_tpu_torch.ops import kernels
 from dostransformer_tpu_torch.ops.segment import segment_sum_reference
 
 LN_EPS = 1e-5
+FORM_BY_SHAPE, FORM_GENERIC, FORM_TENSOR_CORE = -1, 0, 1
+SMEM_MAX = 227 * 1024  # bytes of shared memory a block may ask for (sm_90)
+
+
+def _tc_widths(m: int, h: int) -> bool:
+    return m > 0 and h > 0 and m % 32 == 0 and h % 32 == 0
+
+
+def fused_mp_form(m: int, h: int) -> int:
+    """Which form of the forward kernel the widths M and H take on the card:
+    the mirror of ``dostpu_fused_mp_form`` in ``csrc/fused_mp.cu``. The
+    tensor-core form's smallest block holds 16 rows of M + 4 floats and two
+    staged [64 x 68] chunks of W1."""
+    fits = 4 * (16 * (m + 4) + 2 * 64 * 68) <= SMEM_MAX
+    return FORM_TENSOR_CORE if _tc_widths(m, h) and fits else FORM_GENERIC
+
+
+def fused_mp_bwd_form(m: int, h: int) -> int:
+    """Which form of the backward kernel the widths take: the mirror of
+    ``dostpu_fused_mp_bwd_form`` in ``csrc/fused_mp_bwd.cu``. The tensor-core
+    form's smallest block holds 16 rows each of xhat [M], g_act [M] and g_e
+    [H + 4], 16 floats, and two staged tiles of 32 rows of W1: 128 + 8
+    columns where a cluster of four blocks can share the edges (M a multiple
+    of 512), else 256 + 8."""
+    stage = 32 * ((128 if m % 512 == 0 else 256) + 8)
+    fits = 4 * (2 * 16 * m + 16 * (h + 4) + 16 + 2 * stage) <= SMEM_MAX
+    return FORM_TENSOR_CORE if _tc_widths(m, h) and fits else FORM_GENERIC
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -110,6 +147,34 @@ def _check_smem(kernel, need, device):
                          f"shared memory per block, the card allows {limit}")
 
 
+def _check_form(kernel, form, m, h):
+    """``form`` is one of the three constants, and a forced tensor-core
+    form needs widths it can take."""
+    if form not in (FORM_BY_SHAPE, FORM_GENERIC, FORM_TENSOR_CORE):
+        raise ValueError(f"{kernel}: form {form} is none of FORM_BY_SHAPE, "
+                         f"FORM_GENERIC, FORM_TENSOR_CORE")
+    if form == FORM_TENSOR_CORE and not _tc_widths(m, h):
+        raise ValueError(f"{kernel}: the tensor-core form takes M and H "
+                         f"that are multiples of 32, not M={m}, H={h}")
+
+
+def fused_mp_edge_tile(b, e, m, h, form=FORM_BY_SHAPE):
+    """(edges, outputs) of a block's tile in the forward kernel at this
+    shape, from the built library (the card's machine only)."""
+    te, hb = ctypes.c_int(), ctypes.c_int()
+    kernels.library().dostpu_fused_mp_edge_tile(b, e, m, h, form, te, hb)
+    return te.value, hb.value
+
+
+def fused_mp_edge_bwd_tile(b, e, m, h, form=FORM_BY_SHAPE):
+    """(edges of a tile, blocks of the cluster sharing it, g_W1 splits) of
+    the backward kernel at this shape, from the built library."""
+    te, cluster, splits = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    kernels.library().dostpu_fused_mp_edge_bwd_tile(b, e, m, h, form, te,
+                                                    cluster, splits)
+    return te.value, cluster.value, splits.value
+
+
 def _mp_operands(src_proj, dst_proj, edge_proj, senders, receivers,
                  edge_mask, ln_scale, ln_bias, alpha, w1):
     b, a, m = src_proj.shape
@@ -127,7 +192,8 @@ def _mp_operands(src_proj, dst_proj, edge_proj, senders, receivers,
 
 
 def _fused_mp_edge_fwd(src_proj, dst_proj, edge_proj, senders, receivers,
-                       edge_mask, ln_scale, ln_bias, alpha, w1, b1):
+                       edge_mask, ln_scale, ln_bias, alpha, w1, b1,
+                       form=FORM_BY_SHAPE):
     """Launch the forward kernel (CUDA tensors only)."""
     b, a, m = src_proj.shape
     e = senders.shape[1]
@@ -136,8 +202,10 @@ def _fused_mp_edge_fwd(src_proj, dst_proj, edge_proj, senders, receivers,
                             receivers, edge_mask, ln_scale, ln_bias, alpha, w1)
     operands["b1"] = (b1, torch.float32, (h,))
     _require_all("fused_mp_edge", operands, src_proj.device)
+    _check_form("fused_mp_edge", form, m, h)
     lib = kernels.library()
-    _check_smem("fused_mp_edge", lib.dostpu_fused_mp_edge_smem_bytes(m),
+    _check_smem("fused_mp_edge",
+                lib.dostpu_fused_mp_edge_smem_bytes(b, e, m, h, form),
                 src_proj.device)
     e_out = torch.empty((b, e, h), device=src_proj.device, dtype=torch.float32)
     agg = torch.empty((b, a, h), device=src_proj.device, dtype=torch.float32)
@@ -148,14 +216,15 @@ def _fused_mp_edge_fwd(src_proj, dst_proj, edge_proj, senders, receivers,
             senders.data_ptr(), receivers.data_ptr(), edge_mask.data_ptr(),
             ln_scale.data_ptr(), ln_bias.data_ptr(), alpha.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), e_out.data_ptr(), agg.data_ptr(),
-            b, a, e, m, h, stream)
+            b, a, e, m, h, form, stream)
     kernels.check(code, "fused_mp_edge")
     fused_mp_edge.launches += 1
     return e_out, agg
 
 
 def fused_mp_edge_bwd(src_proj, dst_proj, edge_proj, senders, receivers,
-                      edge_mask, ln_scale, ln_bias, alpha, w1, g_eout, g_agg):
+                      edge_mask, ln_scale, ln_bias, alpha, w1, g_eout, g_agg,
+                      form=FORM_BY_SHAPE):
     """The backward kernel (``csrc/fused_mp_bwd.cu``); same contract as
     :func:`mp_edge_bwd_reference`. CUDA tensors only (float32, int32
     indices, contiguous; anything else raises). ``fused_mp_edge_bwd.launches``
@@ -173,9 +242,10 @@ def fused_mp_edge_bwd(src_proj, dst_proj, edge_proj, senders, receivers,
     operands["g_eout"] = (g_eout, torch.float32, (b, e, h))
     operands["g_agg"] = (g_agg, torch.float32, (b, a, h))
     _require_all("fused_mp_edge_bwd", operands, dev)
+    _check_form("fused_mp_edge_bwd", form, m, h)
     lib = kernels.library()
     _check_smem("fused_mp_edge_bwd",
-                lib.dostpu_fused_mp_edge_bwd_smem_bytes(m, h), dev)
+                lib.dostpu_fused_mp_edge_bwd_smem_bytes(b, e, m, h, form), dev)
     f32 = dict(device=dev, dtype=torch.float32)
     g_src, g_dst = torch.empty((b, a, m), **f32), torch.empty((b, a, m), **f32)
     g_edge = torch.empty((b, e, m), **f32)
@@ -183,7 +253,8 @@ def fused_mp_edge_bwd(src_proj, dst_proj, edge_proj, senders, receivers,
     g_alpha, g_w1 = torch.empty((1,), **f32), torch.empty((h, m), **f32)
     g_b1 = torch.empty((h,), **f32)
     scratch = torch.empty(
-        (lib.dostpu_fused_mp_edge_bwd_scratch_floats(b, e, m, h),), **f32)
+        (lib.dostpu_fused_mp_edge_bwd_scratch_floats(b, e, m, h, form),),
+        **f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.dostpu_fused_mp_edge_bwd(
@@ -191,7 +262,7 @@ def fused_mp_edge_bwd(src_proj, dst_proj, edge_proj, senders, receivers,
                 src_proj, dst_proj, edge_proj, senders, receivers, edge_mask,
                 ln_scale, ln_bias, alpha, w1, g_eout, g_agg, g_src, g_dst,
                 g_edge, g_scale, g_bias, g_alpha, g_w1, g_b1, scratch)),
-            b, a, e, m, h, stream)
+            b, a, e, m, h, form, stream)
     kernels.check(code, "fused_mp_edge_bwd")
     fused_mp_edge_bwd.launches += 1
     return g_src, g_dst, g_edge, g_scale, g_bias, g_alpha, g_w1, g_b1

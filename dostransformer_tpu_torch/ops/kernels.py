@@ -40,18 +40,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "dostpu_error_string": ([_I], ctypes.c_char_p),
-    "dostpu_fused_mp_edge_smem_bytes": ([_I], ctypes.c_size_t),
+    # M H -> 1 (tensor-core form) or 0 (generic form)
+    "dostpu_fused_mp_form": ([_I, _I], _I),
+    "dostpu_fused_mp_bwd_form": ([_I, _I], _I),
+    # B E M H form, for each of the next five; the tiles also take pointers
+    # to the ints they fill (te hb; te cluster splits)
+    "dostpu_fused_mp_edge_smem_bytes": ([_I] * 5, ctypes.c_size_t),
+    "dostpu_fused_mp_edge_tile": ([_I] * 5 + [_IP] * 2, None),
+    "dostpu_fused_mp_edge_bwd_smem_bytes": ([_I] * 5, ctypes.c_size_t),
+    "dostpu_fused_mp_edge_bwd_tile": ([_I] * 5 + [_IP] * 3, None),
+    "dostpu_fused_mp_edge_bwd_scratch_floats": ([_I] * 5, ctypes.c_size_t),
     # src_proj dst_proj edge_proj senders receivers edge_mask ln_scale
-    # ln_bias alpha w1 b1 e_out agg B A E M H stream
-    "dostpu_fused_mp_edge_fwd": ([_P] * 13 + [_I] * 5 + [_P], _I),
-    "dostpu_fused_mp_edge_bwd_smem_bytes": ([_I, _I], ctypes.c_size_t),
-    "dostpu_fused_mp_edge_bwd_scratch_floats": ([_I] * 4, ctypes.c_size_t),
+    # ln_bias alpha w1 b1 e_out agg B A E M H form stream
+    "dostpu_fused_mp_edge_fwd": ([_P] * 13 + [_I] * 6 + [_P], _I),
     # src_proj dst_proj edge_proj senders receivers edge_mask ln_scale
     # ln_bias alpha w1 g_eout g_agg | g_src_proj g_dst_proj g_edge_proj
-    # g_ln_scale g_ln_bias g_alpha g_w1 g_b1 scratch | B A E M H stream
-    "dostpu_fused_mp_edge_bwd": ([_P] * 21 + [_I] * 5 + [_P], _I),
+    # g_ln_scale g_ln_bias g_alpha g_w1 g_b1 scratch | B A E M H form stream
+    "dostpu_fused_mp_edge_bwd": ([_P] * 21 + [_I] * 6 + [_P], _I),
     "dostpu_attention_max_dim": ([], _I),
     # q k v bias out stats|null B Lq Lk D scale stream
     "dostpu_attention_fwd": ([_P] * 6 + [_I] * 4 + [ctypes.c_float, _P], _I),

@@ -43,9 +43,17 @@ from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
     key_bias,
     ln_attention_reference,
 )
+from dostransformer_tpu_torch.ops import kernels  # noqa: E402
 from dostransformer_tpu_torch.ops.fused_mp import (  # noqa: E402
+    FORM_GENERIC,
+    FORM_TENSOR_CORE,
+    _fused_mp_edge_fwd as fused_mp_forward_kernel,
+    fused_mp_bwd_form,
     fused_mp_edge,
     fused_mp_edge_bwd,
+    fused_mp_edge_bwd_tile,
+    fused_mp_edge_tile,
+    fused_mp_form,
     mp_edge_bwd_reference,
     mp_edge_reference,
 )
@@ -67,6 +75,16 @@ def dev():
     return torch.device("cuda")
 
 
+# the two flagships, widths that keep the generic (FMA) form, phDOS at
+# batch 1, a long edge list, edge counts no tile of the tensor-core form
+# divides (at its widths), and widths (--hidden 576) whose forward takes the
+# tensor-core form while only the generic backward fits in shared memory
+MP_SHAPES = [(8, 32, 384, 512, 256), (3, 13, 70, 48, 24), (2, 5, 17, 600, 300),
+             (8, 16, 128, 512, 256), (1, 64, 2048, 512, 256),
+             (1, 16, 128, 512, 256), (3, 13, 70, 64, 32), (2, 7, 45, 96, 160),
+             (2, 6, 40, 1152, 576)]
+
+
 def _mp_args(dev, b, a, e, m, h, seed=0):
     g = torch.Generator().manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g)
@@ -78,10 +96,7 @@ def _mp_args(dev, b, a, e, m, h, seed=0):
     return [t.to(dev) for t in args]
 
 
-@pytest.mark.parametrize("shape", [(8, 32, 384, 512, 256), (3, 13, 70, 48, 24),
-                                   (2, 5, 17, 600, 300),
-                                   (8, 16, 128, 512, 256),
-                                   (1, 64, 2048, 512, 256)])
+@pytest.mark.parametrize("shape", MP_SHAPES)
 def test_fused_mp_edge_matches_plain(dev, shape):
     args = _mp_args(dev, *shape)
     before = fused_mp_edge.launches
@@ -94,12 +109,90 @@ def test_fused_mp_edge_matches_plain(dev, shape):
     assert torch.equal(again[0], e_out) and torch.equal(again[1], agg)
 
 
-def test_fused_mp_edge_out_of_range_index_reads_nothing(dev):
-    args = _mp_args(dev, 2, 5, 9, 32, 16)
+@pytest.mark.parametrize("widths", [(32, 16), (64, 32)])
+def test_fused_mp_edge_out_of_range_index_reads_nothing(dev, widths):
+    args = _mp_args(dev, 2, 5, 9, *widths)
     args[3][0, 0] = 99  # sender out of range: contributes a zero row
     args[4][1, 2] = -1  # receiver out of range: reaches no node
     e_out, agg = fused_mp_edge(*args)
     assert torch.isfinite(e_out).all() and torch.isfinite(agg).all()
+    want_e, want_agg = _mp_plain_with_bad_indices(args)
+    torch.testing.assert_close(e_out, want_e, **TOL)
+    torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-4)
+
+
+def _mp_plain_with_bad_indices(args):
+    """The plain forward where an out-of-range sender or receiver reads a
+    zero row and reaches no node: an extra zero node takes them."""
+    a = args[0].shape[1]
+    pad = lambda x: torch.cat([x, torch.zeros_like(x[:, :1])], 1)
+    fix = lambda i: torch.where((i < 0) | (i >= a), a, i)
+    e_out, agg = mp_edge_reference(pad(args[0]), pad(args[1]), args[2],
+                                   fix(args[3]), fix(args[4]), *args[5:])
+    return e_out, agg[:, :a]
+
+
+@pytest.mark.parametrize("widths", [(512, 256), (64, 32), (48, 24), (600, 300),
+                                    (2048, 1024), (96, 160), (32, 48),
+                                    (520, 256), (1024, 512), (1088, 544),
+                                    (1152, 576), (1216, 608), (3072, 32),
+                                    (3104, 32), (1536, 64)])
+def test_fused_mp_form_matches_the_python_rule(dev, widths):
+    lib = kernels.library()
+    assert lib.dostpu_fused_mp_form(*widths) == fused_mp_form(*widths)
+    assert lib.dostpu_fused_mp_bwd_form(*widths) == fused_mp_bwd_form(*widths)
+
+
+def test_fused_mp_shapes_reach_every_tile(dev):
+    """The shapes of MP_SHAPES between them run every tile of the
+    tensor-core forward and every tile and cluster shape of the backward."""
+    assert {fused_mp_edge_tile(b, e, m, h)
+            for b, _, e, m, h in MP_SHAPES if fused_mp_form(m, h)} == {
+        (32, 256), (16, 64)}
+    assert {fused_mp_edge_bwd_tile(b, e, m, h)[:2]
+            for b, _, e, m, h in MP_SHAPES if fused_mp_bwd_form(m, h)} == {
+        (32, 1), (16, 1), (16, 2), (16, 4)}
+
+
+@pytest.mark.parametrize("shape", [(8, 32, 384, 512, 256),
+                                   (8, 16, 128, 512, 256),
+                                   (3, 13, 70, 64, 32)])
+def test_fused_mp_edge_both_forms_agree(dev, shape):
+    """At tensor-core widths the generic form and the tensor-core form both
+    give the plain version's outputs; each repeats its own bits."""
+    args = _mp_args(dev, *shape)
+    want_e, want_agg = mp_edge_reference(*args)
+    for form in (FORM_GENERIC, FORM_TENSOR_CORE):
+        e_out, agg = fused_mp_forward_kernel(*args, form=form)
+        torch.testing.assert_close(e_out, want_e, **TOL)
+        torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-4)
+        again = fused_mp_forward_kernel(*args, form=form)
+        assert torch.equal(again[0], e_out) and torch.equal(again[1], agg)
+
+
+def test_fused_mp_tensor_core_form_refuses_other_widths(dev):
+    args = _mp_args(dev, 2, 5, 9, 48, 24)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        fused_mp_forward_kernel(*args, form=FORM_TENSOR_CORE)
+    with pytest.raises(ValueError, match="none of FORM_BY_SHAPE"):
+        fused_mp_forward_kernel(*args, form=100)
+
+
+def test_fused_mp_edge_hidden_1024(dev):
+    """M = 2,048, H = 1,024 (--hidden 1024): the forward runs (its 16 x 64
+    tile fits); the backward needs more shared memory than a block gets in
+    either form, takes the generic one and says so by name."""
+    shape = (2, 6, 40, 2048, 1024)
+    args = _mp_args(dev, *shape)
+    e_out, agg = fused_mp_edge(*args)
+    want_e, want_agg = mp_edge_reference(*args)
+    torch.testing.assert_close(e_out, want_e, **TOL)
+    torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-4)
+    cot = (torch.randn(2, 40, 1024, device=dev),
+           torch.randn(2, 6, 1024, device=dev))
+    with pytest.raises(ValueError, match="fused_mp_edge_bwd: these widths "
+                                         "need 360544 bytes"):
+        fused_mp_edge_bwd(*args[:10], *cot)
 
 
 def test_fused_mp_edge_rejects_wrong_dtype(dev):
@@ -143,10 +236,7 @@ def _close_scaled(got, want, rtol):
     assert err <= rtol * max(1.0, want.abs().max().item()), err
 
 
-@pytest.mark.parametrize("shape", [(8, 32, 384, 512, 256), (3, 13, 70, 48, 24),
-                                   (2, 5, 17, 600, 300),
-                                   (8, 16, 128, 512, 256),
-                                   (1, 64, 2048, 512, 256)])
+@pytest.mark.parametrize("shape", MP_SHAPES)
 def test_fused_mp_edge_bwd_matches_plain(dev, shape):
     b, a, e, m, h = shape
     args = _mp_args(dev, *shape)
@@ -166,8 +256,29 @@ def test_fused_mp_edge_bwd_matches_plain(dev, shape):
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
-def test_fused_mp_edge_is_differentiable_on_the_card(dev):
-    args = _mp_args(dev, 3, 13, 70, 48, 24)
+@pytest.mark.parametrize("shape", [(8, 32, 384, 512, 256),
+                                   (8, 16, 128, 512, 256),
+                                   (3, 13, 70, 64, 32)])
+def test_fused_mp_edge_bwd_both_forms_agree(dev, shape):
+    """At tensor-core widths the generic form and the tensor-core form both
+    give the plain backward; each repeats its own bits."""
+    b, a, e, m, h = shape
+    args = _mp_args(dev, *shape)
+    g = torch.Generator().manual_seed(6)
+    cot = (torch.randn(b, e, h, generator=g).to(dev),
+           torch.randn(b, a, h, generator=g).to(dev))
+    want = mp_edge_bwd_reference(*args[:10], *cot)
+    for form in (FORM_GENERIC, FORM_TENSOR_CORE):
+        got = fused_mp_edge_bwd(*args[:10], *cot, form=form)
+        for i, (x, w) in enumerate(zip(got, want)):
+            _close_scaled(x, w, 1e-5 if i < 3 else 1e-4)
+        again = fused_mp_edge_bwd(*args[:10], *cot, form=form)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("widths", [(48, 24), (64, 32)])
+def test_fused_mp_edge_is_differentiable_on_the_card(dev, widths):
+    args = _mp_args(dev, 3, 13, 70, *widths)
     leaves = [t.clone().requires_grad_(t.is_floating_point() and i != 5)
               for i, t in enumerate(args)]
     e_out, agg = fused_mp_edge(*leaves)

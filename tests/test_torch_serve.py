@@ -86,12 +86,72 @@ def test_cli_writes_the_jax_output_keys(weights, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--checkpoint_dir", "ck"], ["--export", "d"],
                                   ["--from_exported", "d"], ["--data_parallel"],
-                                  ["--metrics"], ["--checkpoint_state", "best"]])
+                                  ["--checkpoint_state", "best"]])
 def test_cli_rejects_unported_flags(flag, capsys):
     with pytest.raises(SystemExit):
         main_predict.main(["--task", "edos", "--torch_state_dict", "w.pt",
                            "--input", "x.npz", "--output", "y.npz", *flag])
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+METRIC_KEYS = ("rmse", "mse", "mae", "r2", "n")
+
+
+def test_cli_metrics_match_the_jax_cli(weights, tmp_path, capsys):
+    """--metrics: the port's CLI and the JAX package's, on the same seeded
+    samples and the same weights (one state_dict file), give the same JSON
+    line and npz entries. Tolerance rtol 1e-4 + atol 1e-4: the predictions
+    agree to that (TOL above) and every metric is a mean over them in f64."""
+    import json
+
+    from dostransformer_tpu.cli import main_predict as jax_main_predict
+
+    _, _, path = weights
+    request = [GraphSample(**vars(s)) for s in _mixed_request()]
+    save_samples(tmp_path / "in.npz", request)
+    common = ["--task", "edos", "--torch_state_dict", str(path),
+              "--input", str(tmp_path / "in.npz"), "--layers", str(LAYERS),
+              "--transformer", str(T_LAYERS), "--hidden", str(H),
+              "--batch_size", "4", "--metrics"]
+    found = {}
+    for name, cli, more in (("jax", jax_main_predict, []),
+                            ("port", main_predict, ["--device", "cpu"])):
+        out = tmp_path / f"{name}.npz"
+        cli.main([*common, "--output", str(out), *more])
+        lines = [ln for ln in capsys.readouterr().out.splitlines()
+                 if ln.startswith('{"metrics"')]
+        assert len(lines) == 1
+        printed = json.loads(lines[0])["metrics"]
+        assert tuple(printed) == METRIC_KEYS
+        with np.load(out) as z:
+            assert sorted(z.files) == sorted(
+                ["dos", "mp_id", "sample_id", *METRIC_KEYS])
+            for k in METRIC_KEYS:
+                assert z[k].dtype == np.float64 and z[k] == printed[k]
+        found[name] = printed
+    assert found["port"]["n"] == found["jax"]["n"] == len(request)
+    for k in METRIC_KEYS:
+        np.testing.assert_allclose(found["port"][k], found["jax"][k], **TOL)
+
+
+@pytest.mark.parametrize("task", ["edos", "phdos"])
+def test_prediction_metrics_clamp_edos_targets_only(task):
+    """A negative target counts as 0 for eDOS and as itself for phDOS; r2 of
+    a perfect prediction is 1."""
+    class S:
+        def __init__(self, y):
+            self.y = y
+
+    y = np.array([[-1.0, 2.0, 3.0], [0.5, 0.0, 1.0]])
+    pred = np.clip(y, 0.0, None)
+    got = main_predict.prediction_metrics(task, [S(r) for r in y], pred)
+    if task == "edos":
+        assert got["mse"] == 0.0 and got["mae"] == 0.0 and got["r2"] == 1.0
+    else:
+        assert got["mse"] == pytest.approx(1.0 / 6.0)
+        assert got["mae"] == pytest.approx(1.0 / 6.0)
+        assert got["r2"] < 1.0
+    assert got["n"] == 2
 
 
 def _default_device_cases():
