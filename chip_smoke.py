@@ -10,7 +10,8 @@ The eDOS flagship:
      (one nvcc per source, all at once), and print the registers a thread
      and the stack bytes of the attention kernels at the flagship width and
      of every message-passing kernel (cuobjdump -res-usage on the built
-     library);
+     library), and of the two LayerNorm-lever kernels, whose stack must be
+     0; the port's attention width limit is held equal to the library's;
   3. each forward kernel against its plain PyTorch version on the card at
      the shapes the flagship eDOS forward gives it (f32, TF32 off),
      including a short batch whose dummy graph has every key masked; max
@@ -93,17 +94,23 @@ above must launch neither of their kernels):
      six attention shapes of the two flagships as the model calls it (keys
      and values one tensor, pad atoms masked, the last graph fully masked),
      a self-attention on ONE tensor and a call with three distinct
-     tensors; tolerance as 3; beside it the unfused layer's composition on
-     the card (F.layer_norm per distinct tensor, then the attention kernel)
-     and, as the library yardstick, F.layer_norm +
-     F.scaled_dot_product_attention;
+     tensors, and the three eDOS shapes again on inputs with a mean of 50
+     (25 standard deviations); tolerance as 3; keys and values as one
+     tensor or two copies bit for bit; every case again with bf16 operands
+     (within 2%), timed; beside it the unfused layer's composition on the
+     card (F.layer_norm per distinct tensor, then the attention kernel),
+     which the kernel must beat at each of the six path shapes, and, as the
+     library yardstick, F.layer_norm + F.scaled_dot_product_attention;
   3f. the LayerNorm backward kernel against its plain version at
      rows x 256 for the row counts of a train step (8*201, 16*201, 8*32,
      16*51, 8*16), f32 (dx within 1e-5, dscale and dbias within 1e-4) and
      bf16 operands (within 3% of the largest value: the kernel keeps
-     g = dy * scale in f32 where the plain version rounds it), each run
-     twice and required to repeat bit for bit; beside it
-     aten.native_layer_norm_backward on the same rows;
+     g = dy * scale in f32 where the plain version rounds it), in both
+     operand forms (xhat; the raw x with mean and rstd), each run twice and
+     required to repeat bit for bit, one launch a call; beside it
+     aten.native_layer_norm_backward on the same rows, which it must beat;
+     then untimed at widths 48, 600, 1,024 and 50 (the scalar form); the
+     wrapper's copy of the partition is held equal to the library's;
   13. serving with fuse_ln_attn: the 96-sample requests through
      cli.main_predict with DOSTPU_FUSE_LN_ATTN=1 in the environment and 5
      samples through Predictor(fuse_ln_attn=True), eDOS and phDOS: per
@@ -128,9 +135,11 @@ above must launch neither of their kernels):
      torch.profiler pays more for every later launch): train steps (the
      batch uploaded per step, and already on the card) and serving forwards
      of both flagships at
-     batch 8: wall time without the profiler, then under torch.profiler the
+     batch 8, with the LayerNorm levers off and with both on: wall time
+     without the profiler, then under torch.profiler the
      device time and device activities per step, the busy share, and the
-     kernels by device time; then the device time of each sub-kernel of the
+     kernels by device time, and what the levers add to or take from each;
+     then the device time of each sub-kernel of the
      message-passing calls of 3, 3b and 3d.
 
 The eDOS paths must launch no batched_segment_sum (eDOS sums its messages
@@ -147,7 +156,10 @@ message-passing kernels ``form``, ``tile``, ``smem_bytes``, ``ms_generic``
 attention kernels ``by_shape`` (the same numbers per attention shape),
 ``ms_two_tensors`` (keys and values as two tensors), ``ms_no_stats`` (the
 backward without the forward's row statistics), ``ms_op`` (the forward op
-with its mask-to-bias ops) and ``resources``, and
+with its mask-to-bias ops) and ``resources``, for the LN-fused forward
+``unfused_ms``, ``ms_bf16``, ``ms_other_aliasing`` and ``resources``, for
+the LayerNorm backward ``ms_by_rows``, ``ms_raw_form_by_rows`` (x with mean
+and rstd), ``library_ms_by_rows`` and ``resources``, and
 ``launches_by_path``, the launches on each of the eight paths driven (each
 with the counts set to 0 just before and read just after). ``launches`` is
 the count on the phDOS training path with both levers on, the only path
@@ -160,6 +172,7 @@ replaces, it is the count on the phDOS training path with the levers off
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import math
 import os
@@ -200,10 +213,12 @@ from dostransformer_tpu_torch.data.synthetic import (  # noqa: E402
 from dostransformer_tpu_torch.models.registry import build_model  # noqa: E402
 from dostransformer_tpu_torch.nn.layernorm import (  # noqa: E402
     layer_norm_bwd,
+    ln_bwd_plan,
     ln_bwd_reference,
 )
 from dostransformer_tpu_torch.ops import kernels  # noqa: E402
 from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
+    ATTENTION_MAX_DIM,
     attention_bwd_reference,
     attention_stats_reference,
     dot_product_attention,
@@ -278,6 +293,20 @@ MP_KERNELS = {
 # f32 where the plain version rounds it to bf16, so within 3% of the largest
 # value (the JAX package's bound for the same comparison)
 BF16_RTOL = 0.03
+# bf16 operands of the LN-fused attention: q, k, v and the output are each
+# rounded to bf16 (2^-9 relative), and the plain version also rounds its
+# softmax weights to bf16 where the kernel keeps TF32's 10 bits
+ATTN_BF16_RTOL = 0.02
+# the __global__ functions of the two LayerNorm-lever kernels whose registers
+# and stack phase 2 prints (a nonzero stack in the first two is a fault)
+LN_KERNELS = {
+    "attn_ln_fwd_kernel<float,8>": "attn_ln_fwd_kernelIfLi8E",
+    "attn_ln_fwd_kernel<bf16,8>": "attn_ln_fwd_kernelI13__nv_bfloat16Li8E",
+    "ln_bwd_kernel<float,2> (D=256)": "ln_bwd_kernelIfLi2ELb0E",
+    "ln_bwd_kernel<float,2,x> (D=256)": "ln_bwd_kernelIfLi2ELb1E",
+    "ln_bwd_kernel<bf16,1> (D=256)": "ln_bwd_kernelI13__nv_bfloat16Li1ELb0E",
+    "ln_bwd_kernel<float,8> (D=1024)": "ln_bwd_kernelIfLi8ELb0E",
+    "ln_bwd_kernel<float,0> (scalar)": "ln_bwd_kernelIfLi0ELb0E"}
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # bytes/s and f32 FLOP/s outside the tensor cores; every kernel here is f32
 HBM_BYTES_PER_S = 3.35e12
@@ -1255,14 +1284,17 @@ def phase_attention_ln_kernel(dev):
     """3e: the LN-fused attention forward against its plain version, beside
     the unfused layer's composition and the library yardstick."""
     g = torch.Generator().manual_seed(6)
-    rand = lambda *s: (torch.randn(*s, generator=g) * 2 + 0.5).to(dev)
     lns = (torch.rand(HIDDEN, generator=g) + 0.5).to(dev)
     lnb = (torch.randn(HIDDEN, generator=g) * 0.1).to(dev)
     ln = lambda t: F.layer_norm(t, (HIDDEN,), lns, lnb, 1e-5)
 
-    def run(label, bb, lq, lk, tensors):
+    def run(label, bb, lq, lk, tensors, mean=0.5, timed=True):
         """tensors: 'kv' (keys and values one tensor, as the model calls
-        it), 'one' (queries too) or 'three' (all distinct)."""
+        it), 'one' (queries too) or 'three' (all distinct). Inputs are
+        randn * 2 + ``mean``. f32 against the plain version within
+        KERNEL_RTOL, with two copies of the keys bit for bit; the same
+        inputs as bf16 within ATTN_BF16_RTOL, and timed (``ms_bf16``)."""
+        rand = lambda *s: (torch.randn(*s, generator=g) * 2 + mean).to(dev)
         x = rand(bb, lq, HIDDEN)
         xk = x if tensors == "one" else rand(bb, lk, HIDDEN)
         xv = rand(bb, lk, HIDDEN) if tensors == "three" else xk
@@ -1281,80 +1313,207 @@ def phase_attention_ln_kernel(dev):
             return q, k, (k if xv is xk else ln(xv))
 
         print(f"fused_attention_ln {label}: B={bb} Lq={lq} Lk={lk} D={HIDDEN}"
-              f", {tensors}{', last graph fully masked' if km is not None else ''}")
+              f", {tensors}, input mean {mean}"
+              f"{', last graph fully masked' if km is not None else ''}")
         rows = bb * (lq + {"one": 0, "kv": lk, "three": 2 * lk}[tensors])
         work = (nbytes(x, xk, xv, lns, lnb, bias) + nbytes(x),
                 4 * bb * lq * lk * HIDDEN + 8 * rows * HIDDEN)
-        out = compare(
-            f"fused_attention_ln[{label}]",
-            lambda: fused_attention_ln(x, xk, xv, lns, lnb, km),
-            lambda: ln_attention_reference(x, xk, xv, lns, lnb, km),
-            work=work, library_fn=lambda: sdpa(*norms(), bias))
-        out["unfused_ms"] = median_ms(
-            lambda: fused_attention(*norms(), km))
-        print(f"  unfused layer (F.layer_norm per distinct tensor + the "
-              f"attention kernel): {out['unfused_ms']:.4f} ms")
+        name = f"fused_attention_ln[{label}]"
+        if not timed:  # correctness only
+            got = fused_attention_ln(x, xk, xv, lns, lnb, km)
+            want = ln_attention_reference(x, xk, xv, lns, lnb, km)
+            err = (got - want).abs().max().item()
+            scale = max(1.0, want.abs().max().item())
+            check(bool(torch.isfinite(got).all()) and err <= KERNEL_RTOL * scale,
+                  f"{name}: max abs err {err:.3e} > {KERNEL_RTOL} x {scale:.3g}")
+            print(f"  {name}: max abs err {err:.3e}, rel {err / scale:.3e}")
+            out = {"err": err, "rel": err / scale}
+        else:
+            out = compare(
+                name, lambda: fused_attention_ln(x, xk, xv, lns, lnb, km),
+                lambda: ln_attention_reference(x, xk, xv, lns, lnb, km),
+                work=work, library_fn=lambda: sdpa(*norms(), bias))
+            out["unfused_ms"] = median_ms(
+                lambda: fused_attention(*norms(), km))
+            print(f"  unfused layer (F.layer_norm per distinct tensor + the "
+                  f"attention kernel): {out['unfused_ms']:.4f} ms")
+        if xv is xk and xk is not x:  # one tensor or two copies: same bits
+            check(torch.equal(fused_attention_ln(x, xk, xk, lns, lnb, km),
+                              fused_attention_ln(x, xk, xk.clone(), lns, lnb,
+                                                 km)),
+                  f"{name}: x_v is x_k differs from two copies")
+        # the same inputs as bf16 operands
+        xb = x.bfloat16()
+        xkb = xb if xk is x else xk.bfloat16()
+        xvb = xkb if xv is xk else xv.bfloat16()
+        got = fused_attention_ln(xb, xkb, xvb, lns, lnb, km)
+        want = ln_attention_reference(xb, xkb, xvb, lns, lnb, km)
+        err = (got.float() - want.float()).abs().max().item()
+        scale = max(1.0, want.float().abs().max().item())
+        check(got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+              and err <= ATTN_BF16_RTOL * scale,
+              f"{name}: bf16 max abs err {err:.3e} > {ATTN_BF16_RTOL} x "
+              f"{scale:.3g}")
+        out["bf16_rel_err"] = err / scale
+        line = f"  bf16 operands: rel err {err / scale:.3e} (tol {ATTN_BF16_RTOL})"
+        if timed:
+            out["ms_bf16"] = median_ms(
+                lambda: fused_attention_ln(xb, xkb, xvb, lns, lnb, km))
+            line += f", {out['ms_bf16']:.4f} ms"
+        print(line)
         return out
 
     edos = {label: run(label, *shape, "kv")
             for label, shape in attention_shapes().items()}
     phdos = {label: run(f"phDOS {label}", *shape, "kv")
              for label, shape in phdos_attention_shapes().items()}
-    extra = [run("self, one tensor", 2 * BATCH, BINS, BINS, "one"),
-             run("cross, three tensors", BATCH, BINS, 32, "three")]
+    extra = {"self, one tensor": run("self, one tensor", 2 * BATCH, BINS,
+                                     BINS, "one"),
+             "cross, three tensors": run("cross, three tensors", BATCH, BINS,
+                                         32, "three")}
+    # inputs whose mean is 25 standard deviations: the statistics must not
+    # cancel (correctness only)
+    large = [run(f"{label}, mean 50", *shape, "kv", mean=50.0, timed=False)
+             for label, shape in attention_shapes().items()]
     out, out_ph = per_forward(edos), per_forward(phdos)
     for agg, runs in ((out, edos), (out_ph, phdos)):
-        agg["unfused_ms"] = statistics.mean(r["unfused_ms"]
-                                            for r in runs.values())
-    out["err"] = max([out["err"]] + [r["err"] for r in extra])
+        for key in ("unfused_ms", "ms_bf16"):
+            agg[key] = statistics.mean(r[key] for r in runs.values())
+        for label, r in runs.items():
+            agg["by_shape"][label].update(unfused_ms=r["unfused_ms"],
+                                          ms_bf16=r["ms_bf16"])
+            check(r["ms"] < r["unfused_ms"],
+                  f"fused_attention_ln[{label}] {r['ms']:.4f} ms is not under "
+                  f"the unfused layer's {r['unfused_ms']:.4f} ms")
+    out["err"] = max([out["err"]] + [r["err"] for r in extra.values()]
+                     + [r["err"] for r in large])
+    out["bf16_max_rel_err"] = max(
+        r["bf16_rel_err"] for r in (*edos.values(), *phdos.values(),
+                                    *extra.values(), *large))
+    out["ms_other_aliasing"] = {k: r["ms"] for k, r in extra.items()}
     return {"fused_attention_ln": out}, {"fused_attention_ln": out_ph}
 
 
 def phase_layer_norm_bwd_kernel(dev):
-    """3f: the LayerNorm backward against its plain version at the row
-    counts of a train step, f32 and bf16 operands, beside
-    aten.native_layer_norm_backward on the same rows."""
+    """3f: the LayerNorm backward against its plain version: at 256 columns
+    at the row counts of a train step, f32 and bf16 operands (the ten timed
+    cases), both operand forms, beside aten.native_layer_norm_backward on
+    the same rows; then at widths 48, 600 and 1,024 and at a width that is
+    no multiple of the 16-byte vector (50), both forms and both dtypes."""
     g = torch.Generator().manual_seed(7)
-    d = HIDDEN
-    scale = (torch.rand(d, generator=g) + 0.5).to(dev)
-    lnb = torch.zeros(d, device=dev)
     row_counts = {"8*201": BATCH * BINS, "16*201": 2 * BATCH * BINS,
                   "8*32": BATCH * 32, "16*51": 2 * BATCH * PH_BINS,
                   "8*16": BATCH * 16}
+    lib = kernels.library()
+
+    def operands(rows, d, dtype):
+        scale = (torch.rand(d, generator=g) + 0.5).to(dev)
+        x = (torch.randn(rows, d, generator=g) * 3 + 1).to(dev, dtype)
+        dy = torch.randn(rows, d, generator=g).to(dev, dtype)
+        _, mean, rstd = torch.native_layer_norm(
+            x.float(), (d,), scale, torch.zeros(d, device=dev), 1e-5)
+        return x, dy, scale, mean, rstd, ((x.float() - mean) * rstd).to(dtype)
+
+    def plan_matches(rows, d, bf16):
+        """The wrapper's copy of the partition against the library's."""
+        got = [ctypes.c_int() for _ in range(5)]
+        lib.dostpu_layer_norm_bwd_plan(rows, d, int(bf16), *got)
+        p = ln_bwd_plan(rows, d, bf16)
+        want = [int(p["vector_form"]), p["slabs"], p["cluster"],
+                p["rows_per_rank"], p["grid"]]
+        check([v.value for v in got] == want,
+              f"ln_bwd_plan({rows}, {d}, bf16={bf16}) = {want}, the library "
+              f"says {[v.value for v in got]}")
+        return p
+
     runs = {}
     for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        f32 = dtype == torch.float32
+        rtols = ((KERNEL_RTOL, PARAM_GRAD_RTOL, PARAM_GRAD_RTOL)
+                 if f32 else (BF16_RTOL,) * 3)
+        floor = 1.0 if f32 else 1e-3
+        d = HIDDEN
         for label, rows in row_counts.items():
-            x = (torch.randn(rows, d, generator=g) * 3 + 1).to(dev, dtype)
-            dy = torch.randn(rows, d, generator=g).to(dev, dtype)
-            _, mean, rstd = torch.native_layer_norm(x.float(), (d,), scale,
-                                                    lnb, 1e-5)
-            xhat = ((x.float() - mean) * rstd).to(dtype)
+            x, dy, scale, mean, rstd, xhat = operands(rows, d, dtype)
             # the library call's own operands: parameters in x's dtype
-            w_lib, b_lib = scale.to(dtype), lnb.to(dtype)
+            w_lib, b_lib = scale.to(dtype), torch.zeros(d, device=dev,
+                                                        dtype=dtype)
             _, mean_lib, rstd_lib = torch.native_layer_norm(x, (d,), w_lib,
                                                             b_lib, 1e-5)
-            f32 = dtype == torch.float32
-            print(f"layer_norm_bwd {name} rows={label} D={d}")
+            p = plan_matches(rows, d, not f32)
+            print(f"layer_norm_bwd {name} rows={label} D={d}: "
+                  f"{p['slabs']} column slabs x {p['cluster']} blocks, "
+                  f"{p['grid']} blocks in all")
+            before = layer_norm_bwd.launches
             runs[name, label] = compare(
                 f"layer_norm_bwd[{name}, {label}]",
                 lambda: layer_norm_bwd(xhat, rstd, scale, dy),
                 lambda: ln_bwd_reference(xhat, rstd, scale, dy),
-                rtols=((KERNEL_RTOL, PARAM_GRAD_RTOL, PARAM_GRAD_RTOL)
-                       if f32 else (BF16_RTOL,) * 3),
-                floor=1.0 if f32 else 1e-3, repeat=True,
+                rtols=rtols, floor=floor, repeat=True,
                 work=(nbytes(xhat, dy, rstd, scale) + nbytes(dy)
                       + 2 * d * 4, 11 * rows * d),
                 library_fn=lambda: torch.ops.aten.native_layer_norm_backward(
                     dy, x, [d], mean_lib, rstd_lib, w_lib, b_lib,
                     [True, True, True]))
+            # compare() ran the kernel 2 + 5 + 50 times: one launch a call
+            check(layer_norm_bwd.launches == before + 57,
+                  "layer_norm_bwd counts more than one launch a call")
+            raw = compare(
+                f"layer_norm_bwd[{name}, {label}, x with mean and rstd]",
+                lambda: layer_norm_bwd(x, rstd, scale, dy, mean),
+                lambda: ln_bwd_reference(x, rstd, scale, dy, mean),
+                rtols=rtols, floor=floor, repeat=True)
+            runs[name, label]["ms_raw_form"] = raw["ms"]
+            runs[name, label]["err"] = max(runs[name, label]["err"],
+                                           raw["err"])
+            runs[name, label]["rel"] = max(runs[name, label]["rel"],
+                                           raw["rel"])
+        # other widths, untimed: small and ragged, wide, and scalar-form
+        for d in (48, 600, 1024, 50):
+            for rows in (7, 2 * BATCH * BINS):
+                x, dy, scale, mean, rstd, xhat = operands(rows, d, dtype)
+                p = plan_matches(rows, d, not f32)
+                for form, xin, m in (("xhat", xhat, None), ("x", x, mean)):
+                    got = layer_norm_bwd(xin, rstd, scale, dy, m)
+                    again = layer_norm_bwd(xin, rstd, scale, dy, m)
+                    want = ln_bwd_reference(xin, rstd, scale, dy, m)
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                          f"layer_norm_bwd[{name}, {rows} x {d}, {form}]: a "
+                          f"second run differs")
+                    worst = 0.0
+                    for a, b, tol in zip(got, want, rtols):
+                        err = (a.float() - b.float()).abs().max().item()
+                        lim = max(floor, b.float().abs().max().item())
+                        check(bool(torch.isfinite(a).all())
+                              and err <= tol * lim,
+                              f"layer_norm_bwd[{name}, {rows} x {d}, {form}]:"
+                              f" max abs err {err:.3e} > {tol} x {lim:.3g}")
+                        worst = max(worst, err / lim)
+                    runs.setdefault((name, "widths"), {"rel": 0.0})
+                    runs[name, "widths"]["rel"] = max(
+                        runs[name, "widths"]["rel"], worst)
+                print(f"layer_norm_bwd {name} {rows} x {d} "
+                      f"({'vector' if p['vector_form'] else 'scalar'} form, "
+                      f"{p['slabs']} slabs x {p['cluster']}): both operand "
+                      f"forms within tolerance, bit-identical second runs")
     # the row of the kernels line: f32 at the largest row count of a step
+    timed = {k: r for k, r in runs.items() if k[1] != "widths"}
     out = dict(runs["f32", "16*201"],
-               err=max(r["err"] for (n, _), r in runs.items() if n == "f32"),
-               rel=max(r["rel"] for (n, _), r in runs.items() if n == "f32"))
+               err=max(r["err"] for (n, _), r in timed.items() if n == "f32"),
+               rel=max(max(r["rel"] for (n, _), r in timed.items()
+                           if n == "f32"), runs["f32", "widths"]["rel"]))
     out["ms_by_rows"] = {f"{n} {label}": r["ms"]
-                         for (n, label), r in runs.items()}
+                         for (n, label), r in timed.items()}
+    out["ms_raw_form_by_rows"] = {f"{n} {label}": r["ms_raw_form"]
+                                  for (n, label), r in timed.items()}
+    out["library_ms_by_rows"] = {f"{n} {label}": r["library_ms"]
+                                 for (n, label), r in timed.items()}
     out["bf16_max_rel_err"] = max(r["rel"] for (n, _), r in runs.items()
                                   if n == "bf16")
+    for (n, label), r in timed.items():
+        check(r["ms"] < r["library_ms"],
+              f"layer_norm_bwd[{n}, {label}] {r['ms']:.4f} ms is not under "
+              f"native_layer_norm_backward's {r['library_ms']:.4f} ms")
     return {"layer_norm_bwd": out}
 
 
@@ -1425,12 +1584,15 @@ def phase_lever_train_rates(task):
 
 def phase_profile():
     """16b: where the device time goes: train steps and serving forwards of
-    both flagships at batch 8 (levers off). First the wall time of every
-    case without the profiler (host clock, synchronised at both ends; taken
-    before torch.profiler runs at all, which slows every later launch), then
-    each case under torch.profiler: the device time and the device
-    activities per step or forward, the busy share (device time over that
-    wall time) and the kernels by device time."""
+    both flagships at batch 8, with the LayerNorm levers off and then with
+    both on (the train step with the batch on the card, and the serving
+    forward). First the wall time of every case without the profiler (host
+    clock, synchronised at both ends; taken before torch.profiler runs at
+    all, which slows every later launch), then each case under
+    torch.profiler: the device time and the device activities per step or
+    forward, the busy share (device time over that wall time) and the
+    kernels by device time. Returns {case: {wall_ms, device_ms,
+    activities}}."""
     from torch.profiler import ProfilerActivity, profile
 
     cases = []
@@ -1438,34 +1600,41 @@ def phase_profile():
         learnable = (synthetic_edos_learnable if task == "edos"
                      else synthetic_phdos_learnable)
         clamp = task == "edos"
-        model = build_model(task, layers=LAYERS, t_layers=T_LAYERS,
-                            hidden=HIDDEN, device="cuda",
-                            generator=torch.Generator().manual_seed(2))
-        trainer = Trainer(model, clamp_targets=clamp, eval_clamp=clamp)
         batches = list(GraphLoader(learnable(96, seed=0), BATCH))[:8]
         on_card = [b.to("cuda") for b in batches]
+        for levers in ({}, {"fuse_ln_attn": True, "ln_lp": True}):
+            model = build_model(task, layers=LAYERS, t_layers=T_LAYERS,
+                                hidden=HIDDEN, device="cuda",
+                                generator=torch.Generator().manual_seed(2),
+                                **levers)
+            trainer = Trainer(model, clamp_targets=clamp, eval_clamp=clamp)
 
-        def forward(batch, model=model):
-            model.eval()
-            with torch.no_grad():
-                return model(batch)[2]
+            def forward(batch, model=model):
+                model.eval()
+                with torch.no_grad():
+                    return model(batch)[2]
 
-        for label, fn, inputs in (
-                ("train step, host batch uploaded per step",
-                 trainer.train_step, batches),
-                ("train step, batch on the card", trainer.train_step, on_card),
-                ("serving forward, batch on the card", forward, on_card)):
-            for x in inputs[:3]:  # warm
-                fn(x)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for x in inputs:
-                fn(x)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / len(inputs) * 1e3
-            cases.append((f"{task} {label}", fn, inputs, wall))
+            runs = [("train step, batch on the card", trainer.train_step,
+                     on_card),
+                    ("serving forward, batch on the card", forward, on_card)]
+            if not levers:
+                runs.insert(0, ("train step, host batch uploaded per step",
+                                trainer.train_step, batches))
+            for label, fn, inputs in runs:
+                for x in inputs[:3]:  # warm
+                    fn(x)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for x in inputs:
+                    fn(x)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / len(inputs) * 1e3
+                cases.append((f"{task} {label}, levers "
+                              f"{'both on' if levers else 'off'}", fn, inputs,
+                              wall))
 
-    print(f"profile, both flagships, batch {BATCH}, f32, levers off:")
+    print(f"profile, both flagships, batch {BATCH}, f32:")
+    out = {}
     for label, fn, inputs, wall in cases:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1479,11 +1648,22 @@ def phase_profile():
         device = sum(by_name.values())
         check(device > 0, f"{label}: the profile shows no device time")
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
+        out[label] = {"wall_ms": wall, "device_ms": device,
+                      "activities": ops / len(inputs)}
         print(f"  {label}: wall {wall:.3f} ms, device {device:.3f} ms over "
               f"{ops / len(inputs):.0f} device activities, busy "
               f"{100 * device / wall:.1f}%; by kernel (ms, share of device "
               f"time): " + "; ".join(f"{k} {v:.4f} ({100 * v / device:.1f}%)"
                                      for k, v in top))
+    # what the levers add or take away, case by case
+    for label, on in out.items():
+        if not label.endswith("both on"):
+            continue
+        off = out[label.replace("both on", "off")]
+        print(f"  {label} against off: wall {on['wall_ms'] - off['wall_ms']:+.3f}"
+              f" ms, device {on['device_ms'] - off['device_ms']:+.3f} ms, "
+              f"device activities {on['activities'] - off['activities']:+.0f}")
+    return out
 
 
 def spread(readings) -> str:
@@ -1539,6 +1719,16 @@ def main():
     mp_resources = kernel_resources(kernels.library_path(), MP_KERNELS)
     print(f"message-passing kernels, registers a thread and stack bytes: "
           f"{json.dumps(mp_resources)}")
+    ln_resources = kernel_resources(kernels.library_path(), LN_KERNELS)
+    print(f"LayerNorm-lever kernels, registers a thread and stack bytes: "
+          f"{json.dumps(ln_resources)}")
+    for name, res in ln_resources.items():
+        check(res["stack_bytes"] == 0,
+              f"{name} has a stack of {res['stack_bytes']} bytes")
+    limit = kernels.library().dostpu_attention_max_dim()
+    check(ATTENTION_MAX_DIM == limit,
+          f"ops.attention.ATTENTION_MAX_DIM is {ATTENTION_MAX_DIM}, the "
+          f"library's dostpu_attention_max_dim() {limit}")
 
     results = phase_kernels(dev)
     results.update(phase_backward_kernels(dev))
@@ -1667,11 +1857,17 @@ def main():
         if name in ATTENTION_KERNELS:
             row["resources"] = {k: resources[k] for k in ATTENTION_KERNELS[name]
                                 if k in resources}
+        if name in ("fused_attention_ln", "layer_norm_bwd"):
+            row["resources"] = {
+                k: v for k, v in ln_resources.items()
+                if k.startswith("attn_ln") == (name == "fused_attention_ln")}
         if name.startswith("fused_mp_edge"):
             row["resources"] = mp_resources
             row["max_abs_err"] = max(row["max_abs_err"],
                                      r["generic_width"]["err"])
         for key in ("unfused_ms", "ms_by_rows", "bf16_max_rel_err",
+                    "ms_bf16", "ms_other_aliasing", "ms_raw_form_by_rows",
+                    "library_ms_by_rows",
                     "ms_two_tensors", "ms_op", "ms_no_stats", "by_shape",
                     "generic_width", *MP_EXTRAS):
             if key in r:
@@ -1681,7 +1877,7 @@ def main():
             row.update(ms_phdos=ph["ms"], plain_ms_phdos=ph["plain_ms"],
                        bound_ms_phdos=max(ph["bytes_ms"], ph["ops_ms"]),
                        library_ms_phdos=ph["library_ms"])
-            for key in ("unfused_ms", "ms_two_tensors", "ms_op",
+            for key in ("unfused_ms", "ms_bf16", "ms_two_tensors", "ms_op",
                         "ms_no_stats", "by_shape"):
                 if key in ph:
                     row[f"{key}_phdos"] = ph[key]

@@ -1,5 +1,5 @@
 // Building blocks of the attention kernels for sm_90a (attention.cu,
-// attention_bwd.cu): f32 products on the tensor cores, asynchronous tile
+// attention_bwd.cu, attention_ln.cu): f32 products on the tensor cores, asynchronous tile
 // staging, and the online softmax of one key tile. Nothing here launches.
 //
 // Products. Every product of the kernels is a [16 x K] x [K x N] tile
@@ -35,6 +35,11 @@
 // A 16-row half of the streamed tile that lies wholly past the operand's end
 // is skipped in both shapes; rows past the end inside a half are zero-filled
 // when staged.
+//
+// Operands that are TF32 values already (bfloat16 values are: 8 of TF32's 10
+// mantissa bits) have lo = 0, so ONE pass is exact in them: the *_exact
+// forms of the two product shapes (attention_ln.cu with bf16 operands) skip
+// the split and round only the probabilities.
 //
 // Staging. cp.async.cg 16-byte copies, zero-filling rows past the end; with
 // two buffers the next tile is in flight while the current one is
@@ -238,6 +243,83 @@ __device__ __forceinline__ void prob_times_rows(const float* p_s,
     prob_times_rows_n<NC, 2>(p_s, t_s, stride, c0, lane, acc);
   else
     prob_times_rows_n<NC, 1>(p_s, t_s, stride, c0, lane, acc);
+}
+
+// rows_dot_partial for operands that are TF32 values already: one pass
+template <int NC, int NT>
+__device__ __forceinline__ void rows_dot_partial_exact(
+    const float* a_s, const float* t_s, int stride, int c0, int lane,
+    float (&acc)[4][4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+#pragma unroll 2
+  for (int ks = 0; ks < NC; ++ks) {
+    const int c = c0 + 8 * ks + t;
+    const uint32_t a[4] = {__float_as_uint(a_s[g * stride + c]),
+                           __float_as_uint(a_s[(g + 8) * stride + c]),
+                           __float_as_uint(a_s[g * stride + c + 4]),
+                           __float_as_uint(a_s[(g + 8) * stride + c + 4])};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float* row = t_s + (8 * n + g) * stride + c;
+      mma_tf32(acc[n], a, __float_as_uint(row[0]), __float_as_uint(row[4]));
+    }
+  }
+}
+
+// partial_tile for operands that are TF32 values already
+template <int NC>
+__device__ __forceinline__ void partial_tile_exact(const float* a_s,
+                                                   const float* t_s,
+                                                   int stride, int halves,
+                                                   int warp, int lane,
+                                                   float* parts) {
+  float acc[4][4];
+  float* part = parts + warp * kTileM * kPartStride;
+  if (halves == 2) {  // the same for every thread of the block
+    rows_dot_partial_exact<NC, 4>(a_s, t_s, stride, warp * 8 * NC, lane, acc);
+    store_partial<4>(part, acc, lane);
+  } else {
+    rows_dot_partial_exact<NC, 2>(a_s, t_s, stride, warp * 8 * NC, lane, acc);
+    store_partial<2>(part, acc, lane);
+  }
+}
+
+// prob_times_rows for a streamed tile of TF32 values: one pass, p_s rounded
+// to TF32 (the tensor core would truncate it)
+template <int NC, int HALVES>
+__device__ __forceinline__ void prob_times_rows_exact_n(
+    const float* p_s, const float* t_s, int stride, int c0, int lane,
+    float (&acc)[NC][4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int s = 0; s < 2 * HALVES; ++s) {
+    const int c = 8 * s + t;
+    const uint32_t a[4] = {round_tf32(p_s[g * kProbStride + c]),
+                           round_tf32(p_s[(g + 8) * kProbStride + c]),
+                           round_tf32(p_s[g * kProbStride + c + 4]),
+                           round_tf32(p_s[(g + 8) * kProbStride + c + 4])};
+    const float* row0 =
+        t_s + (16 * (s >> 1) + 2 * t + (s & 1)) * stride + c0 + g;
+    const float* row1 = row0 + 8 * stride;
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+      mma_tf32(acc[n], a, __float_as_uint(row0[8 * n]),
+               __float_as_uint(row1[8 * n]));
+  }
+}
+
+template <int NC>
+__device__ __forceinline__ void prob_times_rows_exact(
+    const float* p_s, const float* t_s, int stride, int c0, int halves,
+    int lane, float (&acc)[NC][4]) {
+  if (halves == 2)  // the same for every thread of the block
+    prob_times_rows_exact_n<NC, 2>(p_s, t_s, stride, c0, lane, acc);
+  else
+    prob_times_rows_exact_n<NC, 1>(p_s, t_s, stride, c0, lane, acc);
 }
 
 template <int NC>

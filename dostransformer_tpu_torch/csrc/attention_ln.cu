@@ -16,75 +16,51 @@
 // reaches device memory.
 //
 // What bounds it on an H100: as the unfused attention kernel
-// (attention.cu), 4 * Lq * Lk * D flops per batch element on the FP32 pipes
-// (0.66 GFLOP at the flagship self-attention 16 x 201 x 201 x 256); the
-// operands (13.2 MB there) stay in L2. Fusion saves the three LN outputs'
-// round trip through device memory and two or three launches.
+// (attention.cu), operations: 4 * Lq * Lk * D flops per batch element (0.66
+// GFLOP at the flagship self-attention 16 x 201 x 201 x 256), and latency:
+// 201 row tiles a batch element are one wave of small blocks. The operands
+// stay in L2. Fusion saves the LN outputs' round trip through device memory
+// and two or three launches.
 //
-// Design: the attention kernel of attention.cu (one block per 16 query rows
-// and batch element, 8 warps, 2 query rows per warp, 32-key tiles staged in
-// shared memory, online f32 softmax) with the normalisation applied as each
-// row is staged. A block that normalised its own key tiles from scratch
-// would redo every key row's two reductions once per query block (13 times
-// at 201 queries), so a small first kernel of the same launch computes only
-// the per-row statistics (mu, rstd): one warp per row, the row in
-// registers, two shuffle reductions, 8 bytes written per row. The main
-// kernel then normalises on load with two multiply-adds per element and no
-// reduction. Rows that are one tensor get their statistics once: when x_k
-// and x_v (or all three) alias, their statistics are shared, and a K tile's
-// normalised rows are stored as the V tile without a second load; the
-// arithmetic per row is the same either way, so the result does not depend
-// on the aliasing. A row whose keys are all masked sees every score at
-// -1e30 and averages the normalised values uniformly, as attention.cu does.
+// Design: the attention kernel of attention.cu on the building blocks of
+// attention_core.cuh (one 4-warp block per 16 query rows and batch element,
+// both products as mma.sync on the tensor cores, 32-key tiles arriving by
+// cp.async through the tile ring, one staged tile serving q k^T and p v
+// when x_v is x_k, the online f32 softmax, the half tile past Lk skipped).
+// What is new is where the LayerNorm happens. Raw rows arrive
+// asynchronously, so they cannot be normalised on load; instead each staged
+// tile is normalised IN PLACE in shared memory once it has landed, before
+// the products read it: eight lanes take a row (16 bytes a lane a load),
+// take its mean and variance by three shuffles each from the registers
+// they just loaded, and write the normalised, rounded row back; a warp works
+// on its eight rows of a tile at once so that the reduction chains overlap. That is one pass and
+// one barrier a tile more than attention.cu, and it makes the hot loops
+// exactly that kernel's. The statistics are recomputed per staged tile (a
+// key row is visited by every query block of its batch element): the
+// reductions are a few hundred cycles a tile, against a launch of their
+// own and a scratch buffer. Consequences:
+//   * one launch, no scratch memory; the additive key bias is formed in
+//     the kernel from the boolean key mask, so the op launches nothing else;
+//   * the arithmetic of a row does not depend on which tensor it came
+//     from, so x_k = x_v (or all three) as one tensor or as copies gives
+//     the same bits;
+//   * bf16 operands are staged as 16-byte copies at the front of their f32
+//     row and expanded in place by the same pass. A bf16 value is a TF32
+//     value, so the split of the 3xTF32 product is skipped: ONE mma pass is
+//     exact in q, k and v (the probabilities are rounded to TF32's 10 bits,
+//     two more than the plain version's bf16 weights keep);
+//   * a row whose keys are all masked sees every score at -1e30 and
+//     averages the normalised values uniformly, as attention.cu does.
 // The TPU kernel's column mask and zero-padded scale and bias exist for its
 // lane padding and are not reproduced.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+
+#include "attention_core.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 2;       // query rows per warp
-constexpr int kTileQ = kWarps * kRows;  // query rows per block
-constexpr int kTileK = 32;     // keys per tile (1 per lane)
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// elements 4c .. 4c+3 of a row, as floats
-__device__ __forceinline__ float4 load4(const float* row, int c) {
-  return reinterpret_cast<const float4*>(row)[c];
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* row, int c) {
-  const uint2 raw = reinterpret_cast<const uint2*>(row)[c];
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
+using namespace attn;
 
 // a value as the operand dtype holds it
 template <typename T>
@@ -96,262 +72,302 @@ __device__ __forceinline__ float rounded<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// LN of 4 elements given the row's statistics: ((x - mu) * rstd) * s + b
-template <typename T>
-__device__ __forceinline__ float4 normalise(float4 x, float mu, float rstd,
-                                            float4 s, float4 b) {
-  float4 y;
-  y.x = rounded<T>((x.x - mu) * rstd * s.x + b.x);
-  y.y = rounded<T>((x.y - mu) * rstd * s.y + b.y);
-  y.z = rounded<T>((x.z - mu) * rstd * s.z + b.z);
-  y.w = rounded<T>((x.w - mu) * rstd * s.w + b.w);
-  return y;
+// 16 bytes as 4 floats or 8 bf16 values
+__device__ __forceinline__ void unpack(const uint4& r, float (&v)[4]) {
+  v[0] = __uint_as_float(r.x); v[1] = __uint_as_float(r.y);
+  v[2] = __uint_as_float(r.z); v[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void unpack(const uint4& r, float (&v)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
-// Up to three row sets whose statistics one launch computes.
-struct StatsJobs {
-  const void* x[3];
-  float* stats[3];
-  int rows[3];
-  int n;
-};
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
-// stats[r] = (mean, 1 / sqrt(var + eps)) of row r, two-pass variance; one
-// warp per row, D = 32 * NC.
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads)
-ln_stats_kernel(StatsJobs jobs, float eps) {
+// rows [r0, r0 + rows) of src ([n_total][D] of T) -> the FRONT of the rows
+// of dst ([rows][D + kPad] floats), raw, as 16-byte copies; zeros for rows
+// at or past n_total; asynchronous
+template <typename T, int D>
+__device__ __forceinline__ void stage_raw_async(float* dst, const T* src,
+                                                int r0, int rows,
+                                                int n_total) {
+  constexpr int C = D * (int)sizeof(T) / 16;  // copies a row
+  for (int idx = threadIdx.x; idx < rows * C; idx += kThreads) {
+    const int i = idx / C;
+    const int c = idx % C;
+    const bool ok = r0 + i < n_total;
+    const char* from =
+        reinterpret_cast<const char*>(src + (size_t)(ok ? r0 + i : 0) * D);
+    char* to = reinterpret_cast<char*>(dst + i * (D + kPad));
+    cp_async16(reinterpret_cast<float*>(to + 16 * c),
+               reinterpret_cast<const float*>(from + 16 * c), ok);
+  }
+}
+
+// The shared LayerNorm of the first n rows of a staged tile of ROWS rows, in
+// place: raw T values at the front of each row -> D normalised floats,
+// rounded to T. Eight lanes share a row (lane l8 of the eight holds the
+// 16-byte vectors l8, l8 + 8, ... of it), so a warp works on four rows at a
+// time and a row's two reductions are three shuffles each, not five; a warp
+// takes ROWS / 4 consecutive rows, all of them at once where the registers
+// allow (their chains overlap). Two-pass variance, f32. ln_s is the
+// LayerNorm's scale [D], then its bias [D], in shared memory.
+template <typename T, int NC, int ROWS>
+__device__ __forceinline__ void normalise_rows(float* tile, int n,
+                                               const float* ln_s, float eps,
+                                               int warp, int lane) {
   constexpr int D = 32 * NC;
-  const int lane = threadIdx.x % 32;
-  int r = blockIdx.x * kWarps + threadIdx.x / 32;
-  const T* x = nullptr;
-  float* stats = nullptr;
-  for (int j = 0; j < 3; ++j) {
-    if (j >= jobs.n) break;
-    if (r < jobs.rows[j]) {
-      x = static_cast<const T*>(jobs.x[j]);
-      stats = jobs.stats[j];
-      break;
+  constexpr int S = D + kPad;
+  constexpr int V = 16 / (int)sizeof(T);
+  constexpr int VR = D / V;               // vectors of a row
+  constexpr int NV = (VR + 7) / 8;        // vectors a lane holds of a row
+  constexpr int SETS = ROWS / (4 * kWarps);     // 4-row sets a warp takes
+  constexpr int SB = NV * V <= 32 ? SETS : 1;   // sets it works on at once
+  const int group = lane >> 3, l8 = lane & 7;
+  auto group_sum = [](float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
+    return v;
+  };
+  for (int s0 = 0; s0 < SETS; s0 += SB) {
+    const int first = 4 * (SETS * warp + s0);  // the same for the whole warp
+    if (first >= n) break;
+    float x[SB][NV][V], mu[SB], rstd[SB];
+#pragma unroll
+    for (int s = 0; s < SB; ++s) {
+      const int row = first + 4 * s + group;
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int vec = l8 + 8 * i;
+#pragma unroll
+        for (int e = 0; e < V; ++e) x[s][i][e] = 0.f;
+        if (row < n && vec < VR) {
+          unpack(reinterpret_cast<const uint4*>(tile + row * S)[vec], x[s][i]);
+#pragma unroll
+          for (int e = 0; e < V; ++e) sum += x[s][i][e];
+        }
+      }
+      mu[s] = sum;
     }
-    r -= jobs.rows[j];
-  }
-  if (x == nullptr) return;  // past the last row (no block-wide sync below)
-  const T* row = x + (size_t)r * D;
-  float v[NC];
-  float sum = 0.f;
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    v[c] = to_float(row[lane + 32 * c]);
-    sum += v[c];
-  }
-  const float mu = warp_sum(sum) / (float)D;
-  float sq = 0.f;
+    for (int s = 0; s < SB; ++s) mu[s] = group_sum(mu[s]) / (float)D;
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const float d = v[c] - mu;
-    sq = fmaf(d, d, sq);
-  }
-  const float var = warp_sum(sq) / (float)D;
-  if (lane == 0) {
-    stats[2 * (size_t)r] = mu;
-    stats[2 * (size_t)r + 1] = 1.f / sqrtf(var + eps);
+    for (int s = 0; s < SB; ++s) {
+      float sq = 0.f;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        if (l8 + 8 * i < VR) {
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            x[s][i][e] -= mu[s];  // centred from here on
+            sq = fmaf(x[s][i][e], x[s][i][e], sq);
+          }
+        }
+      }
+      rstd[s] = sq;
+    }
+    // every lane's raw values are in registers by now (the sums need them
+    // all), so the wider normalised rows may overwrite them
+#pragma unroll
+    for (int s = 0; s < SB; ++s) {
+      // 1 / sqrt(var + eps): the fast reciprocal root and one Newton step
+      // (within an ulp of the division, at a tenth of its cost)
+      const float var = group_sum(rstd[s]) / (float)D + eps;
+      const float r = rsqrtf(var);
+      rstd[s] = r * fmaf(-0.5f * var * r, r, 1.5f);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int col = (l8 + 8 * i) * V;
+      if (col < D) {
+#pragma unroll
+        for (int e = 0; e < V; e += 4) {
+          const float4 sc = *reinterpret_cast<const float4*>(ln_s + col + e);
+          const float4 bi =
+              *reinterpret_cast<const float4*>(ln_s + D + col + e);
+#pragma unroll
+          for (int s = 0; s < SB; ++s) {
+            const int row = first + 4 * s + group;
+            if (row >= n) continue;
+            float4 y;
+            y.x = rounded<T>(x[s][i][e] * rstd[s] * sc.x + bi.x);
+            y.y = rounded<T>(x[s][i][e + 1] * rstd[s] * sc.y + bi.y);
+            y.z = rounded<T>(x[s][i][e + 2] * rstd[s] * sc.z + bi.z);
+            y.w = rounded<T>(x[s][i][e + 3] * rstd[s] * sc.w + bi.w);
+            *reinterpret_cast<float4*>(tile + row * S + col + e) = y;
+          }
+        }
+      }
+    }
   }
 }
 
-constexpr size_t smem_floats(int d) {
-  return (size_t)kTileQ * d + (size_t)kTileK * (d + 4) + (size_t)kTileK * d +
-         2 * (size_t)d;
-}
-
-// D = 32 * NC feature columns; each lane owns columns lane + 32 * c.
+// D = 32 * NC. Shared memory as attn_fwd_kernel of attention.cu: q_s
+// [16][D+4], n_buf tiles of 32 keys [32][D+4] (x_k, then x_v when it is
+// another tensor), the partial score tiles, the permuted p tile, 16
+// rescale factors / row sums, the LayerNorm's scale and bias, and the batch
+// element's Lk key biases. x, xk
+// and xv may be one tensor; mask is null (every key attended) or [B, Lk]
+// bytes, non-zero = attend.
 template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
-attn_ln_fwd_kernel(const T* x, const T* xk, const T* xv,  // may alias
-                   const float* stats_q, const float* stats_k,
-                   const float* stats_v, const float* __restrict__ lns,
+attn_ln_fwd_kernel(const T* x, const T* xk, const T* xv,
+                   const float* __restrict__ lns,
                    const float* __restrict__ lnb,
-                   const float* __restrict__ bias, T* __restrict__ out,
-                   int Lq, int Lk, float scale) {
+                   const unsigned char* __restrict__ mask,
+                   T* __restrict__ out, int Lq, int Lk, float scale,
+                   float eps, int nbuf) {
   constexpr int D = 32 * NC;
-  constexpr int D4 = D / 4;
-  constexpr int KS = D + 4;  // padded K row stride (floats)
+  constexpr int S = D + kPad;
+  constexpr bool kSplit = sizeof(T) == 4;  // f32 operands: 3xTF32
+  const bool v_is_k = xv == xk;
+  const int tile_floats = (v_is_k ? 1 : 2) * kTileN * S;
   extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                      // [kTileQ][D]
-  float* k_s = q_s + kTileQ * D;          // [kTileK][KS]
-  float* v_s = k_s + kTileK * KS;         // [kTileK][D]
-  float* s_s = v_s + kTileK * D;          // [D] LN scale
-  float* b_s = s_s + D;                   // [D] LN bias
+  float* q_s = smem;
+  float* kv_s = q_s + kTileM * S;
+  float* parts = kv_s + nbuf * tile_floats;
+  float* p_s = parts + kPartFloats;
+  float* corr_s = p_s + kProbFloats;  // [16]
+  float* l_s = corr_s + kTileM;       // [16]
+  float* ln_s = l_s + kTileM;         // [2][D]: LayerNorm scale, bias
+  float* bias_s = ln_s + 2 * D;       // [Lk]
   const int b = blockIdx.y;
-  const int q0 = blockIdx.x * kTileQ;
+  const int q0 = blockIdx.x * kTileM;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const bool kv_same = xk == xv;  // one tensor: one load serves K and V
-
+  const int g = lane >> 2, t = lane & 3;
+  const int c0 = warp * 8 * NC;  // the warp's quarter of D
+  const T* kb = xk + (size_t)b * Lk * D;
+  const T* vb = xv + (size_t)b * Lk * D;
+  const int n_tiles = (Lk + kTileN - 1) / kTileN;
   for (int c = threadIdx.x; c < D; c += kThreads) {
-    s_s[c] = lns[c];
-    b_s[c] = lnb[c];
+    ln_s[c] = lns[c];
+    ln_s[D + c] = lnb[c];
   }
-  __syncthreads();
+  // the additive key bias, formed here from the boolean key mask (both read
+  // after the first tile's barrier)
+  for (int j = threadIdx.x; j < Lk; j += kThreads)
+    bias_s[j] = mask == nullptr || mask[(size_t)b * Lk + j] ? 0.f : -1e30f;
 
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int idx = threadIdx.x; idx < kTileQ * D4; idx += kThreads) {
-    const int i = idx / D4;
-    const int c = idx % D4;
-    float4 val = zero4;
-    if (q0 + i < Lq) {
-      const size_t row = (size_t)b * Lq + q0 + i;
-      val = normalise<T>(load4(x + row * D, c), stats_q[2 * row],
-                         stats_q[2 * row + 1],
-                         reinterpret_cast<const float4*>(s_s)[c],
-                         reinterpret_cast<const float4*>(b_s)[c]);
-    }
-    reinterpret_cast<float4*>(q_s + i * D)[c] = val;
-  }
+  auto stage = [&](int tile, int buf) {
+    float* dst = kv_s + buf * tile_floats;
+    stage_raw_async<T, D>(dst, kb, tile * kTileN, kTileN, Lk);
+    if (!v_is_k)
+      stage_raw_async<T, D>(dst + kTileN * S, vb, tile * kTileN, kTileN, Lk);
+  };
+  stage_raw_async<T, D>(q_s, x + (size_t)b * Lq * D, q0, kTileM, Lq);
+  stage(0, 0);
+  cp_async_commit();
 
-  float m_run[kRows], l_run[kRows], o[kRows][NC];
+  float m_run[4], l_run[4];  // of the rows 4 warp .. 4 warp + 3
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+  for (int r = 0; r < 4; ++r) {
     m_run[r] = -INFINITY;
     l_run[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) o[r][c] = 0.f;
   }
+  float o[NC][4];  // rows g, g+8; columns c0 + 8n + 2t, +1
+  zero_acc<NC>(o);
 
-  for (int k0 = 0; k0 < Lk; k0 += kTileK) {
-    __syncthreads();  // q_s is loaded / the previous key tile is consumed
-    for (int idx = threadIdx.x; idx < kTileK * D4; idx += kThreads) {
-      const int j = idx / D4;
-      const int c = idx % D4;
-      float4 kv = zero4, vv = zero4;
-      if (k0 + j < Lk) {
-        const size_t row = (size_t)b * Lk + k0 + j;
-        const float4 s4 = reinterpret_cast<const float4*>(s_s)[c];
-        const float4 b4 = reinterpret_cast<const float4*>(b_s)[c];
-        kv = normalise<T>(load4(xk + row * D, c), stats_k[2 * row],
-                          stats_k[2 * row + 1], s4, b4);
-        vv = kv_same ? kv
-                     : normalise<T>(load4(xv + row * D, c), stats_v[2 * row],
-                                    stats_v[2 * row + 1], s4, b4);
-      }
-      reinterpret_cast<float4*>(k_s + j * KS)[c] = kv;
-      reinterpret_cast<float4*>(v_s + j * D)[c] = vv;
-    }
+  for (int it = 0; it < n_tiles; ++it) {
+    const int buf = ring_acquire(it, n_tiles, nbuf, stage);
+    float* k_s = kv_s + buf * tile_floats;
+    float* v_s = v_is_k ? k_s : k_s + kTileN * S;
+    const int k0 = it * kTileN;
+    const int nk = min(kTileN, Lk - k0);
+    const int halves = (nk + 15) / 16;
+
+    // the tile has landed raw: normalise it (and, once, the query rows)
+    if (it == 0)
+      normalise_rows<T, NC, kTileM>(q_s, min(kTileM, Lq - q0), ln_s, eps,
+                                    warp, lane);
+    normalise_rows<T, NC, kTileN>(k_s, nk, ln_s, eps, warp, lane);
+    if (!v_is_k)
+      normalise_rows<T, NC, kTileN>(v_s, nk, ln_s, eps, warp, lane);
     __syncthreads();
 
-    const int j = k0 + lane;
-    const bool valid = j < Lk;
-    const float bj = valid ? bias[(size_t)b * Lk + j] : 0.f;
-    // scores of this lane's key against the warp's rows: each K element
-    // read from shared memory feeds all kRows rows
-    const float4* krow = reinterpret_cast<const float4*>(k_s + lane * KS);
-    const float4* qrow = reinterpret_cast<const float4*>(q_s + warp * kRows * D);
-    float s[kRows];
+    if (kSplit)
+      partial_tile<NC>(q_s, k_s, S, halves, warp, lane, parts);
+    else
+      partial_tile_exact<NC>(q_s, k_s, S, halves, warp, lane, parts);
+    __syncthreads();
+    softmax_tile<true>(parts, bias_s, k0, Lk, scale, warp, lane, m_run, l_run,
+                       p_s, corr_s);
+    __syncthreads();
+    const float c_lo = corr_s[g], c_hi = corr_s[g + 8];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D4; ++c) {
-      const float4 kk = krow[c];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 a = qrow[r * D4 + c];
-        s[r] = fmaf(a.x, kk.x, s[r]);
-        s[r] = fmaf(a.y, kk.y, s[r]);
-        s[r] = fmaf(a.z, kk.z, s[r]);
-        s[r] = fmaf(a.w, kk.w, s[r]);
-      }
+    for (int n = 0; n < NC; ++n) {
+      o[n][0] *= c_lo; o[n][1] *= c_lo; o[n][2] *= c_hi; o[n][3] *= c_hi;
     }
-    float p[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float sr = valid ? s[r] * scale + bj : -INFINITY;
-      const float m_new = fmaxf(m_run[r], warp_max(sr));
-      p[r] = valid ? expf(sr - m_new) : 0.f;
-      const float corr = expf(m_run[r] - m_new);  // 0 on the first tile
-      l_run[r] = l_run[r] * corr + warp_sum(p[r]);
-      m_run[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) o[r][c] *= corr;
-    }
-    // o += p V over the tile: each V element read once feeds all rows
-    for (int jj = 0; jj < kTileK; ++jj) {
-      float pj[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        pj[r] = __shfl_sync(0xffffffffu, p[r], jj);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = v_s[jj * D + lane + 32 * c];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) o[r][c] = fmaf(pj[r], vv, o[r][c]);
-      }
-    }
+    if (kSplit)
+      prob_times_rows<NC>(p_s, v_s, S, c0, halves, lane, o);
+    else
+      prob_times_rows_exact<NC>(p_s, v_s, S, c0, halves, lane, o);
   }
 
+  if (lane == 0) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int i = q0 + warp * kRows + r;
-    if (i >= Lq) continue;
-    const float inv = 1.f / l_run[r];
+    for (int r = 0; r < 4; ++r) l_s[4 * warp + r] = l_run[r];
+  }
+  __syncthreads();
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      store(out + ((size_t)b * Lq + i) * D + lane + 32 * c, o[r][c] * inv);
+  for (int half = 0; half < 2; ++half) {
+    const int row = g + 8 * half;
+    if (q0 + row >= Lq) continue;
+    const float inv = 1.f / l_s[row];
+    T* at = out + ((size_t)b * Lq + q0 + row) * D + c0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+      store2(at + 8 * n, o[n][2 * half] * inv, o[n][2 * half + 1] * inv);
   }
 }
 
 template <typename T, int NC>
 cudaError_t launch(const void* x, const void* xk, const void* xv,
-                   const float* lns, const float* lnb, const float* bias,
-                   void* out, float* stats, int B, int Lq, int Lk,
+                   const float* lns, const float* lnb,
+                   const unsigned char* mask, void* out, int B, int Lq, int Lk,
                    float scale, float eps, cudaStream_t st) {
-  // statistics once per distinct tensor: q rows first, then k, then v
-  const bool k_is_q = xk == x && Lk == Lq;
-  const bool v_is_k = xv == xk;
-  const bool v_is_q = xv == x && Lk == Lq;
-  float* stats_q = stats;
-  float* stats_k = k_is_q ? stats_q : stats + 2 * (size_t)B * Lq;
-  float* stats_v = v_is_k ? stats_k
-                   : v_is_q ? stats_q
-                            : stats + 2 * (size_t)B * (Lq + Lk);
-  StatsJobs jobs = {};
-  int total = 0;
-  auto add = [&](const void* p, float* s, int rows) {
-    jobs.x[jobs.n] = p;
-    jobs.stats[jobs.n] = s;
-    jobs.rows[jobs.n] = rows;
-    ++jobs.n;
-    total += rows;
-  };
-  add(x, stats_q, B * Lq);
-  if (!k_is_q) add(xk, stats_k, B * Lk);
-  if (!v_is_k && !v_is_q) add(xv, stats_v, B * Lk);
-  ln_stats_kernel<T, NC><<<(total + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-      jobs, eps);
-  cudaError_t err = cudaGetLastError();
+  constexpr size_t S = 32 * NC + kPad;
+  const size_t fixed =
+      (kTileM * S + kPartFloats + kProbFloats + 2 * kTileM + 2 * 32 * NC +
+       Lk) * sizeof(float);
+  const size_t tile = (xv == xk ? 1 : 2) * kTileN * S * sizeof(float);
+  const int nbuf = pick_buffers(fixed, tile);
+  if (nbuf == 0) return cudaErrorInvalidValue;
+  const size_t smem = fixed + nbuf * tile;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_ln_fwd_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
-
-  const size_t smem = smem_floats(32 * NC) * sizeof(float);
-  err = cudaFuncSetAttribute(attn_ln_fwd_kernel<T, NC>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + kTileQ - 1) / kTileQ, B);
+  const dim3 grid((Lq + kTileM - 1) / kTileM, B);
   attn_ln_fwd_kernel<T, NC><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(xk),
-      static_cast<const T*>(xv), stats_q, stats_k, stats_v, lns, lnb, bias,
-      static_cast<T*>(out), Lq, Lk, scale);
+      static_cast<const T*>(xv), lns, lnb, mask, static_cast<T*>(out), Lq, Lk,
+      scale, eps, nbuf);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* x, const void* xk, const void* xv,
-                     const float* lns, const float* lnb, const float* bias,
-                     void* out, float* stats, int B, int Lq, int Lk, int D,
-                     float scale, float eps, cudaStream_t st) {
+                     const float* lns, const float* lnb,
+                     const unsigned char* mask, void* out, int B, int Lq,
+                     int Lk, int D, float scale, float eps, cudaStream_t st) {
   switch (D / 32) {
-#define DOSTPU_CASE(nc)                                                    \
-  case nc:                                                                 \
-    return launch<T, nc>(x, xk, xv, lns, lnb, bias, out, stats, B, Lq, Lk, \
-                         scale, eps, st);
+#define DOSTPU_CASE(nc)                                                   \
+  case nc:                                                                \
+    return launch<T, nc>(x, xk, xv, lns, lnb, mask, out, B, Lq, Lk, scale, \
+                         eps, st);
     DOSTPU_CASE(1) DOSTPU_CASE(2) DOSTPU_CASE(3) DOSTPU_CASE(4)
     DOSTPU_CASE(5) DOSTPU_CASE(6) DOSTPU_CASE(7) DOSTPU_CASE(8)
     DOSTPU_CASE(9) DOSTPU_CASE(10) DOSTPU_CASE(11) DOSTPU_CASE(12)
@@ -366,22 +382,25 @@ cudaError_t dispatch(const void* x, const void* xk, const void* xv,
 
 // All pointers are device pointers into contiguous, 16-byte aligned tensors:
 // x and out [B, Lq, D], xk and xv [B, Lk, D] (float32, or bfloat16 when
-// `bf16` is non-zero; xk, xv and x may be one tensor); lns and lnb [D], bias
-// [B, Lk] and the scratch `stats` [2 * B * (Lq + 2 * Lk)] float32. D must
-// be a multiple of 32 and at most dostpu_attention_max_dim(). Returns the
-// CUDA error code of the launches (0 on success).
+// `bf16` is non-zero; xk, xv and x may be one tensor); lns and lnb [D]
+// float32; mask null (every key attended) or [B, Lk] bytes (bool: non-zero
+// = attend, zero = the key takes the bias -1e30), any alignment. D must be
+// a multiple of 32 and at most
+// dostpu_attention_max_dim(). One launch, no scratch memory. Returns the
+// CUDA error code of the launch (0 on success).
 extern "C" int dostpu_attention_ln_fwd(const void* x, const void* xk,
                                        const void* xv, const float* lns,
-                                       const float* lnb, const float* bias,
-                                       void* out, float* stats, int B, int Lq,
-                                       int Lk, int D, float scale, float eps,
+                                       const float* lnb,
+                                       const unsigned char* mask, void* out,
+                                       int B, int Lq, int Lk,
+                                       int D, float scale, float eps,
                                        int bf16, void* stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0 || B > 65535 || D <= 0 || D % 32 != 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return dispatch<__nv_bfloat16>(x, xk, xv, lns, lnb, bias, out, stats, B,
-                                   Lq, Lk, D, scale, eps, st);
-  return dispatch<float>(x, xk, xv, lns, lnb, bias, out, stats, B, Lq, Lk, D,
-                         scale, eps, st);
+    return dispatch<__nv_bfloat16>(x, xk, xv, lns, lnb, mask, out, B, Lq, Lk,
+                                   D, scale, eps, st);
+  return dispatch<float>(x, xk, xv, lns, lnb, mask, out, B, Lq, Lk, D, scale,
+                         eps, st);
 }

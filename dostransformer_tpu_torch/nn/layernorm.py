@@ -18,10 +18,15 @@ rstd in f32, and computes
     dbias  = sum_leading(dy)
 
 For CUDA tensors the backward is the kernel in ``csrc/layernorm_bwd.cu``
-(:func:`layer_norm_bwd`: one pass over dy and xhat, all arithmetic f32,
-f32 and bf16 operands, any number of rows), for CPU tensors the plain
-:func:`ln_bwd_reference`. Nothing else chooses the path. f64 operands stay
-f64 on the plain path; the kernel refuses them.
+(:func:`layer_norm_bwd`: ONE launch of 16-byte loads, all arithmetic f32,
+f32 and bf16 operands, any number of rows and any width; row blocks write
+dx, column blocks of the same launch take dscale and dbias slab by slab and
+join through a thread-block cluster's shared memory, in a fixed order),
+for CPU tensors the plain :func:`ln_bwd_reference`. Nothing else chooses the
+path. Both take a second operand form, the raw x with ``mean`` and rstd,
+for a caller that has no xhat in memory (the LayerNorm-fused attention's
+backward); :func:`layer_norm_lp`'s own backward keeps the saved xhat. f64
+operands stay f64 on the plain path; the kernel refuses them.
 """
 
 from __future__ import annotations
@@ -34,6 +39,12 @@ from dostransformer_tpu_torch.ops import kernels
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# constants of csrc/layernorm_bwd.cu: threads of a block, most blocks of a
+# cluster, most column blocks of a launch (while a slab is split)
+LN_BWD_THREADS, LN_BWD_CLUSTER, LN_BWD_COLUMN_BLOCKS = 256, 8, 132
+# threads that share a row of a column slab; passes of rows a block keeps
+# when a slab's rows are split over a cluster
+LN_BWD_SLAB_THREADS, LN_BWD_PASSES_TO_SPLIT = 8, 8
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -64,13 +75,18 @@ def _ln_lp_fwd(x, scale, bias, eps):
 
 
 def ln_bwd_reference(xhat: torch.Tensor, rstd: torch.Tensor,
-                     scale: torch.Tensor, dy: torch.Tensor):
+                     scale: torch.Tensor, dy: torch.Tensor,
+                     mean: torch.Tensor | None = None):
     """Plain xhat-form LayerNorm backward: xhat and dy [..., D] in the
     operand dtype, rstd [..., 1], scale [D] -> (dx in dy's dtype, dscale and
     dbias [D] in scale's dtype). The row and column sums accumulate in f32
     or wider over the operand-dtype products, as the JAX package's
-    ``_ln_bwd_jnp`` does."""
+    ``_ln_bwd_jnp`` does. With ``mean`` ([..., 1], rstd's dtype) the first
+    argument is the raw x and ``xhat = (x - mean) * rstd`` is formed here,
+    in f32 or wider, and rounded to the operand dtype."""
     f = torch.promote_types(dy.dtype, torch.float32)
+    if mean is not None:
+        xhat = ((xhat.to(f) - mean) * rstd).to(dy.dtype)
     d = xhat.shape[-1]
     g = dy * scale.to(dy.dtype)
     s1 = g.sum(-1, keepdim=True, dtype=f) / d
@@ -82,14 +98,47 @@ def ln_bwd_reference(xhat: torch.Tensor, rstd: torch.Tensor,
     return dx, dscale, dbias
 
 
+def ln_bwd_plan(rows: int, d: int, bf16: bool = False) -> dict:
+    """The kernel's partition of ``rows`` rows of width ``d``, a function of
+    (rows, d, dtype) alone (a copy of ``make_plan`` in
+    ``csrc/layernorm_bwd.cu``; the card run holds the two equal). Row
+    blocks take 8 rows each, a warp a row. The column sums are taken per
+    slab of ``slab`` columns by ``cluster`` blocks that own
+    ``rows_per_rank`` rows each: ``threads_a_row`` threads share a row of
+    the slab (``vector`` elements each), a thread adds its rows (every
+    ``rows_a_pass``-th) in order, then lanes, warps and blocks are added in
+    fixed orders. ``grid`` is the blocks of the launch."""
+    vec = 8 if bf16 else 4
+    chunks = next((n for n in (1, 2, 4, 8) if d <= 32 * vec * n), 0)
+    if d % vec:
+        chunks = 0
+    v = vec if chunks else 1
+    slab = LN_BWD_SLAB_THREADS * v
+    rows_a_pass = LN_BWD_THREADS // LN_BWD_SLAB_THREADS
+    slabs = -(-d // slab)
+    cluster = 1
+    while (cluster < LN_BWD_CLUSTER
+           and slabs * 2 * cluster <= LN_BWD_COLUMN_BLOCKS
+           and rows > LN_BWD_PASSES_TO_SPLIT * rows_a_pass * cluster):
+        cluster *= 2
+    blocks = slabs * cluster + -(-rows // (LN_BWD_THREADS // 32))
+    return {"vector_form": bool(chunks), "vector": v, "slab": slab,
+            "threads_a_row": slab // v, "rows_a_pass": rows_a_pass,
+            "slabs": slabs, "cluster": cluster,
+            "rows_per_rank": -(-rows // cluster),
+            "grid": -(-blocks // cluster) * cluster}
+
+
 def layer_norm_bwd(xhat: torch.Tensor, rstd: torch.Tensor,
-                   scale: torch.Tensor, dy: torch.Tensor):
-    """The backward kernel (``csrc/layernorm_bwd.cu``): same contract as
-    :func:`ln_bwd_reference`, with g = dy * scale kept in f32. CUDA tensors
-    only: xhat and dy float32 or bfloat16 (one dtype), rstd and scale
-    float32, D a multiple of 32 up to the attention kernels' width limit;
-    anything else raises. The leading dimensions are flattened to rows, any
-    count >= 1. ``layer_norm_bwd.launches`` counts kernel launches."""
+                   scale: torch.Tensor, dy: torch.Tensor,
+                   mean: torch.Tensor | None = None):
+    """The backward kernel (``csrc/layernorm_bwd.cu``, one launch): same
+    contract as :func:`ln_bwd_reference`, both operand forms, with
+    g = dy * scale kept in f32. CUDA tensors only: xhat (or x) and dy
+    float32 or bfloat16 (one dtype), rstd, mean and scale float32, any
+    width >= 1; anything else raises. The leading
+    dimensions are flattened to rows, any count >= 1.
+    ``layer_norm_bwd.launches`` counts kernel launches."""
     if not dy.is_cuda:
         raise ValueError("layer_norm_bwd: the kernel takes CUDA tensors; use "
                          "ln_bwd_reference on the CPU")
@@ -97,34 +146,35 @@ def layer_norm_bwd(xhat: torch.Tensor, rstd: torch.Tensor,
         raise TypeError(f"layer_norm_bwd: dy is {dy.dtype}, the kernel takes "
                         f"float32 or bfloat16")
     d = dy.shape[-1]
-    lib = kernels.library()
-    limit = lib.dostpu_attention_max_dim()
-    if d % 32 != 0 or d > limit:
-        raise ValueError(f"layer_norm_bwd: feature width {d} must be a "
-                         f"multiple of 32 and at most {limit}")
-    rows = dy.numel() // d
+    rows = dy.numel() // d if d else 0
     if rows < 1:
         raise ValueError("layer_norm_bwd: no rows")
     dy, xhat = dy.contiguous(), xhat.contiguous()
+    for arg, t in (("rstd", rstd), ("mean", mean)):
+        if t is not None and t.numel() != rows:
+            raise ValueError(f"layer_norm_bwd: {arg} has {t.numel()} "
+                             f"elements, expected one for each of the "
+                             f"{rows} rows")
     rstd = rstd.reshape(rows)
     operands = {"xhat": (xhat, dy.dtype, dy.shape), "dy": (dy, dy.dtype,
                 dy.shape), "rstd": (rstd, torch.float32, (rows,)),
                 "scale": (scale, torch.float32, (d,))}
+    if mean is not None:
+        mean = mean.reshape(rows)
+        operands["mean"] = (mean, torch.float32, (rows,))
     for arg, (t, dtype, shape) in operands.items():
         kernels.require("layer_norm_bwd", arg, t, device=dy.device,
                         dtype=dtype, shape=shape)
     dx = torch.empty_like(dy)
     dscale = torch.empty(d, device=dy.device, dtype=torch.float32)
     dbias = torch.empty_like(dscale)
-    partial = torch.empty((lib.dostpu_layer_norm_bwd_blocks(rows), 2, d),
-                          device=dy.device, dtype=torch.float32)
     with torch.cuda.device(dy.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.dostpu_layer_norm_bwd(
-            xhat.data_ptr(), rstd.data_ptr(), dy.data_ptr(), scale.data_ptr(),
-            dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
-            partial.data_ptr(), rows, d, int(dy.dtype == torch.bfloat16),
-            stream)
+        code = kernels.library().dostpu_layer_norm_bwd(
+            xhat.data_ptr(), None if mean is None else mean.data_ptr(),
+            rstd.data_ptr(), dy.data_ptr(), scale.data_ptr(), dx.data_ptr(),
+            dscale.data_ptr(), dbias.data_ptr(), rows, d,
+            int(dy.dtype == torch.bfloat16), stream)
     kernels.check(code, "layer_norm_bwd")
     layer_norm_bwd.launches += 1
     return dx, dscale, dbias
@@ -133,13 +183,15 @@ def layer_norm_bwd(xhat: torch.Tensor, rstd: torch.Tensor,
 layer_norm_bwd.launches = 0
 
 
-def ln_backward(xhat, rstd, scale, dy):
+def ln_backward(xhat, rstd, scale, dy, mean=None):
     """The LayerNorm backward of the device the tensors lie on: the kernel
-    for CUDA tensors, the plain version for CPU tensors."""
+    for CUDA tensors, the plain version for CPU tensors. With ``mean`` the
+    first argument is the raw x (see :func:`ln_bwd_reference`)."""
     if dy.is_cuda:
-        dx, dscale, dbias = layer_norm_bwd(xhat, rstd, scale.float(), dy)
+        dx, dscale, dbias = layer_norm_bwd(xhat, rstd, scale.float(), dy,
+                                           mean)
         return dx, dscale.to(scale.dtype), dbias.to(scale.dtype)
-    return ln_bwd_reference(xhat, rstd, scale, dy)
+    return ln_bwd_reference(xhat, rstd, scale, dy, mean)
 
 
 class _LayerNormLP(torch.autograd.Function):

@@ -23,10 +23,16 @@ JAX package.
 value inputs and then the same attention, differentiable in the three inputs
 and the LayerNorm's scale and bias. For CUDA tensors its forward is the
 kernel in ``csrc/attention_ln.cu`` (no LayerNorm output reaches device
-memory) and its backward recomputes q, k and v and runs the attention
-backward kernel and the LayerNorm backward kernel
-(``csrc/layernorm_bwd.cu``); for CPU tensors both are the plain composition
-:func:`ln_attention_reference`.
+memory: the attention kernel's tensor-core design with every staged tile
+normalised in place in shared memory, one launch) and its backward
+recomputes q, k and v, runs the attention backward kernel, and hands the
+LayerNorm backward kernel (``csrc/layernorm_bwd.cu``) the raw inputs with
+their row means and rstd, so no xhat is written to memory; for CPU tensors
+both are the plain composition :func:`ln_attention_reference`.
+
+The three attention kernels take feature widths that are multiples of 32 up
+to ``ATTENTION_MAX_DIM``; :func:`check_attention_width` is the check a model
+makes when it is built for, or first runs on, the card.
 """
 
 from __future__ import annotations
@@ -37,6 +43,10 @@ from dostransformer_tpu_torch.nn.layernorm import ln_backward
 from dostransformer_tpu_torch.ops import kernels
 
 NEG_INF = -1e30
+# the widest feature dimension of the attention kernels
+# (``dostpu_attention_max_dim`` of csrc/attention.cu; the card run holds the
+# two equal)
+ATTENTION_MAX_DIM = 512
 LN_EPS_ATTN = 1e-5  # the transformer's LayerNorm eps (nn.LayerNorm default)
 
 
@@ -103,11 +113,26 @@ def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv
 
 
+def attention_width_ok(d: int) -> bool:
+    return d % 32 == 0 and 0 < d <= ATTENTION_MAX_DIM
+
+
+def check_attention_width(d: int, what: str = "hidden"):
+    """Raise unless the attention kernels take feature width ``d``: called
+    where a model is built for the card (or first runs there), before any
+    kernel is launched."""
+    if not attention_width_ok(d):
+        raise ValueError(
+            f"{what} {d}: on a CUDA device the attention kernels take "
+            f"feature widths that are multiples of 32 from 32 to "
+            f"{ATTENTION_MAX_DIM}; choose such a width, or run on the CPU "
+            f"with --device cpu")
+
+
 def _check_width(kernel: str, d: int):
-    limit = kernels.library().dostpu_attention_max_dim()
-    if d % 32 != 0 or d > limit:
+    if not attention_width_ok(d):
         raise ValueError(f"{kernel}: feature width {d} must be a multiple of "
-                         f"32 and at most {limit}")
+                         f"32 and at most {ATTENTION_MAX_DIM}")
 
 
 def fused_attention_fwd(q, k, v, bias, want_stats=False):
@@ -240,12 +265,13 @@ fused_attention.launches = 0
 
 def _ln_apply(x, scale, bias):
     """The shared LayerNorm of the attention inputs, eps 1e-5, statistics in
-    f32 or wider. Returns (y in x's dtype, xhat and rstd in f32 or wider)."""
+    f32 or wider. Returns (y in x's dtype, the rows' mean and rstd [..., 1]
+    in f32 or wider)."""
     f = torch.promote_types(x.dtype, torch.float32)
     xf = x.to(f)
     y, mu, rstd = torch.native_layer_norm(xf, xf.shape[-1:], scale.to(f),
                                           bias.to(f), LN_EPS_ATTN)
-    return y.to(x.dtype), (xf - mu) * rstd, rstd
+    return y.to(x.dtype), mu, rstd
 
 
 def ln_attention_reference(x: torch.Tensor, x_k: torch.Tensor,
@@ -259,8 +285,9 @@ def ln_attention_reference(x: torch.Tensor, x_k: torch.Tensor,
     return dot_product_attention(q, k, v, key_mask)
 
 
-def _fused_attention_ln_fwd(x, x_k, x_v, ln_scale, ln_bias, bias):
-    """Launch the LN-fused forward kernel (CUDA tensors only)."""
+def _fused_attention_ln_fwd(x, x_k, x_v, ln_scale, ln_bias, key_mask):
+    """Launch the LN-fused forward kernel (CUDA tensors only). ``key_mask``
+    is None or [B, Lk] bool: the kernel forms the additive bias itself."""
     b, lq, d = x.shape
     lk = x_k.shape[1]
     _check_width("fused_attention_ln", d)
@@ -270,21 +297,26 @@ def _fused_attention_ln_fwd(x, x_k, x_v, ln_scale, ln_bias, bias):
     operands = {"x": (x, x.dtype, (b, lq, d)), "x_k": (x_k, x.dtype,
                 (b, lk, d)), "x_v": (x_v, x.dtype, (b, lk, d)),
                 "ln_scale": (ln_scale, torch.float32, (d,)),
-                "ln_bias": (ln_bias, torch.float32, (d,)),
-                "key_mask": (bias, torch.float32, (b, lk))}
+                "ln_bias": (ln_bias, torch.float32, (d,))}
     for arg, (t, dtype, shape) in operands.items():
         kernels.require("fused_attention_ln", arg, t, device=x.device,
                         dtype=dtype, shape=shape)
+    if key_mask is not None:
+        if (key_mask.device != x.device or key_mask.dtype != torch.bool
+                or tuple(key_mask.shape) != (b, lk)):
+            raise ValueError(
+                f"fused_attention_ln: key_mask must be a bool tensor of "
+                f"shape {(b, lk)} on {x.device}, got {key_mask.dtype} "
+                f"{tuple(key_mask.shape)} on {key_mask.device}")
+        key_mask = key_mask.contiguous()  # bytes: no alignment needed
     out = torch.empty_like(x)
-    # per-row (mean, rstd) of the three inputs: the only LN data in memory
-    stats = torch.empty((2 * b * (lq + 2 * lk),), device=x.device,
-                        dtype=torch.float32)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = kernels.library().dostpu_attention_ln_fwd(
             x.data_ptr(), x_k.data_ptr(), x_v.data_ptr(), ln_scale.data_ptr(),
-            ln_bias.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            stats.data_ptr(), b, lq, lk, d, d ** -0.5, LN_EPS_ATTN,
+            ln_bias.data_ptr(),
+            None if key_mask is None else key_mask.data_ptr(),
+            out.data_ptr(), b, lq, lk, d, d ** -0.5, LN_EPS_ATTN,
             int(x.dtype == torch.bfloat16), stream)
     kernels.check(code, "fused_attention_ln")
     fused_attention_ln.launches += 1
@@ -294,12 +326,13 @@ def _fused_attention_ln_fwd(x, x_k, x_v, ln_scale, ln_bias, bias):
 class _FusedAttentionLN(torch.autograd.Function):
     """Saves the raw inputs, the LayerNorm parameters, the key mask and the
     output o: no LayerNorm output is kept. The backward recomputes q, k, v
-    and their xhat and rstd with plain tensor code (as the JAX package
-    does), takes dq, dk, dv from the attention backward (the kernel needs o
-    for its row statistics, so o is saved rather than recomputed) and runs
-    one LayerNorm backward per distinct input tensor: the LayerNorm backward
-    is linear in its upstream gradient, so inputs that are one tensor have
-    their gradients added first."""
+    with their rows' mean and rstd (one ``native_layer_norm`` per distinct
+    tensor), takes dq, dk, dv from the attention backward (the kernel needs
+    o for its row statistics, so o is saved rather than recomputed) and runs
+    one LayerNorm backward per distinct input tensor on the raw input with
+    (mean, rstd): xhat is formed inside that backward, never written out.
+    The LayerNorm backward is linear in its upstream gradient, so inputs
+    that are one tensor have their gradients added first."""
 
     @staticmethod
     def forward(ctx, x, x_k, x_v, ln_scale, ln_bias, key_mask):
@@ -314,7 +347,7 @@ class _FusedAttentionLN(torch.autograd.Function):
                else x_v.contiguous())
         if x.is_cuda:
             o = _fused_attention_ln_fwd(x, x_k, x_v, ln_scale, ln_bias,
-                                        _bias(x, x_k.shape[1], key_mask))
+                                        key_mask)
         else:
             o = ln_attention_reference(x, x_k, x_v, ln_scale, ln_bias,
                                        key_mask)
@@ -343,11 +376,12 @@ class _FusedAttentionLN(torch.autograd.Function):
         if ctx.k_is_q:
             dq, dk = dq + dk, None
         grads, dscale, dbias = [], 0.0, 0.0
-        for dy, (_, xhat, rstd) in ((dq, lnq), (dk, lnk), (dv, lnv)):
+        for dy, raw, (_, mean, rstd) in ((dq, x, lnq), (dk, x_k, lnk),
+                                         (dv, x_v, lnv)):
             if dy is None:
                 grads.append(None)
                 continue
-            dx, ds, db = ln_backward(xhat.to(dy.dtype), rstd, ln_scale, dy)
+            dx, ds, db = ln_backward(raw, rstd, ln_scale, dy, mean)
             grads.append(dx)
             dscale, dbias = dscale + ds, dbias + db
         return (*grads, dscale, dbias, None)
@@ -360,8 +394,9 @@ def fused_attention_ln(x: torch.Tensor, x_k: torch.Tensor, x_v: torch.Tensor,
     x_k, x_v, ln_scale and ln_bias; x_k, x_v and x may be one tensor.
 
     CUDA tensors go through the kernels (inputs of one dtype, float32 or
-    bfloat16, ln_scale and ln_bias float32, D a multiple of 32; anything
-    else raises; the backward kernels take float32), CPU tensors through
+    bfloat16, ln_scale and ln_bias float32, D a multiple of 32 up to
+    ``ATTENTION_MAX_DIM``; anything else raises; the backward kernels take
+    float32), CPU tensors through
     the plain versions. ``fused_attention_ln.launches`` counts forward
     kernel launches."""
     return _FusedAttentionLN.apply(x, x_k, x_v, ln_scale, ln_bias, key_mask)

@@ -69,11 +69,13 @@ _SIGNATURES = {
     "dostpu_attention_bwd": ([_P] * 11 + [_I] * 4 + [ctypes.c_float, _P], _I),
     # data ids out B E F N stream
     "dostpu_segment_sum": ([_P] * 3 + [_I] * 4 + [_P], _I),
-    # x xk xv ln_scale ln_bias bias out stats B Lq Lk D scale eps bf16 stream
-    "dostpu_attention_ln_fwd": ([_P] * 8 + [_I] * 4 + [ctypes.c_float] * 2
+    # x xk xv ln_scale ln_bias key_mask|null out B Lq Lk D scale eps bf16
+    # stream
+    "dostpu_attention_ln_fwd": ([_P] * 7 + [_I] * 4 + [ctypes.c_float] * 2
                                 + [_I, _P], _I),
-    "dostpu_layer_norm_bwd_blocks": ([_I], _I),
-    # xhat rstd dy scale dx dscale dbias partial rows D bf16 stream
+    # rows D bf16 -> vector_form slabs cluster rows_per_rank grid
+    "dostpu_layer_norm_bwd_plan": ([_I] * 3 + [_IP] * 5, None),
+    # xhat|x mean|null rstd dy scale dx dscale dbias rows D bf16 stream
     "dostpu_layer_norm_bwd": ([_P] * 8 + [_I] * 3 + [_P], _I),
 }
 

@@ -203,3 +203,102 @@ def test_emulated_kernels_match_the_jax_package(shape):
     got = emulated_backward(q, k, v, bias, o, g, stats)
     for name, x, w in zip(("dq", "dk", "dv"), got, vjp(jg)):
         assert_close(x[real], torch.from_numpy(np.array(w))[real], name)
+
+
+# --- the LayerNorm-fused forward (csrc/attention_ln.cu) -----------------
+#
+# The kernel normalises every staged tile in place (two-pass variance in
+# f32, rstd by the fast reciprocal root and one Newton step, the value
+# rounded to the operand dtype) and then runs the forward above on it: with
+# f32 operands the 3xTF32 products, with bf16 operands ONE TF32 pass (a bf16
+# value is a TF32 value; only the probabilities are rounded, to TF32).
+
+BF16_RTOL = 2e-2  # of max(1, max|want|): three bf16 roundings (2^-9 each)
+LN_SHAPES = SHAPES[:6] + [(3, 13, 5, 64)]
+LN_IDS = IDS[:6] + ["13x5"]
+
+
+def emulated_layer_norm(x, scale, bias, eps=1e-5):
+    """The kernel's LayerNorm of the rows of x: f32, two passes, the centred
+    values reused, rstd = r (1.5 - 0.5 v r^2) from r ~ 1 / sqrt(v), rounded
+    to x's dtype."""
+    xf = x.float()
+    d = xf.shape[-1]
+    centred = xf - xf.sum(-1, keepdim=True) / d
+    var = (centred * centred).sum(-1, keepdim=True) / d + eps
+    r = torch.rsqrt(var)
+    rstd = r * (1.5 - 0.5 * var * r * r)
+    return (centred * rstd * scale + bias).to(x.dtype).float()
+
+
+def one_pass(a, b):
+    """a @ b as ONE tensor-core pass: a rounded to TF32, b already exact."""
+    assert torch.equal(split_tf32(b)[0], b), "b is not a TF32 value"
+    return split_tf32(a)[0] @ b
+
+
+def ln_inputs(shape, dtype, shift, seed=0):
+    """x, x_k (= x_v), LayerNorm scale and bias, the key mask; inputs with
+    a mean of ``shift`` and a spread of 2; the last graph fully masked."""
+    b, lq, lk, d = shape
+    rng = np.random.RandomState(seed)
+    x, xk = (torch.from_numpy((rng.randn(b, n, d) * 2 + shift).astype(
+        np.float32)).to(dtype) for n in (lq, lk))
+    scale = torch.from_numpy((rng.rand(d) + 0.5).astype(np.float32))
+    bias = torch.from_numpy((rng.randn(d) * 0.1).astype(np.float32))
+    mask = np.arange(lk)[None] < rng.randint(1, lk + 1, (b, 1))
+    mask[-1] = False
+    return x, xk, scale, bias, torch.from_numpy(mask)
+
+
+@pytest.mark.parametrize("shift", [0.5, 50.0], ids=["mean0.5", "mean50"])
+@pytest.mark.parametrize("shape", LN_SHAPES, ids=LN_IDS)
+def test_emulated_ln_forward_f32_matches_the_plain_version(shape, shift):
+    """Normalise-then-3xTF32 within 1e-5 of ``ln_attention_reference``, the
+    large-mean input (|mean| = 25 std) included; one tensor for the keys and
+    values or two copies is the same arithmetic."""
+    x, xk, scale, bias, mask = ln_inputs(shape, torch.float32, shift)
+    q, k = (emulated_layer_norm(t, scale, bias) for t in (x, xk))
+    got, _ = emulated_forward(q, k, k, attention.key_bias(mask))
+    assert torch.isfinite(got).all()
+    want = attention.ln_attention_reference(x, xk, xk, scale, bias, mask)
+    assert_close(got, want, "out")
+    again, _ = emulated_forward(q, k, emulated_layer_norm(xk.clone(), scale,
+                                                          bias),
+                                attention.key_bias(mask))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shift", [0.5, 50.0], ids=["mean0.5", "mean50"])
+@pytest.mark.parametrize("shape", LN_SHAPES, ids=LN_IDS)
+def test_emulated_ln_forward_bf16_single_pass(shape, shift):
+    """bf16 operands: q, k and v are bf16 values, so one TF32 pass is exact
+    in them; against the plain version (which rounds its weights to bf16)
+    within the bf16 bound, and against the same arithmetic with the 3xTF32
+    products within 2^-10 (the probabilities' rounding to TF32)."""
+    x, xk, scale, bias, mask = ln_inputs(shape, torch.bfloat16, shift, seed=1)
+    q, k = (emulated_layer_norm(t, scale, bias) for t in (x, xk))
+    kb = attention.key_bias(mask)
+    got, _ = emulated_forward(q, k, k, kb, product=one_pass)
+    want = attention.ln_attention_reference(x, xk, xk, scale, bias,
+                                            mask).float()
+    limit = BF16_RTOL * max(1.0, want.abs().max().item())
+    assert (got.to(torch.bfloat16).float() - want).abs().max() <= limit
+    split, _ = emulated_forward(q, k, k, kb)
+    assert (got - split).abs().max() <= 2.0 ** -10 * max(
+        1.0, split.abs().max().item())
+
+
+def test_emulated_layer_norm_matches_native_layer_norm():
+    """The kernel's statistics (two-pass, Newton-refined rsqrt) against
+    torch.native_layer_norm, within the kernels' 1e-5 of the largest value
+    (at mean 50 the mean's own rounding is 2e-6 of a normalised value)."""
+    rng = np.random.RandomState(3)
+    for shift in (0.5, 50.0):
+        x = torch.from_numpy((rng.randn(64, 256) * 2 + shift).astype(
+            np.float32))
+        scale = torch.from_numpy((rng.rand(256) + 0.5).astype(np.float32))
+        bias = torch.from_numpy((rng.randn(256) * 0.1).astype(np.float32))
+        want = torch.native_layer_norm(x, (256,), scale, bias, 1e-5)[0]
+        got = emulated_layer_norm(x, scale, bias)
+        assert (got - want).abs().max() <= RTOL * want.abs().max()

@@ -29,6 +29,7 @@ from dostransformer_tpu.data import collate as jcollate  # noqa: E402
 from dostransformer_tpu.data import synthetic as jsyn  # noqa: E402
 from dostransformer_tpu.models import DOSTransformerEDOS as JEDOS  # noqa: E402
 from dostransformer_tpu.models import DOSTransformerPhDOS as JPhDOS  # noqa: E402
+from dostransformer_tpu.nn.layernorm import _ln_bwd_jnp  # noqa: E402
 from dostransformer_tpu.nn.layernorm import layer_norm_lp as j_layer_norm_lp  # noqa: E402
 from dostransformer_tpu.nn.transformer import TransformerEncoder as JEncoder  # noqa: E402
 from dostransformer_tpu.ops.attention import fused_attention_ln as j_fused_attention_ln  # noqa: E402
@@ -45,10 +46,14 @@ from dostransformer_tpu_torch.nn.layernorm import (  # noqa: E402
     layer_norm,
     layer_norm_bwd,
     layer_norm_lp,
+    ln_bwd_plan,
     ln_bwd_reference,
 )
 from dostransformer_tpu_torch.nn.transformer import TransformerEncoder  # noqa: E402
+from dostransformer_tpu_torch.ops import attention as port_attention  # noqa: E402
 from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
+    ATTENTION_MAX_DIM,
+    check_attention_width,
     fused_attention_ln,
     ln_attention_reference,
 )
@@ -173,6 +178,163 @@ def test_layer_norm_bwd_kernel_refuses_cpu_tensors():
     assert dx.shape == (4, 32) and dscale.shape == dbias.shape == (32,)
 
 
+def _ln_bwd_operands(rows, d, td, seed=0, shift=1.0):
+    """x, dy in ``td``; scale, and the rows' mean and rstd in f32."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((rng.randn(rows, d) * 3 + shift).astype(
+        np.float32)).to(td)
+    dy = torch.from_numpy(rng.randn(rows, d).astype(np.float32)).to(td)
+    scale = torch.from_numpy((rng.rand(d) + 0.5).astype(np.float32))
+    _, mean, rstd = torch.native_layer_norm(x.float(), (d,), scale,
+                                            torch.zeros(d), 1e-5)
+    return x, dy, scale, mean, rstd
+
+
+@pytest.mark.parametrize("shape", [(40, 32), (7, 48), (3, 5, 256), (9, 600)],
+                         ids=str)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ln_bwd_reference_raw_form_equals_xhat_form_and_jax(dtype, shape):
+    """``ln_bwd_reference(x, rstd, scale, dy, mean)`` forms xhat itself:
+    the same bits as the xhat form on the xhat it would be handed, and
+    against the JAX package's ``_ln_bwd_jnp`` f32 atol 1e-6 x the largest
+    element, bf16 within 3% of it."""
+    jd, td = DTYPES[dtype]
+    rows, d = int(np.prod(shape[:-1])), shape[-1]
+    x, dy, scale, mean, rstd = _ln_bwd_operands(rows, d, td, seed=3)
+    x, dy = x.reshape(shape), dy.reshape(shape)
+    mean, rstd = (t.reshape(*shape[:-1], 1) for t in (mean, rstd))
+    xhat = ((x.float() - mean) * rstd).to(td)
+    raw = ln_bwd_reference(x, rstd, scale, dy, mean)
+    by_xhat = ln_bwd_reference(xhat, rstd, scale, dy)
+    for a, b in zip(raw, by_xhat):
+        assert torch.equal(a, b)
+    want = _ln_bwd_jnp((jnp.asarray(_f32(xhat)).astype(jd),
+                        jnp.asarray(rstd.numpy()), jnp.asarray(scale.numpy())),
+                       jnp.asarray(_f32(dy)).astype(jd))
+    for got, w, name in zip(raw, want, ("dx", "dscale", "dbias")):
+        g, w = _f32(got), _f32(w)
+        tol = 1e-6 if dtype == "f32" else 0.03
+        assert np.abs(g - w).max() <= tol * max(1.0, np.abs(w).max()), name
+
+
+def emulated_ln_bwd(x, rstd, scale, dy, mean=None):
+    """The kernel's arithmetic and summation orders in plain torch
+    (csrc/layernorm_bwd.cu): everything in f32; dx a row at a time; dscale
+    and dbias per slab of columns, a thread adding its rows (every
+    rows_a_pass-th of its block's run) in order, then the lanes that hold
+    the same columns by a butterfly, the 8 warps in order, the cluster's
+    blocks in rank order."""
+    td = dy.dtype
+    rows, d = dy.shape
+    plan = ln_bwd_plan(rows, d, td == torch.bfloat16)
+    xf, dyf = x.float(), dy.float()
+    if mean is not None:
+        xf = ((xf - mean) * rstd).to(td).float()
+    g = dyf * scale
+    s1 = g.sum(-1, keepdim=True) / d
+    s2 = (g * xf).sum(-1, keepdim=True) / d
+    dx = (rstd * (g - s1 - xf * s2)).to(td)
+
+    tpr, rpp = plan["threads_a_row"], plan["rows_a_pass"]
+    per_warp = 32 // tpr          # row lanes of a warp
+    sums = []
+    for prod in (dyf * xf, dyf):
+        total = torch.zeros(d)
+        for rank in range(plan["cluster"]):
+            lo = min(rows, rank * plan["rows_per_rank"])
+            hi = min(rows, lo + plan["rows_per_rank"])
+            thread = torch.zeros(rpp, d)      # [row lane of the block, col]
+            for r0 in range(lo, hi, rpp):     # a thread's rows, in order
+                chunk = prod[r0:min(hi, r0 + rpp)]
+                thread[:chunk.shape[0]] += chunk
+            warps = thread.reshape(8, per_warp, d)
+            while warps.shape[1] > 1:         # the xor butterfly, low bit first
+                warps = warps[:, 0::2] + warps[:, 1::2]
+            block = torch.zeros(d)
+            for w in range(8):                # warp order
+                block = block + warps[w, 0]
+            total = total + block             # rank order
+        sums.append(total)
+    return dx, sums[0], sums[1]
+
+
+@pytest.mark.parametrize("raw", [False, True], ids=["xhat", "x_mean_rstd"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,d", [(1, 32), (7, 48), (128, 256), (300, 50),
+                                    (1100, 256), (260, 600), (40, 1024)])
+def test_emulated_ln_bwd_partition_matches_the_plain_version(rows, d, dtype,
+                                                             raw):
+    """The kernel's partition and summation orders against
+    ``ln_bwd_reference``: f32 dx within 1e-5 and dscale, dbias within 1e-4
+    of max(1, max|plain|); bf16 within 3% (the kernel keeps g in f32)."""
+    td = DTYPES[dtype][1]
+    x, dy, scale, mean, rstd = _ln_bwd_operands(rows, d, td, seed=rows + d)
+    xin = x if raw else ((x.float() - mean) * rstd).to(td)
+    m = mean if raw else None
+    got = emulated_ln_bwd(xin, rstd, scale, dy, m)
+    want = ln_bwd_reference(xin, rstd, scale, dy, m)
+    tols = (1e-5, 1e-4, 1e-4) if dtype == "f32" else (0.03,) * 3
+    for a, b, tol, name in zip(got, want, tols, ("dx", "dscale", "dbias")):
+        a, b = a.float(), b.float()
+        assert (a - b).abs().max() <= tol * max(1.0, b.abs().max().item()), name
+
+
+def test_emulated_ln_bwd_large_mean_input():
+    """The raw form at a mean of 50 (25 standard deviations): xhat is formed
+    from the row's own mean, so nothing cancels; 1e-5 / 1e-4 as above."""
+    x, dy, scale, mean, rstd = _ln_bwd_operands(816, 256, torch.float32,
+                                                seed=9, shift=50.0)
+    x = (x - 50.0) * (2.0 / 3.0) + 50.0
+    _, mean, rstd = torch.native_layer_norm(x, (256,), scale,
+                                            torch.zeros(256), 1e-5)
+    got = emulated_ln_bwd(x, rstd, scale, dy, mean)
+    want = ln_bwd_reference(x, rstd, scale, dy, mean)
+    for a, b, tol in zip(got, want, (1e-5, 1e-4, 1e-4)):
+        assert (a - b).abs().max() <= tol * max(1.0, b.abs().max().item())
+
+
+@pytest.mark.parametrize("d", [1, 31, 48, 50, 256, 600, 1024, 2048, 5000])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_ln_bwd_plan_covers_any_width(d, bf16):
+    """Every width has a plan: the 16-byte vector form where the row is a
+    whole number of vectors that a lane's registers hold, else the scalar
+    form; the slabs cover the columns, the clusters the rows, and the grid
+    is whole clusters with a row block for every 8 rows."""
+    vec = 8 if bf16 else 4
+    for rows in (1, 8, 128, 129, 3216, 100_000):
+        p = ln_bwd_plan(rows, d, bf16)
+        assert p["vector_form"] == (d % vec == 0 and d <= 256 * vec)
+        assert p["slabs"] * p["slab"] >= d > (p["slabs"] - 1) * p["slab"]
+        assert p["cluster"] in (1, 2, 4, 8)
+        assert p["cluster"] * p["rows_per_rank"] >= rows
+        assert p["slabs"] * p["cluster"] <= max(132, p["slabs"])
+        assert p["grid"] % p["cluster"] == 0
+        assert p["grid"] >= p["slabs"] * p["cluster"] + -(-rows // 8)
+        # a block of a cluster keeps at least four passes of rows
+        assert p["cluster"] == 1 or rows > 4 * p["rows_a_pass"] * p["cluster"]
+
+
+@pytest.mark.parametrize("d", [48, 1024])
+def test_layer_norm_lp_gradients_match_jax_at_other_widths(d, monkeypatch):
+    """Widths the card's LayerNorm backward now takes (any width): dx,
+    dscale, dbias against jax.grad of the JAX layer_norm_lp (its plain
+    backward), rtol/atol 2e-5."""
+    for name in LEVERS:
+        monkeypatch.delenv(name, raising=False)
+    x, scale, bias = _ln_data((3, 5, d), seed=d)
+
+    def jloss(x, s, b):
+        return (j_layer_norm_lp(x, s, b) ** 2).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, scale, bias)]
+    layer_norm_lp(*leaves).square().sum().backward()
+    for t, w, name in zip(leaves, want, ("dx", "dscale", "dbias")):
+        np.testing.assert_allclose(_f32(t.grad), _f32(w), rtol=2e-5,
+                                   atol=2e-5, err_msg=name)
+
+
 # --- fused_attention_ln (kernel #5's op and plain version) --------------
 
 
@@ -271,6 +433,116 @@ def test_fused_attention_ln_does_not_depend_on_aliasing(alias):
                     + ([] if alias == "all_one" else [tk.grad]))
     for a, b in zip(*outs):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [48, 1024])
+def test_fused_attention_ln_gradients_match_jax_at_other_widths(d):
+    """D = 48 and 1,024 (off the card's attention widths; the plain path
+    takes any): forward 2e-5 and the five gradients 3e-4 against the JAX
+    fused_attention_ln through its plain path."""
+    x, xk, xv, scale, bias, mask = _attn_case(2, 6, 5, d, masked=True, seed=d)
+    jmask, tmask = jnp.asarray(mask), torch.from_numpy(mask)
+    jin = [jnp.asarray(a) for a in (x, xk, xv, scale, bias)]
+    jf = lambda *a: j_fused_attention_ln(*a, jmask)
+    want = jf(*jin)
+    want_g = jax.grad(lambda *a: (jf(*a) ** 2).sum(),
+                      argnums=(0, 1, 2, 3, 4))(*jin)
+    leaves = [torch.from_numpy(a).requires_grad_()
+              for a in (x, xk, xv, scale, bias)]
+    got = fused_attention_ln(*leaves, tmask)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+    got.square().sum().backward()
+    for t, w, name in zip(leaves, want_g,
+                          ("x", "x_k", "x_v", "ln_scale", "ln_bias")):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=3e-4,
+                                   atol=3e-4, err_msg=name)
+
+
+def _xhat_form_backward(x, x_k, x_v, ln_scale, ln_bias, key_mask, g):
+    """The five gradients of fused_attention_ln as its backward formed them
+    while it built xhat with eager ops and handed the LayerNorm backward the
+    xhat form: one LayerNorm backward per distinct tensor."""
+    def ln(t):
+        y, mu, rstd = torch.native_layer_norm(t, t.shape[-1:], ln_scale,
+                                              ln_bias, 1e-5)
+        return y, (t - mu) * rstd, rstd
+
+    k_is_q, v_is_k, v_is_q = x_k is x, x_v is x_k, x_v is x
+    lnq = ln(x)
+    lnk = lnq if k_is_q else ln(x_k)
+    lnv = lnk if v_is_k else lnq if v_is_q else ln(x_v)
+    bias = port_attention._bias(x, x_k.shape[1], key_mask)
+    dq, dk, dv = port_attention.attention_bwd_reference(
+        lnq[0], lnk[0], lnv[0], bias, g)
+    if v_is_k:
+        dk, dv = dk + dv, None
+    elif v_is_q:
+        dq, dv = dq + dv, None
+    if k_is_q:
+        dq, dk = dq + dk, None
+    grads, dscale, dbias = [], 0.0, 0.0
+    for dy, (_, xhat, rstd) in ((dq, lnq), (dk, lnk), (dv, lnv)):
+        if dy is None:
+            grads.append(None)
+            continue
+        dx, ds, db = ln_bwd_reference(xhat, rstd, ln_scale, dy)
+        grads.append(dx)
+        dscale, dbias = dscale + ds, dbias + db
+    return (*grads, dscale, dbias)
+
+
+@pytest.mark.parametrize("alias", ["distinct", "k_is_v", "all_one"])
+def test_fused_attention_ln_backward_keeps_its_gradients(alias):
+    """The backward now hands the LayerNorm backward the raw inputs with
+    (mean, rstd); at the three aliasing patterns it returns the same five
+    gradients, bit for bit, as the xhat form it replaced."""
+    x, xk, xv, scale, bias, mask = _attn_case(2, 7, 7, 32, masked=True,
+                                              seed=11)
+    tx, tk, tv, ts, tb = (torch.from_numpy(a) for a in
+                          (x, xk, xv, scale, bias))
+    tmask = torch.from_numpy(mask)
+    args = {"distinct": (tx, tk, tv), "k_is_v": (tx, tk, tk),
+            "all_one": (tx, tx, tx)}[alias]
+    g = torch.from_numpy(np.random.RandomState(12).randn(2, 7, 32).astype(
+        np.float32))
+    leaves = {id(t): t.clone().requires_grad_() for t in args}
+    ls, lb = ts.clone().requires_grad_(), tb.clone().requires_grad_()
+    o = fused_attention_ln(*(leaves[id(t)] for t in args), ls, lb, tmask)
+    o.backward(g)
+    want = _xhat_form_backward(*args, ts, tb, tmask, g)
+    seen = set()
+    for t, w in zip(args, want[:3]):
+        if id(t) in seen:
+            assert w is None
+            continue
+        seen.add(id(t))
+        assert torch.equal(leaves[id(t)].grad, w)
+    assert torch.equal(ls.grad, want[3]) and torch.equal(lb.grad, want[4])
+
+
+@pytest.mark.parametrize("hidden", [48, 1024, 0, 33])
+@pytest.mark.parametrize("task", ["edos", "phdos"])
+def test_a_width_the_card_does_not_take_stops_where_the_model_is_built(
+        task, hidden):
+    """On a CUDA device the attention kernels take multiples of 32 up to
+    ATTENTION_MAX_DIM: build_model says so, names the widths and the way to
+    the CPU, before anything is allocated on the device (so no card is
+    needed to see it); the same width builds on the CPU."""
+    assert ATTENTION_MAX_DIM == 512
+    with pytest.raises(ValueError) as err:
+        build_model(task, layers=1, t_layers=1, hidden=hidden, device="cuda")
+    msg = str(err.value)
+    assert f"hidden {hidden}" in msg
+    assert "multiples of 32 from 32 to 512" in msg
+    assert "--device cpu" in msg
+    if hidden in (48, 1024):
+        build_model(task, layers=1, t_layers=1, hidden=hidden, device="cpu")
+
+
+@pytest.mark.parametrize("d", [32, 64, 256, 480, 512])
+def test_the_card_widths_pass_the_check(d):
+    check_attention_width(d)
 
 
 # --- the transformer stack ----------------------------------------------
