@@ -11,7 +11,9 @@ The eDOS flagship:
      and the stack bytes of the attention kernels at the flagship width and
      of every message-passing kernel (cuobjdump -res-usage on the built
      library), and of the two LayerNorm-lever kernels, whose stack must be
-     0; the port's attention width limit is held equal to the library's;
+     0, and of the sliced attention kernels (D > 512); the port's copy of
+     the attention kernels' plan by width (attention_plan) is held equal to
+     the library's;
   3. each forward kernel against its plain PyTorch version on the card at
      the shapes the flagship eDOS forward gives it (f32, TF32 off),
      including a short batch whose dummy graph has every key masked; max
@@ -64,9 +66,10 @@ transformer layers per stack, 51 bins, r_max 4.0, f32, scatter-mean):
 
   3c. the segment-sum kernel against its plain version: the phDOS
      NodeModel's edge count (F = 1, exact) on a batch of 8 synthetic phDOS
-     samples, F = 256 at B=8 A=32 E=384, and ids out of range or negative
-     with a dummy graph; each run twice and required to repeat bit for bit,
-     timed as in 3;
+     samples, F = 256 at B=8 A=32 E=384, real-crystal sizes (E=2048 N=64,
+     F = 1 exact and F = 256), and ids out of range or negative with a
+     dummy graph; each run twice and required to repeat bit for bit, timed
+     as in 3 beside zeros + index_add_, with the partition it took;
   3d. kernels 1-4 against their plain versions at the phDOS shapes:
      message passing on synthetic phDOS batches of 8 (a dummy graph last)
      and of 1 (forms and shapes as in 3 and 3b), attention at 51 queries
@@ -85,6 +88,28 @@ transformer layers per stack, 51 bins, r_max 4.0, f32, scatter-mean):
      test metrics present, the experiments block written;
   11. card against CPU: 3 phDOS Trainer.train_steps as in 7;
   12. phDOS training samples/s at batch 8 as in 8.
+
+Every width (the JAX package runs any hidden width; so does the card):
+
+  3g. kernels #3, #4 and #5 against their plain versions at D = 1, 33, 48,
+     50, 200, 544 and 1,024 (keys and values one tensor and two; #4
+     bit-identical on reruns and without the forward's statistics; #5 in
+     f32 and, where D % 8 == 0, bf16), then timed at the h1024 shapes
+     (D = 1,024) and the narrow phDOS path's (D = 50) beside their bounds,
+     plain versions and library calls;
+  3h. #1 and #2 at the h1024 widths (M = 2,048, H = 1,024) and #2 at hidden
+     624 and 1,000, as in 3 and 3b (form, tile, generic form beside them);
+  17. the h1024 eDOS flagship (hidden 1,024, 3 processors, 2 layers per
+     stack, 201 bins, batch 8, f32; bench_configs.py's `h1024` row) served
+     through cli.main_predict (96 samples) and Predictor.predict (5), exact
+     launch counts, the 5-sample request against the CPU; samples/s;
+  18. h1024 training through cli.main_edos --hidden 1024 (one epoch of 3
+     steps at batch 8), exact launch counts per step and eval batch;
+  19. one h1024 train step at batch 2 card against CPU (loss, gradients);
+     one h1024 train step with both LayerNorm levers against one without
+     (launch counts, losses); training samples/s (4 readings of 5 steps);
+  20. the narrow phDOS path at hidden 50: 5 samples served against the
+     CPU, 3 train steps card against CPU, exact launch counts.
 
 The LayerNorm levers of the transformer layer (off by default; the paths
 above must launch neither of their kernels):
@@ -135,7 +160,8 @@ above must launch neither of their kernels):
      torch.profiler pays more for every later launch): train steps (the
      batch uploaded per step, and already on the card) and serving forwards
      of both flagships at
-     batch 8, with the LayerNorm levers off and with both on: wall time
+     batch 8, with the LayerNorm levers off and with both on, and of the
+     h1024 eDOS flagship with the levers off: wall time
      without the profiler, then under torch.profiler the
      device time and device activities per step, the busy share, and the
      kernels by device time, and what the levers add to or take from each;
@@ -151,17 +177,20 @@ which), ``library_ms`` (one PyTorch call computing the same function, timed
 here and used nowhere in the port; null where there is none), for the two
 message-passing kernels ``form``, ``tile``, ``smem_bytes``, ``ms_generic``
 (the generic form on the same inputs), ``sub_kernels_ms``,
-``generic_width`` (the row of the width that keeps the generic form) and
-``by_shape_phdos`` (batch 8 and batch 1), for the two
-attention kernels ``by_shape`` (the same numbers per attention shape),
+``generic_width`` (the row of the width that keeps the generic form),
+``by_shape_phdos`` (batch 8 and batch 1) and ``by_hidden`` (3h), for the
+three attention kernels ``d1024`` and ``d50`` (3g's timed rows) and
+``widths_rel_err``, for the segment sum ``by_shape`` (3c, with the
+partition), for the two attention kernels ``by_shape`` (the same numbers
+per attention shape),
 ``ms_two_tensors`` (keys and values as two tensors), ``ms_no_stats`` (the
 backward without the forward's row statistics), ``ms_op`` (the forward op
 with its mask-to-bias ops) and ``resources``, for the LN-fused forward
 ``unfused_ms``, ``ms_bf16``, ``ms_other_aliasing`` and ``resources``, for
 the LayerNorm backward ``ms_by_rows``, ``ms_raw_form_by_rows`` (x with mean
 and rstd), ``library_ms_by_rows`` and ``resources``, and
-``launches_by_path``, the launches on each of the eight paths driven (each
-with the counts set to 0 just before and read just after). ``launches`` is
+``launches_by_path``, the launches on each of the thirteen paths driven
+(each with the counts set to 0 just before and read just after). ``launches`` is
 the count on the phDOS training path with both levers on, the only path
 that launches six of the seven kernels; for fused_attention, which that path
 replaces, it is the count on the phDOS training path with the levers off
@@ -218,8 +247,8 @@ from dostransformer_tpu_torch.nn.layernorm import (  # noqa: E402
 )
 from dostransformer_tpu_torch.ops import kernels  # noqa: E402
 from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
-    ATTENTION_MAX_DIM,
     attention_bwd_reference,
+    attention_plan,
     attention_stats_reference,
     dot_product_attention,
     fused_attention,
@@ -243,6 +272,7 @@ from dostransformer_tpu_torch.ops.fused_mp import (  # noqa: E402
 )
 from dostransformer_tpu_torch.ops.segment import (  # noqa: E402
     batched_segment_sum,
+    segment_sum_plan,
     segment_sum_reference,
 )
 from dostransformer_tpu_torch.serve import Predictor  # noqa: E402
@@ -272,9 +302,22 @@ KERNELS = (fused_mp_edge, fused_attention, fused_mp_edge_bwd,
            fused_attention_bwd, batched_segment_sum, fused_attention_ln,
            layer_norm_bwd)
 # the __global__ functions behind the two attention wrappers, by width
-ATTENTION_KERNELS = {"fused_attention": ("attn_fwd_kernel",),
+ATTENTION_KERNELS = {"fused_attention": ("attn_fwd_kernel",
+                                         "attn_fwd_sliced_kernel"),
                      "fused_attention_bwd": ("stats_kernel", "dq_kernel",
-                                             "dkv_kernel")}
+                                             "dkv_kernel",
+                                             "stats_sliced_kernel",
+                                             "dq_sliced_kernel",
+                                             "dkv_sliced_kernel")}
+# the sliced forms (D > 512), instantiated at 16 column groups
+SLICED_KERNELS = {
+    "attn_fwd_sliced_kernel": "attn_fwd_sliced_kernelILi16E",
+    "stats_sliced_kernel": "stats_sliced_kernelILi16E",
+    "dq_sliced_kernel": "dq_sliced_kernelILi16E",
+    "dkv_sliced_kernel": "dkv_sliced_kernelILi16E",
+    "attn_ln_fwd_sliced_kernel<float>": "attn_ln_fwd_sliced_kernelIfLi16E",
+    "attn_ln_fwd_sliced_kernel<bf16>":
+        "attn_ln_fwd_sliced_kernelI13__nv_bfloat16Li16E"}
 BACKWARD = ("fused_mp_edge_bwd", "fused_attention_bwd", "layer_norm_bwd")
 # what compare_mp adds to a message-passing row
 MP_EXTRAS = ("form", "tile", "smem_bytes", "ms_generic", "sub_kernels_ms")
@@ -300,8 +343,12 @@ ATTN_BF16_RTOL = 0.02
 # the __global__ functions of the two LayerNorm-lever kernels whose registers
 # and stack phase 2 prints (a nonzero stack in the first two is a fault)
 LN_KERNELS = {
-    "attn_ln_fwd_kernel<float,8>": "attn_ln_fwd_kernelIfLi8E",
-    "attn_ln_fwd_kernel<bf16,8>": "attn_ln_fwd_kernelI13__nv_bfloat16Li8E",
+    "attn_ln_fwd_kernel<float,8>": "attn_ln_fwd_kernelIfLi8ELb1E",
+    "attn_ln_fwd_kernel<bf16,8>": "attn_ln_fwd_kernelI13__nv_bfloat16Li8ELb1E",
+    "attn_ln_fwd_kernel<float,2,ragged> (D=50)":
+        "attn_ln_fwd_kernelIfLi2ELb0E",
+    "attn_ln_fwd_kernel<bf16,2,ragged> (D=50)":
+        "attn_ln_fwd_kernelI13__nv_bfloat16Li2ELb0E",
     "ln_bwd_kernel<float,2> (D=256)": "ln_bwd_kernelIfLi2ELb0E",
     "ln_bwd_kernel<float,2,x> (D=256)": "ln_bwd_kernelIfLi2ELb1E",
     "ln_bwd_kernel<bf16,1> (D=256)": "ln_bwd_kernelI13__nv_bfloat16Li1ELb0E",
@@ -944,7 +991,7 @@ def run_counted(cli, argv, env=None):
 
 
 def check_training_run(label, result, per_call, want_train, n_steps, log,
-                       workdir, epochs):
+                       workdir, epochs, hidden=HIDDEN):
     """Launches per train step (want_train) and per eval batch (the same
     forward, no backward), the step count, finite epoch losses, test
     metrics and the experiments block. Returns the epoch losses."""
@@ -969,7 +1016,7 @@ def check_training_run(label, result, per_call, want_train, n_steps, log,
           f"{label}: test metrics {result['test']}")
     with open(os.path.join(workdir, "experiments_DOSTransformer.txt")) as f:
         block = f.read()
-    check("best RMSE : " in block and "hidden(256)" in block,
+    check("best RMSE : " in block and f"hidden({hidden})" in block,
           f"{label}: experiments block: {block!r}")
     return losses
 
@@ -995,19 +1042,21 @@ def phase_training_path(workdir, env=None):
     return launches, losses
 
 
-def phase_card_vs_cpu(task: str, **levers):
-    """3 Trainer.train_steps of one seeded model on both devices, the last
-    batch short (dummy graphs); eDOS clamps its targets, phDOS does not.
-    ``levers`` are the model's LayerNorm switches."""
+def phase_card_vs_cpu(task: str, hidden=HIDDEN, samples=21, batch=BATCH,
+                      **levers):
+    """Trainer.train_steps of one seeded model on both devices over
+    ``samples`` samples at ``batch`` (21 at 8: 3 steps, the last batch short,
+    with dummy graphs); eDOS clamps its targets, phDOS does not. ``levers``
+    are the model's LayerNorm switches."""
     learnable = (synthetic_edos_learnable if task == "edos"
                  else synthetic_phdos_learnable)
     clamp = task == "edos"
     cpu_model = build_model(task, layers=LAYERS, t_layers=T_LAYERS,
-                            hidden=HIDDEN,
+                            hidden=hidden,
                             generator=torch.Generator().manual_seed(1),
                             **levers)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
-    batches = list(GraphLoader(learnable(21, seed=5), BATCH))
+    batches = list(GraphLoader(learnable(samples, seed=5), batch))
     cpu = Trainer(cpu_model, clamp_targets=clamp, eval_clamp=clamp)
     gpu = Trainer(gpu_model, clamp_targets=clamp, eval_clamp=clamp)
     for step, batch in enumerate(batches):
@@ -1033,12 +1082,13 @@ def phase_card_vs_cpu(task: str, **levers):
                   f"{GRAD_RTOL})")
 
 
-def phase_train_rate(task: str, steps: int = 20, **levers) -> float:
+def phase_train_rate(task: str, steps: int = 20, hidden=HIDDEN,
+                     **levers) -> float:
     learnable = (synthetic_edos_learnable if task == "edos"
                  else synthetic_phdos_learnable)
     clamp = task == "edos"
     model = build_model(task, layers=LAYERS, t_layers=T_LAYERS,
-                        hidden=HIDDEN, device="cuda",
+                        hidden=hidden, device="cuda",
                         generator=torch.Generator().manual_seed(2), **levers)
     trainer = Trainer(model, clamp_targets=clamp, eval_clamp=clamp)
     batches = list(GraphLoader(learnable(96, seed=0), BATCH))
@@ -1084,14 +1134,29 @@ def phase_segment_sum(dev):
         out_bytes = data.shape[0] * n * data.shape[2] * 4
         return nbytes(data, ids) + out_bytes, kept * data.shape[2]
 
+    lib_so = kernels.library()
+
     def run(name, data, ids, n):
         lib = index_add(data, ids, n)
         check(torch.allclose(lib(), segment_sum_reference(data, ids, n),
                              atol=1e-4), f"{name}: the index_add_ yardstick "
                                          f"computes another function")
-        return compare(name, lambda: batched_segment_sum(data, ids, n),
-                       lambda: segment_sum_reference(data, ids, n),
-                       repeat=True, work=work(data, ids, n), library_fn=lib)
+        plan = [ctypes.c_int() for _ in range(4)]
+        lib_so.dostpu_segment_sum_plan(*data.shape[:2], data.shape[2], n,
+                                       *plan)
+        vec, lanes, slots, segs = (p.value for p in plan)
+        mirror = segment_sum_plan(*data.shape[:2], data.shape[2], n)
+        check(mirror == dict(vec=vec, lanes=lanes, slots=slots, segs=segs),
+              f"{name}: ops.segment.segment_sum_plan gives {mirror}, the "
+              f"library {(vec, lanes, slots, segs)}")
+        print(f"  {name}: {lanes} lanes of {vec} floats x {slots} edge "
+              f"slots a block, {segs} segments a block (the port's mirror "
+              f"agrees)")
+        out = compare(name, lambda: batched_segment_sum(data, ids, n),
+                      lambda: segment_sum_reference(data, ids, n),
+                      repeat=True, work=work(data, ids, n), library_fn=lib)
+        out["plan"] = dict(vec=vec, lanes=lanes, slots=slots, segs=segs)
+        return out
 
     runs = [run("batched_segment_sum[count]", count, batch.receivers, a)]
     check(torch.equal(batched_segment_sum(count, batch.receivers, a),
@@ -1103,6 +1168,20 @@ def phase_segment_sum(dev):
                         dtype=torch.int32).to(dev)
     print(f"batched_segment_sum wide: B={BATCH} E=384 F={HIDDEN} N=32")
     runs.append(run(f"batched_segment_sum[F={HIDDEN}]", data, ids, 32))
+    # real crystals: ~2,000 edges and up to 64 atoms a graph, the count
+    # (F = 1, a 0/1 edge mask: exact) and a wide row
+    ids = torch.randint(0, 64, (BATCH, 2048), generator=g,
+                        dtype=torch.int32).to(dev)
+    ones = (torch.rand(BATCH, 2048, 1, generator=g) > 0.1).float().to(dev)
+    print(f"batched_segment_sum real crystals: B={BATCH} E=2048 N=64, F=1 "
+          f"and F={HIDDEN}")
+    runs.append(run("batched_segment_sum[E=2048 N=64 F=1]", ones, ids, 64))
+    check(torch.equal(batched_segment_sum(ones, ids, 64),
+                      segment_sum_reference(ones, ids, 64)),
+          "batched_segment_sum: the E=2048 counts are not exact")
+    data = torch.randn(BATCH, 2048, HIDDEN, generator=g).to(dev)
+    runs.append(run(f"batched_segment_sum[E=2048 N=64 F={HIDDEN}]", data,
+                    ids, 64))
 
     short = collate(synthetic_phdos_samples(BATCH - 1, seed=1),
                     num_graphs=BATCH).to(dev)
@@ -1116,9 +1195,16 @@ def phase_segment_sum(dev):
     runs.append(run("batched_segment_sum[dropped ids, dummy graph]", mask,
                     ids, n))
     # the row of the kernels line: the phDOS count, the path's only call
+    labels = ("count", f"F={HIDDEN}", "E=2048 N=64 F=1",
+              f"E=2048 N=64 F={HIDDEN}", "dropped ids, dummy graph")
     return {"batched_segment_sum": dict(
         runs[0], err=max(r["err"] for r in runs),
-        rel=max(r["rel"] for r in runs))}
+        rel=max(r["rel"] for r in runs),
+        by_shape={label: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                          "library_ms": r["library_ms"],
+                          "bound_ms": max(r["bytes_ms"], r["ops_ms"]),
+                          "max_abs_err": r["err"], "plan": r["plan"]}
+                  for label, r in zip(labels, runs)})}
 
 
 def phase_phdos_kernels(dev):
@@ -1596,15 +1682,16 @@ def phase_profile():
     from torch.profiler import ProfilerActivity, profile
 
     cases = []
-    for task in ("edos", "phdos"):
+    for task, hidden in (("edos", HIDDEN), ("phdos", HIDDEN), ("edos", WIDE)):
         learnable = (synthetic_edos_learnable if task == "edos"
                      else synthetic_phdos_learnable)
         clamp = task == "edos"
         batches = list(GraphLoader(learnable(96, seed=0), BATCH))[:8]
         on_card = [b.to("cuda") for b in batches]
-        for levers in ({}, {"fuse_ln_attn": True, "ln_lp": True}):
+        lever_settings = ({}, {"fuse_ln_attn": True, "ln_lp": True})
+        for levers in lever_settings[:1] if hidden == WIDE else lever_settings:
             model = build_model(task, layers=LAYERS, t_layers=T_LAYERS,
-                                hidden=HIDDEN, device="cuda",
+                                hidden=hidden, device="cuda",
                                 generator=torch.Generator().manual_seed(2),
                                 **levers)
             trainer = Trainer(model, clamp_targets=clamp, eval_clamp=clamp)
@@ -1617,9 +1704,10 @@ def phase_profile():
             runs = [("train step, batch on the card", trainer.train_step,
                      on_card),
                     ("serving forward, batch on the card", forward, on_card)]
-            if not levers:
+            if not levers and hidden == HIDDEN:
                 runs.insert(0, ("train step, host batch uploaded per step",
                                 trainer.train_step, batches))
+            name = task if hidden == HIDDEN else f"{task} h{hidden}"
             for label, fn, inputs in runs:
                 for x in inputs[:3]:  # warm
                     fn(x)
@@ -1629,7 +1717,7 @@ def phase_profile():
                     fn(x)
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) / len(inputs) * 1e3
-                cases.append((f"{task} {label}, levers "
+                cases.append((f"{name} {label}, levers "
                               f"{'both on' if levers else 'off'}", fn, inputs,
                               wall))
 
@@ -1664,6 +1752,334 @@ def phase_profile():
               f" ms, device {on['device_ms'] - off['device_ms']:+.3f} ms, "
               f"device activities {on['activities'] - off['activities']:+.0f}")
     return out
+
+
+# --- every width: the attention kernels at any D, #2 from hidden 624 up,
+# the h1024 eDOS flagship and the narrow phDOS path ------------------------
+
+# feature widths the attention kernels are held at (untimed): below 32, odd,
+# no multiple of 32, no multiple of 8, above 512 (sliced) and the h1024 width
+WIDTHS = (1, 33, 48, 50, 200, 544, 1024)
+# the h1024 eDOS flagship's hidden width (bench_configs.py's `h1024` row) and
+# the narrow phDOS path's (no multiple of 4: 4-byte staging, odd stores)
+WIDE, NARROW = 1024, 50
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|), in f32."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err / max(1.0, want.float().abs().max().item())
+
+
+def phase_attention_widths(dev):
+    """3g: kernels #3, #4 and #5 against their plain versions at every width
+    of WIDTHS (B=3 Lq=37 Lk=29; all keys, 7 keys and no key attended): keys
+    and values one tensor and two distinct tensors; the forward and the
+    backward within KERNEL_RTOL, the backward bit-identical on a rerun and
+    without the forward's statistics; #5 f32 within KERNEL_RTOL (keys and
+    values one tensor and three tensors) and bf16 within ATTN_BF16_RTOL
+    where D % 8 == 0. Then timed at the h1024 eDOS shapes (D = 1,024) and
+    at the narrow phDOS path's (D = 50), each beside its bound, plain
+    version and library call. Returns {kernel: {"d1024": ..., "d50": ...,
+    "widths_rel_err": ...}}."""
+    g = torch.Generator().manual_seed(8)
+    worst = dict.fromkeys(("fused_attention", "fused_attention_bwd",
+                           "fused_attention_ln"), 0.0)
+    worst_bf16 = 0.0
+    b, lq, lk = 3, 37, 29
+    km = (torch.arange(lk)[None] < torch.tensor([[lk], [7], [0]])).to(dev)
+    bias = key_bias(km)
+    for d in WIDTHS:
+        rand = lambda *s: torch.randn(*s, generator=g).to(dev)
+        q, k, v, go = rand(b, lq, d), rand(b, lk, d), rand(b, lk, d), rand(
+            b, lq, d)
+        for vv in (k, v):  # one tensor, two tensors
+            o, stats = fused_attention_fwd(q, k, vv, bias, want_stats=True)
+            got = fused_attention_bwd(q, k, vv, bias, o, go, stats)
+            want = attention_bwd_reference(q, k, vv, bias, go)
+            errs = {"fused_attention": rel_err(
+                        o, dot_product_attention(q, k, vv, km)),
+                    "fused_attention_bwd": max(
+                        rel_err(x, w) for x, w in zip(got, want))}
+            for name, err in errs.items():
+                check(err <= KERNEL_RTOL, f"{name} at D={d}: rel err "
+                                          f"{err:.3e} > {KERNEL_RTOL}")
+                worst[name] = max(worst[name], err)
+            for other in (fused_attention_bwd(q, k, vv, bias, o, go, stats),
+                          fused_attention_bwd(q, k, vv, bias, o, go)):
+                check(all(torch.equal(x, y) for x, y in zip(got, other)),
+                      f"fused_attention_bwd at D={d}: a rerun (with or "
+                      f"without the forward's statistics) differs")
+        lns = (torch.rand(d, generator=g) + 0.5).to(dev)
+        lnb = (torch.randn(d, generator=g) * 0.1).to(dev)
+        x, xk, xv = (t * 2 + 0.5 for t in (q, k, v))
+        for args in ((x, xk, xk), (x, xk, xv)):
+            err = rel_err(fused_attention_ln(*args, lns, lnb, km),
+                          ln_attention_reference(*args, lns, lnb, km))
+            check(err <= KERNEL_RTOL, f"fused_attention_ln at D={d}: rel "
+                                      f"err {err:.3e} > {KERNEL_RTOL}")
+            worst["fused_attention_ln"] = max(worst["fused_attention_ln"],
+                                              err)
+            if d % 8 == 0:
+                argsb = tuple(t.bfloat16() for t in args)
+                got = fused_attention_ln(*argsb, lns, lnb, km)
+                err = rel_err(got, ln_attention_reference(*argsb, lns, lnb,
+                                                          km))
+                check(got.dtype == torch.bfloat16 and err <= ATTN_BF16_RTOL,
+                      f"fused_attention_ln bf16 at D={d}: rel err {err:.3e}")
+                worst_bf16 = max(worst_bf16, err)
+        print(f"attention kernels at D={d} (B={b} Lq={lq} Lk={lk}, plan "
+              f"{attention_plan(d)}): #3, #4 and #5 within {KERNEL_RTOL} rel"
+              f" of the plain versions with keys and values one tensor and "
+              f"two; #4 bit-identical on reruns"
+              f"{'; #5 bf16 within ' + str(ATTN_BF16_RTOL) if d % 8 == 0 else ''}")
+    print(f"widths {WIDTHS}: worst rel err {json.dumps(worst)}, #5 bf16 "
+          f"{worst_bf16:.3e}")
+    out = {name: {"widths_rel_err": err} for name, err in worst.items()}
+    out["fused_attention_ln"]["widths_bf16_rel_err"] = worst_bf16
+    for d, shapes in ((WIDE, attention_shapes()),
+                      (NARROW, phdos_attention_shapes())):
+        for name, r in timed_attention_at(dev, d, shapes, g).items():
+            out[name][f"d{d}"] = r
+    return out
+
+
+def timed_attention_at(dev, d, shapes, g):
+    """Kernels #3, #4 and #5 (f32) at feature width d at the three stacks'
+    shapes (keys and values one tensor, pad atoms masked, the last graph
+    fully masked), each against its plain version, timed beside its bound
+    and its library call (SDPA, SDPA's backward, F.layer_norm + SDPA)."""
+    runs = {"fused_attention": {}, "fused_attention_bwd": {},
+            "fused_attention_ln": {}}
+    lns = (torch.rand(d, generator=g) + 0.5).to(dev)
+    lnb = (torch.randn(d, generator=g) * 0.1).to(dev)
+    for label, (bb, lq, lk) in shapes.items():
+        rand = lambda *s: torch.randn(*s, generator=g).to(dev)
+        q, k, go = rand(bb, lq, d), rand(bb, lk, d), rand(bb, lq, d)
+        km = torch.ones(bb, lk, dtype=torch.bool)
+        if lk != lq:
+            km = torch.arange(lk)[None] < torch.randint(4, lk + 1, (bb, 1),
+                                                        generator=g)
+        km[-1] = False
+        km = km.to(dev)
+        bias = key_bias(km)
+        print(f"attention at D={d} {label}: B={bb} Lq={lq} Lk={lk} (last "
+              f"graph fully masked)")
+        runs["fused_attention"][label] = compare(
+            f"fused_attention[D={d} {label}]",
+            lambda: fused_attention_fwd(q, k, k, bias)[0],
+            lambda: dot_product_attention(q, k, k, km),
+            work=attention_work(bb, lq, lk, d, (q, k, bias), (q,)),
+            library_fn=lambda: sdpa(q, k, k, bias))
+        o, stats = fused_attention_fwd(q, k, k, bias, want_stats=True)
+        runs["fused_attention_bwd"][label] = compare(
+            f"fused_attention_bwd[D={d} {label}]",
+            lambda: fused_attention_bwd(q, k, k, bias, o, go, stats),
+            lambda: attention_bwd_reference(q, k, k, bias, go), repeat=True,
+            work=attention_work(bb, lq, lk, d, (q, k, bias, o, go), (q, k, k),
+                                True),
+            library_fn=sdpa_backward(q, k, k, bias, go))
+        x, xk = q * 2 + 0.5, k * 2 + 0.5
+        ln = lambda t: F.layer_norm(t, (d,), lns, lnb, 1e-5)
+        rows = bb * (lq + lk)
+        runs["fused_attention_ln"][label] = compare(
+            f"fused_attention_ln[D={d} {label}]",
+            lambda: fused_attention_ln(x, xk, xk, lns, lnb, km),
+            lambda: ln_attention_reference(x, xk, xk, lns, lnb, km),
+            work=(nbytes(x, xk, lns, lnb, bias) + nbytes(x),
+                  4 * bb * lq * lk * d + 8 * rows * d),
+            library_fn=lambda: sdpa(ln(x), ln(xk), ln(xk), bias))
+    return {name: per_forward(r) for name, r in runs.items()}
+
+
+def phase_wide_mp(dev):
+    """3h: kernels #1 and #2 at the h1024 eDOS widths (B=8 A=32 E=384,
+    M = 2,048, H = 1,024: the forward's tensor-core form, the backward's in
+    a cluster of four) and #2 at hidden 624 and 1,000 (the generic form,
+    xhat in scratch), each against its plain version (a dummy graph,
+    nonzero upstream gradients), bit-identical on a rerun, timed beside its
+    bound, with the form and tile taken. Returns {kernel: {label: row}}."""
+    g = torch.Generator().manual_seed(9)
+    rand = lambda *s: torch.randn(*s, generator=g).to(dev)
+    b, a, e = BATCH, 32, 384
+    out = {"fused_mp_edge": {}, "fused_mp_edge_bwd": {}}
+    for h in (WIDE, 624, 1000):
+        m = 2 * h
+        idx = lambda: torch.randint(0, a, (b, e), generator=g,
+                                    dtype=torch.int32).to(dev)
+        mask = (torch.rand(b, e, generator=g) > 0.25).float()
+        mask[-1] = 0.0
+        args = (rand(b, a, m), rand(b, a, m), rand(b, e, m), idx(), idx(),
+                mask.to(dev), rand(m).abs() + 0.5, rand(m) * 0.1,
+                torch.tensor([0.25], device=dev), rand(h, m) * m ** -0.5)
+        label = f"B={b} A={a} E={e} M={m} H={h}"
+        print(f"message passing at hidden {h}: {label}")
+        if h == WIDE:
+            out["fused_mp_edge"][f"H={h}"] = compare_mp(
+                label, args + (rand(h) * 0.1,), False)
+        out["fused_mp_edge_bwd"][f"H={h}"] = compare_mp(
+            label, args + (rand(b, e, h), rand(b, a, h)), True)
+    return out
+
+
+def serving_readings(predictor, samples, calls: int = 5) -> list:
+    """Samples/s of each of ``calls`` calls of one request, after a warm
+    one."""
+    predictor.predict(samples)
+    readings = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        predictor.predict(samples)
+        readings.append(len(samples) / (time.perf_counter() - t0))
+    return readings
+
+
+def phase_h1024_serving(workdir):
+    """17: the h1024 eDOS flagship (hidden 1,024, 3 processors, 2 layers per
+    stack, 201 bins, f32, batch 8; random weights from a seed) saved with
+    torch.save and served through cli.main_predict (96 samples) and
+    Predictor.predict (5): exactly 3 fused_mp_edge and 6 fused_attention
+    launches per batch, no other; outputs [N, 201], finite and >= 0; the
+    5-sample request against the same model on the CPU. Returns (launches,
+    samples/s readings of the 96-sample request)."""
+    model = build_model("edos", layers=LAYERS, t_layers=T_LAYERS, hidden=WIDE,
+                        generator=torch.Generator().manual_seed(0))
+    weights = os.path.join(workdir, "edos_h1024.pt")
+    torch.save(model.state_dict(), weights)
+    requests = {"96": synthetic_edos_samples(96, seed=0),
+                "5 (short batch)": synthetic_edos_samples(5, seed=1)}
+    path = os.path.join(workdir, "request_96.npz")
+    save_samples(path, requests["96"])
+    kw = dict(task="edos", example=requests["96"][0], layers=LAYERS,
+              t_layers=T_LAYERS, hidden=WIDE, batch_size=BATCH)
+    gpu = Predictor.from_torch(weights, device="cuda", **kw)
+    cpu = Predictor.from_torch(weights, device="cpu", **kw)
+    reset_launches()
+    outputs = {}
+    for label, samples in requests.items():
+        before = read_launches()
+        if label == "96":
+            out_path = os.path.join(workdir, "preds_96.npz")
+            main_predict.main([
+                "--task", "edos", "--torch_state_dict", weights,
+                "--input", path, "--output", out_path,
+                "--layers", str(LAYERS), "--transformer", str(T_LAYERS),
+                "--hidden", str(WIDE), "--batch_size", str(BATCH),
+                "--device", "cuda"])
+            with np.load(out_path) as z:
+                dos = z["dos"]
+        else:
+            dos = gpu.predict(samples)
+        n = expected_batches(samples)
+        got = {k: v - before[k] for k, v in read_launches().items()}
+        want = launch_counts(fused_mp_edge=LAYERS * n,
+                             fused_attention=3 * T_LAYERS * n)
+        print(f"h1024 request {label}: {n} batches, launches {got}")
+        check(got == want, f"h1024 request {label}: launches {got}, "
+                           f"expected {want}")
+        check_dos(f"h1024 {label}", dos, len(samples))
+        outputs[label] = dos
+    launches = read_launches()
+    ref = cpu.predict(requests["5 (short batch)"])
+    err = float(np.abs(outputs["5 (short batch)"] - ref).max())
+    print(f"h1024 request 5: card vs CPU plain max abs err {err:.3e} (atol "
+          f"{MODEL_ATOL} + rtol {MODEL_RTOL})")
+    check(np.allclose(outputs["5 (short batch)"], ref, atol=MODEL_ATOL,
+                      rtol=MODEL_RTOL), f"h1024: card differs from the CPU "
+                                        f"by {err:.3e}")
+    return launches, serving_readings(gpu, requests["96"])
+
+
+def phase_h1024_training(workdir):
+    """18: cli.main_edos --hidden 1024 at batch 8 on 24 learnable samples,
+    one epoch (3 train steps) and its eval: exact launch counts per step.
+    Returns the run's launches."""
+    log = os.path.join(workdir, "train.jsonl")
+    result, per_call, launches = run_counted(main_edos, [
+        "--synthetic", "24", "--synthetic_learnable", "--epochs", "1",
+        "--eval", "1", "--layers", str(LAYERS), "--transformer",
+        str(T_LAYERS), "--hidden", str(WIDE), "--batch_size", str(BATCH),
+        "--device", "cuda", "--results_dir", workdir, "--log_jsonl", log])
+    n_train = len(edos_random_split(range(24))[0])
+    check_training_run("h1024 eDOS training path", result, per_call,
+                       step_launches("edos", False),
+                       math.ceil(n_train / BATCH), log, workdir, 1,
+                       hidden=WIDE)
+    print(f"h1024 eDOS training path: launches {launches}")
+    return launches
+
+
+def phase_h1024_levers():
+    """19b: one h1024 train step at batch 8 with both LayerNorm levers and
+    one without, from one seed on one batch: the levers' launches exactly
+    (6 fused_attention_ln, 20 layer_norm_bwd, no fused_attention), the
+    losses within LOSS_RTOL. Returns the lever step's launches."""
+    batch = next(iter(GraphLoader(synthetic_edos_learnable(8, seed=5),
+                                  BATCH)))
+    losses, counts = {}, {}
+    for name, levers in (("off", {}),
+                         ("both", {"fuse_ln_attn": True, "ln_lp": True})):
+        model = build_model("edos", layers=LAYERS, t_layers=T_LAYERS,
+                            hidden=WIDE, device="cuda",
+                            generator=torch.Generator().manual_seed(3),
+                            **levers)
+        trainer = Trainer(model, clamp_targets=True, eval_clamp=True)
+        reset_launches()
+        losses[name] = trainer.train_step(batch)["loss"].item()
+        counts[name] = read_launches()
+        want = step_launches("edos", bool(levers))
+        check(counts[name] == want, f"h1024 train step, levers {name}: "
+                                    f"launches {counts[name]}, expected {want}")
+    print(f"h1024 train step, loss with both levers {losses['both']:.7f}, "
+          f"levers off {losses['off']:.7f} (rtol {LOSS_RTOL}); launches "
+          f"{counts['both']}")
+    check(abs(losses["both"] - losses["off"]) <= LOSS_RTOL * abs(
+        losses["off"]), f"h1024: the lever step's loss {losses['both']} "
+                        f"differs from {losses['off']}")
+    return counts["both"]
+
+
+def phase_narrow_phdos(workdir):
+    """20: the narrow phDOS path, hidden 50 (3 processors, 2 layers per
+    stack): 5 samples served through Predictor.predict (3 fused_mp_edge, 3
+    batched_segment_sum and 6 fused_attention launches per batch, against
+    the CPU), then 3 train steps card against CPU as phase 11 (losses,
+    first-step gradients), their launches exactly 3 times a step's.
+    Returns (serving launches, training launches)."""
+    model = build_model("phdos", layers=LAYERS, t_layers=T_LAYERS,
+                        hidden=NARROW,
+                        generator=torch.Generator().manual_seed(0))
+    weights = os.path.join(workdir, "phdos_h50.pt")
+    torch.save(model.state_dict(), weights)
+    samples = synthetic_phdos_samples(5, seed=1)
+    kw = dict(task="phdos", example=samples[0], layers=LAYERS,
+              t_layers=T_LAYERS, hidden=NARROW, batch_size=BATCH)
+    gpu = Predictor.from_torch(weights, device="cuda", **kw)
+    cpu = Predictor.from_torch(weights, device="cpu", **kw)
+    reset_launches()
+    dos = gpu.predict(samples)
+    serving = read_launches()
+    n = expected_batches(samples)
+    want = launch_counts(fused_mp_edge=LAYERS * n,
+                         fused_attention=3 * T_LAYERS * n,
+                         batched_segment_sum=LAYERS * n)
+    check(serving == want, f"phDOS hidden 50 serving: launches {serving}, "
+                           f"expected {want}")
+    ref = cpu.predict(samples)
+    err = float(np.abs(dos - ref).max())
+    print(f"phDOS hidden {NARROW}, 5 samples: launches {serving}; card vs "
+          f"CPU max abs err {err:.3e}")
+    check(dos.shape == (5, PH_BINS) and bool(np.isfinite(dos).all())
+          and np.allclose(dos, ref, atol=MODEL_ATOL, rtol=MODEL_RTOL),
+          f"phDOS hidden {NARROW}: card differs from the CPU by {err:.3e}")
+    print(f"card vs CPU, 3 phDOS train steps at hidden {NARROW}:")
+    reset_launches()
+    phase_card_vs_cpu("phdos", hidden=NARROW)
+    training = read_launches()
+    want = {k: 3 * v for k, v in step_launches("phdos", False).items()}
+    check(training == want, f"phDOS hidden 50 training: launches {training},"
+                            f" expected {want}")
+    return serving, training
 
 
 def spread(readings) -> str:
@@ -1712,8 +2128,9 @@ def main():
           f"{seconds:.1f} s")
     # the attention kernels at the flagship width (D = 256 = 32 x 8)
     resources = kernel_resources(kernels.library_path(), {
-        k: f"{k}ILi{HIDDEN // 32}E"
-        for names in ATTENTION_KERNELS.values() for k in names})
+        k: f"{k}ILi{HIDDEN // 32}ELb1E"
+        for names in ATTENTION_KERNELS.values() for k in names
+        if "sliced" not in k})
     print(f"attention kernels at D={HIDDEN}, registers a thread and stack "
           f"bytes (cuobjdump -res-usage): {json.dumps(resources)}")
     mp_resources = kernel_resources(kernels.library_path(), MP_KERNELS)
@@ -1725,10 +2142,16 @@ def main():
     for name, res in ln_resources.items():
         check(res["stack_bytes"] == 0,
               f"{name} has a stack of {res['stack_bytes']} bytes")
-    limit = kernels.library().dostpu_attention_max_dim()
-    check(ATTENTION_MAX_DIM == limit,
-          f"ops.attention.ATTENTION_MAX_DIM is {ATTENTION_MAX_DIM}, the "
-          f"library's dostpu_attention_max_dim() {limit}")
+    for d in (1, 31, 33, 50, 512, 513, 544, 1000, 1024, 2049):
+        nc, slices = ctypes.c_int(), ctypes.c_int()
+        kernels.library().dostpu_attention_plan(d, nc, slices)
+        check((nc.value, slices.value) == attention_plan(d),
+              f"ops.attention.attention_plan({d}) is {attention_plan(d)}, "
+              f"the library's ({nc.value}, {slices.value})")
+    sliced = kernel_resources(kernels.library_path(), SLICED_KERNELS)
+    print(f"attention kernels above D=512 (16 column groups a slice), "
+          f"registers a thread and stack bytes: {json.dumps(sliced)}")
+    resources.update(sliced)
 
     results = phase_kernels(dev)
     results.update(phase_backward_kernels(dev))
@@ -1738,6 +2161,8 @@ def main():
     results.update(ln_results)
     phdos_results.update(ln_phdos)
     results.update(phase_layer_norm_bwd_kernel(dev))
+    widths = phase_attention_widths(dev)
+    wide_mp = phase_wide_mp(dev)
 
     paths, losses = {}, {}
     with tempfile.TemporaryDirectory() as root:
@@ -1769,6 +2194,25 @@ def main():
         rate = phase_train_rate("phdos")
         print(f"{rate:.1f} samples/s training (phDOS flagship, batch {BATCH}, "
               f"f32, 20 steps, host collation and upload included) on {smi}")
+
+        # 17-20: the h1024 eDOS flagship and the narrow phDOS path
+        paths["edos1024_serving"], rates = phase_h1024_serving(
+            subdir("edos1024_serving"))
+        print(f"h1024 eDOS serving samples/s, 96-sample request, batch "
+              f"{BATCH}, f32, median (least-most) of 5 calls: "
+              f"{spread(rates)} on {smi}")
+        paths["edos1024_training"] = phase_h1024_training(
+            subdir("edos1024_training"))
+        print("card vs CPU, 1 h1024 eDOS train step at batch 2:")
+        phase_card_vs_cpu("edos", hidden=WIDE, samples=2, batch=2)
+        paths["edos1024_training_levers"] = phase_h1024_levers()
+        rates = [phase_train_rate("edos", steps=5, hidden=WIDE)
+                 for _ in range(4)]
+        print(f"h1024 eDOS training samples/s (batch {BATCH}, f32, 5 steps, "
+              f"host collation and upload included), median (least-most) "
+              f"of 4 readings: {spread(rates)} on {smi}")
+        paths["phdos50_serving"], paths["phdos50_training"] = (
+            phase_narrow_phdos(subdir("phdos50")))
 
         # 13: serving with the LayerNorm fused into the attention forward
         for task, served in (("edos", edos_served), ("phdos", phdos_served)):
@@ -1826,7 +2270,9 @@ def main():
     # where each kernel must run, and nowhere else: every path its model,
     # mode and lever setting reach
     for path, counts in paths.items():
-        task, mode, *lever = path.split("_")
+        task, _, mode, lever = re.fullmatch(
+            r"(edos|phdos)(\d*)_(serving|training)(_levers|_fused)?",
+            path).groups()
         want = step_launches(task, bool(lever))
         if mode == "serving":
             want.update(dict.fromkeys(BACKWARD, 0))
@@ -1864,7 +2310,19 @@ def main():
         if name.startswith("fused_mp_edge"):
             row["resources"] = mp_resources
             row["max_abs_err"] = max(row["max_abs_err"],
-                                     r["generic_width"]["err"])
+                                     r["generic_width"]["err"],
+                                     *(w["err"] for w in
+                                       wide_mp[name].values()))
+            row["by_hidden"] = {
+                label: {k: w[k] for k in ("ms", "plain_ms", "err",
+                                          *MP_EXTRAS) if k in w}
+                | {"bound_ms": max(w["bytes_ms"], w["ops_ms"])}
+                for label, w in wide_mp[name].items()}
+        if name in widths:
+            for key, w in widths[name].items():
+                row[key] = w
+                if key.startswith("d"):
+                    row["max_abs_err"] = max(row["max_abs_err"], w["err"])
         for key in ("unfused_ms", "ms_by_rows", "bf16_max_rel_err",
                     "ms_bf16", "ms_other_aliasing", "ms_raw_form_by_rows",
                     "library_ms_by_rows",

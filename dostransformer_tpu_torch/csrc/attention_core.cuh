@@ -41,10 +41,13 @@
 // forms of the two product shapes (attention_ln.cu with bf16 operands) skip
 // the split and round only the probabilities.
 //
-// Staging. cp.async.cg 16-byte copies, zero-filling rows past the end; with
-// two buffers the next tile is in flight while the current one is
-// multiplied. The launcher picks two buffers when two blocks still fit an
-// SM with them, else one (two resident blocks then overlap each other).
+// Staging. cp.async copies, zero-filling rows past the end and the columns
+// past the row's width up to the staged 32 NC (16-byte copies where rows are
+// 16-byte aligned, 4-byte ones otherwise); with two buffers the next tile is
+// in flight while the current one is multiplied. The launcher picks two
+// buffers when two blocks still fit an SM with them, else one (two resident
+// blocks then overlap each other). Rows wider than 512 are cut into chunks
+// (the sliced kernels, see slice_chunk).
 
 #pragma once
 
@@ -156,36 +159,46 @@ __device__ __forceinline__ void rows_dot_partial(const float* a_s,
     for (int i = 0; i < 4; ++i) acc[n][i] += lo_hi[n][i] + hi_lo[n][i];
 }
 
-// the calling warp's partial [16 x 32] tile -> part ([16][kPartStride])
+// the calling warp's partial [16 x 32] tile -> part ([16][kPartStride]),
+// or added to what part holds (the sliced kernels: one chunk of D after
+// another, in a fixed order)
 template <int NT>
 __device__ __forceinline__ void store_partial(float* part,
                                               const float (&acc)[4][4],
-                                              int lane) {
+                                              int lane, bool add = false) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     float* at = part + g * kPartStride + 8 * n + 2 * t;
-    *reinterpret_cast<float2*>(at) = make_float2(acc[n][0], acc[n][1]);
-    *reinterpret_cast<float2*>(at + 8 * kPartStride) =
-        make_float2(acc[n][2], acc[n][3]);
+    float2 lo = make_float2(acc[n][0], acc[n][1]);
+    float2 hi = make_float2(acc[n][2], acc[n][3]);
+    if (add) {
+      const float2 a = *reinterpret_cast<const float2*>(at);
+      const float2 b = *reinterpret_cast<const float2*>(at + 8 * kPartStride);
+      lo = make_float2(a.x + lo.x, a.y + lo.y);
+      hi = make_float2(b.x + hi.x, b.y + hi.y);
+    }
+    *reinterpret_cast<float2*>(at) = lo;
+    *reinterpret_cast<float2*>(at + 8 * kPartStride) = hi;
   }
 }
 
-// the calling warp's partial product of its quarter of D, left in its
-// partial tile: the 16-row halves of the streamed tile that hold rows only
+// the calling warp's partial product of its quarter of the staged width,
+// left in (or, with `add`, added to) its partial tile: the 16-row halves of
+// the streamed tile that hold rows only
 template <int NC>
 __device__ __forceinline__ void partial_tile(const float* a_s,
                                              const float* t_s, int stride,
                                              int halves, int warp, int lane,
-                                             float* parts) {
+                                             float* parts, bool add = false) {
   float acc[4][4];
   float* part = parts + warp * kTileM * kPartStride;
   if (halves == 2) {  // the same for every thread of the block
     rows_dot_partial<NC, 4>(a_s, t_s, stride, warp * 8 * NC, lane, acc);
-    store_partial<4>(part, acc, lane);
+    store_partial<4>(part, acc, lane, add);
   } else {
     rows_dot_partial<NC, 2>(a_s, t_s, stride, warp * 8 * NC, lane, acc);
-    store_partial<2>(part, acc, lane);
+    store_partial<2>(part, acc, lane, add);
   }
 }
 
@@ -276,15 +289,16 @@ __device__ __forceinline__ void partial_tile_exact(const float* a_s,
                                                    const float* t_s,
                                                    int stride, int halves,
                                                    int warp, int lane,
-                                                   float* parts) {
+                                                   float* parts,
+                                                   bool add = false) {
   float acc[4][4];
   float* part = parts + warp * kTileM * kPartStride;
   if (halves == 2) {  // the same for every thread of the block
     rows_dot_partial_exact<NC, 4>(a_s, t_s, stride, warp * 8 * NC, lane, acc);
-    store_partial<4>(part, acc, lane);
+    store_partial<4>(part, acc, lane, add);
   } else {
     rows_dot_partial_exact<NC, 2>(a_s, t_s, stride, warp * 8 * NC, lane, acc);
-    store_partial<2>(part, acc, lane);
+    store_partial<2>(part, acc, lane, add);
   }
 }
 
@@ -340,6 +354,16 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                : "memory");
 }
 
+// 4 bytes global -> shared, or 4 bytes of zeros when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
@@ -348,20 +372,73 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
-// rows [r0, r0 + rows) of src ([n_total][D], n_total >= 1) -> dst
-// ([rows][D + kPad]), zeros for rows at or past n_total; asynchronous
-template <int D>
-__device__ __forceinline__ void stage_rows_async(float* dst, const float* src,
+// rows [r0, r0 + rows) of src ([n_total][d] floats, n_total >= 1), columns
+// [c0, c0 + w) -> columns [0, w) of dst ([rows][32 NC + kPad]), and zeros in
+// columns [w, 32 NC) and in the rows at or past n_total: every column a
+// product reads is written, so the zero columns add nothing to q k^T and
+// the columns of p v past w are never stored. 16-byte copies where rows are
+// 16-byte aligned (d % 4 == 0; c0 is a multiple of 32), else 4-byte ones;
+// asynchronous.
+template <int NC>
+__device__ __forceinline__ void stage_cols_async(float* dst, const float* src,
                                                  int r0, int rows,
-                                                 int n_total) {
-  constexpr int D4 = D / 4;
-  for (int idx = threadIdx.x; idx < rows * D4; idx += kThreads) {
-    const int i = idx / D4;
-    const int c = idx % D4;
-    const bool ok = r0 + i < n_total;
-    cp_async16(dst + i * (D + kPad) + 4 * c,
-               src + (size_t)(ok ? r0 + i : 0) * D + 4 * c, ok);
+                                                 int n_total, int d, int c0,
+                                                 int w) {
+  constexpr int W = 32 * NC;
+  constexpr int S = W + kPad;
+  if (d == W && c0 == 0) {  // whole rows, the width known at compile time
+    constexpr int W4 = W / 4;
+    for (int idx = threadIdx.x; idx < rows * W4; idx += kThreads) {
+      const int i = idx / W4;
+      const int c = 4 * (idx % W4);
+      const bool ok = r0 + i < n_total;
+      cp_async16(dst + i * S + c, src + (size_t)(ok ? r0 + i : 0) * W + c,
+                 ok);
+    }
+  } else if (d % 4 == 0) {
+    constexpr int W4 = W / 4;
+    for (int idx = threadIdx.x; idx < rows * W4; idx += kThreads) {
+      const int i = idx / W4;
+      const int c = 4 * (idx % W4);
+      const bool ok = r0 + i < n_total && c < w;
+      cp_async16(dst + i * S + c,
+                 src + (size_t)(ok ? r0 + i : 0) * d + (ok ? c0 + c : 0), ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * W; idx += kThreads) {
+      const int i = idx / W;
+      const int c = idx % W;
+      const bool ok = r0 + i < n_total && c < w;
+      cp_async4(dst + i * S + c,
+                src + (size_t)(ok ? r0 + i : 0) * d + (ok ? c0 + c : 0), ok);
+    }
   }
+}
+
+// out[col], out[col + 1] of a row of width d (col even): one 8-byte store
+// where d is even (the row is then 8-byte aligned), else the elements below
+// d one by one
+__device__ __forceinline__ void store_pair(float* row, int col, int d,
+                                           float a, float b) {
+  if (d % 2 == 0) {
+    if (col < d) *reinterpret_cast<float2*>(row + col) = make_float2(a, b);
+  } else {
+    if (col < d) row[col] = a;
+    if (col + 1 < d) row[col + 1] = b;
+  }
+}
+
+// The sliced kernels (D > 32 NC, NC = 16): the feature dimension is cut
+// into n chunks of 32 NC columns (the last one narrower); a block owns the
+// output columns of ONE chunk, its slice, and forms the full scores (and
+// dp) by streaming every chunk of its operands through the same staged
+// tiles, adding the chunks' partial tiles in the order below. Its own slice
+// comes last, so the tiles staged for it stay in shared memory for the
+// products that need the slice's columns (p v, ds k, p^T g, ds^T q).
+constexpr int kSliceMaxNC = 16;
+
+__device__ __forceinline__ int slice_chunk(int ci, int slice, int n) {
+  return (slice + 1 + ci) % n;
 }
 
 // One key tile of the online softmax, for the calling warp's rows

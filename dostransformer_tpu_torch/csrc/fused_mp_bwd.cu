@@ -27,18 +27,21 @@
 // partials summed in a fixed order, so the gradients are bit-identical from
 // run to run), the first two in two hand-written forms chosen by the widths
 // alone (dostpu_fused_mp_bwd_form: the tensor-core form where M and H are
-// multiples of 32 and a block of pass A fits in shared memory, e.g. M <= 1,024
-// at H = M / 2; the generic form at every other width, so M = 1,088 to 1,216
-// with H = M / 2, which only the generic pass A fits, still run):
+// multiples of 32 and a block of pass A fits in shared memory, which at
+// H = M / 2 is every such width up to H = 1,024 and beyond; the generic form
+// at every other width, up to H = 1,039 at M = 2H):
 //   A edge_bwd_tc_kernel (tensor-core form): the B*E edges are one flat
 //     list cut into tiles of TE = 16 or 32. A block must stream all of W1
 //     through its SM, which bounds a tile's time, so where tiles are few a
 //     thread-block cluster of 2 or 4 blocks shares a tile and each takes
 //     M / 2 or M / 4 of the columns (and of W1): pick_shape models the cost
 //     (phDOS batch 8: 16 edges x 2 blocks = 128 blocks; batch 1: 16 x 4 = 32;
-//     eDOS: 32 x 1 = 96). One warp per row recomputes mid -> LN -> PReLU
-//     with 16-byte loads, all of a warp's rows in flight together: xhat
-//     stays in shared memory, act goes to scratch; g_e is built in shared
+//     eDOS: 32 x 1 = 96; at M = 2,048, H = 1,024 only a cluster of 4 fits).
+//     One warp per row recomputes mid -> LN -> PReLU with 16-byte loads,
+//     all of a warp's rows in flight together: xhat stays in shared memory
+//     for the block's own M / cluster columns only (a block of a cluster
+//     takes the row's statistics from mid formed twice from L2, the same
+//     bits as from a kept row), act goes to scratch; g_e is built in shared
 //     memory ([TE][H + 4]) and scratch. g_act = g_e @ W1 runs as 3xTF32
 //     mma.sync: W1 ([H, M], read as it lies) streams in [32 x 256] tiles
 //     (rows padded to 264 floats: the B fragments walk down the rows;
@@ -53,13 +56,15 @@
 //     gradients go to scratch. Shared memory a block at M = 512, H = 256:
 //     TE = 32 232,064 B (2 ring buffers; the card allows 232,448, which is
 //     why g_act's rows are not padded and the row sums reuse the ring),
-//     TE = 16 217,408 B (4 buffers); at M = 2,048, H = 1,024 TE = 16 would
-//     need 395,584 B, so those widths take the generic form.
+//     TE = 16 217,408 B (4 buffers); at M = 2,048, H = 1,024 TE = 16 by a
+//     cluster of 4 201,024 B (4 buffers of 128 + 8 columns), where one
+//     block keeping all M columns would need 395,584 B.
 //     edge_bwd_kernel (generic form): a block per (16 edges, graph), the
-//     product as FMA loops with a 4 x 4 register tile per thread
-//     (2 * 16 * M + 16 * H + 8,216 floats of shared memory: 114,784 B
-//     at M = 512, H = 256 and 360,544 B at M = 2,048, H = 1,024, which no
-//     block gets: the wrapper refuses those widths by name).
+//     product as FMA loops with a 4 x 4 register tile per thread; xhat goes
+//     to scratch and is read back from L2, so shared memory holds g_act,
+//     g_e and a W1 chunk: 16 * M + 16 * H + 8,216 floats, 82,016 B at
+//     M = 512, H = 256 and 229,472 B at M = 2,048, H = 1,024 (keeping xhat
+//     too, 360,544 B would fit no block).
 //   B gw1_tc_kernel (tensor-core form): g_W1 = g_e^T act as a split-K
 //     3xTF32 product: a block owns a [64 x 128] tile of g_W1 and one chunk of
 //     the edges, its A fragments read transposed from the staged
@@ -98,7 +103,7 @@ using mp::kLnEps;
 using mp::warp_sum;
 
 size_t edge_smem_floats(int M, int H) {
-  return (size_t)2 * kTileE * M + (size_t)kTileE * H
+  return (size_t)kTileE * M + (size_t)kTileE * H
          + (size_t)kTileHr * kTileMo + kTileE + kThreads / 32;
 }
 
@@ -118,12 +123,12 @@ edge_bwd_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
                 const float* __restrict__ g_eout,
                 const float* __restrict__ g_agg, float* __restrict__ g_ep,
                 float* __restrict__ act_out, float* __restrict__ ge_out,
+                float* __restrict__ xhat_out,
                 float* __restrict__ part_lns, float* __restrict__ part_lnb,
                 float* __restrict__ part_b1, float* __restrict__ part_alpha,
                 int A, int E, int M, int H) {
   extern __shared__ float smem[];
-  float* xhat_s = smem;                     // [kTileE][M]
-  float* gact_s = xhat_s + kTileE * M;      // [kTileE][M]: g_act, then g_norm
+  float* gact_s = smem;                     // [kTileE][M]: g_act, then g_norm
   float* ge_s = gact_s + kTileE * M;        // [kTileE][H]
   float* w_s = ge_s + kTileE * H;           // [kTileHr][kTileMo]
   float* rstd_s = w_s + kTileHr * kTileMo;  // [kTileE]
@@ -134,14 +139,16 @@ edge_bwd_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const float slope = alpha[0];
+  const int rows = min(kTileE, E - e0);  // rows past the last edge add 0
+  // the tile's rows of xhat in scratch (L2): mid, then xhat
+  float* xhat_t = xhat_out + ((size_t)b * E + e0) * M;
 
   // 1. recompute mid -> LN -> PReLU (one warp per row); build g_e
   for (int i = warp; i < kTileE; i += kThreads / 32) {
-    float* xrow = xhat_s + i * M;
+    float* xrow = xhat_t + (size_t)i * M;  // written by this lane only
     float* grow = ge_s + i * H;
     const int e = e0 + i;
     if (e >= E) {  // past the last edge: a zero row contributes nothing
-      for (int m = lane; m < M; m += 32) xrow[m] = 0.f;
       for (int h = lane; h < H; h += 32) grow[h] = 0.f;
       if (lane == 0) rstd_s[i] = 0.f;
       continue;
@@ -228,8 +235,8 @@ edge_bwd_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
   // 3. PReLU and LayerNorm backward, one warp per row; g_norm replaces g_act
   //    in shared memory for the column sums below
   float pa = 0.f;
-  for (int i = warp; i < kTileE; i += kThreads / 32) {
-    const float* xrow = xhat_s + i * M;
+  for (int i = warp; i < rows; i += kThreads / 32) {
+    const float* xrow = xhat_t + (size_t)i * M;
     float* grow = gact_s + i * M;
     float s1 = 0.f, s2 = 0.f;
     for (int m = lane; m < M; m += 32) {
@@ -246,10 +253,8 @@ edge_bwd_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
     }
     s1 = warp_sum(s1) / M;
     s2 = warp_sum(s2) / M;
-    const int e = e0 + i;
-    if (e >= E) continue;
     const float rstd = rstd_s[i];
-    float* out = g_ep + ((size_t)b * E + e) * M;
+    float* out = g_ep + ((size_t)b * E + e0 + i) * M;
     for (int m = lane; m < M; m += 32) {
       const float gx = grow[m] * ln_scale[m];
       out[m] = rstd * (gx - s1 - xrow[m] * s2);
@@ -262,9 +267,9 @@ edge_bwd_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
   // 4. this block's partial sums of the parameter gradients
   for (int m = threadIdx.x; m < M; m += kThreads) {
     float sl = 0.f, sb = 0.f;
-    for (int i = 0; i < kTileE; ++i) {
+    for (int i = 0; i < rows; ++i) {
       const float gn = gact_s[i * M + m];
-      sl = fmaf(gn, xhat_s[i * M + m], sl);
+      sl = fmaf(gn, xhat_t[(size_t)i * M + m], sl);
       sb += gn;
     }
     part_lns[(size_t)blk * M + m] = sl;
@@ -354,12 +359,13 @@ constexpr float kTcMac[2] = {0.0070f, 0.0050f};  // ... a multiply-add, MT 1, 2
 // columns of g_act a pass covers: 32 a warp, 16 where four blocks share a tile
 int tc_pass_columns(int cluster) { return cluster == 4 ? 128 : 256; }
 
-// floats of pass A's block before the W1 ring: xhat, g_act, g_e, rstd (the
-// warps' alpha sums and the row sums the blocks of a cluster hand each other
-// take the ring's place once the product is done)
-size_t tc_fixed_floats(int mt, int M, int H) {
+// floats of pass A's block before the W1 ring: xhat and g_act of its
+// M / cluster columns, g_e, rstd (the warps' alpha sums and the row sums the
+// blocks of a cluster hand each other take the ring's place once the
+// product is done)
+size_t tc_fixed_floats(int mt, int cluster, int M, int H) {
   const size_t te = 16 * mt;
-  return 2 * te * M + te * (H + 4) + te;
+  return 2 * te * (M / cluster) + te * (H + 4) + te;
 }
 
 size_t tc_stage_bytes(int cluster) {
@@ -369,24 +375,27 @@ size_t tc_stage_bytes(int cluster) {
 // stages of the W1 ring: as many as fit, at most 4, at least 2; 0 when two
 // do not fit
 int tc_stages(int mt, int cluster, int M, int H) {
-  const size_t fixed = tc_fixed_floats(mt, M, H) * sizeof(float);
+  const size_t fixed = tc_fixed_floats(mt, cluster, M, H) * sizeof(float);
   for (int stages = 4; stages >= 2; --stages)
     if (fixed + stages * tc_stage_bytes(cluster) <= mp::kSmemMax) return stages;
   return 0;
 }
 
 size_t tc_smem_bytes(int mt, int cluster, int M, int H) {
-  return tc_fixed_floats(mt, M, H) * sizeof(float)
+  return tc_fixed_floats(mt, cluster, M, H) * sizeof(float)
          + std::max(2, tc_stages(mt, cluster, M, H)) * tc_stage_bytes(cluster);
 }
 
 // whether `cluster` blocks can share the columns of a tile of 16 mt edges:
-// each takes whole passes; only tiles of 16 edges are shared (the cost model
-// never takes 32 edges by two blocks, and 32 by four measured slower than 16
-// by four at every shape)
+// each takes M / cluster columns, at least one whole pass and whole column
+// blocks of its warps (16 a warp in a cluster of 4, else 32); only tiles of
+// 16 edges are shared (the cost model never takes 32 edges by two blocks,
+// and 32 by four measured slower than 16 by four at every shape)
 bool tc_shape_ok(int mt, int cluster, int M) {
   if (cluster == 1) return true;
-  return mt == 1 && M % (cluster * tc_pass_columns(cluster)) == 0;
+  const int columns = M / cluster;
+  return mt == 1 && M % (cluster * tc_pass_columns(cluster) / 8) == 0
+         && columns >= tc_pass_columns(cluster);
 }
 
 // Pass A's shape: 16 or 32 edges a tile (MT = 1 or 2) and 1, 2 or 4 blocks
@@ -453,13 +462,16 @@ edge_bwd_tc_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
   constexpr int PW = mp::kWarps * NT * 8;  // g_act columns a pass
   constexpr int WS = PW + 8;               // floats per staged W1 row
   cg::cluster_group cluster = cg::this_cluster();
-  const int cs = (int)cluster.num_blocks();
+  // tiles of 32 edges are never shared: there the cluster path is not
+  // compiled (it cost that form 21 registers and 4% of its time)
+  const int cs = MT == 2 ? 1 : (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   extern __shared__ __align__(16) float tc_smem[];
-  const int GA = M;      // g_act row stride (no padding: it would not fit)
-  const int GS = H + 4;  // g_e row stride (A fragments on 32 banks)
-  float* xhat_s = tc_smem;             // [TE][M]
-  float* gact_s = xhat_s + TE * M;     // [TE][GA]: g_act, then g_norm
+  const int MC = M / cs;  // this block's columns
+  const int GA = MC;      // g_act row stride (no padding: it would not fit)
+  const int GS = H + 4;   // g_e row stride (A fragments on 32 banks)
+  float* xhat_s = tc_smem;             // [TE][MC]
+  float* gact_s = xhat_s + TE * MC;    // [TE][GA]: g_act, then g_norm
   float* ge_s = gact_s + TE * GA;      // [TE][GS]
   float* rstd_s = ge_s + TE * GS;      // [TE]
   float* w_s = rstd_s + TE;            // [stages][kTcRowsW][WS]
@@ -497,22 +509,26 @@ edge_bwd_tc_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
   cluster.sync();  // every block of the cluster runs: its memory can be written
 
   // 1. recompute mid -> LN -> PReLU (one warp per row; every block of a
-  //    cluster needs the whole row for its statistics) and build g_e. The
-  //    row loops here and in step 3 are not unrolled: unrolled four times
-  //    (TE = 32) they cost this kernel 25%, measured.
+  //    cluster needs the whole row for its statistics: a block that keeps
+  //    the whole row takes them from it, the blocks of a cluster from mid
+  //    formed twice from L2) and build g_e. The row loops here and in step 3
+  //    are not unrolled: unrolled four times (TE = 32) they cost this kernel
+  //    25%, measured.
 #pragma unroll 1
   for (int i = warp; i < TE; i += mp::kWarps) {
-    float* xrow = xhat_s + i * M;
+    float* xrow = xhat_s + i * MC;
     float* grow = ge_s + i * GS;
     if (n0 + i >= N) {  // past the last edge: a zero row contributes nothing
-      for (int m = lane; m < M; m += 32) xrow[m] = 0.f;
+      for (int m = lane; m < MC; m += 32) xrow[m] = 0.f;
       for (int h = lane; h < H; h += 32) grow[h] = 0.f;
       if (lane == 0) rstd_s[i] = 0.f;
       continue;
     }
     const size_t n = (size_t)(n0 + i);
-    const mp::RowStats st = mp::gather_mid_row(sp, dp, ep, senders, receivers,
-                                               n, A, E, M, lane, xrow);
+    const mp::MidRow mid =
+        mp::mid_row(sp, dp, ep, senders, receivers, n, A, E, M);
+    const mp::RowStats st = cs == 1 ? mp::gather_mid_row(mid, M, lane, xrow)
+                                    : mp::mid_row_stats(mid, M, lane);
     const int r = receivers[n];
     const bool r_ok = r >= 0 && r < A;
     const float mk = r_ok ? mask[n] : 0.f;
@@ -527,16 +543,16 @@ edge_bwd_tc_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
       mp::st4(grow, j, v);
       if (rank == 0) mp::st4(ge_out + n * H, j, v);
     }
-    // this block's columns only: the others' xhat is never read again
+    // this block's columns only (xrow holds them at j - c_begin / 4)
     for (int j = c_begin / 4 + lane; j < c_end / 4; j += 32) {
-      float4 x = mp::ld4(xrow, j);
+      float4 x = cs == 1 ? mp::ld4(xrow, j) : mid.at(j);
       const float4 sc = mp::ld4(ln_scale, j);
       const float4 bi = mp::ld4(ln_bias, j);
       x.x = (x.x - st.mean) * st.rstd;
       x.y = (x.y - st.mean) * st.rstd;
       x.z = (x.z - st.mean) * st.rstd;
       x.w = (x.w - st.mean) * st.rstd;
-      mp::st4(xrow, j, x);
+      mp::st4(xrow, j - c_begin / 4, x);
       float4 a;
       a.x = x.x * sc.x + bi.x;
       a.y = x.y * sc.y + bi.y;
@@ -614,7 +630,8 @@ edge_bwd_tc_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          float* at = gact_s + (mt * 16 + g) * GA + col + 8 * nt + 2 * t;
+          float* at = gact_s + (mt * 16 + g) * GA + (col - c_begin) + 8 * nt
+                      + 2 * t;
           *reinterpret_cast<float2*>(at) =
               make_float2(acc[mt][nt][0], acc[mt][nt][1]);
           *reinterpret_cast<float2*>(at + 8 * GA) =
@@ -636,14 +653,15 @@ edge_bwd_tc_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
   float pa = 0.f;
 #pragma unroll 1
   for (int i = warp; i < TE; i += mp::kWarps) {
-    const float* xrow = xhat_s + i * M;
+    // this block's columns, at j - c_begin / 4 in xrow and grow
+    const float* xrow = xhat_s + i * MC;
     float* grow = gact_s + i * GA;
     float s1 = 0.f, s2 = 0.f;
     for (int j = c_begin / 4 + lane; j < c_end / 4; j += 32) {
-      const float4 xh = mp::ld4(xrow, j);
+      const float4 xh = mp::ld4(xrow, j - c_begin / 4);
       const float4 sc = mp::ld4(ln_scale, j);
       const float4 bi = mp::ld4(ln_bias, j);
-      float4 ga = mp::ld4(grow, j);
+      float4 ga = mp::ld4(grow, j - c_begin / 4);
       auto element = [&](float x, float scale, float bias, float& g_io) {
         const float nm = x * scale + bias;
         const bool pos = nm > 0.f;
@@ -657,7 +675,7 @@ edge_bwd_tc_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
       element(xh.y, sc.y, bi.y, ga.y);
       element(xh.z, sc.z, bi.z, ga.z);
       element(xh.w, sc.w, bi.w, ga.w);
-      mp::st4(grow, j, ga);
+      mp::st4(grow, j - c_begin / 4, ga);
     }
     s1 = warp_sum(s1);
     s2 = warp_sum(s2);
@@ -678,14 +696,14 @@ edge_bwd_tc_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
     }
     s1 /= M;
     s2 /= M;
-    const float* xrow = xhat_s + i * M;
+    const float* xrow = xhat_s + i * MC;
     const float* grow = gact_s + i * GA;
     const float rstd = rstd_s[i];
     float* out = g_ep + (size_t)(n0 + i) * M;
     for (int j = c_begin / 4 + lane; j < c_end / 4; j += 32) {
-      const float4 xh = mp::ld4(xrow, j);
+      const float4 xh = mp::ld4(xrow, j - c_begin / 4);
       const float4 sc = mp::ld4(ln_scale, j);
-      const float4 gn = mp::ld4(grow, j);
+      const float4 gn = mp::ld4(grow, j - c_begin / 4);
       float4 o;
       o.x = rstd * (gn.x * sc.x - s1 - xh.x * s2);
       o.y = rstd * (gn.y * sc.y - s1 - xh.y * s2);
@@ -703,8 +721,8 @@ edge_bwd_tc_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
   for (int m = c_begin + threadIdx.x; m < c_end; m += kThreads) {
     float sl = 0.f, sb = 0.f;
     for (int i = 0; i < TE; ++i) {
-      const float gn = gact_s[i * GA + m];
-      sl = fmaf(gn, xhat_s[i * M + m], sl);
+      const float gn = gact_s[i * GA + m - c_begin];
+      sl = fmaf(gn, xhat_s[i * MC + m - c_begin], sl);
       sb += gn;
     }
     part_lns[(size_t)blk * M + m] = sl;
@@ -1040,12 +1058,14 @@ extern "C" void dostpu_fused_mp_edge_bwd_tile(int B, int E, int M, int H,
 }
 
 // Floats of device scratch the backward needs (the wrapper allocates them):
-// act [B*E, M], g_e [B*E, H], and the per-block and per-split partials.
+// act [B*E, M], g_e [B*E, H], xhat [B*E, M] (the generic form), and the
+// per-block and per-split partials.
 extern "C" size_t dostpu_fused_mp_edge_bwd_scratch_floats(int B, int E, int M,
                                                          int H, int form) {
   const Plan p = make_plan(form, B, E, M, H);
   const size_t n = (size_t)B * E;
-  return n * M + n * H + (size_t)p.nblk * (2 * (size_t)M + H) + p.nalpha + 4
+  return n * M + n * H + (p.mt == 0 ? n * M : 0)
+         + (size_t)p.nblk * (2 * (size_t)M + H) + p.nalpha + 4
          + (size_t)p.splits * H * M;
 }
 
@@ -1074,7 +1094,8 @@ extern "C" int dostpu_fused_mp_edge_bwd(
   const int n = B * E;
   float* act = scratch;
   float* ge = act + (size_t)n * M;
-  float* part_lns = ge + (size_t)n * H;
+  float* xhat = ge + (size_t)n * H;  // the generic form's
+  float* part_lns = xhat + (plan.mt == 0 ? (size_t)n * M : 0);
   float* part_lnb = part_lns + (size_t)plan.nblk * M;
   float* part_b1 = part_lnb + (size_t)plan.nblk * M;
   float* part_alpha = part_b1 + (size_t)plan.nblk * H;
@@ -1091,8 +1112,8 @@ extern "C" int dostpu_fused_mp_edge_bwd(
     if (err != cudaSuccess) return err;
     edge_bwd_kernel<<<dim3(plan.nblk / B, B), kThreads, smem, st>>>(
         src_proj, dst_proj, edge_proj, senders, receivers, edge_mask,
-        ln_scale, ln_bias, alpha, w1, g_eout, g_agg, g_ep, act, ge, part_lns,
-        part_lnb, part_b1, part_alpha, A, E, M, H);
+        ln_scale, ln_bias, alpha, w1, g_eout, g_agg, g_ep, act, ge, xhat,
+        part_lns, part_lnb, part_b1, part_alpha, A, E, M, H);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const dim3 grid_w((M + kGemmTile - 1) / kGemmTile,

@@ -93,26 +93,16 @@ struct RowStats {
   float mean, rstd;
 };
 
-// One warp: mid = sp[sender] + dp[receiver] + ep of flat edge n (graph
-// n / E) -> row[0, M) in shared memory (16-byte aligned, M % 4 == 0), with
-// its LayerNorm statistics in two passes (mean, then centred variance). An
-// out-of-range index adds a zero row.
-__device__ __forceinline__ RowStats gather_mid_row(
-    const float* __restrict__ sp, const float* __restrict__ dp,
-    const float* __restrict__ ep, const int* __restrict__ senders,
-    const int* __restrict__ receivers, size_t n, int A, int E, int M,
-    int lane, float* row) {
-  const size_t b = n / E;
-  const int s = senders[n];
-  const int r = receivers[n];
-  const bool s_ok = s >= 0 && s < A;
-  const bool r_ok = r >= 0 && r < A;
-  const float* sp_row = sp + (b * A + (s_ok ? s : 0)) * M;
-  const float* dp_row = dp + (b * A + (r_ok ? r : 0)) * M;
-  const float* ep_row = ep + n * M;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float sum = 0.f;
-  for (int i = lane; i < M / 4; i += 32) {
+// The three rows whose sum is mid of flat edge n (graph n / E): an
+// out-of-range index adds a zero row. at(i) is mid's i-th 4 floats.
+struct MidRow {
+  const float* sp_row;
+  const float* dp_row;
+  const float* ep_row;
+  bool s_ok, r_ok;
+
+  __device__ __forceinline__ float4 at(int i) const {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
     const float4 a = s_ok ? ld4(sp_row, i) : zero;
     const float4 d = r_ok ? ld4(dp_row, i) : zero;
     float4 v = ld4(ep_row, i);
@@ -120,6 +110,34 @@ __device__ __forceinline__ RowStats gather_mid_row(
     v.y = (a.y + d.y) + v.y;
     v.z = (a.z + d.z) + v.z;
     v.w = (a.w + d.w) + v.w;
+    return v;
+  }
+};
+
+__device__ __forceinline__ MidRow mid_row(
+    const float* __restrict__ sp, const float* __restrict__ dp,
+    const float* __restrict__ ep, const int* __restrict__ senders,
+    const int* __restrict__ receivers, size_t n, int A, int E, int M) {
+  const size_t b = n / E;
+  const int s = senders[n];
+  const int r = receivers[n];
+  MidRow row;
+  row.s_ok = s >= 0 && s < A;
+  row.r_ok = r >= 0 && r < A;
+  row.sp_row = sp + (b * A + (row.s_ok ? s : 0)) * M;
+  row.dp_row = dp + (b * A + (row.r_ok ? r : 0)) * M;
+  row.ep_row = ep + n * M;
+  return row;
+}
+
+// One warp: mid of a row (M % 4 == 0) -> row[0, M) in shared memory
+// (16-byte aligned), with its LayerNorm statistics in two passes (mean, then
+// centred variance).
+__device__ __forceinline__ RowStats gather_mid_row(const MidRow& mid, int M,
+                                                   int lane, float* row) {
+  float sum = 0.f;
+  for (int i = lane; i < M / 4; i += 32) {
+    const float4 v = mid.at(i);
     st4(row, i, v);
     sum += (v.x + v.y) + (v.z + v.w);
   }
@@ -128,6 +146,38 @@ __device__ __forceinline__ RowStats gather_mid_row(
   float sq = 0.f;
   for (int i = lane; i < M / 4; i += 32) {
     const float4 v = ld4(row, i);
+    const float dx = v.x - st.mean, dy = v.y - st.mean;
+    const float dz = v.z - st.mean, dw = v.w - st.mean;
+    sq += (dx * dx + dy * dy) + (dz * dz + dw * dw);
+  }
+  st.rstd = 1.f / sqrtf(warp_sum(sq) / M + kLnEps);
+  return st;
+}
+
+__device__ __forceinline__ RowStats gather_mid_row(
+    const float* __restrict__ sp, const float* __restrict__ dp,
+    const float* __restrict__ ep, const int* __restrict__ senders,
+    const int* __restrict__ receivers, size_t n, int A, int E, int M,
+    int lane, float* row) {
+  return gather_mid_row(mid_row(sp, dp, ep, senders, receivers, n, A, E, M),
+                        M, lane, row);
+}
+
+// gather_mid_row's statistics without keeping the row (a block that keeps
+// only some of its columns): mid is formed twice from device memory, in the
+// same order, so the mean and rstd are the same bits
+__device__ __forceinline__ RowStats mid_row_stats(const MidRow& mid, int M,
+                                                  int lane) {
+  float sum = 0.f;
+  for (int i = lane; i < M / 4; i += 32) {
+    const float4 v = mid.at(i);
+    sum += (v.x + v.y) + (v.z + v.w);
+  }
+  RowStats st;
+  st.mean = warp_sum(sum) / M;
+  float sq = 0.f;
+  for (int i = lane; i < M / 4; i += 32) {
+    const float4 v = mid.at(i);
     const float dx = v.x - st.mean, dy = v.y - st.mean;
     const float dz = v.z - st.mean, dw = v.w - st.mean;
     sq += (dx * dx + dy * dy) + (dz * dz + dw * dw);

@@ -67,7 +67,6 @@ from dostransformer_tpu_torch.nn.transformer import (
     TransformerEncoder,
     XavierLinear,
 )
-from dostransformer_tpu_torch.ops.attention import check_attention_width
 from dostransformer_tpu_torch.ops.geometry import edge_geometry_phdos
 
 _LATER = "ROADMAP.md queue 1"
@@ -105,10 +104,6 @@ class _DOSTransformerBase(nn.Module):
                 raise NotImplementedError(
                     f"{type(self).__name__}: {what} is not in the port yet; "
                     f"see {_LATER}")
-        # the card's attention kernels take some widths only: say so where
-        # the model is built, not from inside its first transformer layer
-        if device is not None and torch.device(device).type == "cuda":
-            check_attention_width(hidden, "hidden")
         self.n_bins = n_bins
         self.hidden = hidden
         self.padding = padding
@@ -143,8 +138,6 @@ class _DOSTransformerBase(nn.Module):
         """Everything after the encoders: message passing, the
         cross-attention stack, the readout ``readout(x) -> [B, h]`` and the
         heads."""
-        if x.is_cuda:  # a model moved to the card after it was built
-            check_attention_width(self.hidden, "hidden")
         b = g.num_graphs
         x, _ = run_message_passing(self.stacked_processor, g, x, edge_attr)
 

@@ -30,9 +30,10 @@ LayerNorm backward kernel (``csrc/layernorm_bwd.cu``) the raw inputs with
 their row means and rstd, so no xhat is written to memory; for CPU tensors
 both are the plain composition :func:`ln_attention_reference`.
 
-The three attention kernels take feature widths that are multiples of 32 up
-to ``ATTENTION_MAX_DIM``; :func:`check_attention_width` is the check a model
-makes when it is built for, or first runs on, the card.
+The three attention kernels take every feature width D >= 1:
+:func:`attention_plan` is the Python mirror of how they split it (rows
+staged at ceil(D / 32) x 32 columns up to D = 512; above it blocks that each
+own a slice of 512 output columns).
 """
 
 from __future__ import annotations
@@ -43,10 +44,9 @@ from dostransformer_tpu_torch.nn.layernorm import ln_backward
 from dostransformer_tpu_torch.ops import kernels
 
 NEG_INF = -1e30
-# the widest feature dimension of the attention kernels
-# (``dostpu_attention_max_dim`` of csrc/attention.cu; the card run holds the
-# two equal)
-ATTENTION_MAX_DIM = 512
+# the widest row the attention kernels stage whole: 16 groups of 32 columns
+# (``attn::kSliceMaxNC`` of csrc/attention_core.cuh)
+SLICE_COLUMNS = 512
 LN_EPS_ATTN = 1e-5  # the transformer's LayerNorm eps (nn.LayerNorm default)
 
 
@@ -113,26 +113,17 @@ def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv
 
 
-def attention_width_ok(d: int) -> bool:
-    return d % 32 == 0 and 0 < d <= ATTENTION_MAX_DIM
-
-
-def check_attention_width(d: int, what: str = "hidden"):
-    """Raise unless the attention kernels take feature width ``d``: called
-    where a model is built for the card (or first runs there), before any
-    kernel is launched."""
-    if not attention_width_ok(d):
-        raise ValueError(
-            f"{what} {d}: on a CUDA device the attention kernels take "
-            f"feature widths that are multiples of 32 from 32 to "
-            f"{ATTENTION_MAX_DIM}; choose such a width, or run on the CPU "
-            f"with --device cpu")
-
-
-def _check_width(kernel: str, d: int):
-    if not attention_width_ok(d):
-        raise ValueError(f"{kernel}: feature width {d} must be a multiple of "
-                         f"32 and at most {ATTENTION_MAX_DIM}")
+def attention_plan(d: int) -> tuple[int, int]:
+    """(32-column groups a staged row holds, blocks that share a row's
+    output columns) of the attention kernels at feature width d: the mirror
+    of ``dostpu_attention_plan`` in csrc/attention.cu, which the card run
+    holds equal. (ceil(d / 32), 1) up to d = 512, else (16, ceil(d / 512)):
+    the sliced kernels."""
+    if d < 1:
+        raise ValueError(f"attention: feature width {d} must be at least 1")
+    if d <= SLICE_COLUMNS:
+        return -(-d // 32), 1
+    return SLICE_COLUMNS // 32, -(-d // SLICE_COLUMNS)
 
 
 def fused_attention_fwd(q, k, v, bias, want_stats=False):
@@ -140,14 +131,14 @@ def fused_attention_fwd(q, k, v, bias, want_stats=False):
     [B, Lk]: returns (out, stats), stats the rows' [2, B, Lq] max and sum
     for the backward kernel, or None unless ``want_stats``. k and v may be
     one tensor (the kernel then stages each tile once). CUDA tensors only
-    (float32, contiguous, D a multiple of 32; anything else raises). Counted
-    in ``fused_attention.launches``."""
+    (float32, contiguous, any D >= 1; anything else raises). Counted in
+    ``fused_attention.launches``."""
     if not q.is_cuda:
         raise ValueError("fused_attention_fwd: the kernel takes CUDA tensors; "
                          "use dot_product_attention on the CPU")
     b, lq, d = q.shape
     lk = k.shape[1]
-    _check_width("fused_attention", d)
+    attention_plan(d)
     operands = {"q": (q, (b, lq, d)), "k": (k, (b, lk, d)),
                 "v": (v, (b, lk, d)), "key_mask": (bias, (b, lk))}
     for arg, (t, shape) in operands.items():
@@ -173,7 +164,7 @@ def fused_attention_bwd(q, k, v, bias, o, g, stats=None):
     is additive. ``stats`` is the forward kernel's [2, B, Lq] row max and
     row sum; without it the kernel recomputes them first, to the same bits.
     Same result as :func:`attention_bwd_reference`. CUDA tensors only
-    (float32, contiguous, D a multiple of 32; anything else raises).
+    (float32, contiguous, any D >= 1; anything else raises).
     ``fused_attention_bwd.launches`` counts calls that launched the
     kernels (one per call, however many kernels it takes)."""
     if not q.is_cuda:
@@ -181,7 +172,7 @@ def fused_attention_bwd(q, k, v, bias, o, g, stats=None):
                          "use attention_bwd_reference on the CPU")
     b, lq, d = q.shape
     lk = k.shape[1]
-    _check_width("fused_attention_bwd", d)
+    attention_plan(d)
     g = g.contiguous()
     operands = {"q": (q, (b, lq, d)), "k": (k, (b, lk, d)),
                 "v": (v, (b, lk, d)), "bias": (bias, (b, lk)),
@@ -254,8 +245,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Same contract as :func:`dot_product_attention`, differentiable in q,
     k and v.
 
-    CUDA tensors go through the kernels (float32, contiguous, D a multiple
-    of 32; anything else raises), CPU tensors through the plain versions.
+    CUDA tensors go through the kernels (float32, contiguous, any D >= 1;
+    anything else raises), CPU tensors through the plain versions.
     ``fused_attention.launches`` counts forward kernel launches."""
     return _FusedAttention.apply(q, k, v, key_mask)
 
@@ -290,7 +281,7 @@ def _fused_attention_ln_fwd(x, x_k, x_v, ln_scale, ln_bias, key_mask):
     is None or [B, Lk] bool: the kernel forms the additive bias itself."""
     b, lq, d = x.shape
     lk = x_k.shape[1]
-    _check_width("fused_attention_ln", d)
+    attention_plan(d)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_attention_ln: x is {x.dtype}, the kernel "
                         f"takes float32 or bfloat16")
@@ -394,10 +385,9 @@ def fused_attention_ln(x: torch.Tensor, x_k: torch.Tensor, x_v: torch.Tensor,
     x_k, x_v, ln_scale and ln_bias; x_k, x_v and x may be one tensor.
 
     CUDA tensors go through the kernels (inputs of one dtype, float32 or
-    bfloat16, ln_scale and ln_bias float32, D a multiple of 32 up to
-    ``ATTENTION_MAX_DIM``; anything else raises; the backward kernels take
-    float32), CPU tensors through
-    the plain versions. ``fused_attention_ln.launches`` counts forward
+    bfloat16, ln_scale and ln_bias float32, any D >= 1; anything else
+    raises; the backward kernels take float32), CPU tensors through the
+    plain versions. ``fused_attention_ln.launches`` counts forward
     kernel launches."""
     return _FusedAttentionLN.apply(x, x_k, x_v, ln_scale, ln_bias, key_mask)
 

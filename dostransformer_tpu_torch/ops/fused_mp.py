@@ -56,16 +56,48 @@ def fused_mp_form(m: int, h: int) -> int:
     return FORM_TENSOR_CORE if _tc_widths(m, h) and fits else FORM_GENERIC
 
 
+def bwd_tc_smem_bytes(m: int, h: int, mt: int, cluster: int,
+                      stages: int) -> int:
+    """Shared memory of a block of the backward's tensor-core pass A: the
+    mirror of ``tc_smem_bytes`` in ``csrc/fused_mp_bwd.cu``. 16 mt edges;
+    xhat and g_act of the block's M / cluster columns, g_e [H + 4] and
+    rstd a row; ``stages`` staged tiles of 32 rows of W1, 128 + 8 columns in
+    a cluster of four, else 256 + 8."""
+    te = 16 * mt
+    stage = 32 * ((128 if cluster == 4 else 256) + 8)
+    return 4 * (2 * te * (m // cluster) + te * (h + 4) + te + stages * stage)
+
+
+def bwd_generic_smem_bytes(m: int, h: int) -> int:
+    """Shared memory of a block of the backward's generic pass A (16 edges:
+    g_act [M] and g_e [H] a row, a [32 x 256] chunk of W1, 24 floats; xhat
+    goes to scratch): the mirror of ``edge_smem_floats``."""
+    return 4 * (16 * m + 16 * h + 32 * 256 + 16 + 8)
+
+
+def _bwd_tc_shapes(m: int, h: int):
+    """(edge tiles of 16, cluster) shapes of the tensor-core pass A that
+    fit with two staged tiles: a cluster of 2 or 4 shares a tile of 16
+    edges where M / cluster is at least one pass (256 columns, 128 in a
+    cluster of four) of whole column blocks of its warps (32 a warp, 16 in
+    a cluster of four)."""
+    for mt in (2, 1):
+        for cluster in (1, 2, 4):
+            pass_cols = 128 if cluster == 4 else 256
+            if cluster > 1 and (mt != 1 or m % (cluster * pass_cols // 8)
+                                or m // cluster < pass_cols):
+                continue
+            if bwd_tc_smem_bytes(m, h, mt, cluster, 2) <= SMEM_MAX:
+                yield mt, cluster
+
+
 def fused_mp_bwd_form(m: int, h: int) -> int:
     """Which form of the backward kernel the widths take: the mirror of
-    ``dostpu_fused_mp_bwd_form`` in ``csrc/fused_mp_bwd.cu``. The tensor-core
-    form's smallest block holds 16 rows each of xhat [M], g_act [M] and g_e
-    [H + 4], 16 floats, and two staged tiles of 32 rows of W1: 128 + 8
-    columns where a cluster of four blocks can share the edges (M a multiple
-    of 512), else 256 + 8."""
-    stage = 32 * ((128 if m % 512 == 0 else 256) + 8)
-    fits = 4 * (2 * 16 * m + 16 * (h + 4) + 16 + 2 * stage) <= SMEM_MAX
-    return FORM_TENSOR_CORE if _tc_widths(m, h) and fits else FORM_GENERIC
+    ``dostpu_fused_mp_bwd_form`` in ``csrc/fused_mp_bwd.cu``: the
+    tensor-core form where M and H are multiples of 32 and some shape of its
+    pass A fits (:func:`bwd_tc_smem_bytes`), else the generic form."""
+    tc = _tc_widths(m, h) and any(_bwd_tc_shapes(m, h))
+    return FORM_TENSOR_CORE if tc else FORM_GENERIC
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

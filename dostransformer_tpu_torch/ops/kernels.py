@@ -60,7 +60,8 @@ _SIGNATURES = {
     # ln_bias alpha w1 g_eout g_agg | g_src_proj g_dst_proj g_edge_proj
     # g_ln_scale g_ln_bias g_alpha g_w1 g_b1 scratch | B A E M H form stream
     "dostpu_fused_mp_edge_bwd": ([_P] * 21 + [_I] * 6 + [_P], _I),
-    "dostpu_attention_max_dim": ([], _I),
+    # D -> nc slices
+    "dostpu_attention_plan": ([_I, _IP, _IP], None),
     # q k v bias out stats|null B Lq Lk D scale stream
     "dostpu_attention_fwd": ([_P] * 6 + [_I] * 4 + [ctypes.c_float, _P], _I),
     # B Lq Lk D
@@ -69,6 +70,8 @@ _SIGNATURES = {
     "dostpu_attention_bwd": ([_P] * 11 + [_I] * 4 + [ctypes.c_float, _P], _I),
     # data ids out B E F N stream
     "dostpu_segment_sum": ([_P] * 3 + [_I] * 4 + [_P], _I),
+    # B E F N -> vec lanes slots segs
+    "dostpu_segment_sum_plan": ([_I] * 4 + [_IP] * 4, None),
     # x xk xv ln_scale ln_bias key_mask|null out B Lq Lk D scale eps bf16
     # stream
     "dostpu_attention_ln_fwd": ([_P] * 7 + [_I] * 4 + [ctypes.c_float] * 2

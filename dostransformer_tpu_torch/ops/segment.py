@@ -13,7 +13,9 @@ kernel in ``csrc/segment_sum.cu``, for CPU tensors the plain version; nothing
 else chooses the path. Its backward gathers the upstream gradient at the
 segment ids (the VJP of ``jax.ops.segment_sum``; no kernel, as the JAX kernel
 has none). On the model's path the op counts phDOS's NodeModel edges per
-receiver (the scatter-mean's denominator), at F = 1. The plain versions of
+receiver (the scatter-mean's denominator), at F = 1.
+:func:`segment_sum_plan` is the Python mirror of the kernel's partition
+(which the card run holds equal to the library's). The plain versions of
 the fused message-passing kernel call :func:`segment_sum_reference`, never
 the op, so that they launch no kernel on the card.
 """
@@ -35,6 +37,41 @@ def segment_sum_reference(data: torch.Tensor, segment_ids: torch.Tensor,
     out = data.new_zeros((data.shape[0], num_segments) + data.shape[2:])
     index = ids.reshape(ids.shape + (1,) * (data.ndim - 2)).expand_as(data)
     return out.scatter_add_(1, index, data)
+
+
+# csrc/segment_sum.cu's partition constants
+_SEG_THREADS, _SEG_SMS, _SEG_BATCH, _SEG_BUDGET = 256, 132, 8, 24576
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(1, x).bit_length() - 1)
+
+
+def _pow2_ceil(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def segment_sum_plan(b: int, e: int, f: int, n: int) -> dict:
+    """The kernel's partition at this shape, the mirror of ``plan`` in
+    ``csrc/segment_sum.cu`` (``dostpu_segment_sum_plan``, which the card run
+    holds equal): ``vec`` floats a lane loads (4 where F % 4 == 0), ``lanes``
+    feature lanes (halved until the graphs and feature slices make a block
+    for each of the card's 132 SMs), ``segs`` segments a block holds and
+    ``slots`` edge slots (a power of two: as many as 96 KB of private row
+    blocks allow, no more than one batch of 8 edges a slot needs). At
+    F = 1 the count kernel: one segment a block, 256 edge slots."""
+    if f == 1:  # segment_count_kernel: a block per segment, 256 edge slots
+        return dict(vec=1, lanes=1, slots=_SEG_THREADS, segs=1)
+    vec = 4 if f % 4 == 0 else 1
+    vecs = -(-f // vec)
+    lanes = min(_pow2_ceil(vecs), 32)
+    while lanes > 1 and b * -(-vecs // lanes) < _SEG_SMS:
+        lanes //= 2
+    tf = lanes * vec
+    segs = min(n, _SEG_BUDGET // tf)
+    slots = min(_SEG_THREADS // lanes, _pow2_floor(_SEG_BUDGET // (segs * tf)),
+                _pow2_ceil(max(1, -(-e // _SEG_BATCH))))
+    return dict(vec=vec, lanes=lanes, slots=slots, segs=segs)
 
 
 def _gather_segments(g: torch.Tensor, segment_ids: torch.Tensor,

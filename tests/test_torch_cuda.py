@@ -22,6 +22,8 @@ within 3%
 of it for the LayerNorm backward (the kernel keeps g = dy * scale in f32
 where the plain version rounds it: the JAX package's own bound)."""
 
+import ctypes
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -34,6 +36,7 @@ from dostransformer_tpu_torch.nn.layernorm import (  # noqa: E402
     ln_bwd_reference,
 )
 from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
+    attention_plan,
     fused_attention_fwd,
     attention_bwd_reference,
     attention_stats_reference,
@@ -78,12 +81,15 @@ def dev():
 
 # the two flagships, widths that keep the generic (FMA) form, phDOS at
 # batch 1, a long edge list, edge counts no tile of the tensor-core form
-# divides (at its widths), and widths (--hidden 576) whose forward takes the
-# tensor-core form while only the generic backward fits in shared memory
+# divides (at its widths), and the wide hidden widths: 576 and 768 (the
+# backward's tensor-core form in a cluster), 624 and 1,000 (the generic
+# backward with xhat in scratch) and 1,024 (a cluster of four)
 MP_SHAPES = [(8, 32, 384, 512, 256), (3, 13, 70, 48, 24), (2, 5, 17, 600, 300),
              (8, 16, 128, 512, 256), (1, 64, 2048, 512, 256),
              (1, 16, 128, 512, 256), (3, 13, 70, 64, 32), (2, 7, 45, 96, 160),
-             (2, 6, 40, 1152, 576)]
+             (2, 6, 40, 1152, 576), (2, 6, 40, 1248, 624),
+             (2, 6, 40, 1536, 768), (2, 6, 40, 2000, 1000),
+             (2, 6, 40, 2048, 1024)]
 
 
 def _mp_args(dev, b, a, e, m, h, seed=0):
@@ -137,7 +143,9 @@ def _mp_plain_with_bad_indices(args):
                                     (2048, 1024), (96, 160), (32, 48),
                                     (520, 256), (1024, 512), (1088, 544),
                                     (1152, 576), (1216, 608), (3072, 32),
-                                    (3104, 32), (1536, 64)])
+                                    (3104, 32), (1536, 64), (1248, 624),
+                                    (1280, 640), (768, 384), (1536, 768),
+                                    (2000, 1000)])
 def test_fused_mp_form_matches_the_python_rule(dev, widths):
     lib = kernels.library()
     assert lib.dostpu_fused_mp_form(*widths) == fused_mp_form(*widths)
@@ -181,19 +189,31 @@ def test_fused_mp_tensor_core_form_refuses_other_widths(dev):
 
 def test_fused_mp_edge_hidden_1024(dev):
     """M = 2,048, H = 1,024 (--hidden 1024): the forward runs (its 16 x 64
-    tile fits); the backward needs more shared memory than a block gets in
-    either form, takes the generic one and says so by name."""
+    tile fits); the backward takes the tensor-core form in a cluster of four
+    blocks (201,024 bytes a block) and matches its plain version, bit for
+    bit on a rerun; the generic form fits too (229,472 bytes) and agrees."""
     shape = (2, 6, 40, 2048, 1024)
     args = _mp_args(dev, *shape)
     e_out, agg = fused_mp_edge(*args)
     want_e, want_agg = mp_edge_reference(*args)
     torch.testing.assert_close(e_out, want_e, **TOL)
     torch.testing.assert_close(agg, want_agg, rtol=1e-5, atol=1e-4)
-    cot = (torch.randn(2, 40, 1024, device=dev),
-           torch.randn(2, 6, 1024, device=dev))
-    with pytest.raises(ValueError, match="fused_mp_edge_bwd: these widths "
-                                         "need 360544 bytes"):
-        fused_mp_edge_bwd(*args[:10], *cot)
+    g = torch.Generator().manual_seed(7)
+    cot = (torch.randn(2, 40, 1024, generator=g).to(dev),
+           torch.randn(2, 6, 1024, generator=g).to(dev))
+    assert fused_mp_edge_bwd_tile(2, 40, 2048, 1024)[:2] == (16, 4)
+    lib = kernels.library()
+    assert lib.dostpu_fused_mp_edge_bwd_smem_bytes(2, 40, 2048, 1024,
+                                                   -1) == 201024
+    assert lib.dostpu_fused_mp_edge_bwd_smem_bytes(2, 40, 2048, 1024,
+                                                   0) == 229472
+    want = mp_edge_bwd_reference(*args[:10], *cot)
+    for form in (FORM_TENSOR_CORE, FORM_GENERIC):
+        got = fused_mp_edge_bwd(*args[:10], *cot, form=form)
+        for i, (x, w) in enumerate(zip(got, want)):
+            _close_scaled(x, w, 1e-5 if i < 3 else 1e-4)
+        again = fused_mp_edge_bwd(*args[:10], *cot, form=form)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 def test_fused_mp_edge_rejects_wrong_dtype(dev):
@@ -226,7 +246,7 @@ def test_fused_attention_rejects_wrong_dtype_and_width(dev):
     q = torch.randn(2, 4, 64, device=dev)
     with pytest.raises(TypeError):
         fused_attention(q.double(), q.double(), q.double())
-    q = torch.randn(2, 4, 40, device=dev)
+    q = torch.randn(2, 4, 0, device=dev)  # no feature at all
     with pytest.raises(ValueError):
         fused_attention(q, q, q)
 
@@ -331,11 +351,16 @@ def test_fused_attention_is_differentiable_on_the_card(dev):
     _close_scaled(kv.grad, kv2.grad, 1e-5)  # k and v are one tensor
 
 
-# the six attention calls of the two flagships, then ragged shapes and the
-# widest feature dimension
+# the six attention calls of the two flagships, then ragged shapes, the
+# widest row staged whole (D = 512), widths that are no multiple of 32
+# (4-byte staging at odd D), and the sliced kernels (D > 512) at the h1024
+# shapes
 TC_SHAPES = [(8, 201, 32, 256), (16, 201, 201, 256), (16, 201, 32, 256),
              (8, 51, 16, 256), (16, 51, 51, 256), (16, 51, 16, 256),
-             (3, 13, 5, 64), (2, 1, 1, 32), (2, 40, 33, 512)]
+             (3, 13, 5, 64), (2, 1, 1, 32), (2, 40, 33, 512),
+             (3, 13, 5, 1), (2, 40, 33, 33), (4, 21, 19, 48), (3, 17, 40, 50),
+             (2, 33, 21, 200), (2, 40, 33, 544), (3, 19, 70, 1000),
+             (8, 201, 32, 1024), (16, 201, 201, 1024)]
 
 
 @pytest.mark.parametrize("shape", TC_SHAPES)
@@ -377,6 +402,45 @@ def test_attention_tensor_core_kernels(dev, shape):
         assert all(torch.equal(x, y) for x, y in zip(got, other))
 
 
+@pytest.mark.parametrize("d", [1, 33, 48, 50, 200, 544, 1024])
+def test_attention_at_any_width_with_distinct_keys_and_values(dev, d):
+    """Keys and values two distinct tensors at feature widths that are no
+    multiple of 32 or above 512: the forward, the backward kernel and the
+    gradients of fused_attention through autograd against the plain
+    versions (1e-5 x max(1, max|plain|)), the backward bit-identical on a
+    rerun and without the forward's statistics."""
+    g = torch.Generator().manual_seed(12)
+    b, lq, lk = 3, 37, 29
+    q, k, v, go = (torch.randn(b, n, d, generator=g).to(dev)
+                   for n in (lq, lk, lk, lq))
+    km = torch.arange(lk)[None] < torch.tensor([[lk], [5], [0]])
+    km = km.to(dev)
+    bias = key_bias(km)
+    o, stats = fused_attention_fwd(q, k, v, bias, want_stats=True)
+    _close_scaled(o, dot_product_attention(q, k, v, km), 1e-5)
+    got = fused_attention_bwd(q, k, v, bias, o, go, stats)
+    for x, w in zip(got, attention_bwd_reference(q, k, v, bias, go)):
+        _close_scaled(x, w, 1e-5)
+    for other in (fused_attention_bwd(q, k, v, bias, o, go, stats),
+                  fused_attention_bwd(q, k, v, bias, o, go)):
+        assert all(torch.equal(x, y) for x, y in zip(got, other))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fused_attention(*leaves, km).backward(go)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    dot_product_attention(*ref, km).backward(go)
+    for x, w in zip(leaves, ref):
+        _close_scaled(x.grad, w.grad, 1e-5)
+
+
+def test_attention_plan_matches_the_library(dev):
+    lib = kernels.library()
+    for d in (1, 31, 32, 33, 48, 50, 200, 512, 513, 544, 1000, 1024, 1536,
+              2049):
+        nc, slices = ctypes.c_int(), ctypes.c_int()
+        lib.dostpu_attention_plan(d, nc, slices)
+        assert (nc.value, slices.value) == attention_plan(d)
+
+
 def test_attention_kernels_reject_what_they_do_not_take(dev):
     q = torch.randn(2, 4, 64, device=dev)
     bias = torch.zeros(2, 4, device=dev)
@@ -385,9 +449,9 @@ def test_attention_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(TypeError):
         fused_attention_bwd(q, q, q, bias, q, q, torch.zeros(2, 2, 4,
                             device=dev, dtype=torch.float64))
-    narrow = torch.randn(2, 4, 40, device=dev)
+    empty = torch.randn(2, 4, 0, device=dev)  # no feature at all
     with pytest.raises(ValueError):
-        fused_attention_bwd(narrow, narrow, narrow, bias, narrow, narrow)
+        fused_attention_bwd(empty, empty, empty, bias, empty, empty)
     strided = torch.randn(2, 4, 128, device=dev)[..., ::2]  # not contiguous
     for args in ((strided, q, q), (q, strided, strided), (q, q, strided)):
         with pytest.raises(ValueError):
@@ -416,7 +480,12 @@ def _segment_args(dev, b, e, f, n, seed=0):
 
 @pytest.mark.parametrize("shape", [(8, 128, 1, 16), (1, 2048, 1, 64),
                                    (8, 384, 256, 32), (3, 70, 5, 13),
-                                   (2, 17, 300, 5), (2, 0, 4, 3)])
+                                   (2, 17, 300, 5), (2, 0, 4, 3),
+                                   (8, 2048, 1, 64), (8, 2048, 256, 64),
+                                   (3, 70, 3, 13), (2, 90, 300, 7),
+                                   (4, 50, 8, 1), (2, 600, 4, 256),
+                                   (2, 3000, 1, 256), (1, 384, 256, 32),
+                                   (1, 9, 1, 1)])
 def test_batched_segment_sum_matches_plain(dev, shape):
     b, e, f, n = shape
     data, ids = _segment_args(dev, b, e, f, n)
@@ -460,7 +529,12 @@ def _ln_attn_inputs(dev, b, lq, lk, d, dtype=torch.float32, seed=6):
 @pytest.mark.parametrize("shape", [(8, 201, 32, 256), (16, 201, 201, 256),
                                    (3, 5, 70, 96), (2, 40, 33, 512),
                                    (8, 51, 16, 256), (16, 51, 51, 256),
-                                   (1, 51, 8, 256), (2, 17, 17, 32)])
+                                   (1, 51, 8, 256), (2, 17, 17, 32),
+                                   (3, 13, 5, 1), (2, 40, 33, 33),
+                                   (4, 21, 19, 48), (3, 17, 40, 50),
+                                   (2, 33, 21, 200), (2, 40, 33, 544),
+                                   (3, 19, 70, 1000), (8, 201, 32, 1024),
+                                   (16, 201, 201, 1024)])
 def test_fused_attention_ln_matches_plain(dev, shape):
     b, lq, lk, d = shape
     x, xk, xv, scale, bias, km = _ln_attn_inputs(dev, *shape)
@@ -493,9 +567,9 @@ def test_fused_attention_ln_bf16_and_rejections(dev):
         fused_attention_ln(x, xk.float(), xv.float(), scale, bias)
     with pytest.raises(TypeError):  # f32 LayerNorm parameters
         fused_attention_ln(x, xk, xv, scale.bfloat16(), bias.bfloat16())
-    q = torch.randn(2, 4, 40, device=dev)
+    q = torch.randn(2, 4, 0, device=dev)  # no feature at all
     with pytest.raises(ValueError):
-        fused_attention_ln(q, q, q, scale[:40], bias[:40])
+        fused_attention_ln(q, q, q, scale[:0], bias[:0])
 
 
 def test_fused_attention_ln_is_differentiable_on_the_card(dev):
@@ -643,12 +717,17 @@ def test_layer_norm_bwd_scalar_form(dev, rows, d, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 201, 32, 256), (16, 201, 201, 256),
-                                   (2, 40, 33, 512), (2, 17, 17, 32)])
+                                   (2, 40, 33, 512), (2, 17, 17, 32),
+                                   (2, 40, 33, 33), (4, 21, 19, 48),
+                                   (3, 17, 40, 50), (2, 33, 21, 200),
+                                   (2, 40, 33, 544), (8, 201, 32, 1024)])
 def test_fused_attention_ln_large_mean_bf16_and_masked_rows(dev, shape,
                                                             dtype):
     """Inputs with a mean of 50 (25 standard deviations), a graph with all
-    keys masked, D = 32 and D = 512, f32 (1e-5) and bf16 (2^-6); keys and
-    values as one tensor against two copies, bit for bit."""
+    keys masked, D from 32 to 1,024 (bf16 rows staged as 16-byte copies at
+    D % 8 == 0, 4-byte ones at even D, value by value at odd D), f32 (1e-5)
+    and bf16 (2^-6); keys and values as one tensor against two copies, bit
+    for bit."""
     b, lq, lk, d = shape
     x, xk, _, scale, bias, km = _ln_attn_inputs(dev, *shape, dtype=dtype)
     x, xk = x + 49.5, xk + 49.5

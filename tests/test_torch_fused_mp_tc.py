@@ -307,22 +307,55 @@ def test_emulated_backward_with_an_index_out_of_range():
 
 # widths -> the forward's form, the backward's: multiples of 32 take the
 # tensor cores where a block fits in shared memory (the forward up to
-# M = 3,072; the backward, whose block holds three rows an edge, up to
-# M = 1,024 at H = M / 2), every other width the FMA kernels
+# M = 3,072; the backward's block keeps xhat and g_act of its own M / cluster
+# columns, so at H = M / 2 every such width up to 1,024 and beyond, in a
+# cluster of 2 or 4 from M = 1,088), every other width the FMA kernels (the
+# backward's up to H = 1,039 at M = 2H, xhat in scratch)
 @pytest.mark.parametrize("widths, forward, backward", [
     ((512, 256), "tc", "tc"), ((64, 32), "tc", "tc"), ((96, 160), "tc", "tc"),
     ((32, 32), "tc", "tc"), ((1024, 512), "tc", "tc"),
-    ((1088, 544), "tc", "generic"), ((1152, 576), "tc", "generic"),
-    ((1216, 608), "tc", "generic"), ((2048, 1024), "tc", "generic"),
-    ((1536, 64), "tc", "generic"), ((3072, 32), "tc", "generic"),
+    ((1088, 544), "tc", "tc"), ((1152, 576), "tc", "tc"),
+    ((1216, 608), "tc", "tc"), ((2048, 1024), "tc", "tc"),
+    ((1536, 64), "tc", "tc"), ((3072, 32), "tc", "tc"),
     ((3104, 32), "generic", "generic"), ((48, 24), "generic", "generic"),
     ((600, 300), "generic", "generic"), ((32, 16), "generic", "generic"),
     ((520, 256), "generic", "generic"), ((512, 24), "generic", "generic"),
-    ((0, 32), "generic", "generic")])
+    ((0, 32), "generic", "generic"), ((1248, 624), "generic", "generic"),
+    ((1536, 768), "tc", "tc"), ((2000, 1000), "generic", "generic"),
+    ((1280, 640), "tc", "tc")])
 def test_which_widths_take_which_form(widths, forward, backward):
     code = {"tc": fused_mp.FORM_TENSOR_CORE, "generic": fused_mp.FORM_GENERIC}
     assert fused_mp.fused_mp_form(*widths) == code[forward]
     assert fused_mp.fused_mp_bwd_form(*widths) == code[backward]
+
+
+# the backward's shared memory a block, as csrc/fused_mp_bwd.cu's comments
+# state it: the tensor-core pass A at M = 512, H = 256 (32 edges, 2 staged
+# tiles; 16 edges, 4) and at M = 2,048, H = 1,024 (16 edges by a cluster of
+# 4, 4 tiles; one block keeping every column, 2 tiles: fits no block); the
+# generic pass A at both widths
+@pytest.mark.parametrize("form, widths, shape, want", [
+    ("tc", (512, 256), (2, 1, 2), 232064), ("tc", (512, 256), (1, 1, 4), 217408),
+    ("tc", (2048, 1024), (1, 4, 4), 201024),
+    ("tc", (2048, 1024), (1, 1, 2), 395584),
+    ("generic", (512, 256), None, 82016),
+    ("generic", (2048, 1024), None, 229472)])
+def test_backward_shared_memory_mirrors(form, widths, shape, want):
+    if form == "tc":
+        assert fused_mp.bwd_tc_smem_bytes(*widths, *shape) == want
+    else:
+        assert fused_mp.bwd_generic_smem_bytes(*widths) == want
+
+
+def test_every_hidden_width_up_to_1024_has_a_backward_form():
+    """At M = 2H every H <= 1,039 fits a form (_check_smem refuses none);
+    H = 1,040, no multiple of 32, is the first that fits neither."""
+    for h in range(1, 1040):
+        m = 2 * h
+        if fused_mp.fused_mp_bwd_form(m, h) == fused_mp.FORM_GENERIC:
+            assert fused_mp.bwd_generic_smem_bytes(m, h) <= fused_mp.SMEM_MAX
+    assert fused_mp.fused_mp_bwd_form(2080, 1040) == fused_mp.FORM_GENERIC
+    assert fused_mp.bwd_generic_smem_bytes(2080, 1040) > fused_mp.SMEM_MAX
 
 
 def test_a_forced_form_is_checked():

@@ -46,6 +46,7 @@ MODULES = [
     "dostransformer_tpu_torch.cli.main_predict",
     "dostransformer_tpu_torch.cli.main_edos",
     "dostransformer_tpu_torch.cli.main_phdos",
+    "dostransformer_tpu_torch.bench_segment_sum",
 ]
 PROBE = f"""
 import importlib, sys

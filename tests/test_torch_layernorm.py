@@ -33,6 +33,7 @@ from dostransformer_tpu.nn.layernorm import _ln_bwd_jnp  # noqa: E402
 from dostransformer_tpu.nn.layernorm import layer_norm_lp as j_layer_norm_lp  # noqa: E402
 from dostransformer_tpu.nn.transformer import TransformerEncoder as JEncoder  # noqa: E402
 from dostransformer_tpu.ops.attention import fused_attention_ln as j_fused_attention_ln  # noqa: E402
+from dostransformer_tpu.train import loss as jloss  # noqa: E402
 from dostransformer_tpu.train.trainer import Trainer as JTrainer  # noqa: E402
 from dostransformer_tpu.train.trainer import TrainState  # noqa: E402
 from dostransformer_tpu_torch.cli import common, main_edos, main_phdos, main_predict  # noqa: E402
@@ -52,12 +53,12 @@ from dostransformer_tpu_torch.nn.layernorm import (  # noqa: E402
 from dostransformer_tpu_torch.nn.transformer import TransformerEncoder  # noqa: E402
 from dostransformer_tpu_torch.ops import attention as port_attention  # noqa: E402
 from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
-    ATTENTION_MAX_DIM,
-    check_attention_width,
+    attention_plan,
     fused_attention_ln,
     ln_attention_reference,
 )
 from dostransformer_tpu_torch.serve import Predictor  # noqa: E402
+from dostransformer_tpu_torch.train import loss as tloss  # noqa: E402
 from dostransformer_tpu_torch.train.trainer import Trainer  # noqa: E402
 
 H = 32
@@ -521,28 +522,77 @@ def test_fused_attention_ln_backward_keeps_its_gradients(alias):
     assert torch.equal(ls.grad, want[3]) and torch.equal(lb.grad, want[4])
 
 
-@pytest.mark.parametrize("hidden", [48, 1024, 0, 33])
+@pytest.mark.parametrize("d", [1, 31, 33, 48, 50, 200, 544, 1000, 1024])
+def test_the_attention_kernels_take_every_width(d):
+    """The attention kernels' plan (the mirror of dostpu_attention_plan,
+    held equal to the library on the card) has a form for every width: rows
+    staged whole at ceil(D / 32) x 32 columns up to 512, slices of 512
+    output columns above it; the staged columns cover the row with less
+    than one group (or slice) to spare."""
+    nc, slices = attention_plan(d)
+    assert 1 <= nc <= 16 and slices >= 1
+    if d <= 512:
+        assert slices == 1 and 32 * (nc - 1) < d <= 32 * nc
+    else:
+        assert nc == 16 and 512 * (slices - 1) < d <= 512 * slices
+    with pytest.raises(ValueError):
+        attention_plan(0)
+
+
+def _width_batches(task, seed=13):
+    """One batch of 2 learnable samples + 1 dummy graph, JAX and port."""
+    samples = TASKS[task][1](2, seed=seed)
+    a = graph.bucket_size(max(s.n_nodes for s in samples))
+    e = graph.bucket_size(max(s.n_edges for s in samples))
+    kw = dict(atoms_per_graph=a, edges_per_graph=e, num_graphs=3)
+    return jcollate(samples, **kw), graph.collate(_port(samples), **kw)
+
+
+@pytest.mark.parametrize("hidden", [33, 48, 1024])
 @pytest.mark.parametrize("task", ["edos", "phdos"])
-def test_a_width_the_card_does_not_take_stops_where_the_model_is_built(
+def test_flagship_at_a_width_no_multiple_of_32_or_wide_matches_jax(
         task, hidden):
-    """On a CUDA device the attention kernels take multiples of 32 up to
-    ATTENTION_MAX_DIM: build_model says so, names the widths and the way to
-    the CPU, before anything is allocated on the device (so no card is
-    needed to see it); the same width builds on the CPU."""
-    assert ATTENTION_MAX_DIM == 512
-    with pytest.raises(ValueError) as err:
-        build_model(task, layers=1, t_layers=1, hidden=hidden, device="cuda")
-    msg = str(err.value)
-    assert f"hidden {hidden}" in msg
-    assert "multiples of 32 from 32 to 512" in msg
-    assert "--device cpu" in msg
-    if hidden in (48, 1024):
-        build_model(task, layers=1, t_layers=1, hidden=hidden, device="cpu")
+    """The widths the card now takes (no multiple of 32; 1,024, the h1024
+    row) on the CPU, port against the JAX package on its plain path
+    (use_pallas and use_fused_mp off: its kernels' lane padding is not what
+    is compared), 1 processor and 1 layer per stack, weights carried by
+    state_dict_from_jax, 2 graphs and a dummy: the forward's three outputs on
+    the real graphs (atol 1e-4 + rtol 1e-4, as the flagship test above) and
+    every parameter's first-step gradient of the training loss against
+    jax.grad (1e-4 x max(1, max|grad|) per tensor, as
+    tests/test_torch_train.py; 1e-3 at hidden 1,024, where the JAX
+    package's own f32 gradients stand up to 2.1e-4 x max|grad| from the
+    same model evaluated in f64, and the port's up to 1.0e-4)."""
+    jmodel_cls, _, clamp = TASKS[task]
+    jb, tb = _width_batches(task)
+    jm = jmodel_cls(layers=1, t_layers=1, hidden=hidden, use_pallas=False,
+                    use_fused_mp=False)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(0), jb)["params"]
+    tm = build_model(task, layers=1, t_layers=1, hidden=hidden, device="cpu")
+    tm.load_state_dict(state_dict_from_jax(params, task=task), strict=True)
 
+    def loss_fn(p):
+        dg, _, ds = jm.apply({"params": p}, jb, deterministic=True)
+        return jloss.dos_loss(dg, ds, jb.y, jb.graph_mask, 1.0, clamp)[0]
 
-@pytest.mark.parametrize("d", [32, 64, 256, 480, 512])
-def test_the_card_widths_pass_the_check(d):
-    check_attention_width(d)
+    want_out = jm.apply({"params": params}, jb, deterministic=True)
+    want_loss, want = jax.jit(jax.value_and_grad(loss_fn))(params)
+    want = state_dict_from_jax(want, task=task)
+    got_out = tm(tb)
+    for w, g in zip(want_out, got_out):
+        np.testing.assert_allclose(g.detach().numpy()[:2], np.asarray(w)[:2],
+                                   rtol=1e-4, atol=1e-4)
+    dg, _, ds = got_out
+    got_loss, _ = tloss.dos_loss(dg, ds, tb.y, tb.graph_mask,
+                                 clamp_targets=clamp)
+    got_loss.backward()
+    np.testing.assert_allclose(got_loss.item(), float(want_loss), rtol=1e-5)
+    named = dict(tm.named_parameters())
+    assert set(named) == set(want)
+    for name, p in named.items():
+        assert p.grad is not None, name
+        _scaled_close(p.grad, want[name].numpy(),
+                      1e-4 if hidden < 1024 else 1e-3, name)
 
 
 # --- the transformer stack ----------------------------------------------

@@ -137,6 +137,69 @@ def test_segment_sum_matches_jax_pallas_kernel_and_segment_ops(f):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+# (B, E, F, N) -> the kernel's partition: the phDOS count (F = 1), a wide
+# row, real crystals at F = 1 and 256, and ragged shapes; the card run holds
+# the mirror equal to the library's dostpu_segment_sum_plan
+@pytest.mark.parametrize("shape, plan", [
+    ((8, 128, 1, 16), (1, 1, 256, 1)), ((8, 384, 256, 32), (4, 2, 64, 32)),
+    ((8, 2048, 1, 64), (1, 1, 256, 1)), ((8, 2048, 256, 64), (4, 2, 32, 64)),
+    ((2, 90, 300, 7), (4, 1, 16, 7)), ((2, 0, 4, 3), (4, 1, 1, 3)),
+    ((1, 9, 1, 1), (1, 1, 256, 1)), ((3, 70, 3, 13), (1, 1, 16, 13)),
+    ((1, 64, 4096, 4), (4, 4, 8, 4))])
+def test_segment_sum_plan(shape, plan):
+    got = segment.segment_sum_plan(*shape)
+    assert (got["vec"], got["lanes"], got["slots"], got["segs"]) == plan
+    tf = got["vec"] * got["lanes"]
+    assert got["slots"] * got["segs"] * tf <= 24576  # 96 KB of row blocks
+    assert got["lanes"] * got["slots"] <= 256
+
+
+def _segment_sum_emulated(data, segment_ids, num_segments):
+    """csrc/segment_sum.cu's arithmetic in plain torch: slot p of
+    segment_sum_plan adds the rows of edges p, p + P, ... in index
+    order into a private row block of its own, then a binary tree adds the
+    slots' blocks (slot s + P / 2 into s, ...). Feature lanes and segment
+    ranges split the work without touching the order of any sum; at F = 1
+    the count kernel's 256 threads, each summing its edges for one segment,
+    then the same tree, are the same arithmetic."""
+    b, e, f = data.shape
+    p = segment.segment_sum_plan(b, e, f, num_segments)["slots"]
+    valid = (segment_ids >= 0) & (segment_ids < num_segments)
+    ids = torch.where(valid, segment_ids, num_segments).long()  # a spare row
+    priv = data.new_zeros((b, p, num_segments + 1, f))
+    slot = torch.arange(p)
+    batch = torch.arange(b)[:, None]
+    for k in range(-(-e // p)):
+        edges = k * p + slot
+        live = edges < e
+        ee = edges[live]
+        priv[batch, slot[live][None], ids[:, ee]] += data[:, ee]
+    while p > 1:
+        p //= 2
+        priv = priv[:, :p] + priv[:, p:2 * p]
+    return priv[:, 0, :num_segments]
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 1, 16), (3, 40, 5, 9),
+                                   (2, 90, 300, 7), (2, 17, 3, 5),
+                                   (1, 9, 1, 1), (2, 2048, 1, 64)])
+def test_segment_sum_kernel_arithmetic_emulated(shape):
+    """The kernel's partition (edge slots in index order, private row
+    blocks, a binary tree over the slots) emulated in plain torch against
+    JAX's batched_segment_sum: exact on the 0/1 counts of the model's path,
+    atol 1e-5 on real rows (summation order)."""
+    b, e, f, n = shape
+    data, ids, w = _segment_inputs(3, b, e, f, n)
+    want = np.asarray(jseg.batched_segment_sum(jnp.asarray(data),
+                                               jnp.asarray(ids), n))
+    td, ti = torch.from_numpy(data), torch.from_numpy(ids)
+    got = _segment_sum_emulated(td, ti, n)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    count = torch.from_numpy(w)[..., None]
+    assert torch.equal(_segment_sum_emulated(count, ti, n),
+                       segment.segment_sum_reference(count, ti, n))
+
+
 def test_segment_sum_gradient():
     """The op's backward gathers the upstream gradient at the ids (zero for
     dropped ids): against jax.vjp of batched_segment_sum (exact: a gather),
