@@ -49,7 +49,9 @@ The eDOS flagship:
   5. samples/s for the 96-sample request;
   6. the training path through its entry point: cli.main_edos on 96
      learnable synthetic samples, 3 epochs, eval every epoch, at the full
-     width (main_edos defaults, batch 8, f32). Every train step must launch
+     width (main_edos defaults, batch 8, f32), on the device-resident
+     dataset (the default: uploaded once, batches gathered on the card);
+     6b the same for one epoch with --host_loader. Every train step must launch
      exactly 3 + 6 forward and 3 + 6 backward kernels, every eval batch 3 + 6
      forward and no backward; the losses must be finite, the test metrics
      present and the experiments_DOSTransformer.txt block written;
@@ -109,7 +111,29 @@ Every width (the JAX package runs any hidden width; so does the card):
      one h1024 train step with both LayerNorm levers against one without
      (launch counts, losses); training samples/s (4 readings of 5 steps);
   20. the narrow phDOS path at hidden 50: 5 samples served against the
-     CPU, 3 train steps card against CPU, exact launch counts.
+     CPU, 3 train steps card against CPU, exact launch counts;
+  21. #1 and #2 at hidden 1,040, 1,050 and 2,080 (M = 2H), where no block
+     of their first generic designs fit: the generic forms (the same
+     shared memory at every width) against their plain versions, bit for
+     bit on a rerun, timed beside their bounds.
+
+The training runtime (checkpoints, resume, best/, the device-resident
+datasets, remat, clipping and schedules, artifacts, TensorBoard):
+
+  22. cli.main_edos at the flagship width with --checkpoint_dir
+     --checkpoint_every 1: a run stopped after epoch 1 and resumed from its
+     checkpoint must give the uninterrupted 3-epoch run's epoch losses and
+     best metrics exactly; then cli.main_predict --checkpoint_dir serves
+     best/ on the card (exact launch counts) within atol 1e-3 + rtol 1e-3 of
+     the same checkpoint served on the CPU;
+  23. cli.main_phdos at the flagship width with --bucketed --bf16_data
+     --remat --grad_clip 1 --warmup_epochs 1 --cosine_lr --tensorboard
+     --export_preds: per train step the remat launch counts (the forward's
+     message-passing, edge-count and attention launches once more in the
+     backward), the TensorBoard tags and one artifact row per test sample;
+  24. train samples/s of the device-resident dataset against --host_loader,
+     eDOS and phDOS at batch 8, four readings each taken in turns in one
+     process (a record, not a claim).
 
 The LayerNorm levers of the transformer layer (off by default; the paths
 above must launch neither of their kernels):
@@ -178,7 +202,7 @@ here and used nowhere in the port; null where there is none), for the two
 message-passing kernels ``form``, ``tile``, ``smem_bytes``, ``ms_generic``
 (the generic form on the same inputs), ``sub_kernels_ms``,
 ``generic_width`` (the row of the width that keeps the generic form),
-``by_shape_phdos`` (batch 8 and batch 1) and ``by_hidden`` (3h), for the
+``by_shape_phdos`` (batch 8 and batch 1) and ``by_hidden`` (3h and 21), for the
 three attention kernels ``d1024`` and ``d50`` (3g's timed rows) and
 ``widths_rel_err``, for the segment sum ``by_shape`` (3c, with the
 partition), for the two attention kernels ``by_shape`` (the same numbers
@@ -189,7 +213,7 @@ with its mask-to-bias ops) and ``resources``, for the LN-fused forward
 ``unfused_ms``, ``ms_bf16``, ``ms_other_aliasing`` and ``resources``, for
 the LayerNorm backward ``ms_by_rows``, ``ms_raw_form_by_rows`` (x with mean
 and rstd), ``library_ms_by_rows`` and ``resources``, and
-``launches_by_path``, the launches on each of the thirteen paths driven
+``launches_by_path``, the launches on each of the seventeen paths driven
 (each with the counts set to 0 just before and read just after). ``launches`` is
 the count on the phDOS training path with both levers on, the only path
 that launches six of the seven kernels; for fused_attention, which that path
@@ -991,13 +1015,15 @@ def run_counted(cli, argv, env=None):
 
 
 def check_training_run(label, result, per_call, want_train, n_steps, log,
-                       workdir, epochs, hidden=HIDDEN):
-    """Launches per train step (want_train) and per eval batch (the same
-    forward, no backward), the step count, finite epoch losses, test
-    metrics and the experiments block. Returns the epoch losses."""
+                       workdir, epochs, hidden=HIDDEN, want_eval=None):
+    """Launches per train step (want_train) and per eval batch (want_eval;
+    by default the train step's forward, no backward), the step count,
+    finite epoch losses, test metrics and the experiments block. Returns
+    the epoch losses."""
     print(f"\n{label}: {len(per_call['train'])} train steps, "
           f"{len(per_call['eval'])} eval batches")
-    want_eval = dict(want_train, **dict.fromkeys(BACKWARD, 0))
+    if want_eval is None:
+        want_eval = dict(want_train, **dict.fromkeys(BACKWARD, 0))
     check(len(per_call["train"]) == n_steps,
           f"{label}: {len(per_call['train'])} train steps, expected "
           f"{n_steps}")
@@ -2082,6 +2108,262 @@ def phase_narrow_phdos(workdir):
     return serving, training
 
 
+# --- the training runtime (checkpoints, resume, best/, the device-resident
+# datasets, remat, clipping and schedules, artifacts, TensorBoard) ---------
+
+# the widths whose blocks the first generic designs of #1 and #2 could not
+# hold (no tensor-core block fits them either)
+REPAIRED = (1040, 1050, 2080)
+
+
+def phase_repaired_mp(dev):
+    """21: kernels #1 and #2 at hidden 1,040, 1,050 and 2,080 (M = 2H; B=8
+    A=32 E=384, a dummy graph, nonzero upstream gradients), where both take
+    the generic forms, whose blocks no longer grow with the widths: each
+    against its plain version, bit-identical on a rerun, timed beside its
+    bound. Returns {kernel: {label: row}}."""
+    g = torch.Generator().manual_seed(21)
+    rand = lambda *s: torch.randn(*s, generator=g).to(dev)
+    b, a, e = BATCH, 32, 384
+    out = {"fused_mp_edge": {}, "fused_mp_edge_bwd": {}}
+    for h in REPAIRED:
+        m = 2 * h
+        check(fused_mp_form(m, h) == fused_mp_bwd_form(m, h) == FORM_GENERIC,
+              f"hidden {h}: expected the generic forms")
+        idx = lambda: torch.randint(0, a, (b, e), generator=g,
+                                    dtype=torch.int32).to(dev)
+        mask = (torch.rand(b, e, generator=g) > 0.25).float()
+        mask[-1] = 0.0
+        args = (rand(b, a, m), rand(b, a, m), rand(b, e, m), idx(), idx(),
+                mask.to(dev), rand(m).abs() + 0.5, rand(m) * 0.1,
+                torch.tensor([0.25], device=dev), rand(h, m) * m ** -0.5)
+        label = f"B={b} A={a} E={e} M={m} H={h}"
+        print(f"message passing at hidden {h} (repaired): {label}")
+        lib = kernels.library()
+        for backward, name in ((False, "fused_mp_edge"),
+                               (True, "fused_mp_edge_bwd")):
+            more = ((rand(b, e, h), rand(b, a, h)) if backward
+                    else (rand(h) * 0.1,))
+            row = compare_mp(label, args + more, backward)
+            smem = (lib.dostpu_fused_mp_edge_bwd_smem_bytes if backward
+                    else lib.dostpu_fused_mp_edge_smem_bytes)(b, e, m, h, -1)
+            row["smem_bytes"] = smem
+            print(f"  {name}[H={h}]: {smem} B of shared memory a block")
+            out[name][f"H={h}"] = row
+    return out
+
+
+def edos_run_argv(workdir, epochs, n=48, extra=()):
+    return ["--synthetic", str(n), "--synthetic_learnable", "--epochs",
+            str(epochs), "--eval", "1", "--layers", str(LAYERS),
+            "--transformer", str(T_LAYERS), "--hidden", str(HIDDEN),
+            "--batch_size", str(BATCH), "--device", "cuda",
+            "--results_dir", workdir, "--log_jsonl",
+            os.path.join(workdir, "train.jsonl"), *extra]
+
+
+def logged_losses(workdir) -> list:
+    with open(os.path.join(workdir, "train.jsonl")) as f:
+        return [json.loads(line)["loss"] for line in f if '"loss"' in line]
+
+
+def phase_host_loader(workdir):
+    """6b: cli.main_edos with --host_loader (batches collated on the host
+    and uploaded per step; the device dataset is the default now): one
+    epoch of 96 learnable samples, exact launch counts per train step and
+    eval batch. Returns the run's launches."""
+    argv = edos_run_argv(workdir, 1, n=96, extra=["--host_loader"])
+    result, per_call, launches = run_counted(main_edos, argv)
+    n_train = len(edos_random_split(range(96))[0])
+    check_training_run("eDOS training path (--host_loader)", result, per_call,
+                       step_launches("edos", False),
+                       math.ceil(n_train / BATCH),
+                       os.path.join(workdir, "train.jsonl"), workdir, 1)
+    return launches
+
+
+def phase_checkpoint_resume(workdir):
+    """22: cli.main_edos at the flagship width with --checkpoint_dir
+    --checkpoint_every 1: an uninterrupted 3-epoch run, and a run stopped
+    after epoch 1 then resumed from its checkpoint to epoch 3, whose epoch
+    losses and best metrics must equal the uninterrupted run's (the card's
+    kernels repeat their bits; the data order is a function of (seed,
+    epoch)); then cli.main_predict --checkpoint_dir serves best/ on the
+    card, against the same checkpoint served on the CPU (atol 1e-3 + rtol
+    1e-3). Returns (the launches of the three training runs, of the
+    serving run)."""
+    runs = {}
+    totals = launch_counts()
+    n_train = len(edos_random_split(range(48))[0])
+    steps = math.ceil(n_train / BATCH)
+    for name, epochs, ck in (("whole", 3, "ck_whole"), ("first", 1, "ck_cut"),
+                             ("resumed", 3, "ck_cut")):
+        run_dir = os.path.join(workdir, name)
+        os.makedirs(run_dir)
+        argv = edos_run_argv(run_dir, epochs, extra=[
+            "--checkpoint_dir", os.path.join(workdir, ck),
+            "--checkpoint_every", "1"])
+        result, per_call, launches = run_counted(main_edos, argv)
+        done = 1 if name == "resumed" else 0  # epochs the checkpoint holds
+        check_training_run(f"eDOS checkpointed run ({name})", result,
+                           per_call, step_launches("edos", False),
+                           (epochs - done) * steps,
+                           os.path.join(run_dir, "train.jsonl"), run_dir,
+                           epochs - done)
+        for k, v in launches.items():
+            totals[k] += v
+        runs[name] = (result, logged_losses(run_dir))
+    whole, resumed = runs["whole"], runs["resumed"]
+    cut = runs["first"][1] + resumed[1]
+    diff = max(abs(a - b) for a, b in zip(whole[1], cut))
+    print(f"epoch losses, uninterrupted {whole[1]}; stopped after epoch 1 and "
+          f"resumed {cut}: max abs difference {diff:.3e}")
+    check(len(cut) == len(whole[1]) and cut == whole[1],
+          f"resumed losses {cut} differ from the uninterrupted {whole[1]}")
+    for k in ("best_epoch", "best_valid_rmse", "best_valid_mae", "test"):
+        check(resumed[0][k] == whole[0][k],
+              f"resumed {k} {resumed[0][k]} differs from {whole[0][k]}")
+    print(f"best epoch {whole[0]['best_epoch']}, best valid rmse "
+          f"{whole[0]['best_valid_rmse']:.6f}: equal after the resume")
+
+    ck = os.path.join(workdir, "ck_whole")
+    samples = synthetic_edos_samples(20, seed=3)
+    request = os.path.join(workdir, "request.npz")
+    save_samples(request, samples)
+    shape = ["--layers", str(LAYERS), "--transformer", str(T_LAYERS),
+             "--hidden", str(HIDDEN), "--batch_size", str(BATCH)]
+    out = os.path.join(workdir, "preds.npz")
+    reset_launches()
+    main_predict.main(["--task", "edos", "--checkpoint_dir", ck,
+                       "--input", request, "--output", out, "--device",
+                       "cuda", *shape])
+    serving = read_launches()
+    n = expected_batches(samples)
+    want = launch_counts(fused_mp_edge=LAYERS * n,
+                         fused_attention=3 * T_LAYERS * n)
+    check(serving == want, f"serving best/: launches {serving}, expected "
+                           f"{want}")
+    with np.load(out) as z:
+        dos = z["dos"]
+    check_dos("served from best/", dos, len(samples))
+    cpu = Predictor.from_checkpoint(
+        ck, task="edos", example=samples[0], layers=LAYERS, t_layers=T_LAYERS,
+        hidden=HIDDEN, batch_size=BATCH, device="cpu").predict(samples)
+    err = float(np.abs(dos - cpu).max())
+    print(f"main_predict --checkpoint_dir (best/, epoch "
+          f"{whole[0]['best_epoch']}): 20 samples, launches {serving}; card "
+          f"vs CPU max abs err {err:.3e} (atol {MODEL_ATOL} + rtol "
+          f"{MODEL_RTOL})")
+    check(np.allclose(dos, cpu, atol=MODEL_ATOL, rtol=MODEL_RTOL),
+          f"best/ served on the card differs from the CPU by {err:.3e}")
+    return totals, serving
+
+
+def remat_step_launches(task: str) -> dict:
+    """A train step's launches with --remat: the forward's message-passing
+    launches (and phDOS's edge counts) and attention launches once more, in
+    the backward's recomputation."""
+    want = step_launches(task, False)
+    want["fused_mp_edge"] += LAYERS
+    want["fused_attention"] += 3 * T_LAYERS
+    if task == "phdos":
+        want["batched_segment_sum"] += LAYERS
+    return want
+
+
+def phase_runtime_flags(workdir):
+    """23: cli.main_phdos at the flagship width, batch 8, with --bucketed
+    --bf16_data --remat --grad_clip 1 --warmup_epochs 1 --cosine_lr
+    --tensorboard --export_preds: every train step launches the remat
+    counts (3 + 3 + 6 forward, 3 + 3 + 6 again in the backward's
+    recomputation, 3 + 6 backward), every eval batch the forward's; the
+    TensorBoard file holds the loss and the metrics, the artifacts one row
+    per test sample. Returns the run's launches."""
+    tb = os.path.join(workdir, "tb")
+    preds = os.path.join(workdir, "preds.npz")
+    argv = ["--synthetic", "64", "--synthetic_learnable", "--epochs", "2",
+            "--eval", "1", "--layers", str(LAYERS), "--transformer",
+            str(T_LAYERS), "--hidden", str(HIDDEN), "--batch_size",
+            str(BATCH), "--device", "cuda", "--results_dir", workdir,
+            "--log_jsonl", os.path.join(workdir, "train.jsonl"),
+            "--bucketed", "--bf16_data", "--remat", "--grad_clip", "1",
+            "--warmup_epochs", "1", "--cosine_lr", "--tensorboard", tb,
+            "--export_preds", preds]
+    result, per_call, launches = run_counted(main_phdos, argv)
+    train, _, test = edos_random_split(synthetic_phdos_learnable(64, seed=0))
+    buckets = {}
+    for s in train:
+        buckets[bucket_size(s.n_nodes)] = buckets.get(
+            bucket_size(s.n_nodes), 0) + 1
+    steps = sum(math.ceil(n / BATCH) for n in buckets.values())
+    want = remat_step_launches("phdos")
+    # an eval batch records no gradient, so remat recomputes nothing there
+    want_eval = dict(step_launches("phdos", False),
+                     **dict.fromkeys(BACKWARD, 0))
+    check_training_run("phDOS runtime flags (bucketed, bf16 data, remat, "
+                       "clipping, warmup + cosine)", result, per_call, want,
+                       2 * steps, os.path.join(workdir, "train.jsonl"),
+                       workdir, 2, want_eval=want_eval)
+    (event_file,) = os.listdir(tb)
+    from dostransformer_tpu_torch.train.tensorboard import read_events
+
+    tags = set()
+    for _, scalars in read_events(os.path.join(tb, event_file)):
+        tags |= set(scalars)
+    check({"train/loss", "valid/rmse", "test/rmse"} <= tags,
+          f"TensorBoard tags {sorted(tags)}")
+    with np.load(preds) as z:
+        n = z["sample_id"].shape[0]
+        check(n == len(test) and z["preds"].shape == (n, PH_BINS)
+              and z["embeddings"].shape == (n, HIDDEN)
+              and bool(np.isfinite(z["preds"]).all()),
+              f"artifacts: {n} rows for {len(test)} test samples")
+    print(f"phDOS runtime flags: {len(buckets)} atom buckets "
+          f"{dict(sorted(buckets.items()))}, {steps} steps an epoch; per "
+          f"step {want}; TensorBoard tags {sorted(tags)}; {n} artifact rows")
+    return launches
+
+
+def phase_pipeline_rates():
+    """24: train samples/s of the device-resident dataset against the host
+    loader (collation and upload every step), eDOS and phDOS flagships at
+    batch 8: one epoch of 96 learnable samples a reading, synchronised at
+    both ends, four readings each taken in turns (host, device, device,
+    host, ...) in one process after a warm epoch of each. A record, not a
+    claim: the host clock moves between calls. Returns {task: {pipeline:
+    readings}}."""
+    from dostransformer_tpu_torch.train.device_dataset import DeviceDataset
+
+    rates = {}
+    for task, learnable in (("edos", synthetic_edos_learnable),
+                            ("phdos", synthetic_phdos_learnable)):
+        clamp = task == "edos"
+        model = build_model(task, layers=LAYERS, t_layers=T_LAYERS,
+                            hidden=HIDDEN, device="cuda",
+                            generator=torch.Generator().manual_seed(2))
+        trainer = Trainer(model, clamp_targets=clamp, eval_clamp=clamp)
+        samples = learnable(96, seed=0)
+        loader = GraphLoader(samples, BATCH, shuffle=True, seed=0)
+        data = DeviceDataset.from_samples(
+            samples, BATCH, atoms_per_graph=loader.atoms_per_graph,
+            edges_per_graph=loader.edges_per_graph, device="cuda")
+        epoch = {"host": lambda: trainer.train_epoch(loader),
+                 "device": lambda e: trainer.train_epoch_device(data, 0, e)}
+        readings = {"host": [], "device": []}
+        epoch["host"]()
+        epoch["device"](0)
+        for i, name in enumerate(["host", "device", "device", "host"] * 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = (epoch["host"]() if name == "host"
+                      else epoch["device"](i + 1))
+            torch.cuda.synchronize()
+            readings[name].append(losses.numel() * BATCH
+                                  / (time.perf_counter() - t0))
+        rates[task] = readings
+    return rates
+
+
 def spread(readings) -> str:
     """'median (least-most)' of a setting's samples/s readings."""
     return (f"{statistics.median(readings):.1f} ({min(readings):.1f}-"
@@ -2163,6 +2445,9 @@ def main():
     results.update(phase_layer_norm_bwd_kernel(dev))
     widths = phase_attention_widths(dev)
     wide_mp = phase_wide_mp(dev)
+    # 21: #1 and #2 at the widths the generic forms were redesigned for
+    for name, rows in phase_repaired_mp(dev).items():
+        wide_mp[name].update(rows)
 
     paths, losses = {}, {}
     with tempfile.TemporaryDirectory() as root:
@@ -2177,6 +2462,8 @@ def main():
               f"flagship, batch {BATCH}, f32) on {smi}")
         paths["edos_training"], losses["edos"] = phase_training_path(
             subdir("edos_training"))
+        paths["edos_training_host"] = phase_host_loader(
+            subdir("edos_training_host"))
         print("card vs CPU, 3 eDOS train steps:")
         phase_card_vs_cpu("edos")
         rate = phase_train_rate("edos")
@@ -2214,6 +2501,12 @@ def main():
         paths["phdos50_serving"], paths["phdos50_training"] = (
             phase_narrow_phdos(subdir("phdos50")))
 
+        # 22-23: the training runtime through the entry points
+        paths["edos_training_ckpt"], paths["edos_serving_ckpt"] = (
+            phase_checkpoint_resume(subdir("checkpoints")))
+        paths["phdos_training_remat"] = phase_runtime_flags(
+            subdir("runtime_flags"))
+
         # 13: serving with the LayerNorm fused into the attention forward
         for task, served in (("edos", edos_served), ("phdos", phdos_served)):
             paths[f"{task}_serving_fused"], rates = phase_fused_serving(
@@ -2248,6 +2541,14 @@ def main():
               f"{spread(rates['ln_lp'])}, fuse_ln_attn + ln_lp "
               f"{spread(rates['both'])} on {smi}")
 
+    # 24: the device-resident dataset against the host loader
+    for task, rates in phase_pipeline_rates().items():
+        print(f"{task} training samples/s (batch {BATCH}, f32, one epoch of "
+              f"96 samples a reading, median (least-most) of 4 readings "
+              f"taken in turns): device-resident dataset "
+              f"{spread(rates['device'])}, host loader "
+              f"{spread(rates['host'])} on {smi}")
+
     # 16: where the device time goes (last: the profiler slows what follows)
     phase_profile()
     phase_sub_kernels()
@@ -2270,10 +2571,10 @@ def main():
     # where each kernel must run, and nowhere else: every path its model,
     # mode and lever setting reach
     for path, counts in paths.items():
-        task, _, mode, lever = re.fullmatch(
-            r"(edos|phdos)(\d*)_(serving|training)(_levers|_fused)?",
-            path).groups()
-        want = step_launches(task, bool(lever))
+        task, _, mode, variant = re.fullmatch(
+            r"(edos|phdos)(\d*)_(serving|training)"
+            r"(_levers|_fused|_host|_ckpt|_remat)?", path).groups()
+        want = step_launches(task, variant in ("_levers", "_fused"))
         if mode == "serving":
             want.update(dict.fromkeys(BACKWARD, 0))
         for name in sources:

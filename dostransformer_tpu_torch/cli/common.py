@@ -1,16 +1,25 @@
 """Shared CLI plumbing: the flag surface and the epoch/eval/early-stop loop.
 
-Counterpart of dostransformer_tpu/cli/common.py on its host-loader path
-(reference main_eDOS.py:95-188, main_phDOS.py:54-130), for both tasks:
-epochs over shuffled train batches collated on the host and uploaded per
-step; every ``--eval`` epochs the
-valid set, the three-branch best tracking (a test-set eval on improvement)
-and the plateau early stop; at the end the reference's
-``experiments_{embedder}.txt`` block, byte for byte, plus an optional JSONL
-log. The flags are the JAX package's, plus ``--device``. Flags whose feature
-is not in the port yet are rejected with the ROADMAP item that brings it.
-The JAX package's LayerNorm levers are selected as its users select them,
-through the environment (:func:`ln_levers_from_env`); there is no flag.
+Counterpart of dostransformer_tpu/cli/common.py (reference main_eDOS.py:
+95-188, main_phDOS.py:54-130), for both tasks: epochs over the training set,
+by default resident on the device (train/device_dataset.py: uploaded once,
+shuffled and batched on the device, bucketed by atom count with
+``--bucketed``, features in bf16 with ``--bf16_data``), or collated on the
+host and uploaded per step with ``--host_loader``; every ``--eval`` epochs
+the valid set, the three-branch best tracking (a test-set eval on
+improvement) and the plateau early stop; checkpoints with resume and the
+best model under ``best/`` (``--checkpoint_dir``, ``--checkpoint_every``);
+SIGTERM saves and exits at the next epoch boundary; optional eval artifacts
+(``--export_preds``), TensorBoard scalars (``--tensorboard``) and a
+``torch.profiler`` trace (``--profile_dir``); gradient clipping and
+learning-rate schedules (``--grad_clip``, ``--warmup_epochs``,
+``--cosine_lr``) and recomputation in the backward (``--remat``). At the
+end the reference's ``experiments_{embedder}.txt`` block, byte for byte,
+plus an optional JSONL log. The flags are the JAX package's, plus
+``--device``. Flags whose feature is not in the port yet are rejected with
+the ROADMAP item that brings it. The JAX package's LayerNorm levers are
+selected as its users select them, through the environment
+(:func:`ln_levers_from_env`); there is no flag.
 """
 
 from __future__ import annotations
@@ -26,7 +35,20 @@ import torch
 from dostransformer_tpu_torch.config import TrainConfig, exp_get_name
 from dostransformer_tpu_torch.data.datasets import GraphLoader
 from dostransformer_tpu_torch.data.graph import GraphSample
+from dostransformer_tpu_torch.models.import_torch import (
+    load_reference_state_dict,
+    load_torch_state_dict,
+)
 from dostransformer_tpu_torch.models.registry import build_model, entry_device
+from dostransformer_tpu_torch.train.artifacts import EvalArtifacts
+from dostransformer_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    best_dir,
+)
+from dostransformer_tpu_torch.train.device_dataset import (
+    BucketedDeviceDataset,
+    DeviceDataset,
+)
 from dostransformer_tpu_torch.train.early_stop import BestTracker
 from dostransformer_tpu_torch.train.logging import (
     JSONLLogger,
@@ -34,6 +56,8 @@ from dostransformer_tpu_torch.train.logging import (
 )
 from dostransformer_tpu_torch.train.metrics import MetricAccumulator
 from dostransformer_tpu_torch.train.optim import make_adamw
+from dostransformer_tpu_torch.train.preemption import GracefulShutdown
+from dostransformer_tpu_torch.train.tensorboard import SummaryWriter
 from dostransformer_tpu_torch.train.trainer import Trainer
 
 _Q1 = "ROADMAP.md queue 1"
@@ -42,28 +66,11 @@ _NOT_PORTED = {
     "data_parallel": (lambda a: a.data_parallel, f"{_Q1} item 9 (parallelism)"),
     "tensor_parallel": (lambda a: a.tensor_parallel > 1,
                         f"{_Q1} item 9 (parallelism)"),
-    "checkpoint_dir": (lambda a: a.checkpoint_dir is not None,
-                       f"{_Q1} item 6 (training runtime: checkpoints)"),
-    "export_preds": (lambda a: a.export_preds is not None,
-                     f"{_Q1} item 6 (training runtime: artifacts)"),
-    "profile_dir": (lambda a: a.profile_dir is not None,
-                    f"{_Q1} item 10 (benchmark: torch.profiler)"),
     "x64": (lambda a: a.x64, f"{_Q1} item 5, f64 phDOS (--x64)"),
-    "remat": (lambda a: a.remat, f"{_Q1} item 6 (training runtime)"),
     "compile_cache": (lambda a: a.compile_cache is not None,
                       "ROADMAP.md's do-not-port list (an XLA cache)"),
-    "tensorboard": (lambda a: a.tensorboard is not None,
-                    f"{_Q1} item 6 (training runtime)"),
     "pad_bins": (lambda a: a.pad_bins != 0,
                  "ROADMAP.md's do-not-port list (TPU lane alignment)"),
-    "bf16_data": (lambda a: a.bf16_data, f"{_Q1} item 6 (device dataset)"),
-    "bucketed": (lambda a: a.bucketed, f"{_Q1} item 6 (device dataset)"),
-    "grad_clip": (lambda a: a.grad_clip != 0.0,
-                  f"{_Q1} item 6 (make_adamw extensions)"),
-    "warmup_epochs": (lambda a: a.warmup_epochs != 0,
-                      f"{_Q1} item 6 (make_adamw extensions)"),
-    "cosine_lr": (lambda a: a.cosine_lr,
-                  f"{_Q1} item 6 (make_adamw extensions)"),
     "dtype": (lambda a: a.dtype != "float32", "ROADMAP.md, the bf16 slice"),
     "attn_drop": (lambda a: a.attn_drop > 0.0,
                   f"{_Q1} item 2 (attention dropout)"),
@@ -125,16 +132,21 @@ def build_arg_parser(task: str) -> argparse.ArgumentParser:
     p.add_argument("--tensor_parallel", type=int, default=1,
                    help=argparse.SUPPRESS)
     p.add_argument("--checkpoint_dir", type=str, default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--checkpoint_every", type=int, default=0,
-                   help="with --checkpoint_dir (not in the port yet)")
+                   help="checkpoint directory (with --checkpoint_every): "
+                        "the latest checkpoints, the best-validation model "
+                        "under best/; a run resumes from the latest")
+    p.add_argument("--checkpoint_every", type=int, default=0, metavar="N",
+                   help="save a checkpoint every N epochs (0: no "
+                        "checkpoints, as in the JAX package)")
     p.add_argument("--log_jsonl", type=str, default=None)
     p.add_argument("--results_dir", type=str, default=".")
     p.add_argument("--exp_name", type=str, default="")
-    p.add_argument("--export_preds", type=str, default=None,
-                   help=argparse.SUPPRESS)
+    p.add_argument("--export_preds", type=str, default=None, metavar="NPZ",
+                   help="write test-set predictions/targets/embeddings "
+                        "(the reference's preds_y structure, utils.py:93-109)")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help=argparse.SUPPRESS)
+                   help="write a torch.profiler trace of the run "
+                        "(trace.json, Chrome trace format) to this directory")
     p.add_argument("--debug_nans", action="store_true",
                    help="torch.autograd anomaly detection: a NaN produced "
                         "in the backward raises where it appeared")
@@ -142,25 +154,39 @@ def build_arg_parser(task: str) -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16"])
     p.add_argument("--host_loader", action="store_true",
                    help="collate and upload batches from the host each step "
-                        "(the port's only pipeline; accepted for the JAX "
-                        "package's command lines)")
-    p.add_argument("--bf16_data", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--bucketed", action="store_true", help=argparse.SUPPRESS)
+                        "instead of the device-resident dataset (which "
+                        "uploads once and shuffles and batches on the "
+                        "device)")
+    p.add_argument("--bf16_data", action="store_true",
+                   help="store the device dataset's node and edge features "
+                        "in bfloat16 (the model widens them to f32); "
+                        "targets and masks stay f32")
+    p.add_argument("--bucketed", action="store_true",
+                   help="partition the device dataset by atom bucket and "
+                        "pad each group only to its bucket's shapes; "
+                        "batches are drawn within buckets")
     p.add_argument("--pad_bins", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--remat", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each processor and transformer layer in "
+                        "the backward instead of keeping its activations")
     p.add_argument("--x64", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--compile_cache", type=str, default=None,
                    help=argparse.SUPPRESS)
-    p.add_argument("--tensorboard", type=str, default=None,
-                   help=argparse.SUPPRESS)
+    p.add_argument("--tensorboard", type=str, default=None, metavar="DIR",
+                   help="also write TensorBoard scalar curves (loss, valid "
+                        "and test metrics) to DIR (train/tensorboard.py)")
     p.add_argument("--init_torch", type=str, default=None, metavar="PT",
                    help="initialize params from a torch.save'd state_dict "
-                        "in the reference's (or the port's) naming")
-    p.add_argument("--grad_clip", type=float, default=0.0,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--warmup_epochs", type=int, default=0,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--cosine_lr", action="store_true", help=argparse.SUPPRESS)
+                        "in the reference's (or the port's) naming; a "
+                        "checkpoint resume takes precedence")
+    p.add_argument("--grad_clip", type=float, default=0.0, metavar="NORM",
+                   help="clip gradients to this global norm (0 = off, the "
+                        "reference behaviour)")
+    p.add_argument("--warmup_epochs", type=int, default=0, metavar="N",
+                   help="linear lr warmup 0 -> lr over the first N epochs")
+    p.add_argument("--cosine_lr", action="store_true",
+                   help="cosine-decay the lr to 0 over the epochs after the "
+                        "warmup")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; with no card visible "
                         "the run stops unless --device cpu is given)")
@@ -198,7 +224,18 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
         hidden=args.hidden, random_state=args.random_state,
         dataset=args.dataset, attn_drop=args.attn_drop, seed=args.seed,
         beta=args.beta, padding=args.padding, dtype=args.dtype,
-        log_jsonl=args.log_jsonl)
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every, log_jsonl=args.log_jsonl)
+
+
+def runtime_kwargs(args: argparse.Namespace) -> dict:
+    """The training runtime's flags as keyword arguments of
+    :func:`run_training`."""
+    return dict(export_preds=args.export_preds, profile_dir=args.profile_dir,
+                remat=args.remat, host_loader=args.host_loader,
+                tensorboard=args.tensorboard, bf16_data=args.bf16_data,
+                bucketed=args.bucketed, grad_clip=args.grad_clip,
+                warmup_epochs=args.warmup_epochs, cosine_lr=args.cosine_lr)
 
 
 def run_training(task: str, cfg: TrainConfig, train: Sequence[GraphSample],
@@ -206,13 +243,42 @@ def run_training(task: str, cfg: TrainConfig, train: Sequence[GraphSample],
                  device="cuda", results_dir: str = ".",
                  init_torch: Optional[str] = None,
                  debug_nans: bool = False, fuse_ln_attn: bool = False,
-                 ln_lp: bool = False) -> dict:
+                 ln_lp: bool = False, *, export_preds: Optional[str] = None,
+                 profile_dir: Optional[str] = None, remat: bool = False,
+                 host_loader: bool = False, tensorboard: Optional[str] = None,
+                 bf16_data: bool = False, bucketed: bool = False,
+                 grad_clip: float = 0.0, warmup_epochs: int = 0,
+                 cosine_lr: bool = False) -> dict:
     """Train, evaluate and early-stop; returns the final best metrics.
     eDOS clamps its training targets and its eval predictions at 0; phDOS
     clamps neither (reference utils.py:76). ``fuse_ln_attn`` and ``ln_lp``
-    are the model's LayerNorm switches (:func:`ln_levers_from_env`). Runs
-    on ``device``, the card by default; with no card visible this raises
-    unless ``device="cpu"`` is given."""
+    are the model's LayerNorm switches (:func:`ln_levers_from_env`); the
+    keyword-only arguments are the training runtime's flags
+    (:func:`runtime_kwargs`). Runs on ``device``, the card by default; with
+    no card visible this raises unless ``device="cpu"`` is given.
+
+    SIGTERM is latched from set-up on (train/preemption.py): the loop saves
+    a checkpoint at the next epoch boundary and returns with
+    ``"preempted": True``. The previous handler is restored even when the
+    run raises."""
+    stop = GracefulShutdown().install()
+    try:
+        return _run_training(
+            stop, task, cfg, train, valid, test, device, results_dir,
+            init_torch, debug_nans, fuse_ln_attn, ln_lp, export_preds,
+            profile_dir, remat, host_loader, tensorboard, bf16_data,
+            bucketed, grad_clip, warmup_epochs, cosine_lr)
+    finally:
+        stop.restore()
+
+
+def _run_training(stop, task, cfg, train, valid, test, device, results_dir,
+                  init_torch, debug_nans, fuse_ln_attn, ln_lp, export_preds,
+                  profile_dir, remat, host_loader, tensorboard, bf16_data,
+                  bucketed, grad_clip, warmup_epochs, cosine_lr) -> dict:
+    if bucketed and host_loader:
+        raise ValueError("--bucketed requires the device-resident dataset "
+                         "pipeline; drop --host_loader")
     device = entry_device(device)
     is_edos = task == "edos"
     loader = GraphLoader(train, batch_size=cfg.batch_size, shuffle=True,
@@ -229,74 +295,187 @@ def run_training(task: str, cfg: TrainConfig, train: Sequence[GraphSample],
     model = build_model(task, cfg.embedder, layers=cfg.layers,
                         t_layers=cfg.transformer, hidden=cfg.hidden,
                         attn_drop=cfg.attn_drop, padding=cfg.padding,
-                        dtype=cfg.dtype, device=device,
+                        dtype=cfg.dtype, device=device, remat=remat,
                         generator=torch.Generator().manual_seed(cfg.seed),
                         fuse_ln_attn=fuse_ln_attn, ln_lp=ln_lp, **widths)
-    if init_torch:
-        from dostransformer_tpu_torch.models.import_torch import (
-            load_reference_state_dict,
-            load_torch_state_dict,
-        )
-
-        load_reference_state_dict(model, load_torch_state_dict(init_torch))
-        print(f"initialized params from torch state_dict {init_torch}")
-    trainer = Trainer(model, make_adamw(model.parameters(), cfg.lr,
-                                        cfg.weight_decay),
-                      beta=cfg.beta, clamp_targets=is_edos,
+    # schedule horizons are in optimizer steps, from the loader (the
+    # device dataset takes as many steps an epoch)
+    steps_per_epoch = len(loader)
+    optimizer = make_adamw(
+        model.parameters(), cfg.lr, cfg.weight_decay, grad_clip=grad_clip,
+        warmup_steps=warmup_epochs * steps_per_epoch,
+        cosine_decay_steps=(max(0, cfg.epochs - warmup_epochs)
+                            * steps_per_epoch if cosine_lr else 0))
+    trainer = Trainer(model, optimizer, beta=cfg.beta, clamp_targets=is_edos,
                       eval_clamp=is_edos)
 
     # eval batches at the training batch size (the metrics are per-sample,
     # so any size gives the reference's batch-1 means), shapes pinned to
-    # cover the training buckets; collated and uploaded once
+    # cover the training buckets; collated once, uploaded once, kept on the
+    # host too for the metric and artifact bookkeeping
     eval_samples = list(valid) + list(test)
     a_pin = max([loader.atoms_per_graph] + [s.n_nodes for s in eval_samples])
     e_pin = max([loader.edges_per_graph]
                 + [max(s.n_edges, 1) for s in eval_samples])
 
     def eval_batches(samples):
-        return [b.to(device) for b in GraphLoader(
-            samples, batch_size=max(1, cfg.batch_size),
-            atoms_per_graph=a_pin, edges_per_graph=e_pin)]
+        host = list(GraphLoader(samples, batch_size=max(1, cfg.batch_size),
+                                atoms_per_graph=a_pin, edges_per_graph=e_pin))
+        return host, [b.to(device) for b in host]
 
     valid_batches, test_batches = eval_batches(valid), eval_batches(test)
 
-    def run_eval(batches):
-        ms = [trainer.eval_step(b) for b in batches]
+    def run_eval(batches, artifacts=None):
+        # every batch on the device, then one copy of the stacked metrics
+        host, on_device = batches
+        ms = {k: v.cpu() for k, v in trainer.eval_epoch(on_device).items()}
         acc = MetricAccumulator()
-        for m in ms:
+        for i, batch in enumerate(host):
+            m = {k: v[i] for k, v in ms.items()}
             acc.update(m)
+            if artifacts is not None:
+                artifacts.update(m, batch)
         return acc.result()
 
     tracker = BestTracker(es=cfg.es, eval_every=cfg.eval_every)
+    ckpt = best_ckpt = restored = None
+    if cfg.checkpoint_dir and cfg.checkpoint_every:
+        ckpt = CheckpointManager(cfg.checkpoint_dir)
+        # the best-validation model is kept apart (one kept): after early
+        # stopping the latest cadence checkpoint is not the model the
+        # reported test metrics describe, and serving loads best/. Its saves
+        # go by a MONOTONIC ordinal with the true epoch beside it: a
+        # resumed run can find a new best at an epoch at or below the one
+        # in best/ (the restored state predates that best), and a save at a
+        # step that does not increase is refused
+        best_ckpt = CheckpointManager(best_dir(cfg.checkpoint_dir),
+                                      max_to_keep=1)
+        best_ordinal = best_ckpt.latest_epoch()
+        best_ordinal = -1 if best_ordinal is None else best_ordinal
+        restored = ckpt.restore(model, optimizer)
+    start_epoch = 0
+    if restored is not None:
+        start_epoch, saved_tracker = restored
+        tracker = saved_tracker or tracker
+        print(f"resumed from epoch {start_epoch}")
+    if init_torch:
+        if start_epoch:
+            print(f"checkpoint resume at epoch {start_epoch} takes "
+                  f"precedence; ignoring --init_torch {init_torch}")
+        else:
+            load_reference_state_dict(model, load_torch_state_dict(init_torch))
+            print(f"initialized params from torch state_dict {init_torch}")
+
+    device_data = None
+    if not host_loader:
+        storage = torch.bfloat16 if bf16_data else None
+        if bucketed:
+            device_data = BucketedDeviceDataset.from_samples(
+                train, cfg.batch_size, storage_dtype=storage, device=device)
+            kb = ", ".join(f"A={a}:{d.num_samples}"
+                           for a, d in device_data.buckets)
+            print(f"bucketed training: {kb}")
+        else:
+            device_data = DeviceDataset.from_samples(
+                train, cfg.batch_size, atoms_per_graph=loader.atoms_per_graph,
+                edges_per_graph=loader.edges_per_graph, storage_dtype=storage,
+                device=device)
     logger = JSONLLogger(cfg.log_jsonl)
+    tb = SummaryWriter(tensorboard) if tensorboard else None
+    profiler = None
+    if profile_dir:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
     n_steps = 0
-    stopped_early = False
+    stopped_early = preempted = False
+    epoch = start_epoch
     with torch.autograd.set_detect_anomaly(debug_nans):
         t_start = time.perf_counter()
-        for epoch in range(1, cfg.epochs + 1):
-            losses = trainer.train_epoch(loader)
-            n_steps += len(losses)
-            mean_loss = float(losses.mean())
-            sys.stdout.write(f"\r[ epoch {epoch}/{cfg.epochs} ] "
-                             f"loss {mean_loss:.4f} ")
-            sys.stdout.flush()
-            logger.log({"epoch": epoch, "loss": mean_loss})
+        while epoch < cfg.epochs:
+            # on the device dataset the epochs up to the next eval (or
+            # checkpoint) run back to back and their losses come to the
+            # host once; each epoch's order derives from (seed, epoch), so
+            # resume replays an uninterrupted run's order
+            if device_data is not None:
+                bound = min(cfg.epochs,
+                            (epoch // cfg.eval_every + 1) * cfg.eval_every)
+                if ckpt is not None:
+                    bound = min(bound, (epoch // cfg.checkpoint_every + 1)
+                                * cfg.checkpoint_every)
+                epochs_fn = (trainer.train_epochs_buckets if bucketed
+                             else trainer.train_epochs_device)
+                losses = epochs_fn(device_data, cfg.seed,
+                                   range(epoch, bound))
+            else:
+                losses = trainer.train_epoch(loader)[None]
+            n_steps += losses.numel()
+            epoch_losses = losses.mean(1).tolist()  # one copy to the host
+            for i, mean_loss in enumerate(epoch_losses, epoch + 1):
+                sys.stdout.write(f"\r[ epoch {i}/{cfg.epochs} ] "
+                                 f"loss {mean_loss:.4f} ")
+                sys.stdout.flush()
+                logger.log({"epoch": i, "loss": mean_loss})
+                if tb is not None:
+                    tb.add_scalars(i, {"train/loss": mean_loss})
+            epoch += len(epoch_losses)
+
+            if stop.requested:
+                # a preemption's grace window is short: skip the eval
+                # (resume runs it), save now, exit cleanly
+                preempted = True
+                if ckpt is not None:
+                    ckpt.save(epoch, model, optimizer, tracker)
+                    print(f"\n[preemption] checkpoint saved at epoch {epoch}")
+                break
+
             if epoch % cfg.eval_every == 0:
                 vm = run_eval(valid_batches)
                 logger.log({"epoch": epoch, "valid": vm})
+                if tb is not None:
+                    tb.add_scalars(epoch, {f"valid/{k}": v
+                                           for k, v in vm.items()})
                 if tracker.update(epoch, vm["rmse"], vm["mae"]):
                     tm = run_eval(test_batches)
                     tracker.record_test(tm)
                     logger.log({"epoch": epoch, "test": tm})
+                    if tb is not None:
+                        tb.add_scalars(epoch, {f"test/{k}": v
+                                               for k, v in tm.items()})
                     print(f"\n[eval {epoch}] valid rmse {vm['rmse']:.4f} "
-                          f"mae {vm['mae']:.4f} | test rmse {tm['rmse']:.4f} "
-                          f"r2 {tm['r2']:.4f}")
+                          f"mae {vm['mae']:.4f} | test rmse "
+                          f"{tm['rmse']:.4f} r2 {tm['r2']:.4f}")
+                    if best_ckpt is not None:
+                        best_ordinal += 1
+                        best_ckpt.save(best_ordinal, model, optimizer,
+                                       tracker, epoch_meta=epoch)
                 if tracker.step_and_should_stop():
                     stopped_early = True
                     break
+            if ckpt is not None and epoch % cfg.checkpoint_every == 0:
+                ckpt.save(epoch, model, optimizer, tracker)
+        for manager in (ckpt, best_ckpt):
+            if manager is not None:  # the saves in flight reach the disk
+                manager.wait_until_finished()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         elapsed = time.perf_counter() - t_start
+    if profiler is not None:
+        profiler.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        print(f"\nwrote a torch.profiler trace -> {profile_dir}/trace.json")
+    if export_preds and not preempted:  # the grace window is short
+        art = EvalArtifacts()
+        run_eval(test_batches, artifacts=art)
+        mp_by_id = {int(s.sample_id): s.mp_id
+                    for s in list(train) + list(valid) + list(test)}
+        mp_ids = [mp_by_id.get(i, str(i))
+                  for i in range(max(mp_by_id, default=-1) + 1)]
+        art.save(export_preds, mp_ids=mp_ids)
+        print(f"\nwrote eval artifacts -> {export_preds}")
     result = {
         "best_epoch": tracker.best_epoch,
         "best_valid_rmse": tracker.best_rmse,
@@ -306,9 +485,12 @@ def run_training(task: str, cfg: TrainConfig, train: Sequence[GraphSample],
         # JAX package counts it)
         "samples_per_sec": n_steps * cfg.batch_size / max(elapsed, 1e-9),
         "stopped_early": stopped_early,
+        "preempted": preempted,
     }
     logger.log({"final": result})
     logger.close()
+    if tb is not None:
+        tb.close()
     _write_results_line(cfg, result, results_dir)
     return result
 

@@ -32,6 +32,7 @@ from dostransformer_tpu_torch.cli.common import (
     ln_levers_from_env,
     parse_args,
     run_training,
+    runtime_kwargs,
 )
 from dostransformer_tpu_torch.config import PhDOSDataConfig
 from dostransformer_tpu_torch.data.datasets import (
@@ -94,7 +95,8 @@ def main(argv=None):
     result = run_training("phdos", cfg, train, valid, test, device=device,
                           results_dir=args.results_dir,
                           init_torch=args.init_torch,
-                          debug_nans=args.debug_nans, **levers)
+                          debug_nans=args.debug_nans, **levers,
+                          **runtime_kwargs(args))
     print(f"\nbest epoch {result['best_epoch']} | test {result['test']} | "
           f"{result['samples_per_sec']:.1f} samples/sec")
     return result

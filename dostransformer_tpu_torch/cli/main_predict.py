@@ -1,9 +1,15 @@
-"""Batch-inference entry point: featurized samples (.npz) + torch state_dict ->
-DOS spectra (.npz).
+"""Batch-inference entry point: featurized samples (.npz) + a training
+checkpoint or a torch state_dict -> DOS spectra (.npz).
 
-Counterpart of dostransformer_tpu/cli/main_predict.py for weights saved with
-``torch.save(model.state_dict(), path)`` (the port's or the reference's):
+Counterpart of dostransformer_tpu/cli/main_predict.py. The weights come
+from a training run's checkpoint directory (``--checkpoint_dir``: the
+best-validation model under ``best/`` by default, the newest cadence
+checkpoint with ``--checkpoint_state latest``) or from a
+``torch.save(model.state_dict(), path)`` file, the port's or the
+reference's (``--torch_state_dict``); exactly one of the two:
 
+    python -m dostransformer_tpu_torch.cli.main_predict --task edos \
+        --checkpoint_dir ckpt/ --input data.npz --output preds.npz
     python -m dostransformer_tpu_torch.cli.main_predict --task edos \
         --torch_state_dict model.pt --input data.npz --output preds.npz \
         --device cuda
@@ -26,8 +32,6 @@ import numpy as np
 # flags of the JAX package's main_predict that the port does not have yet,
 # and where the ROADMAP brings them
 _NOT_PORTED = {
-    "checkpoint_dir": "queue 1 item 6 (training runtime: checkpoints)",
-    "checkpoint_state": "queue 1 item 6 (training runtime: checkpoints)",
     "export": "queue 1 item 8 (serving: torch.export artifacts)",
     "from_exported": "queue 1 item 8 (serving: torch.export artifacts)",
     "data_parallel": "queue 1 item 9 (parallelism)",
@@ -59,9 +63,18 @@ def prediction_metrics(task: str, samples, dos) -> dict:
 def main(argv=None):
     p = argparse.ArgumentParser("dostpu-torch-predict")
     p.add_argument("--task", choices=["edos", "phdos"], required=True)
-    p.add_argument("--torch_state_dict", metavar="PATH", required=True,
-                   help="torch.save'd state_dict (reference or port naming); "
-                        "the model-shape flags must match the weights")
+    p.add_argument("--checkpoint_dir",
+                   help="training checkpoint directory to serve "
+                        "(--checkpoint_dir of main_edos / main_phdos)")
+    p.add_argument("--checkpoint_state", choices=["best", "latest"],
+                   default=None,
+                   help="'best' (default) serves the best-validation model "
+                        "(<dir>/best, falling back to latest when absent); "
+                        "'latest' serves the newest cadence checkpoint")
+    p.add_argument("--torch_state_dict", metavar="PATH",
+                   help="torch.save'd state_dict (reference or port naming) "
+                        "instead of a checkpoint; the model-shape flags must "
+                        "match the weights")
     p.add_argument("--input", required=True, help="featurized samples .npz")
     p.add_argument("--output", required=True, help="predictions .npz")
     p.add_argument("--embedder", default="DOSTransformer")
@@ -87,6 +100,14 @@ def main(argv=None):
             p.error(f"--{flag} is not in the PyTorch port yet; see "
                     f"ROADMAP.md {item}")
 
+    if args.torch_state_dict and (args.checkpoint_dir
+                                  or args.checkpoint_state):
+        p.error("--torch_state_dict replaces the checkpoint source; give "
+                "exactly one of --checkpoint_dir / --torch_state_dict (and "
+                "no --checkpoint_state)")
+    if not (args.checkpoint_dir or args.torch_state_dict):
+        p.error("--checkpoint_dir (or --torch_state_dict) is required")
+
     from dostransformer_tpu_torch.cli.common import (
         cli_device,
         ln_levers_from_env,
@@ -96,11 +117,16 @@ def main(argv=None):
 
     device = cli_device(p, args.device)
     samples = load_samples(args.input)
-    predictor = Predictor.from_torch(
-        args.torch_state_dict, task=args.task, example=samples[0],
-        embedder=args.embedder, layers=args.layers, t_layers=args.transformer,
-        hidden=args.hidden, batch_size=args.batch_size, device=device,
-        **ln_levers_from_env())
+    shape = dict(task=args.task, example=samples[0], embedder=args.embedder,
+                 layers=args.layers, t_layers=args.transformer,
+                 hidden=args.hidden, batch_size=args.batch_size,
+                 device=device, **ln_levers_from_env())
+    if args.torch_state_dict:
+        predictor = Predictor.from_torch(args.torch_state_dict, **shape)
+    else:
+        predictor = Predictor.from_checkpoint(
+            args.checkpoint_dir, prefer=args.checkpoint_state or "best",
+            **shape)
     dos = predictor.predict(samples)
     extra = {}
     if args.metrics:

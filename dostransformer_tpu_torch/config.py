@@ -6,8 +6,8 @@ package needs jax. The
 reference's flag defaults (utils.py:25-43) and the run-name key order
 (utils.py:51-59) are the same, so both packages write the same
 ``experiments_{embedder}.txt`` configuration line. The JAX package's
-mesh, donation, Pallas, parameter-dtype and checkpoint fields have no
-counterpart here yet.
+mesh, donation, Pallas and parameter-dtype fields have no counterpart here
+yet.
 """
 
 from __future__ import annotations
@@ -38,6 +38,8 @@ class TrainConfig:
 
     dtype: str = "float32"
     padding: str = "mask"      # "mask" | "ref" (zero pad atoms act as keys)
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0  # epochs between checkpoints (0: none)
     log_jsonl: Optional[str] = None
 
 

@@ -44,6 +44,12 @@
 //   * edge_kernel (generic form, any M and H): one block per (graph, tile of
 //     16 edges), the product as FMA loops from shared memory with W1 in
 //     [256 x 32] chunks and a 4-edge x 4-output register tile per thread.
+//     Its shared memory is the same at every width (36,032 B), so no width
+//     is refused: a block keeps only each row's LayerNorm statistics (two
+//     passes over mid gathered from L2) and forms each 32-column chunk of
+//     act anew beside its chunk of W1, the gather repeated once per 256
+//     outputs. (Keeping the [16][M] rows, as the first design did, passed
+//     the 232,448 B a block gets from M = 3,105.)
 //   * agg_kernel (both forms): one block per (node, graph, 256 outputs)
 //     lists the real edges whose receiver is that node, in edge order (a
 //     ballot and a prefix sum per 256 edges); four slices of its threads sum
@@ -70,6 +76,13 @@ constexpr int kTileM = 32;     // W1 columns per shared-memory chunk
 using mp::kLnEps;
 using mp::warp_sum;
 
+// The generic form's shared memory, a constant: a block keeps no whole row
+// of mid, only each row's statistics, a [kTileE x kTileM] tile of act and a
+// [kTileH x kTileM] chunk of W1, so every M and H fits.
+constexpr int kTileStride = kTileM + 1;  // floats a staged row (no conflicts)
+constexpr size_t kGenericSmemFloats =
+    (size_t)(kTileE + kTileH) * kTileStride + 2 * kTileE;
+
 __global__ void __launch_bounds__(kThreads)
 edge_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
             const float* __restrict__ ep, const int* __restrict__ senders,
@@ -80,51 +93,52 @@ edge_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
             const float* __restrict__ b1, float* __restrict__ e_out, int A,
             int E, int M, int H) {
   extern __shared__ float smem[];
-  float* act = smem;                  // [kTileE][M]
-  float* w_s = smem + kTileE * M;     // [kTileH][kTileM + 1]
+  float* a_s = smem;                           // [kTileE][kTileStride]
+  float* w_s = a_s + kTileE * kTileStride;     // [kTileH][kTileStride]
+  float* mean_s = w_s + kTileH * kTileStride;  // [kTileE]
+  float* rstd_s = mean_s + kTileE;             // [kTileE]
   const int b = blockIdx.y;
   const int e0 = blockIdx.x * kTileE;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const float slope = alpha[0];
 
-  // 1. gather + LayerNorm + PReLU, one warp per edge row
+  // mid[i, m] of the tile's row i (0 past the last edge or for an index out
+  // of range, as a one-hot row that matches no node did on the TPU)
+  auto mid = [&](int i, int m) {
+    const size_t be = (size_t)b * E + e0 + i;
+    const int s = senders[be];
+    const int r = receivers[be];
+    const float vs = s >= 0 && s < A ? sp[((size_t)b * A + s) * M + m] : 0.f;
+    const float vd = r >= 0 && r < A ? dp[((size_t)b * A + r) * M + m] : 0.f;
+    return (vs + vd) + ep[be * M + m];
+  };
+
+  // 1. the LayerNorm statistics of each row, one warp a row, in two passes
+  //    over mid gathered from L2 (a row of M floats is not kept)
   for (int i = warp; i < kTileE; i += kThreads / 32) {
-    float* row = act + i * M;
-    const int e = e0 + i;
-    if (e >= E) {
-      for (int m = lane; m < M; m += 32) row[m] = 0.f;
+    if (e0 + i >= E) {
+      if (lane == 0) mean_s[i] = rstd_s[i] = 0.f;
       continue;
     }
-    const int s = senders[b * E + e];
-    const int r = receivers[b * E + e];
-    const bool s_ok = s >= 0 && s < A;
-    const bool r_ok = r >= 0 && r < A;
-    const float* sp_row = sp + ((size_t)b * A + (s_ok ? s : 0)) * M;
-    const float* dp_row = dp + ((size_t)b * A + (r_ok ? r : 0)) * M;
-    const float* ep_row = ep + ((size_t)b * E + e) * M;
     float sum = 0.f;
-    for (int m = lane; m < M; m += 32) {
-      const float v = ((s_ok ? sp_row[m] : 0.f) + (r_ok ? dp_row[m] : 0.f))
-                      + ep_row[m];
-      row[m] = v;
-      sum += v;
-    }
+    for (int m = lane; m < M; m += 32) sum += mid(i, m);
     const float mean = warp_sum(sum) / M;
     float sq = 0.f;
     for (int m = lane; m < M; m += 32) {
-      const float d = row[m] - mean;
+      const float d = mid(i, m) - mean;
       sq += d * d;
     }
     const float rstd = 1.f / sqrtf(warp_sum(sq) / M + kLnEps);
-    for (int m = lane; m < M; m += 32) {
-      const float n = (row[m] - mean) * rstd * ln_scale[m] + ln_bias[m];
-      row[m] = n > 0.f ? n : slope * n;
+    if (lane == 0) {
+      mean_s[i] = mean;
+      rstd_s[i] = rstd;
     }
   }
 
   // 2. e_out = act @ W1^T + b1: thread (te, th) owns edges te*4 + k and
-  //    outputs h0 + th + 64*j, k, j in [0, 4)
+  //    outputs h0 + th + 64*j, k, j in [0, 4); each kTileM-column chunk of
+  //    act = PReLU(LN(mid)) is formed anew beside its chunk of W1
   const int th = threadIdx.x % 64;
   const int te = threadIdx.x / 64;
   for (int h0 = 0; h0 < H; h0 += kTileH) {
@@ -134,24 +148,34 @@ edge_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[k][j] = 0.f;
     for (int m0 = 0; m0 < M; m0 += kTileM) {
-      __syncthreads();  // act is complete / the previous chunk is consumed
+      __syncthreads();  // the statistics are complete / the chunk is consumed
       for (int idx = threadIdx.x; idx < kTileH * kTileM; idx += kThreads) {
         const int hh = idx / kTileM;
         const int mm = idx % kTileM;
         const int h = h0 + hh;
         const int m = m0 + mm;
-        w_s[hh * (kTileM + 1) + mm] =
+        w_s[hh * kTileStride + mm] =
             (h < H && m < M) ? w1[(size_t)h * M + m] : 0.f;
+      }
+      for (int idx = threadIdx.x; idx < kTileE * kTileM; idx += kThreads) {
+        const int i = idx / kTileM;
+        const int m = m0 + idx % kTileM;
+        float v = 0.f;
+        if (e0 + i < E && m < M) {
+          const float n =
+              (mid(i, m) - mean_s[i]) * rstd_s[i] * ln_scale[m] + ln_bias[m];
+          v = n > 0.f ? n : slope * n;
+        }
+        a_s[i * kTileStride + idx % kTileM] = v;
       }
       __syncthreads();
       const int depth = min(kTileM, M - m0);
       for (int mm = 0; mm < depth; ++mm) {
         float av[4], wv[4];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) av[k] = act[(te * 4 + k) * M + m0 + mm];
+        for (int k = 0; k < 4; ++k) av[k] = a_s[(te * 4 + k) * kTileStride + mm];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wv[j] = w_s[(th + 64 * j) * (kTileM + 1) + mm];
+        for (int j = 0; j < 4; ++j) wv[j] = w_s[(th + 64 * j) * kTileStride + mm];
 #pragma unroll
         for (int k = 0; k < 4; ++k)
 #pragma unroll
@@ -469,8 +493,7 @@ int resolve_form(int form, int N, int M, int H) {
 extern "C" size_t dostpu_fused_mp_edge_smem_bytes(int B, int E, int M, int H,
                                                   int form) {
   const int f = resolve_form(form, B * E, M, H);
-  if (f <= 0)
-    return (size_t)(kTileE * M + kTileH * (kTileM + 1)) * sizeof(float);
+  if (f <= 0) return kGenericSmemFloats * sizeof(float);
   return tile_smem_bytes(f - 1, M);
 }
 

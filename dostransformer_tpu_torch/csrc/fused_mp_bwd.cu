@@ -28,8 +28,8 @@
 // run to run), the first two in two hand-written forms chosen by the widths
 // alone (dostpu_fused_mp_bwd_form: the tensor-core form where M and H are
 // multiples of 32 and a block of pass A fits in shared memory, which at
-// H = M / 2 is every such width up to H = 1,024 and beyond; the generic form
-// at every other width, up to H = 1,039 at M = 2H):
+// H = M / 2 is every such width up to H = 1,536; the generic form at every
+// other width, whose shared memory does not depend on the widths):
 //   A edge_bwd_tc_kernel (tensor-core form): the B*E edges are one flat
 //     list cut into tiles of TE = 16 or 32. A block must stream all of W1
 //     through its SM, which bounds a tile's time, so where tiles are few a
@@ -60,11 +60,15 @@
 //     cluster of 4 201,024 B (4 buffers of 128 + 8 columns), where one
 //     block keeping all M columns would need 395,584 B.
 //     edge_bwd_kernel (generic form): a block per (16 edges, graph), the
-//     product as FMA loops with a 4 x 4 register tile per thread; xhat goes
-//     to scratch and is read back from L2, so shared memory holds g_act,
-//     g_e and a W1 chunk: 16 * M + 16 * H + 8,216 floats, 82,016 B at
-//     M = 512, H = 256 and 229,472 B at M = 2,048, H = 1,024 (keeping xhat
-//     too, 360,544 B would fit no block).
+//     product as FMA loops with a 4 x 4 register tile per thread. No row
+//     of M or H floats stays in shared memory: xhat goes to scratch, g_e to
+//     the scratch pass B reads anyway and comes back in [16 x 32] chunks
+//     beside the [32 x 256] chunks of W1, and g_act is written into g_ep's
+//     own rows, where PReLU's backward turns it into g_norm and LayerNorm's
+//     into g_ep, all read back from L2. Shared memory is 35,040 B at every
+//     width (the first design kept g_act and g_e, 16 * M + 16 * H + 8,216
+//     floats: 229,472 B at M = 2,048, H = 1,024, and no block from
+//     H = 1,040 at M = 2H).
 //   B gw1_tc_kernel (tensor-core form): g_W1 = g_e^T act as a split-K
 //     3xTF32 product: a block owns a [64 x 128] tile of g_W1 and one chunk of
 //     the edges, its A fragments read transposed from the staged
@@ -102,10 +106,11 @@ constexpr int kGemmEdges = 768;  // edges per g_W1 partial
 using mp::kLnEps;
 using mp::warp_sum;
 
-size_t edge_smem_floats(int M, int H) {
-  return (size_t)kTileE * M + (size_t)kTileE * H
-         + (size_t)kTileHr * kTileMo + kTileE + kThreads / 32;
-}
+// shared memory of the generic pass A, the same at every width: a chunk of
+// W1, a chunk of g_e, three floats a row and a float a warp
+constexpr size_t kEdgeSmemFloats = (size_t)kTileHr * kTileMo
+                                   + (size_t)kTileE * kTileHr + 3 * kTileE
+                                   + kThreads / 32;
 
 int gemm_splits(int N) {
   const int s = (N + kGemmEdges - 1) / kGemmEdges;
@@ -128,11 +133,12 @@ edge_bwd_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
                 float* __restrict__ part_b1, float* __restrict__ part_alpha,
                 int A, int E, int M, int H) {
   extern __shared__ float smem[];
-  float* gact_s = smem;                     // [kTileE][M]: g_act, then g_norm
-  float* ge_s = gact_s + kTileE * M;        // [kTileE][H]
-  float* w_s = ge_s + kTileE * H;           // [kTileHr][kTileMo]
-  float* rstd_s = w_s + kTileHr * kTileMo;  // [kTileE]
-  float* alpha_s = rstd_s + kTileE;         // [kThreads / 32]
+  float* w_s = smem;                        // [kTileHr][kTileMo]
+  float* ge_s = w_s + kTileHr * kTileMo;    // [kTileE][kTileHr]: g_e chunk
+  float* rstd_s = ge_s + kTileE * kTileHr;  // [kTileE]
+  float* s1_s = rstd_s + kTileE;            // [kTileE]: LN' row sums
+  float* s2_s = s1_s + kTileE;              // [kTileE]
+  float* alpha_s = s2_s + kTileE;           // [kThreads / 32]
   const int b = blockIdx.y;
   const int e0 = blockIdx.x * kTileE;
   const int blk = b * gridDim.x + blockIdx.x;
@@ -140,20 +146,16 @@ edge_bwd_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
   const int lane = threadIdx.x % 32;
   const float slope = alpha[0];
   const int rows = min(kTileE, E - e0);  // rows past the last edge add 0
-  // the tile's rows of xhat in scratch (L2): mid, then xhat
+  // the tile's rows in device memory (L2): xhat in scratch; g_e as pass B
+  // reads it; g_act, then g_norm, then g_ep in g_ep's own rows
   float* xhat_t = xhat_out + ((size_t)b * E + e0) * M;
+  const float* ge_t = ge_out + ((size_t)b * E + e0) * H;
+  float* gn_t = g_ep + ((size_t)b * E + e0) * M;
 
   // 1. recompute mid -> LN -> PReLU (one warp per row); build g_e
-  for (int i = warp; i < kTileE; i += kThreads / 32) {
+  for (int i = warp; i < rows; i += kThreads / 32) {
     float* xrow = xhat_t + (size_t)i * M;  // written by this lane only
-    float* grow = ge_s + i * H;
-    const int e = e0 + i;
-    if (e >= E) {  // past the last edge: a zero row contributes nothing
-      for (int h = lane; h < H; h += 32) grow[h] = 0.f;
-      if (lane == 0) rstd_s[i] = 0.f;
-      continue;
-    }
-    const size_t be = (size_t)b * E + e;
+    const size_t be = (size_t)b * E + e0 + i;
     const int s = senders[be];
     const int r = receivers[be];
     const bool s_ok = s >= 0 && s < A;
@@ -184,15 +186,13 @@ edge_bwd_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
     if (lane == 0) rstd_s[i] = rstd;
     const float mk = mask[be];
     const float* ga_row = g_agg + ((size_t)b * A + (r_ok ? r : 0)) * H;
-    for (int h = lane; h < H; h += 32) {
-      const float v = g_eout[be * H + h] + (r_ok ? mk * ga_row[h] : 0.f);
-      grow[h] = v;
-      ge_out[be * H + h] = v;
-    }
+    for (int h = lane; h < H; h += 32)
+      ge_out[be * H + h] = g_eout[be * H + h] + (r_ok ? mk * ga_row[h] : 0.f);
   }
 
-  // 2. g_act = g_e @ W1: thread (te, th) owns edges te*4 + k and columns
-  //    m0 + th + 64*j, k, j in [0, 4)
+  // 2. g_act = g_e @ W1 into g_ep's rows: thread (te, th) owns edges
+  //    te*4 + k and columns m0 + th + 64*j, k, j in [0, 4); g_e comes in
+  //    [kTileE x kTileHr] chunks beside the chunks of W1
   const int th = threadIdx.x % 64;
   const int te = threadIdx.x / 64;
   for (int m0 = 0; m0 < M; m0 += kTileMo) {
@@ -208,12 +208,17 @@ edge_bwd_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
         const int m = m0 + idx % kTileMo;
         w_s[idx] = (h < H && m < M) ? w1[(size_t)h * M + m] : 0.f;
       }
+      for (int idx = threadIdx.x; idx < kTileE * kTileHr; idx += kThreads) {
+        const int i = idx / kTileHr;
+        const int h = h0 + idx % kTileHr;
+        ge_s[idx] = (i < rows && h < H) ? ge_t[(size_t)i * H + h] : 0.f;
+      }
       __syncthreads();
       const int depth = min(kTileHr, H - h0);
       for (int hh = 0; hh < depth; ++hh) {
         float av[4], wv[4];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) av[k] = ge_s[(te * 4 + k) * H + h0 + hh];
+        for (int k = 0; k < 4; ++k) av[k] = ge_s[(te * 4 + k) * kTileHr + hh];
 #pragma unroll
         for (int j = 0; j < 4; ++j) wv[j] = w_s[hh * kTileMo + th + 64 * j];
 #pragma unroll
@@ -223,21 +228,23 @@ edge_bwd_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
       }
     }
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
+    for (int k = 0; k < 4; ++k) {
+      if (te * 4 + k >= rows) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int m = m0 + th + 64 * j;
-        if (m < M) gact_s[(te * 4 + k) * M + m] = acc[k][j];
+        if (m < M) gn_t[(size_t)(te * 4 + k) * M + m] = acc[k][j];
       }
+    }
   }
   __syncthreads();
 
-  // 3. PReLU and LayerNorm backward, one warp per row; g_norm replaces g_act
-  //    in shared memory for the column sums below
+  // 3. PReLU backward, one warp per row: g_norm replaces g_act in place; the
+  //    two row sums LayerNorm's backward needs
   float pa = 0.f;
   for (int i = warp; i < rows; i += kThreads / 32) {
     const float* xrow = xhat_t + (size_t)i * M;
-    float* grow = gact_s + i * M;
+    float* grow = gn_t + (size_t)i * M;
     float s1 = 0.f, s2 = 0.f;
     for (int m = lane; m < M; m += 32) {
       const float xh = xrow[m];
@@ -253,11 +260,9 @@ edge_bwd_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
     }
     s1 = warp_sum(s1) / M;
     s2 = warp_sum(s2) / M;
-    const float rstd = rstd_s[i];
-    float* out = g_ep + ((size_t)b * E + e0 + i) * M;
-    for (int m = lane; m < M; m += 32) {
-      const float gx = grow[m] * ln_scale[m];
-      out[m] = rstd * (gx - s1 - xrow[m] * s2);
+    if (lane == 0) {
+      s1_s[i] = s1;
+      s2_s[i] = s2;
     }
   }
   pa = warp_sum(pa);
@@ -268,7 +273,7 @@ edge_bwd_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
   for (int m = threadIdx.x; m < M; m += kThreads) {
     float sl = 0.f, sb = 0.f;
     for (int i = 0; i < rows; ++i) {
-      const float gn = gact_s[i * M + m];
+      const float gn = gn_t[(size_t)i * M + m];
       sl = fmaf(gn, xhat_t[(size_t)i * M + m], sl);
       sb += gn;
     }
@@ -277,13 +282,26 @@ edge_bwd_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
   }
   for (int h = threadIdx.x; h < H; h += kThreads) {
     float s = 0.f;
-    for (int i = 0; i < kTileE; ++i) s += ge_s[i * H + h];
+    for (int i = 0; i < rows; ++i) s += ge_t[(size_t)i * H + h];
     part_b1[(size_t)blk * H + h] = s;
   }
   if (threadIdx.x == 0) {
     float s = 0.f;
     for (int w = 0; w < kThreads / 32; ++w) s += alpha_s[w];
     part_alpha[blk] = s;
+  }
+  __syncthreads();  // every column of g_norm is summed
+
+  // 5. LayerNorm backward: g_ep = rstd (g_norm scale - s1 - xhat s2), in
+  //    place
+  for (int i = warp; i < rows; i += kThreads / 32) {
+    const float* xrow = xhat_t + (size_t)i * M;
+    float* grow = gn_t + (size_t)i * M;
+    const float rstd = rstd_s[i], s1 = s1_s[i], s2 = s2_s[i];
+    for (int m = lane; m < M; m += 32) {
+      const float gx = grow[m] * ln_scale[m];
+      grow[m] = rstd * (gx - s1 - xrow[m] * s2);
+    }
   }
 }
 
@@ -1041,7 +1059,7 @@ cudaError_t launch_edge_bwd_tc(
 extern "C" size_t dostpu_fused_mp_edge_bwd_smem_bytes(int B, int E, int M,
                                                       int H, int form) {
   const Plan p = make_plan(form, B, E, M, H);
-  if (p.mt == 0) return edge_smem_floats(M, H) * sizeof(float);
+  if (p.mt == 0) return kEdgeSmemFloats * sizeof(float);
   if (p.mt < 0) return tc_smem_bytes(1, 1, M, H);
   return tc_smem_bytes(p.mt, p.cluster, M, H);
 }
@@ -1105,7 +1123,7 @@ extern "C" int dostpu_fused_mp_edge_bwd(
 
   cudaError_t err;
   if (plan.mt == 0) {
-    const size_t smem = edge_smem_floats(M, H) * sizeof(float);
+    const size_t smem = kEdgeSmemFloats * sizeof(float);
     err = cudaFuncSetAttribute(
         edge_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);

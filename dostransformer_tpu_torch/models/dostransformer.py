@@ -37,7 +37,10 @@ segment-sum kernel (``torch.autograd.Function``s in ``ops/``). The options
 ``fuse_ln_attn`` and ``ln_lp`` (both off by default) switch the three
 transformer stacks to the LN-fused attention forward and to the
 single-pass LayerNorm backward (see nn/transformer.py); the state_dict is
-the same either way.
+the same either way. ``remat`` recomputes each processor and each
+transformer layer in the backward instead of keeping their activations
+(``torch.utils.checkpoint``, where the JAX package puts ``flax.linen.remat``):
+the same gradients for one more forward of each.
 
 Parameters are created on the meta device and then materialised on
 ``device`` and drawn from ``generator`` (on the CPU, so a seed gives the same
@@ -97,8 +100,7 @@ class _DOSTransformerBase(nn.Module):
                         dtype != "float32",
                     "bins_pad (TPU lane alignment; not ported)":
                         bins_pad is not None,
-                    "tp_axis (item 9, parallelism)": tp_axis is not None,
-                    "remat (item 6, training runtime)": remat}
+                    "tp_axis (item 9, parallelism)": tp_axis is not None}
         for what, given in unported.items():
             if given:
                 raise NotImplementedError(
@@ -107,6 +109,7 @@ class _DOSTransformerBase(nn.Module):
         self.n_bins = n_bins
         self.hidden = hidden
         self.padding = padding
+        self.remat = remat
         with torch.device("meta"):
             self.embeddings = nn.Embedding(n_bins, hidden)
             setattr(self, self._PROMPT, nn.Embedding(7, hidden // 2))
@@ -116,7 +119,8 @@ class _DOSTransformerBase(nn.Module):
             self.GN_decoder = decoder()
             # the LayerNorm levers of nn/transformer.py, for all three stacks
             self.transformer, self.transformer_self, self.transformer_source = (
-                TransformerEncoder(hidden, t_layers, fuse_ln_attn, ln_lp)
+                TransformerEncoder(hidden, t_layers, fuse_ln_attn, ln_lp,
+                                   remat=remat)
                 for _ in range(3))
             self.fc = TorchLinear(2 * hidden, hidden)
             self.fc_prompt = TorchLinear(2 * hidden + hidden // 2, hidden)
@@ -139,7 +143,8 @@ class _DOSTransformerBase(nn.Module):
         cross-attention stack, the readout ``readout(x) -> [B, h]`` and the
         heads."""
         b = g.num_graphs
-        x, _ = run_message_passing(self.stacked_processor, g, x, edge_attr)
+        x, _ = run_message_passing(self.stacked_processor, g, x, edge_attr,
+                                   remat=self.remat)
 
         # to_dense_batch is the identity in batch-leading layout; zero the
         # pad rows as torch to_dense_batch does
@@ -188,7 +193,10 @@ class DOSTransformerEDOS(_DOSTransformerBase):
             lambda: GraphDecoderEDOS(hidden), **options)
 
     def forward(self, g: GraphBatch):
-        x, edge_attr, u = self.GN_encoder(g.nodes, g.edges, g.glob)
+        # features stored in bf16 (a device dataset's bf16 storage) are
+        # widened back to f32 here, as the JAX model casts its inputs
+        x, edge_attr, u = self.GN_encoder(g.nodes.float(), g.edges.float(),
+                                          g.glob)
         return self._run(g, x, edge_attr,
                          lambda x: self.GN_decoder(x, u, g.node_mask))
 
@@ -212,6 +220,6 @@ class DOSTransformerPhDOS(_DOSTransformerBase):
 
     def forward(self, g: GraphBatch):
         edge_attr = edge_geometry_phdos(g.edge_vec, self.r_max)
-        x, edge_attr = self.GN_encoder(g.nodes, edge_attr)
+        x, edge_attr = self.GN_encoder(g.nodes.float(), edge_attr)
         return self._run(g, x, edge_attr,
                          lambda x: self.GN_decoder(x, g.node_mask))

@@ -30,6 +30,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dostransformer_tpu_torch.nn.init import torch_linear_
 from dostransformer_tpu_torch.nn.layernorm import LayerNorm
@@ -151,10 +152,19 @@ class Processor(nn.Module):
         return self.node_model(x, agg, receivers, edge_mask), edge_attr
 
 
-def run_message_passing(processors: Sequence[Processor], g, x, edge_attr):
-    """The reference's processor loop with CALLER-side residuals."""
+def run_message_passing(processors: Sequence[Processor], g, x, edge_attr,
+                        remat: bool = False):
+    """The reference's processor loop with CALLER-side residuals. With
+    ``remat``, while gradients are recorded each processor keeps only its
+    inputs and is run again in the backward (``torch.utils.checkpoint``, as
+    the JAX package wraps its Processor in ``flax.linen.remat``)."""
     for proc in processors:
-        out_x, out_e = proc(x, g.senders, g.receivers, edge_attr, g.edge_mask)
+        args = (x, g.senders, g.receivers, edge_attr, g.edge_mask)
+        if remat and torch.is_grad_enabled():
+            out_x, out_e = checkpoint(proc, *args, use_reentrant=False,
+                                      preserve_rng_state=False)
+        else:
+            out_x, out_e = proc(*args)
         x = x + out_x
         edge_attr = edge_attr + out_e
     return x, edge_attr

@@ -41,6 +41,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dostransformer_tpu_torch.nn.init import xavier_linear_
 from dostransformer_tpu_torch.nn.layernorm import LayerNorm, LayerNormLP
@@ -82,11 +83,15 @@ class TransformerEncoderLayer(nn.Module):
 
 class TransformerEncoder(nn.Module):
     """Stack of TransformerEncoderLayers + final LayerNorm. k/v inputs are
-    fixed across layers; with neither given the stack self-attends."""
+    fixed across layers; with neither given the stack self-attends. With
+    ``remat`` each layer is recomputed in the backward while gradients are
+    recorded."""
 
     def __init__(self, embed_dim: int, layers: int = 2,
-                 fuse_ln_attn: bool = False, ln_lp: bool = False):
+                 fuse_ln_attn: bool = False, ln_lp: bool = False,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(embed_dim, fuse_ln_attn, ln_lp)
             for _ in range(layers))
@@ -102,5 +107,11 @@ class TransformerEncoder(nn.Module):
         x = x_in
         x_k, x_v = (x, x) if x_in_k is None else (x_in_k, x_in_v)
         for layer in self.layers:
-            x = layer(x, x_k, x_v, key_mask)
+            if self.remat and torch.is_grad_enabled():
+                # the layer keeps only its inputs and runs again in the
+                # backward (the JAX package's flax.linen.remat per layer)
+                x = checkpoint(layer, x, x_k, x_v, key_mask,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = layer(x, x_k, x_v, key_mask)
         return self.layer_norm(x)

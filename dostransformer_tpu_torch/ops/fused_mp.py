@@ -24,7 +24,8 @@ Each kernel has two hand-written forms, chosen by the widths alone
 (:func:`fused_mp_form` for the forward, :func:`fused_mp_bwd_form` for the
 backward): where M and H are multiples of 32 and a block of the kernel fits
 in shared memory, the three matrix products run on the tensor cores (3xTF32,
-f32-accurate); at every other width as FMA loops. ``form`` (a keyword of
+f32-accurate); at every other width as FMA loops, whose blocks take the same
+shared memory at every width, so every width has a form. ``form`` (a keyword of
 the two kernel wrappers, for measurements and tests) overrides the choice
 with ``FORM_GENERIC`` or ``FORM_TENSOR_CORE``.
 """
@@ -68,11 +69,21 @@ def bwd_tc_smem_bytes(m: int, h: int, mt: int, cluster: int,
     return 4 * (2 * te * (m // cluster) + te * (h + 4) + te + stages * stage)
 
 
-def bwd_generic_smem_bytes(m: int, h: int) -> int:
-    """Shared memory of a block of the backward's generic pass A (16 edges:
-    g_act [M] and g_e [H] a row, a [32 x 256] chunk of W1, 24 floats; xhat
-    goes to scratch): the mirror of ``edge_smem_floats``."""
-    return 4 * (16 * m + 16 * h + 32 * 256 + 16 + 8)
+def fwd_generic_smem_bytes() -> int:
+    """Shared memory of a block of the forward's generic form, the same at
+    every width: a [16 x 32] tile of act and a [256 x 32] chunk of W1 (rows
+    of 33 floats), the mean and rstd of 16 rows; the mirror of
+    ``kGenericSmemFloats`` in ``csrc/fused_mp.cu``."""
+    return 4 * ((16 + 256) * 33 + 2 * 16)
+
+
+def bwd_generic_smem_bytes() -> int:
+    """Shared memory of a block of the backward's generic pass A, the same
+    at every width: a [32 x 256] chunk of W1, a [16 x 32] chunk of g_e,
+    three floats for each of 16 rows and one for each of 8 warps (xhat,
+    g_e and g_act stay in device memory); the mirror of
+    ``kEdgeSmemFloats`` in ``csrc/fused_mp_bwd.cu``."""
+    return 4 * (32 * 256 + 16 * 32 + 3 * 16 + 8)
 
 
 def _bwd_tc_shapes(m: int, h: int):

@@ -1,7 +1,8 @@
 """Inference / serving path.
 
 Counterpart of dostransformer_tpu/serve.py `Predictor`: load weights (a
-``torch.save``d state_dict in the reference's naming, or a model in memory),
+training run's checkpoint, a ``torch.save``d state_dict in the reference's
+naming, or a model in memory),
 and predict DOS spectra for featurized crystals in fixed-shape padded
 batches. Requests are grouped by atom padding bucket, so a mixed request of
 small and large crystals pads each group only to its own shape; results come
@@ -14,10 +15,13 @@ Example:
     predictor = Predictor.from_torch("model.pt", task="edos",
                                      example=samples[0], device="cuda")
     spectra = predictor.predict(samples)           # [N, bins] numpy
+    best = Predictor.from_checkpoint("ckpt/", task="edos",
+                                     example=samples[0])  # ckpt/best
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -37,6 +41,20 @@ from dostransformer_tpu_torch.models.registry import (
     build_model,
     entry_device,
 )
+
+
+def _build_for(example: GraphSample, task, embedder, layers, t_layers,
+               hidden, device, fuse_ln_attn, ln_lp, model_kwargs):
+    """A model for ``task`` whose input widths are the example's."""
+    widths = {"node_in": example.x.shape[1]}
+    if example.edge_attr is not None:
+        widths["edge_in"] = example.edge_attr.shape[1]
+    if example.glob is not None:
+        widths["glob_in"] = example.glob.shape[-1]
+    return build_model(task, embedder, layers=layers, t_layers=t_layers,
+                       hidden=hidden, device=device,
+                       fuse_ln_attn=fuse_ln_attn, ln_lp=ln_lp, **widths,
+                       **model_kwargs)
 
 
 class Predictor:
@@ -76,19 +94,56 @@ class Predictor:
         model's LayerNorm switches (nn/transformer.py); the weights load the
         same either way. The model runs on ``device``, the card by default;
         with no card visible this raises unless ``device="cpu"`` is given."""
-        device = entry_device(device)
-        widths = {"node_in": example.x.shape[1]}
-        if example.edge_attr is not None:
-            widths["edge_in"] = example.edge_attr.shape[1]
-        if example.glob is not None:
-            widths["glob_in"] = example.glob.shape[-1]
-        model = build_model(task, embedder, layers=layers, t_layers=t_layers,
-                            hidden=hidden, device=device,
-                            fuse_ln_attn=fuse_ln_attn, ln_lp=ln_lp, **widths,
-                            **model_kwargs)
+        model = _build_for(example, task, embedder, layers, t_layers, hidden,
+                           entry_device(device), fuse_ln_attn, ln_lp,
+                           model_kwargs)
         load_reference_state_dict(model, load_torch_state_dict(state_dict_path),
                                   strict=strict)
         return cls(model, batch_size=batch_size, clamp=(task == "edos"))
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        checkpoint_dir: str,
+        task: str,
+        example: GraphSample,
+        embedder: str = "DOSTransformer",
+        layers: int = 3,
+        t_layers: int = 2,
+        hidden: int = 256,
+        batch_size: int = 8,
+        device="cuda",
+        prefer: str = "best",
+        fuse_ln_attn: bool = False,
+        ln_lp: bool = False,
+        **model_kwargs,
+    ) -> "Predictor":
+        """Serve a training run's checkpoint (train/checkpoint.py layout).
+        ``prefer="best"`` (the default) serves the best-validation model
+        kept under ``<dir>/best``, the model the run's reported test
+        metrics describe, falling back to the latest cadence checkpoint
+        where no best was saved; ``prefer="latest"`` serves the newest
+        cadence checkpoint. The other arguments are
+        :meth:`from_torch`'s."""
+        from dostransformer_tpu_torch.train.checkpoint import (
+            CheckpointManager,
+            best_dir,
+        )
+
+        if prefer not in ("best", "latest"):
+            raise ValueError(f"prefer must be 'best' or 'latest', "
+                             f"got {prefer!r}")
+        model = _build_for(example, task, embedder, layers, t_layers, hidden,
+                           entry_device(device), fuse_ln_attn, ln_lp,
+                           model_kwargs)
+        dirs = [checkpoint_dir]
+        if prefer == "best":
+            dirs.insert(0, best_dir(checkpoint_dir))
+        for d in dirs:
+            if os.path.isdir(d) and CheckpointManager(d).restore(model):
+                return cls(model, batch_size=batch_size,
+                           clamp=(task == "edos"))
+        raise FileNotFoundError(f"no checkpoint found under {checkpoint_dir}")
 
     @torch.inference_mode()
     def _forward(self, samples: List[GraphSample]) -> torch.Tensor:

@@ -2,7 +2,9 @@
 
 A copy of dostransformer_tpu/train/early_stop.py (which imports nothing of
 jax, but its package does): the reference's three-branch best tracking and
-plateau early stop (main_eDOS.py:133-175).
+plateau early stop (main_eDOS.py:133-175), and the tracker as the plain
+dict a checkpoint keeps (the fields of the JAX checkpoint's meta,
+dostransformer_tpu/train/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -51,3 +53,21 @@ class BestTracker:
             if self.best_losses[-1] == self.best_losses[-int(self.es / 5)]:
                 return True
         return False
+
+    def to_dict(self) -> dict:
+        """The tracker as plain Python values, the JAX checkpoint meta's
+        ``tracker`` fields."""
+        return {"es": self.es, "eval_every": self.eval_every,
+                "best_rmse": self.best_rmse, "best_mae": self.best_mae,
+                "best_epoch": self.best_epoch,
+                "best_losses": list(map(float, self.best_losses)),
+                "test_metrics": (dict(self.test_metrics)
+                                 if self.test_metrics is not None else None)}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "BestTracker":
+        return cls(es=d["es"], eval_every=d["eval_every"],
+                   best_rmse=d["best_rmse"], best_mae=d["best_mae"],
+                   best_epoch=d["best_epoch"],
+                   best_losses=list(d["best_losses"]),
+                   test_metrics=d.get("test_metrics"))

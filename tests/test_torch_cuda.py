@@ -191,7 +191,7 @@ def test_fused_mp_edge_hidden_1024(dev):
     """M = 2,048, H = 1,024 (--hidden 1024): the forward runs (its 16 x 64
     tile fits); the backward takes the tensor-core form in a cluster of four
     blocks (201,024 bytes a block) and matches its plain version, bit for
-    bit on a rerun; the generic form fits too (229,472 bytes) and agrees."""
+    bit on a rerun; the generic form (35,040 bytes at every width) agrees."""
     shape = (2, 6, 40, 2048, 1024)
     args = _mp_args(dev, *shape)
     e_out, agg = fused_mp_edge(*args)
@@ -206,7 +206,7 @@ def test_fused_mp_edge_hidden_1024(dev):
     assert lib.dostpu_fused_mp_edge_bwd_smem_bytes(2, 40, 2048, 1024,
                                                    -1) == 201024
     assert lib.dostpu_fused_mp_edge_bwd_smem_bytes(2, 40, 2048, 1024,
-                                                   0) == 229472
+                                                   0) == 35040
     want = mp_edge_bwd_reference(*args[:10], *cot)
     for form in (FORM_TENSOR_CORE, FORM_GENERIC):
         got = fused_mp_edge_bwd(*args[:10], *cot, form=form)
@@ -214,6 +214,36 @@ def test_fused_mp_edge_hidden_1024(dev):
             _close_scaled(x, w, 1e-5 if i < 3 else 1e-4)
         again = fused_mp_edge_bwd(*args[:10], *cot, form=form)
         assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("hidden", [1040, 1050, 2080])
+def test_fused_mp_at_the_widths_the_generic_forms_repaired(dev, hidden):
+    """M = 2H at hidden 1,040, 1,050 and 2,080, where no block of the first
+    generic designs fit (and no tensor-core block does): both kernels take
+    the generic forms (36,032 and 35,040 bytes a block at every width),
+    match their plain versions (1e-5; 1e-4 parameter gradients) and repeat
+    their bits on a second run."""
+    b, a, e, m, h = 2, 6, 40, 2 * hidden, hidden
+    assert fused_mp_form(m, h) == fused_mp_bwd_form(m, h) == FORM_GENERIC
+    lib = kernels.library()
+    assert lib.dostpu_fused_mp_edge_smem_bytes(b, e, m, h, -1) == 36032
+    assert lib.dostpu_fused_mp_edge_bwd_smem_bytes(b, e, m, h, -1) == 35040
+    args = _mp_args(dev, b, a, e, m, h)
+    args[5][-1] = 0.0  # a dummy graph: every edge is padding
+    got = fused_mp_edge(*args)
+    for x, w in zip(got, mp_edge_reference(*args)):
+        _close_scaled(x, w, 1e-5)
+    again = fused_mp_edge(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    g = torch.Generator().manual_seed(7)
+    cot = (torch.randn(b, e, h, generator=g).to(dev),
+           torch.randn(b, a, h, generator=g).to(dev))
+    got = fused_mp_edge_bwd(*args[:10], *cot)
+    want = mp_edge_bwd_reference(*args[:10], *cot)
+    for i, (x, w) in enumerate(zip(got, want)):
+        _close_scaled(x, w, 1e-5 if i < 3 else 1e-4)
+    again = fused_mp_edge_bwd(*args[:10], *cot)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 def test_fused_mp_edge_rejects_wrong_dtype(dev):
@@ -777,3 +807,66 @@ def test_attention_kernels_keep_their_bits(dev):
     """Additions to the shared header changed nothing in kernels #3 and #4:
     the same bits as before them, and the same on a second run."""
     assert _attention_bits(dev) == ATTENTION_BITS
+
+
+def _small_models(task, dev, **kw):
+    from dostransformer_tpu_torch.models.registry import build_model
+
+    return build_model(task, layers=2, t_layers=1, hidden=32, device=dev,
+                       generator=torch.Generator().manual_seed(4), **kw)
+
+
+def _small_batch(task, n=3):
+    from dostransformer_tpu_torch.data.graph import collate
+    from dostransformer_tpu_torch.data.synthetic import (
+        synthetic_edos_learnable,
+        synthetic_phdos_learnable,
+    )
+
+    make = (synthetic_edos_learnable if task == "edos"
+            else synthetic_phdos_learnable)
+    return collate(make(n, seed=2), num_graphs=n + 1)
+
+
+@pytest.mark.parametrize("task", ["edos", "phdos"])
+def test_remat_through_the_kernels_gives_the_same_gradients(dev, task):
+    """--remat on the card: each processor and transformer layer runs again
+    in the backward through the same kernels, which repeat their bits, so
+    every gradient equals the one without remat; the recomputation adds one
+    fused_mp_edge launch a processor and one fused_attention a layer (and
+    one batched_segment_sum a processor for phDOS)."""
+    batch = _small_batch(task).to(dev)
+    grads, launches = [], []
+    for remat in (False, True):
+        model = _small_models(task, dev, remat=remat)
+        counters = (fused_mp_edge, fused_attention, batched_segment_sum)
+        before = [k.launches for k in counters]
+        dg, _, ds = model(batch)
+        (dg.square().sum() + ds.sum()).backward()
+        launches.append([k.launches - b for k, b in zip(counters, before)])
+        grads.append([p.grad for p in model.parameters()])
+    assert all(torch.equal(x, y) for x, y in zip(*grads))
+    extra = [r - n for n, r in zip(*launches)]
+    assert extra == [2, 3 * 1, 2 if task == "phdos" else 0]
+
+
+def test_device_dataset_epoch_on_the_card_matches_the_cpu(dev):
+    """One epoch of Trainer.train_epoch_device on the card and on the CPU
+    from one seeded model, in the same order: the step losses within rtol
+    1e-3 (the card-against-CPU limit of the train steps)."""
+    from dostransformer_tpu_torch.data.synthetic import (
+        synthetic_phdos_learnable,
+    )
+    from dostransformer_tpu_torch.train.device_dataset import DeviceDataset
+    from dostransformer_tpu_torch.train.trainer import Trainer
+
+    samples = synthetic_phdos_learnable(10, seed=3)
+    losses = []
+    for device in ("cpu", dev):
+        data = DeviceDataset.from_samples(samples, 4, device=device)
+        trainer = Trainer(_small_models("phdos", device),
+                          clamp_targets=False, eval_clamp=False)
+        losses.append(trainer.train_epoch_device(data, seed=1, epoch=0)
+                      .cpu())
+    assert losses[0].shape == (3,)
+    torch.testing.assert_close(losses[1], losses[0], rtol=1e-3, atol=0)

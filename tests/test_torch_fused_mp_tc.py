@@ -305,12 +305,114 @@ def test_emulated_backward_with_an_index_out_of_range():
         assert_close(g, w, name, RTOL if i < 3 else PARAM_RTOL)
 
 
+def seq_matmul(a, b):
+    """a [n, K] @ b [K, m] with one product added at a time in K order: the
+    order of the generic forms' FMA loops (a single running sum per output
+    across the staged chunks)."""
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for k in range(a.shape[1]):
+        acc = acc + a[:, k:k + 1] * b[k:k + 1]
+    return acc
+
+
+def emulated_generic_forward(sp, dp, ep, senders, receivers, mask, ln_scale,
+                             ln_bias, alpha, w1, b1):
+    """csrc/fused_mp.cu edge_kernel: each row's statistics from mid, each
+    32-column chunk of act formed anew from them (the same values as a kept
+    row), e_out as one running sum over M; agg as the forward's agg."""
+    b, e = senders.shape
+    a, h = sp.shape[1], w1.shape[0]
+    _, _, _, act = recompute(sp, dp, ep, senders, receivers, ln_scale,
+                             ln_bias, alpha)
+    e_out = seq_matmul(act, w1.T) + b1
+    agg = scatter_rows(e_out * mask.reshape(-1, 1), receivers, a)
+    return e_out.reshape(b, e, h), agg
+
+
+def emulated_generic_backward(sp, dp, ep, senders, receivers, mask, ln_scale,
+                              ln_bias, alpha, w1, g_eout, g_agg):
+    """csrc/fused_mp_bwd.cu, generic form: pass A per (graph, 16 edges):
+    g_act = g_e @ W1 as one running sum over H (g_e in [16 x 32] chunks
+    beside W1's), PReLU and LayerNorm backward per row, the block's partial
+    sums of the LN, b1 and alpha gradients; the partials added in block
+    order (graph-major); g_W1 as split-K partials of at most 768 edges
+    (one running sum over the edges of a split), added in split order."""
+    b, e = senders.shape
+    a, m = sp.shape[1], sp.shape[2]
+    n = b * e
+    xhat, rstd, norm, act = recompute(sp, dp, ep, senders, receivers,
+                                      ln_scale, ln_bias, alpha)
+    g_e = (g_eout.reshape(n, -1)
+           + mask.reshape(n, 1) * flat_rows(g_agg, receivers, a))
+    g_act = seq_matmul(g_e, w1)
+    pos = norm > 0
+    g_norm = torch.where(pos, g_act, alpha * g_act)
+    gx = g_norm * ln_scale
+    g_mid = rstd * (gx - gx.mean(-1, keepdim=True)
+                    - xhat * (gx * xhat).mean(-1, keepdim=True))
+    blocks = [(g * e + e0, g * e + min(e, e0 + 16))
+              for g in range(b) for e0 in range(0, e, 16)]
+
+    def by_block(rows):
+        total = torch.zeros(rows.shape[1:])
+        for lo, hi in blocks:
+            total = total + rows[lo:hi].sum(0)
+        return total
+
+    splits = min(64, max(1, -(-n // 768)))
+    chunk = -(-n // splits)
+    g_w1 = torch.zeros_like(w1)
+    for s0 in range(0, n, chunk):
+        g_w1 = g_w1 + seq_matmul(g_e[s0:s0 + chunk].T, act[s0:s0 + chunk])
+    g_alpha = by_block(torch.where(pos, 0.0, g_act * norm).sum(-1,
+                                                              keepdim=True))
+    return (scatter_rows(g_mid, senders, a), scatter_rows(g_mid, receivers, a),
+            g_mid.reshape(b, e, m), by_block(g_norm * xhat), by_block(g_norm),
+            g_alpha, g_w1, by_block(g_e))
+
+
+# the generic forms' shapes: widths no multiple of 32 (a hidden of 25 and
+# of 21), a ragged E, a batch of one
+GENERIC_SHAPES = [(3, 13, 70, 50, 25), (1, 16, 128, 42, 21),
+                  (2, 7, 45, 64, 32)]
+
+
+@pytest.mark.parametrize("shape", GENERIC_SHAPES,
+                         ids=["h25-ragged", "h21-b1", "h32-ragged"])
+def test_emulated_generic_forms_match_the_plain_version(shape):
+    """The generic forms' running sums (their shared memory no longer holds
+    a row of M or H) against the plain versions: 1e-5 tensors, 1e-4 the
+    parameter gradients."""
+    t = torch_args(inputs(shape, seed=8))
+    got = emulated_generic_forward(*t.values())
+    want = fused_mp.mp_edge_reference(**t)
+    for name, g, w in zip(("e_out", "agg"), got, want):
+        assert_close(g, w, name)
+    t.pop("b1")
+    cot = tuple(map(torch.from_numpy, cotangents(shape)))
+    got = emulated_generic_backward(*t.values(), *cot)
+    want = fused_mp.mp_edge_bwd_reference(**t, g_eout=cot[0], g_agg=cot[1])
+    for i, (name, g, w) in enumerate(zip(NAMES, got, want)):
+        assert_close(g, w, name, RTOL if i < 3 else PARAM_RTOL)
+
+
+def test_emulated_generic_backward_with_an_index_out_of_range():
+    shape = (3, 13, 70, 50, 25)
+    t = torch_args(inputs(shape, seed=5, bad_index=True))
+    t.pop("b1")
+    cot = tuple(map(torch.from_numpy, cotangents(shape)))
+    got = emulated_generic_backward(*t.values(), *cot)
+    want = plain_with_bad_indices(fused_mp.mp_edge_bwd_reference, t, *cot)
+    for i, (name, g, w) in enumerate(zip(NAMES, got, want)):
+        assert_close(g, w, name, RTOL if i < 3 else PARAM_RTOL)
+
+
 # widths -> the forward's form, the backward's: multiples of 32 take the
 # tensor cores where a block fits in shared memory (the forward up to
 # M = 3,072; the backward's block keeps xhat and g_act of its own M / cluster
 # columns, so at H = M / 2 every such width up to 1,024 and beyond, in a
-# cluster of 2 or 4 from M = 1,088), every other width the FMA kernels (the
-# backward's up to H = 1,039 at M = 2H, xhat in scratch)
+# cluster of 2 or 4 from M = 1,088), every other width the FMA kernels,
+# whose blocks take the same shared memory at every width
 @pytest.mark.parametrize("widths, forward, backward", [
     ((512, 256), "tc", "tc"), ((64, 32), "tc", "tc"), ((96, 160), "tc", "tc"),
     ((32, 32), "tc", "tc"), ((1024, 512), "tc", "tc"),
@@ -322,7 +424,10 @@ def test_emulated_backward_with_an_index_out_of_range():
     ((520, 256), "generic", "generic"), ((512, 24), "generic", "generic"),
     ((0, 32), "generic", "generic"), ((1248, 624), "generic", "generic"),
     ((1536, 768), "tc", "tc"), ((2000, 1000), "generic", "generic"),
-    ((1280, 640), "tc", "tc")])
+    ((1280, 640), "tc", "tc"), ((2080, 1040), "generic", "generic"),
+    ((2100, 1050), "generic", "generic"), ((4096, 2048), "generic", "generic"),
+    ((4160, 2080), "generic", "generic"), ((3136, 1568), "generic", "generic"),
+    ((8192, 4096), "generic", "generic")])
 def test_which_widths_take_which_form(widths, forward, backward):
     code = {"tc": fused_mp.FORM_TENSOR_CORE, "generic": fused_mp.FORM_GENERIC}
     assert fused_mp.fused_mp_form(*widths) == code[forward]
@@ -338,24 +443,63 @@ def test_which_widths_take_which_form(widths, forward, backward):
     ("tc", (512, 256), (2, 1, 2), 232064), ("tc", (512, 256), (1, 1, 4), 217408),
     ("tc", (2048, 1024), (1, 4, 4), 201024),
     ("tc", (2048, 1024), (1, 1, 2), 395584),
-    ("generic", (512, 256), None, 82016),
-    ("generic", (2048, 1024), None, 229472)])
+    ("generic", (512, 256), None, 35040),
+    ("generic", (2048, 1024), None, 35040)])
 def test_backward_shared_memory_mirrors(form, widths, shape, want):
+    """The generic pass A keeps no row of M or H floats: 35,040 B at every
+    width (csrc/fused_mp_bwd.cu)."""
     if form == "tc":
         assert fused_mp.bwd_tc_smem_bytes(*widths, *shape) == want
     else:
-        assert fused_mp.bwd_generic_smem_bytes(*widths) == want
+        assert fused_mp.bwd_generic_smem_bytes() == want
+
+
+def test_forward_generic_shared_memory_mirror():
+    """The forward's generic block: 36,032 B at every width
+    (csrc/fused_mp.cu)."""
+    assert fused_mp.fwd_generic_smem_bytes() == 36032
 
 
 def test_every_hidden_width_up_to_1024_has_a_backward_form():
-    """At M = 2H every H <= 1,039 fits a form (_check_smem refuses none);
-    H = 1,040, no multiple of 32, is the first that fits neither."""
-    for h in range(1, 1040):
+    """At M = 2H every H up to 1,040 fits a form (_check_smem refuses
+    none); H = 1,040, no multiple of 32, takes the generic form, whose
+    block no longer grows with the widths."""
+    for h in range(1, 1041):
         m = 2 * h
         if fused_mp.fused_mp_bwd_form(m, h) == fused_mp.FORM_GENERIC:
-            assert fused_mp.bwd_generic_smem_bytes(m, h) <= fused_mp.SMEM_MAX
+            assert fused_mp.bwd_generic_smem_bytes() <= fused_mp.SMEM_MAX
     assert fused_mp.fused_mp_bwd_form(2080, 1040) == fused_mp.FORM_GENERIC
-    assert fused_mp.bwd_generic_smem_bytes(2080, 1040) > fused_mp.SMEM_MAX
+
+
+def _fwd_tc_fits(m):
+    """The forward's smallest tensor-core tile: 16 rows of M + 4 floats and
+    two staged [64 x 68] chunks of W1."""
+    return 4 * (16 * (m + 4) + 2 * 64 * 68) <= fused_mp.SMEM_MAX
+
+
+@pytest.mark.parametrize("hidden", [range(1, 701), range(701, 1401),
+                                    range(1401, 2101), [4096]],
+                         ids=["1-700", "701-1400", "1401-2100", "4096"])
+def test_every_hidden_width_has_a_form_of_both_kernels_that_fits(hidden):
+    """At M = 2H every hidden width has a form of the forward (#1) and of
+    the backward (#2) whose block fits in shared memory, so _check_smem
+    refuses none: the tensor-core forms where they fit, else the generic
+    forms, the same size at every width."""
+    for h in hidden:
+        m = 2 * h
+        if fused_mp.fused_mp_form(m, h) == fused_mp.FORM_TENSOR_CORE:
+            assert _fwd_tc_fits(m), h
+        else:
+            assert fused_mp.fwd_generic_smem_bytes() <= fused_mp.SMEM_MAX
+        if fused_mp.fused_mp_bwd_form(m, h) == fused_mp.FORM_TENSOR_CORE:
+            assert any(fused_mp._bwd_tc_shapes(m, h)), h
+        else:
+            assert fused_mp.bwd_generic_smem_bytes() <= fused_mp.SMEM_MAX
+    # the widths the card tests take: 1,040 and 1,050 generic, 2,080 too
+    # (a multiple of 32 whose tensor-core block fits in no cluster shape)
+    for h in (1040, 1050, 2080):
+        if h in hidden:
+            assert fused_mp.fused_mp_bwd_form(2 * h, h) == fused_mp.FORM_GENERIC
 
 
 def test_a_forced_form_is_checked():

@@ -42,6 +42,11 @@ MODULES = [
     "dostransformer_tpu_torch.train.trainer",
     "dostransformer_tpu_torch.train.early_stop",
     "dostransformer_tpu_torch.train.logging",
+    "dostransformer_tpu_torch.train.checkpoint",
+    "dostransformer_tpu_torch.train.device_dataset",
+    "dostransformer_tpu_torch.train.preemption",
+    "dostransformer_tpu_torch.train.artifacts",
+    "dostransformer_tpu_torch.train.tensorboard",
     "dostransformer_tpu_torch.cli.common",
     "dostransformer_tpu_torch.cli.main_predict",
     "dostransformer_tpu_torch.cli.main_edos",

@@ -175,8 +175,7 @@ def test_init_is_seeded():
 
 
 @pytest.mark.parametrize("kwargs", [{"attn_drop": 0.1}, {"dtype": "bfloat16"},
-                                    {"bins_pad": 256}, {"tp_axis": "model"},
-                                    {"remat": True}])
+                                    {"bins_pad": 256}, {"tp_axis": "model"}])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model("edos", hidden=H, layers=1, t_layers=1, **kwargs)

@@ -422,7 +422,7 @@ def test_registry_builds_phdos_and_unported_options_raise():
         m = build_model("phdos", name, layers=1, t_layers=1, hidden=H)
         assert isinstance(m, DOSTransformerPhDOS) and m.n_bins == 51
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("phdos", hidden=H, layers=1, t_layers=1, remat=True)
+        build_model("phdos", hidden=H, layers=1, t_layers=1, tp_axis="model")
 
 
 # --- host data ----------------------------------------------------------

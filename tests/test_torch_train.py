@@ -153,10 +153,12 @@ def test_adamw_three_steps_match_make_adamw():
                                    rtol=1e-6, atol=0, err_msg=k)
 
 
-@pytest.mark.parametrize("kwargs", [{"grad_clip": 1.0}, {"warmup_steps": 5},
-                                    {"cosine_decay_steps": 9}])
+@pytest.mark.parametrize("kwargs", [{"grad_clip": -1.0}, {"warmup_steps": -5},
+                                    {"cosine_decay_steps": -9}])
 def test_make_adamw_extensions_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The extensions are ported (tests/test_torch_runtime.py holds them to
+    the JAX make_adamw); a negative horizon or norm raises, naming it."""
+    with pytest.raises(ValueError, match=next(iter(kwargs))):
         optim.make_adamw([torch.nn.Parameter(torch.zeros(2))], **kwargs)
 
 
@@ -310,13 +312,10 @@ def test_main_edos_trains_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--data_parallel"], ["--tensor_parallel", "2"],
-    ["--checkpoint_dir", "ck"], ["--export_preds", "p.npz"],
-    ["--profile_dir", "prof"], ["--x64"], ["--remat"],
-    ["--compile_cache", "cc"], ["--tensorboard", "tb"], ["--pad_bins", "256"],
-    ["--bf16_data"], ["--bucketed"], ["--grad_clip", "1.0"],
-    ["--warmup_epochs", "2"], ["--cosine_lr"], ["--dtype", "bfloat16"],
-    ["--attn_drop", "0.1"], ["--use_pallas"], ["--no_pallas"]])
+    ["--data_parallel"], ["--tensor_parallel", "2"], ["--x64"],
+    ["--compile_cache", "cc"], ["--pad_bins", "256"],
+    ["--dtype", "bfloat16"], ["--attn_drop", "0.1"], ["--use_pallas"],
+    ["--no_pallas"]])
 def test_main_edos_rejects_unported_flags(flags, capsys):
     with pytest.raises(SystemExit):
         main_edos.main(["--synthetic", "8", *flags])
