@@ -135,6 +135,29 @@ datasets, remat, clipping and schedules, artifacts, TensorBoard):
      eDOS and phDOS at batch 8, four readings each taken in turns in one
      process (a record, not a claim).
 
+The baselines and the data layer:
+
+  25. the eight baseline families (graphnetwork, graphnetwork2, mlp, mlp2 of
+     eDOS and phDOS) at hidden 256, 3 processors where the family has them,
+     batch 8, f32: the forward card against CPU (atol 1e-3 + rtol 1e-3), 3
+     train steps card against CPU (first-step gradients atol 1e-3 + rtol
+     1e-3, losses rtol 1e-3), the launches of every step exact (eDOS
+     graphnetwork* 3 fused_mp_edge + 3 fused_mp_edge_bwd; phDOS
+     graphnetwork* also 3 batched_segment_sum; mlp* none; no attention),
+     training samples/s of each as a record; then cli.main_edos and
+     cli.main_phdos --embedder graphnetwork (2 epochs, exact launches per
+     step and eval batch) and cli.main_predict --embedder mlp2 (96 eDOS
+     samples, no launch, against the CPU);
+  26. 256 Materials-Project-shaped records (CIF strings, 4-24 atoms, some
+     with symmetry operations) from a seed, featurised by
+     ``python -m dostransformer_tpu_torch.data.featurize_edos`` serially,
+     with --workers 4 and with DOSTPU_NO_NATIVE=1 (equal arrays, every
+     record converted); cli.main_edos --dataset whole --data_dir trains the
+     eDOS flagship 2 epochs on the card from them (exact launches); the
+     same crystals as a phononDoS data.csv through featurize_phdos serially
+     and with --workers 4 (equal arrays); the featurisers' rates, host
+     numbers, beside the host's CPU count.
+
 The LayerNorm levers of the transformer layer (off by default; the paths
 above must launch neither of their kernels):
 
@@ -213,7 +236,7 @@ with its mask-to-bias ops) and ``resources``, for the LN-fused forward
 ``unfused_ms``, ``ms_bf16``, ``ms_other_aliasing`` and ``resources``, for
 the LayerNorm backward ``ms_by_rows``, ``ms_raw_form_by_rows`` (x with mean
 and rstd), ``library_ms_by_rows`` and ``resources``, and
-``launches_by_path``, the launches on each of the seventeen paths driven
+``launches_by_path``, the launches on each of the twenty-one paths driven
 (each with the counts set to 0 just before and read just after). ``launches`` is
 the count on the phDOS training path with both levers on, the only path
 that launches six of the seven kernels; for fused_attention, which that path
@@ -263,7 +286,10 @@ from dostransformer_tpu_torch.data.synthetic import (  # noqa: E402
     synthetic_phdos_learnable,
     synthetic_phdos_samples,
 )
-from dostransformer_tpu_torch.models.registry import build_model  # noqa: E402
+from dostransformer_tpu_torch.models.registry import (  # noqa: E402
+    build_model,
+    model_outputs,
+)
 from dostransformer_tpu_torch.nn.layernorm import (  # noqa: E402
     layer_norm_bwd,
     ln_bwd_plan,
@@ -320,6 +346,10 @@ MODEL_ATOL = MODEL_RTOL = 1e-3
 # atol 1e-3 + rtol 1e-3 (as the forward), per-step losses within rtol 1e-3
 GRAD_ATOL = GRAD_RTOL = 1e-3
 LOSS_RTOL = 1e-3
+# the baselines' first-step gradients, card vs CPU, per tensor: max abs error
+# <= BASELINE_GRAD_REL * max(1, the CPU gradient's max abs), a limit that
+# scales with each tensor (worst reading at hidden 256: 2.1e-6, 50x under)
+BASELINE_GRAD_REL = 1e-4
 # the phDOS flagship (main_phdos defaults but the batch): 51 bins
 PH_BINS = 51
 KERNELS = (fused_mp_edge, fused_attention, fused_mp_edge_bwd,
@@ -1015,11 +1045,12 @@ def run_counted(cli, argv, env=None):
 
 
 def check_training_run(label, result, per_call, want_train, n_steps, log,
-                       workdir, epochs, hidden=HIDDEN, want_eval=None):
+                       workdir, epochs, hidden=HIDDEN, want_eval=None,
+                       embedder="DOSTransformer"):
     """Launches per train step (want_train) and per eval batch (want_eval;
     by default the train step's forward, no backward), the step count,
-    finite epoch losses, test metrics and the experiments block. Returns
-    the epoch losses."""
+    finite epoch losses, test metrics and the experiments block
+    (experiments_{embedder}.txt). Returns the epoch losses."""
     print(f"\n{label}: {len(per_call['train'])} train steps, "
           f"{len(per_call['eval'])} eval batches")
     if want_eval is None:
@@ -1040,7 +1071,7 @@ def check_training_run(label, result, per_call, want_train, n_steps, log,
     check(result["test"] is not None
           and all(math.isfinite(v) for v in result["test"].values()),
           f"{label}: test metrics {result['test']}")
-    with open(os.path.join(workdir, "experiments_DOSTransformer.txt")) as f:
+    with open(os.path.join(workdir, f"experiments_{embedder}.txt")) as f:
         block = f.read()
     check("best RMSE : " in block and f"hidden({hidden})" in block,
           f"{label}: experiments block: {block!r}")
@@ -2364,6 +2395,337 @@ def phase_pipeline_rates():
     return rates
 
 
+# --- the baselines (queue 1 item 7) ----------------------------------------
+
+BASELINES = ("graphnetwork", "graphnetwork2", "mlp", "mlp2")
+
+
+def baseline_step_launches(task: str, name: str) -> dict:
+    """Kernel launches of a baseline's train step: graphnetwork* one
+    fused_mp_edge and one fused_mp_edge_bwd a processor (phDOS also one
+    batched_segment_sum, its scatter-mean's edge count) and no attention;
+    mlp* no kernel at all (no message passing, as in the JAX package)."""
+    if not name.startswith("graphnetwork"):
+        return launch_counts()
+    return launch_counts(fused_mp_edge=LAYERS, fused_mp_edge_bwd=LAYERS,
+                         batched_segment_sum=LAYERS if task == "phdos" else 0)
+
+
+def phase_baselines():
+    """25: each of the eight baseline families at hidden 256 (3 processors
+    where the family has them, batch 8, f32), one seeded model on the card
+    and on the CPU: the forward of 3 batches (the last short, with dummy
+    graphs) within MODEL_ATOL + MODEL_RTOL; 3 Trainer.train_steps with each
+    first-step gradient within BASELINE_GRAD_REL x max(1, its max abs) and
+    every loss within LOSS_RTOL; the launches of every card train step exact
+    (baseline_step_launches); then the training samples/s (10 steps at batch
+    8 after 2 warm ones, host collation and upload included), a record.
+    Returns {"task/name": samples/s}."""
+    rates = {}
+    for task in ("edos", "phdos"):
+        learnable = (synthetic_edos_learnable if task == "edos"
+                     else synthetic_phdos_learnable)
+        clamp = task == "edos"
+        batches = list(GraphLoader(learnable(21, seed=5), BATCH))
+        rate_batches = list(GraphLoader(learnable(96, seed=0), BATCH))
+        for name in BASELINES:
+            label = f"{task} {name}"
+            cpu_model = build_model(task, name, layers=LAYERS, hidden=HIDDEN,
+                                    generator=torch.Generator().manual_seed(1))
+            gpu_model = copy.deepcopy(cpu_model).to("cuda")
+            worst = 0.0
+            with torch.no_grad():
+                for batch in batches:
+                    want = model_outputs(cpu_model(batch))[0]
+                    got = model_outputs(gpu_model(batch.to("cuda")))[0].cpu()
+                    worst = max(worst, (got - want).abs().max().item())
+                    check(torch.allclose(got, want, atol=MODEL_ATOL,
+                                         rtol=MODEL_RTOL),
+                          f"{label}: card forward differs from the CPU by "
+                          f"{worst:.3e}")
+            cpu = Trainer(cpu_model, clamp_targets=clamp, eval_clamp=clamp)
+            gpu = Trainer(gpu_model, clamp_targets=clamp, eval_clamp=clamp)
+            want_step = baseline_step_launches(task, name)
+            losses, grad_err, grad_share = [], 0.0, 0.0
+            for step, batch in enumerate(batches):
+                lc = cpu.train_step(batch)["loss"].item()
+                before = read_launches()
+                lg = gpu.train_step(batch)["loss"].item()
+                got_step = {k: v - before[k]
+                            for k, v in read_launches().items()}
+                check(got_step == want_step,
+                      f"{label} step {step}: launches {got_step}, expected "
+                      f"{want_step}")
+                check(abs(lg - lc) <= LOSS_RTOL * abs(lc),
+                      f"{label} step {step}: card loss {lg} vs CPU {lc}")
+                losses.append((lg, lc))
+                if step:
+                    continue
+                for (pname, pc), pg in zip(cpu_model.named_parameters(),
+                                           gpu_model.parameters()):
+                    check((pc.grad is None) == (pg.grad is None),
+                          f"{label}: {pname} has a gradient on one device "
+                          f"only")
+                    if pc.grad is None:  # its output is read by nothing
+                        continue
+                    err = (pg.grad.cpu() - pc.grad).abs().max().item()
+                    limit = BASELINE_GRAD_REL * max(
+                        1.0, pc.grad.abs().max().item())
+                    grad_err = max(grad_err, err)
+                    grad_share = max(grad_share, err / limit)
+                    check(err <= limit,
+                          f"{label}: first-step gradient of {pname} "
+                          f"differs by {err:.3e} (limit {limit:.3e})")
+            for batch in rate_batches[:2]:  # warm
+                gpu.train_step(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(10):
+                gpu.train_step(rate_batches[i % len(rate_batches)])
+            torch.cuda.synchronize()
+            rates[f"{task}/{name}"] = 10 * BATCH / (time.perf_counter() - t0)
+            pairs = [(round(a, 7), round(b, 7)) for a, b in losses]
+            nonzero = {k: v for k, v in want_step.items() if v}
+            print(f"baseline {label}: forward card vs CPU max abs err "
+                  f"{worst:.3e}; first-step gradients {grad_err:.3e} (at most "
+                  f"{grad_share:.3f} of a tensor's limit); losses "
+                  f"(card, CPU) {pairs}; launches a step {nonzero}; "
+                  f"{rates[f'{task}/{name}']:.1f} training samples/s")
+    return rates
+
+
+def phase_baseline_paths(workdir):
+    """25b: the baselines through the entry points on the card:
+    cli.main_edos and cli.main_phdos --embedder graphnetwork (96 learnable
+    samples, 2 epochs, batch 8, exact launches per train step and eval
+    batch, the experiments_graphnetwork.txt block), then cli.main_predict
+    --embedder mlp2 serving 96 eDOS samples (no kernel launched) against
+    the same weights served on the CPU. Returns {path: launches}."""
+    paths = {}
+    for task, cli in (("edos", main_edos), ("phdos", main_phdos)):
+        run_dir = os.path.join(workdir, f"{task}_graphnetwork")
+        os.makedirs(run_dir)
+        log = os.path.join(run_dir, "train.jsonl")
+        argv = ["--embedder", "graphnetwork", "--synthetic", "96",
+                "--synthetic_learnable", "--epochs", "2", "--eval", "1",
+                "--layers", str(LAYERS), "--hidden", str(HIDDEN),
+                "--batch_size", str(BATCH), "--device", "cuda",
+                "--results_dir", run_dir, "--log_jsonl", log]
+        result, per_call, launches = run_counted(cli, argv)
+        n_train = len(edos_random_split(range(96))[0])
+        check_training_run(f"{task} graphnetwork training path", result,
+                           per_call, baseline_step_launches(task,
+                                                            "graphnetwork"),
+                           2 * math.ceil(n_train / BATCH), log, run_dir, 2,
+                           embedder="graphnetwork")
+        print(f"{task} graphnetwork training path: launches {launches}")
+        paths[f"{task}_training_graphnetwork"] = launches
+
+    samples = synthetic_edos_samples(96, seed=0)
+    weights = os.path.join(workdir, "edos_mlp2.pt")
+    model = build_model("edos", "mlp2", hidden=HIDDEN,
+                        generator=torch.Generator().manual_seed(3))
+    torch.save(model.state_dict(), weights)
+    request = os.path.join(workdir, "request_mlp2.npz")
+    out = os.path.join(workdir, "preds_mlp2.npz")
+    save_samples(request, samples)
+    reset_launches()
+    main_predict.main(["--task", "edos", "--embedder", "mlp2",
+                       "--torch_state_dict", weights, "--input", request,
+                       "--output", out, "--hidden", str(HIDDEN),
+                       "--batch_size", str(BATCH), "--device", "cuda"])
+    launches = read_launches()
+    check(launches == launch_counts(), f"mlp2 serving launched {launches}")
+    with np.load(out) as z:
+        dos = z["dos"]
+    check_dos("mlp2 served", dos, len(samples))
+    cpu = Predictor.from_torch(weights, task="edos", example=samples[0],
+                               embedder="mlp2", hidden=HIDDEN,
+                               batch_size=BATCH, device="cpu")
+    ref = cpu.predict(samples)
+    err = float(np.abs(dos - ref).max())
+    print(f"main_predict --embedder mlp2: 96 samples, no kernel launched; "
+          f"card vs CPU max abs err {err:.3e} (atol {MODEL_ATOL} + rtol "
+          f"{MODEL_RTOL})")
+    check(np.allclose(dos, ref, atol=MODEL_ATOL, rtol=MODEL_RTOL),
+          f"mlp2 served on the card differs from the CPU by {err:.3e}")
+    paths["edos_serving_mlp2"] = launches
+    return paths
+
+
+# --- the data layer (queue 1 item 0) ---------------------------------------
+
+DATA_RECORDS = 256
+
+
+def featurize(module, args, env=None) -> float:
+    """``python -m module *args`` (with ``env`` added to the environment),
+    as a user runs a featuriser; returns the rate it reports (crystals or
+    records a second of its own work, on the host)."""
+    proc = subprocess.run([sys.executable, "-m", module, *args],
+                          env={**os.environ, **(env or {})},
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"{module} {' '.join(args)} failed:\n{proc.stderr[-3000:]}")
+    rate = re.search(r"\(([\d.]+) (?:crystals|records)/s on the host\)",
+                     proc.stdout)
+    check(rate is not None, f"{module}: no rate in {proc.stdout!r}")
+    return float(rate.group(1))
+
+
+def same_samples(a, b) -> bool:
+    """Every field of two lists of GraphSamples equal, bit for bit."""
+    import dataclasses
+
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            if isinstance(u, np.ndarray):
+                if not (isinstance(v, np.ndarray) and u.dtype == v.dtype
+                        and np.array_equal(u, v)):
+                    return False
+            elif u != v:
+                return False
+    return True
+
+
+def phase_data_layer(workdir):
+    """26: the data layer on the card's machine. 256 Materials-Project-shaped
+    records (CIF strings of 4-24 atoms, P1, P-1 and P2_1/c with their
+    symmetry operations) written as mp.pkl / dos.pkl from a seed, featurised
+    by ``python -m dostransformer_tpu_torch.data.featurize_edos`` serially,
+    with --workers 4 and with DOSTPU_NO_NATIVE=1: the three npz files must
+    hold equal arrays, every record converted. Then cli.main_edos --dataset
+    whole --data_dir trains the eDOS flagship 2 epochs on the card from
+    them (exact launch counts). The same crystals as a phononDoS data.csv
+    through featurize_phdos serially and with --workers 4: equal arrays.
+    The native library is built first, so no rate counts its build. Then
+    three paired readings of the serial featuriser in this process, native
+    against DOSTPU_NO_NATIVE=1 in turns (paired_featurizer_ratios). The
+    featurisers' rates are host numbers. Returns (the training run's
+    launches, {path: records or crystals/s})."""
+    import csv
+    import pickle
+    import platform
+
+    from dostransformer_tpu_torch.data.cif import parse_cif
+    from dostransformer_tpu_torch.data.io import load_samples
+    from dostransformer_tpu_torch.data.synthetic import synthetic_mp_records
+
+    # the one-time g++ build of the native library, before any rate is
+    # timed (a featuriser's first run would count it otherwise)
+    from dostransformer_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.library()
+    print(f"native library (g++ -O3) built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    mp_data, dos_data = synthetic_mp_records(DATA_RECORDS, seed=0)
+    pkl = [os.path.join(workdir, n) for n in ("mp.pkl", "dos.pkl")]
+    for path, obj in zip(pkl, (mp_data, dos_data)):
+        with open(path, "wb") as f:
+            pickle.dump(obj, f)
+    edos = "dostransformer_tpu_torch.data.featurize_edos"
+    runs = {"serial": ([], None), "--workers 4": (["--workers", "4"], None),
+            "DOSTPU_NO_NATIVE=1": ([], {"DOSTPU_NO_NATIVE": "1"})}
+    rates, outputs = {}, {}
+    for label, (extra, env) in runs.items():
+        out = os.path.join(workdir, f"edos_{len(outputs)}.npz")
+        rates[f"featurize_edos {label}"] = featurize(edos, [*pkl, out, *extra],
+                                                     env)
+        outputs[label] = load_samples(out)
+    serial = outputs["serial"]
+    check(len(serial) == DATA_RECORDS, f"featurize_edos converted "
+                                       f"{len(serial)} of {DATA_RECORDS}")
+    for label, samples in outputs.items():
+        check(same_samples(samples, serial),
+              f"featurize_edos {label}: arrays differ from the serial run")
+    atoms = [s.n_nodes - 1 for s in serial]
+    print(f"featurize_edos: {DATA_RECORDS} records, {min(atoms)}-{max(atoms)} "
+          f"atoms, equal arrays serial / --workers 4 / DOSTPU_NO_NATIVE=1")
+    ratios = paired_featurizer_ratios(mp_data, dos_data)
+
+    data_dir = os.path.join(workdir, "processed")
+    os.makedirs(data_dir)
+    os.replace(os.path.join(workdir, "edos_0.npz"),
+               os.path.join(data_dir, "dos_dataset_random.npz"))
+    log = os.path.join(workdir, "train.jsonl")
+    result, per_call, launches = run_counted(main_edos, [
+        "--dataset", "whole", "--data_dir", data_dir, "--epochs", "2",
+        "--eval", "1", "--layers", str(LAYERS), "--transformer",
+        str(T_LAYERS), "--hidden", str(HIDDEN), "--batch_size", str(BATCH),
+        "--device", "cuda", "--results_dir", workdir, "--log_jsonl", log])
+    n_train = len(edos_random_split(range(DATA_RECORDS))[0])
+    check_training_run("eDOS training from featurised records", result,
+                       per_call, step_launches("edos", False),
+                       2 * math.ceil(n_train / BATCH), log, workdir, 2)
+
+    csv_path = os.path.join(workdir, "data.csv")
+    rng = np.random.RandomState(1)
+    with open(csv_path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["mp_id", "structure", "phdos", "crystal_system"])
+        for mp_id, rec in mp_data.items():
+            d = parse_cif(rec["cif"])
+            structure = {"numbers": d["numbers"].tolist(),
+                         "positions": d["cart_coords"].tolist(),
+                         "cell": d["lattice"].tolist(),
+                         "pbc": [True, True, True]}
+            writer.writerow([mp_id, repr(structure),
+                             repr(np.abs(rng.randn(PH_BINS)).tolist()),
+                             rec["spacegroup"]["crystal_system"].capitalize()])
+    phdos = "dostransformer_tpu_torch.data.featurize_phdos"
+    ph = []
+    for label, extra in (("serial", []), ("--workers 4", ["--workers", "4"])):
+        out = os.path.join(workdir, f"phdos_{len(ph)}.npz")
+        rates[f"featurize_phdos {label}"] = featurize(phdos, [csv_path, out,
+                                                              *extra])
+        ph.append(load_samples(out))
+    check(len(ph[0]) == DATA_RECORDS and same_samples(ph[1], ph[0]),
+          "featurize_phdos --workers 4: arrays differ from the serial run")
+    host = (f"host: {os.cpu_count()} CPUs, {platform.machine()} "
+            f"{platform.processor() or '(processor not reported)'}")
+    print(f"featurizer rates ({host}): "
+          + ", ".join(f"{k} {v:.1f}/s" for k, v in rates.items())
+          + "; serial load_dataset native / DOSTPU_NO_NATIVE=1, "
+          + f"{len(ratios)} pairs in turns: "
+          + ", ".join(f"{r:.2f}x" for r in ratios))
+    return launches, rates
+
+
+def paired_featurizer_ratios(mp_data, dos_data, pairs: int = 3) -> list:
+    """The serial featuriser (load_dataset in this process, library built)
+    on the native neighbour search and on the NumPy one
+    (DOSTPU_NO_NATIVE=1), in turns, the order flipped each pair; returns
+    each pair's rate ratio native / NumPy (host numbers)."""
+    from dostransformer_tpu_torch.data.featurize_edos import load_dataset
+
+    ids = list(mp_data)
+    before = os.environ.pop("DOSTPU_NO_NATIVE", None)
+    try:
+        ratios = []
+        for k in range(pairs):
+            seconds = {}
+            for no_native in ((False, True) if k % 2 == 0 else (True, False)):
+                if no_native:
+                    os.environ["DOSTPU_NO_NATIVE"] = "1"
+                else:
+                    os.environ.pop("DOSTPU_NO_NATIVE", None)
+                t0 = time.perf_counter()
+                load_dataset(mp_data, dos_data, ids)
+                seconds[no_native] = time.perf_counter() - t0
+            ratios.append(seconds[True] / seconds[False])
+        return ratios
+    finally:
+        os.environ.pop("DOSTPU_NO_NATIVE", None)
+        if before is not None:
+            os.environ["DOSTPU_NO_NATIVE"] = before
+
+
+
 def spread(readings) -> str:
     """'median (least-most)' of a setting's samples/s readings."""
     return (f"{statistics.median(readings):.1f} ({min(readings):.1f}-"
@@ -2507,6 +2869,16 @@ def main():
         paths["phdos_training_remat"] = phase_runtime_flags(
             subdir("runtime_flags"))
 
+        # 25-26: the baselines, and the data layer from CIF records
+        rates = phase_baselines()
+        print(f"baseline training samples/s (hidden {HIDDEN}, batch {BATCH},"
+              f" f32, 10 steps, host collation and upload included): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+              + f" on {smi}")
+        paths.update(phase_baseline_paths(subdir("baselines")))
+        paths["edos_training_data"], rates = phase_data_layer(
+            subdir("data_layer"))
+
         # 13: serving with the LayerNorm fused into the attention forward
         for task, served in (("edos", edos_served), ("phdos", phdos_served)):
             paths[f"{task}_serving_fused"], rates = phase_fused_serving(
@@ -2572,9 +2944,12 @@ def main():
     # mode and lever setting reach
     for path, counts in paths.items():
         task, _, mode, variant = re.fullmatch(
-            r"(edos|phdos)(\d*)_(serving|training)"
-            r"(_levers|_fused|_host|_ckpt|_remat)?", path).groups()
-        want = step_launches(task, variant in ("_levers", "_fused"))
+            r"(edos|phdos)(\d*)_(serving|training)(_levers|_fused|_host|"
+            r"_ckpt|_remat|_data|_graphnetwork|_mlp2)?", path).groups()
+        if variant in ("_graphnetwork", "_mlp2"):
+            want = baseline_step_launches(task, variant[1:])
+        else:
+            want = step_launches(task, variant in ("_levers", "_fused"))
         if mode == "serving":
             want.update(dict.fromkeys(BACKWARD, 0))
         for name in sources:

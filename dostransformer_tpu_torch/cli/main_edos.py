@@ -13,8 +13,11 @@ Datasets:
                            {data_dir}/train_ood_{d}.npz + test_ood_{d}.npz;
                            valid/test = halves of the OOD test set
                            (main_eDOS.py:34-39).
-The npz files are those of the JAX package's featurizer
-(``python -m dostransformer_tpu.data.featurize_edos``).
+The npz files are written by the port's featuriser from Materials Project
+records (``python -m dostransformer_tpu_torch.data.featurize_edos mp.pkl
+dos.pkl {data_dir}/dos_dataset_random.npz``), or by the JAX package's, whose
+files are the same. ``--embedder`` picks the family: DOSTransformer (the
+default), graphnetwork, graphnetwork2, mlp or mlp2.
 """
 
 from __future__ import annotations
@@ -62,8 +65,10 @@ def main(argv=None):
     elif cfg.dataset == "whole":
         path = os.path.join(args.data_dir, "dos_dataset_random.npz")
         if not os.path.exists(path):
-            sys.exit(f"dataset not found: {path}; featurize with `python -m "
-                     f"dostransformer_tpu.data.featurize_edos` or use "
+            command = ("python -m dostransformer_tpu_torch.data."
+                       "featurize_edos mp.pkl dos.pkl")
+            sys.exit(f"dataset not found: {path}; featurize Materials "
+                     f"Project records with `{command} {path}` or use "
                      f"--synthetic N")
         train, valid, test = edos_random_split(load_samples(path),
                                                cfg.random_state)

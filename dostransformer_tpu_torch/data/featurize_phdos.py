@@ -15,10 +15,11 @@ with the card has no pandas), giving what ``pandas.read_csv`` gives for these
 columns: quoted fields, a row's position as its index, and an empty cell
 read as pandas' NaN ("nan"), so an empty ``crystal_system`` maps to id 6.
 Structures are ASE ``Atoms.todict()`` reprs, parsed with ``ast.literal_eval``.
-The JAX package's process pool (``--workers``) is not ported: featurising
-runs serially.
+``workers > 1`` (``--workers``) featurises on a process pool (data/pool.py)
+with the same samples, order and species as the serial path.
 
-    python -m dostransformer_tpu_torch.data.featurize_phdos data.csv out.npz
+    python -m dostransformer_tpu_torch.data.featurize_phdos data.csv out.npz \
+        [--workers 4]
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from dostransformer_tpu_torch.data.elements import (
     atomic_mass_features,
     one_hot_types,
 )
-from dostransformer_tpu_torch.data.graph import GraphSample
+from dostransformer_tpu_torch.data.sample import GraphSample
 from dostransformer_tpu_torch.data.neighbors import neighbor_list_pbc
 
 
@@ -92,7 +93,28 @@ def _cell(row: dict, column: str, default: str) -> str:
     return "nan" if value is None or value == "" else value
 
 
-def featurize_csv(path: str, r_max: float = 4.0
+# a worker's state, set by the pool's initializer (the serial path calls it
+# too, so both run the same code)
+_POOL_STATE: dict = {}
+
+
+def _phdos_pool_init(r_max):
+    _POOL_STATE["r_max"] = r_max
+
+
+def _phdos_pool_task(task):
+    """One CSV row -> (GraphSample, its sorted element symbols)."""
+    i, structure_str, phdos_str, crystal_system, mp_id = task
+    numbers, positions, cell, pbc = _atoms_from_dict(
+        ast.literal_eval(structure_str))
+    phdos = np.asarray(ast.literal_eval(phdos_str), np.float64)
+    sample = build_sample(
+        numbers, positions, cell, phdos, crystal_system=crystal_system,
+        mp_id=mp_id, sample_id=i, r_max=_POOL_STATE["r_max"], pbc=pbc)
+    return sample, sorted({SYMBOLS[z - 1] for z in numbers})
+
+
+def featurize_csv(path: str, r_max: float = 4.0, workers: int = 0
                   ) -> Tuple[List[GraphSample], List[List[str]]]:
     """data.csv -> (samples, species_per_sample).
 
@@ -100,24 +122,28 @@ def featurize_csv(path: str, r_max: float = 4.0
     ``phdos``, ``crystal_system`` and ``mp_id`` columns (reference
     utils.py:152-173; ``phfreq`` and ``pdos`` are not read).
     species_per_sample feeds :func:`~dostransformer_tpu_torch.data.datasets.
-    element_balanced_split`. A malformed row raises."""
-    samples, species = [], []
+    element_balanced_split`. A malformed row raises. ``workers > 1``
+    featurises on a spawn-context process pool."""
     with open(path, newline="") as f:
-        for i, row in enumerate(csv.DictReader(f)):
-            numbers, positions, cell, pbc = _atoms_from_dict(
-                ast.literal_eval(row["structure"]))
-            phdos = np.asarray(ast.literal_eval(row["phdos"]), np.float64)
-            samples.append(build_sample(
-                numbers, positions, cell, phdos,
-                crystal_system=_cell(row, "crystal_system", ""),
-                mp_id=_cell(row, "mp_id", str(i)), sample_id=i, r_max=r_max,
-                pbc=pbc))
-            species.append(sorted({SYMBOLS[z - 1] for z in numbers}))
-    return samples, species
+        tasks = [(i, row["structure"], row["phdos"],
+                  _cell(row, "crystal_system", ""),
+                  _cell(row, "mp_id", str(i)))
+                 for i, row in enumerate(csv.DictReader(f))]
+    if workers and workers > 1:
+        from dostransformer_tpu_torch.data.pool import host_pool
+
+        with host_pool(workers, initializer=_phdos_pool_init,
+                       initargs=(r_max,)) as pool:
+            results = pool.map(_phdos_pool_task, tasks, chunksize=16)
+    else:
+        _phdos_pool_init(r_max)
+        results = [_phdos_pool_task(t) for t in tasks]
+    return [s for s, _ in results], [sp for _, sp in results]
 
 
 def main(argv=None):
     import argparse
+    import time
 
     from dostransformer_tpu_torch.data.io import save_samples
 
@@ -125,10 +151,16 @@ def main(argv=None):
     p.add_argument("csv")
     p.add_argument("out", help="output .npz path")
     p.add_argument("--r_max", type=float, default=4.0)
+    p.add_argument("--workers", type=int, default=0,
+                   help="featuriser process-pool size (0/1 = serial)")
     args = p.parse_args(argv)
-    samples, _ = featurize_csv(args.csv, r_max=args.r_max)
+    t0 = time.perf_counter()
+    samples, _ = featurize_csv(args.csv, r_max=args.r_max,
+                               workers=args.workers)
+    seconds = time.perf_counter() - t0
     save_samples(args.out, samples)
-    print(f"featurized {len(samples)} crystals -> {args.out}")
+    print(f"featurized {len(samples)} crystals -> {args.out} "
+          f"({len(samples) / seconds:.1f} crystals/s on the host)")
 
 
 if __name__ == "__main__":

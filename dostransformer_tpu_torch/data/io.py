@@ -10,7 +10,7 @@ from typing import List
 
 import numpy as np
 
-from dostransformer_tpu_torch.data.graph import GraphSample
+from dostransformer_tpu_torch.data.sample import GraphSample
 
 _OPTIONAL_FIELDS = ("edge_attr", "edge_vec", "edge_shift", "z", "coords",
                     "glob", "y_raw")

@@ -2,7 +2,8 @@
 
 Counterpart of dostransformer_tpu/data/synthetic.py: the same numpy
 RandomState draws in the same order, so a seed gives the same arrays in both
-packages.
+packages. :func:`synthetic_mp_records` (the port's own) writes raw Materials
+Project records instead, CIF strings and all, for the featurisers.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from typing import List
 
 import numpy as np
 
+from dostransformer_tpu_torch.data.elements import SYMBOLS
 from dostransformer_tpu_torch.data.graph import GraphSample
 
 
@@ -141,3 +143,74 @@ def synthetic_phdos_learnable(n_samples: int, seed: int = 0,
         y = y.astype(np.float32)
         s.y = y / y.max()
     return samples
+
+
+# space groups of the synthetic CIFs: (crystal system, symmetry operations)
+_SPACE_GROUPS = (
+    ("triclinic", ("x, y, z",)),
+    ("triclinic", ("x, y, z", "-x, -y, -z")),
+    ("monoclinic", ("x, y, z", "-x, y+1/2, -z+1/2", "-x, -y, -z",
+                    "x, -y+1/2, z+1/2")),
+)
+
+
+def synthetic_mp_records(n_records: int, seed: int = 0, min_atoms: int = 4,
+                         max_atoms: int = 24, n_bins: int = 201):
+    """Materials-Project-shaped ``(mp_data, dos_data)`` dicts, as
+    data/create_store.py writes mp.pkl and dos.pkl: each record's structure
+    is a CIF string in pymatgen's CifWriter layout (P1, P-1 or P2_1/c; the
+    last two list their symmetry operations, whose images the reader
+    expands), with ``min_atoms`` to ``max_atoms`` atoms in the cell once
+    expanded; energies, band gap, crystal system, and total DOS curves of
+    ``n_bins`` bins with the Fermi level."""
+    rng = np.random.RandomState(seed)
+    mp_data, dos_data = {}, {}
+    for i in range(n_records):
+        system, ops = _SPACE_GROUPS[rng.randint(len(_SPACE_GROUPS))]
+        per_site = len(ops)
+        n_sites = int(rng.randint(-(-min_atoms // per_site),
+                                  max_atoms // per_site + 1))
+        a, b, c = rng.uniform(3.5, 7.0, 3)
+        if system == "triclinic":
+            alpha, beta, gamma = rng.uniform(80.0, 100.0, 3)
+        else:
+            alpha, beta, gamma = 90.0, rng.uniform(95.0, 110.0), 90.0
+        numbers = rng.randint(1, 84, n_sites)
+        # general positions: no site on a symmetry element, so each expands
+        # to len(ops) distinct atoms
+        frac = (rng.uniform(0.02, 0.48, (n_sites, 3))
+                + 0.5 * rng.randint(0, 2, (n_sites, 3)))
+        lines = [f"data_synthetic{i}",
+                 f"_symmetry_space_group_name_H-M   'synthetic {system}'"]
+        for tag, v in (("length_a", a), ("length_b", b), ("length_c", c),
+                       ("angle_alpha", alpha), ("angle_beta", beta),
+                       ("angle_gamma", gamma)):
+            lines.append(f"_cell_{tag}   {v:.8f}")
+        lines += ["loop_", " _symmetry_equiv_pos_site_id",
+                  " _symmetry_equiv_pos_as_xyz"]
+        lines += [f"  {k + 1}  '{op}'" for k, op in enumerate(ops)]
+        lines += ["loop_", " _atom_site_type_symbol", " _atom_site_label",
+                  " _atom_site_symmetry_multiplicity", " _atom_site_fract_x",
+                  " _atom_site_fract_y", " _atom_site_fract_z",
+                  " _atom_site_occupancy"]
+        for k, (z, f) in enumerate(zip(numbers, frac)):
+            sym = SYMBOLS[z - 1]
+            lines.append(f"  {sym}  {sym}{k}  {per_site}  {f[0]:.8f}  "
+                         f"{f[1]:.8f}  {f[2]:.8f}  1")
+        mp_id = f"mp-{100000 + i}"
+        mp_data[mp_id] = {
+            "material_id": mp_id,
+            "cif": "\n".join(lines) + "\n",
+            "energy_per_atom": float(rng.uniform(-9.0, -1.0)),
+            "formation_energy_per_atom": float(rng.uniform(-3.0, 0.5)),
+            "spacegroup": {"crystal_system": system},
+            "band_gap": float(abs(rng.randn())),
+        }
+        energies = np.linspace(-10.0, 10.0, n_bins)
+        dos = np.abs(rng.randn(n_bins)) + np.exp(-energies ** 2 / 8.0)
+        dos_data[mp_id] = {
+            "densities_total_1": dos,
+            "densities_total_1_ft": np.convolve(dos, np.ones(5) / 5, "same"),
+            "efermi": float(rng.uniform(-2.0, 2.0)),
+        }
+    return mp_data, dos_data

@@ -56,7 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dostransformer_tpu_torch.data.graph import GraphBatch
-from dostransformer_tpu_torch.nn.init import embedding_
+from dostransformer_tpu_torch.nn.init import init_parameters_, materialize_
 from dostransformer_tpu_torch.nn.modules import (
     GraphDecoderEDOS,
     GraphDecoderPhDOS,
@@ -66,10 +66,7 @@ from dostransformer_tpu_torch.nn.modules import (
     TorchLinear,
     run_message_passing,
 )
-from dostransformer_tpu_torch.nn.transformer import (
-    TransformerEncoder,
-    XavierLinear,
-)
+from dostransformer_tpu_torch.nn.transformer import TransformerEncoder
 from dostransformer_tpu_torch.ops.geometry import edge_geometry_phdos
 
 _LATER = "ROADMAP.md queue 1"
@@ -125,18 +122,11 @@ class _DOSTransformerBase(nn.Module):
             self.fc = TorchLinear(2 * hidden, hidden)
             self.fc_prompt = TorchLinear(2 * hidden + hidden // 2, hidden)
             self.out_layer = TorchLinear(hidden, 1)
-        self.to_empty(device=device if device is not None else "cpu")
-        self.reset_parameters(generator)
+        materialize_(self, device, generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Draw every parameter from ``generator`` in module order."""
-        for m in self.modules():
-            if isinstance(m, (TorchLinear, XavierLinear)):
-                m.reset_parameters(generator)
-            elif isinstance(m, nn.Embedding):
-                embedding_(m.weight, generator)
-            elif isinstance(m, (nn.LayerNorm, nn.PReLU)):
-                m.reset_parameters()
+        init_parameters_(self, generator)
 
     def _run(self, g: GraphBatch, x, edge_attr, readout):
         """Everything after the encoders: message passing, the

@@ -17,6 +17,11 @@ names, so the two packages can be run on identical weights:
   processor{i}                      stacked_processor.{i}
   *.edge_mlp.{lin0,ln,prelu,lin1}   *.edge_mlp.{0,1,2,3}
   GN_decoder.mlp                    GN_decoder.mlp.0
+  decoder (MLPPhDOS, top level)     GN_decoder.mlp.0
+  node_encoder, edge_encoder        GN_encoder.node_encoder, .edge_encoder
+    (MLPPhDOS, top level)
+  out0 / out1 (baselines)           out_layer.0 / out_layer.2 (index 1 is
+                                    the parameter-free LeakyReLU)
   transformer*.layer{i}             transformer*.layers.{i}
   *.ln0.ln / *.ln1                  *.layer_norms.0 / .1
   *.final_ln                        *.layer_norm
@@ -37,8 +42,9 @@ _MLP_BLOCK_SEQ = {"lin0": "0", "ln": "1", "prelu": "2", "lin1": "3"}
 _PROMPT = {"edos": "promt_token", "phdos": "prompt_token"}
 
 
-def _rename(key: str, siblings: set, task: str) -> List[str]:
-    """Port name components for one JAX tree key."""
+def _rename(key: str, siblings: set, task: str, top: bool) -> List[str]:
+    """Port name components for one JAX tree key (``top``: a key of the
+    model's own level)."""
     for seq in (_ENCODER_SEQ, _MLP_BLOCK_SEQ):
         if siblings == set(seq):
             return [seq[key]]
@@ -46,17 +52,23 @@ def _rename(key: str, siblings: set, task: str) -> List[str]:
                          ("layer", "layers")):
         if key.startswith(prefix) and key[len(prefix):].isdigit():
             return [name, key[len(prefix):]]
+    if top and key == "decoder":  # MLPPhDOS flattens the reference's Decoder
+        return ["GN_decoder", "mlp", "0"]
+    if top and key in ("node_encoder", "edge_encoder"):
+        return ["GN_encoder", key]  # and its Encoder
     return {"ln0": ["layer_norms", "0"], "ln1": ["layer_norms", "1"],
             "ln": [], "final_ln": ["layer_norm"], "mlp": ["mlp", "0"],
+            "out0": ["out_layer", "0"], "out1": ["out_layer", "2"],
             "prompt_token": [_PROMPT[task]]}.get(key, [key])
 
 
 def state_dict_from_jax(params: Mapping,
                         task: str = "edos") -> Dict[str, torch.Tensor]:
-    """The JAX package's params of a flagship of ``task`` ("edos" or
-    "phdos"), or of one of its modules (``{"params": tree}`` or the bare
-    tree, nested dicts of arrays), as the port's state_dict of CPU tensors.
-    ``task`` picks the prompt table's spelling."""
+    """The JAX package's params of a model of ``task`` ("edos" or
+    "phdos"; a flagship or a baseline), or of one of its modules
+    (``{"params": tree}`` or the bare tree, nested dicts of arrays), as the
+    port's state_dict of CPU tensors. ``task`` picks the prompt table's
+    spelling."""
     task = task.lower()
     if task not in _PROMPT:
         raise ValueError(f"unknown task {task!r}; expected one of "
@@ -85,19 +97,22 @@ def state_dict_from_jax(params: Mapping,
             put(name + ["weight"], node["alpha"])
         else:
             for k, child in node.items():
-                walk(child, name + _rename(k, keys, task))
+                walk(child, name + _rename(k, keys, task, node is tree))
 
     walk(tree, [])
     return out
 
 
-def _is_dead_reference_key(key: str) -> bool:
+def _is_dead_reference_key(key: str, has_decoder: bool = True) -> bool:
     """Reference parameters the forward never uses: the attention's
     in_proj/out_proj, NodeModel.node_mlp_1, the baselines'
-    node_encoder_prompt, the free ``alpha`` and fairseq's version buffer."""
+    node_encoder_prompt, the free ``alpha``, fairseq's version buffer, and
+    the Decoder of a model that never calls it (Graphnetwork2 builds one,
+    graphnetwork.py:56 vs its forward :63-74): ``has_decoder`` False."""
     return (".self_attn." in key or ".node_mlp_1." in key
             or "node_encoder_prompt." in key or key == "alpha"
-            or key == "version" or key.endswith(".version"))
+            or key == "version" or key.endswith(".version")
+            or (not has_decoder and key.startswith("GN_decoder.")))
 
 
 def load_reference_state_dict(model: torch.nn.Module,
@@ -109,9 +124,10 @@ def load_reference_state_dict(model: torch.nn.Module,
     (main_phDOS.py:14-16), the port runs float32. Returns load_state_dict's
     result."""
     own = model.state_dict()
+    has_decoder = any(k.startswith("GN_decoder.") for k in own)
     live = {}
     for k, v in state_dict.items():
-        if _is_dead_reference_key(k):
+        if _is_dead_reference_key(k, has_decoder):
             continue
         if k in own and v.is_floating_point():
             v = v.to(own[k].dtype)

@@ -17,6 +17,7 @@ import math
 from typing import Optional
 
 import torch
+from torch import nn
 
 
 def _uniform_(param: torch.Tensor, bound: float,
@@ -53,3 +54,26 @@ def embedding_(weight: torch.Tensor,
     """torch nn.Embedding default: N(0, 1)."""
     weight.copy_(torch.randn(weight.shape, dtype=weight.dtype,
                              generator=generator))
+
+
+def init_parameters_(module: nn.Module,
+                     generator: Optional[torch.Generator] = None) -> None:
+    """Draw every parameter of ``module`` from ``generator``, in module
+    order: each Linear by its own scheme (the port's TorchLinear and
+    XavierLinear take the generator), Embeddings N(0, 1), LayerNorm and
+    PReLU their defaults."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            m.reset_parameters(generator)
+        elif isinstance(m, nn.Embedding):
+            embedding_(m.weight, generator)
+        elif isinstance(m, (nn.LayerNorm, nn.PReLU)):
+            m.reset_parameters()
+
+
+def materialize_(module: nn.Module, device=None,
+                 generator: Optional[torch.Generator] = None) -> None:
+    """A module built on the meta device, placed on ``device`` (the CPU by
+    default) with every parameter drawn by :func:`init_parameters_`."""
+    module.to_empty(device=device if device is not None else "cpu")
+    init_parameters_(module, generator)

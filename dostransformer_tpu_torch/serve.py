@@ -40,6 +40,7 @@ from dostransformer_tpu_torch.models.import_torch import (
 from dostransformer_tpu_torch.models.registry import (
     build_model,
     entry_device,
+    system_dos,
 )
 
 
@@ -152,7 +153,7 @@ class Predictor:
         outs = []
         for start, batch in zip(range(0, len(samples), self.batch_size),
                                 GraphLoader(samples, self.batch_size)):
-            dos = self.model(batch.to(self.device))[2]  # the system head
+            dos = system_dos(self.model(batch.to(self.device)))
             if self.clamp:
                 dos = torch.clamp(dos, min=0.0)
             # collate puts the real samples first: drop the dummy rows

@@ -27,6 +27,7 @@ from typing import Iterable, Optional, Sequence
 import torch
 
 from dostransformer_tpu_torch.data.graph import GraphBatch
+from dostransformer_tpu_torch.models.registry import model_outputs, system_dos
 from dostransformer_tpu_torch.train.loss import dos_loss
 from dostransformer_tpu_torch.train.metrics import eval_metrics
 from dostransformer_tpu_torch.train.optim import AdamW, make_adamw
@@ -50,11 +51,12 @@ class Trainer:
     def train_step(self, batch: GraphBatch) -> dict:
         """One optimizer step. After it each parameter's ``.grad`` holds
         this step's gradient. Returns 0-d device tensors {"loss",
-        "rmse_global", "rmse_system"}."""
+        "rmse_global", "rmse_system"}; a single-head model is scored on its
+        one DOS, which both RMSEs then report."""
         batch = batch.to(self.device)
         self.model.train()
         self.optimizer.zero_grad()
-        dos_global, _, dos_system = self.model(batch)
+        dos_global, _, dos_system = model_outputs(self.model(batch))
         loss, parts = dos_loss(dos_global, dos_system, batch.y,
                                batch.graph_mask, self.beta,
                                self.clamp_targets)
@@ -65,15 +67,18 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch: GraphBatch) -> dict:
-        """Per-sample metrics of the system head (device tensors), plus
-        the graph embeddings (masked sum-pool of the node embeddings) and
-        the global head's predictions."""
+        """Per-sample metrics of the system head (device tensors; a
+        single-head model's of its one DOS), the global head's predictions,
+        and where the model returns node embeddings the graph embeddings
+        (their masked sum-pool)."""
         batch = batch.to(self.device)
         self.model.eval()
-        dos_global, x, dos_system = self.model(batch)
-        m = eval_metrics(dos_system, batch.y, clamp=self.eval_clamp,
+        out = self.model(batch)
+        dos_global, x, _ = model_outputs(out)
+        m = eval_metrics(system_dos(out), batch.y, clamp=self.eval_clamp,
                          graph_mask=batch.graph_mask)
-        m["embeddings"] = (x * batch.node_mask[..., None]).sum(1)
+        if x is not None:
+            m["embeddings"] = (x * batch.node_mask[..., None]).sum(1)
         m["preds_global"] = dos_global
         return m
 

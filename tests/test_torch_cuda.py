@@ -870,3 +870,51 @@ def test_device_dataset_epoch_on_the_card_matches_the_cpu(dev):
                       .cpu())
     assert losses[0].shape == (3,)
     torch.testing.assert_close(losses[1], losses[0], rtol=1e-3, atol=0)
+
+
+BASELINES = [(task, name) for task in ("edos", "phdos")
+             for name in ("graphnetwork", "graphnetwork2", "mlp", "mlp2")]
+
+
+@pytest.mark.parametrize("task,name", BASELINES,
+                         ids=[f"{t}-{n}" for t, n in BASELINES])
+def test_baseline_on_the_card_matches_the_cpu(dev, task, name):
+    """Each baseline family at hidden 48, one seeded model on the card and
+    on the CPU: the forward within atol 1e-3 + rtol 1e-3 and one train
+    step's loss within rtol 1e-3 and gradients within atol 1e-3 + rtol 1e-3
+    (the card-against-CPU limits of the flagships); graphnetwork* launch one
+    fused_mp_edge and one fused_mp_edge_bwd a processor (phDOS also one
+    batched_segment_sum), mlp* no kernel."""
+    import copy
+
+    from dostransformer_tpu_torch.models.registry import (
+        build_model,
+        model_outputs,
+    )
+    from dostransformer_tpu_torch.train.trainer import Trainer
+
+    batch = _small_batch(task)
+    cpu_model = build_model(task, name, layers=2, hidden=48,
+                            node_in=batch.nodes.shape[-1],
+                            generator=torch.Generator().manual_seed(4))
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    with torch.no_grad():
+        want = model_outputs(cpu_model(batch))[0]
+        got = model_outputs(gpu_model(batch.to(dev)))[0]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+    clamp = task == "edos"
+    counters = (fused_mp_edge, fused_mp_edge_bwd, batched_segment_sum,
+                fused_attention)
+    before = [k.launches for k in counters]
+    lg = Trainer(gpu_model, clamp_targets=clamp).train_step(batch)["loss"]
+    launches = [k.launches - b for k, b in zip(counters, before)]
+    lc = Trainer(cpu_model, clamp_targets=clamp).train_step(batch)["loss"]
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=0)
+    for (pname, pc), pg in zip(cpu_model.named_parameters(),
+                               gpu_model.parameters()):
+        assert (pc.grad is None) == (pg.grad is None), pname
+        if pc.grad is not None:
+            torch.testing.assert_close(pg.grad.cpu(), pc.grad, rtol=1e-3,
+                                       atol=1e-3, msg=pname)
+    gnn = name.startswith("graphnetwork")
+    assert launches == [2 * gnn, 2 * gnn, 2 * (gnn and task == "phdos"), 0]

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it (and its serving, training,
-featurising and CLI modules) pulls in neither jax, flax, pandas nor the JAX
-package, because the machine with the card has none of them."""
+featurising, native, offline-tool and CLI modules) pulls in neither jax,
+flax, pandas nor the JAX package, because the machine with the card has none
+of them."""
 
 import os
 import subprocess
@@ -16,12 +17,21 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "dostransformer_tpu_torch",
     "dostransformer_tpu_torch.data.graph",
+    "dostransformer_tpu_torch.data.sample",
     "dostransformer_tpu_torch.data.synthetic",
     "dostransformer_tpu_torch.data.io",
     "dostransformer_tpu_torch.data.datasets",
     "dostransformer_tpu_torch.data.elements",
     "dostransformer_tpu_torch.data.neighbors",
     "dostransformer_tpu_torch.data.featurize_phdos",
+    "dostransformer_tpu_torch.data.featurize_edos",
+    "dostransformer_tpu_torch.data.cif",
+    "dostransformer_tpu_torch.data.pool",
+    "dostransformer_tpu_torch.data.create_store",
+    "dostransformer_tpu_torch.data.convert_reference_pt",
+    "dostransformer_tpu_torch.data.split_viz",
+    "dostransformer_tpu_torch.native",
+    "dostransformer_tpu_torch.native.build",
     "dostransformer_tpu_torch.nn.init",
     "dostransformer_tpu_torch.nn.layernorm",
     "dostransformer_tpu_torch.nn.modules",
@@ -32,6 +42,9 @@ MODULES = [
     "dostransformer_tpu_torch.ops.attention",
     "dostransformer_tpu_torch.ops.geometry",
     "dostransformer_tpu_torch.models.dostransformer",
+    "dostransformer_tpu_torch.models.graphnetwork",
+    "dostransformer_tpu_torch.models.mlp",
+    "dostransformer_tpu_torch.models.phonon_baselines",
     "dostransformer_tpu_torch.models.registry",
     "dostransformer_tpu_torch.models.import_torch",
     "dostransformer_tpu_torch.serve",
@@ -72,6 +85,28 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", (
         f"the port imported {out.stdout.strip()}")
+
+
+def test_featurisers_import_without_torch():
+    """The featurisers' pool workers import their modules afresh: none of
+    them pulls in torch (seconds a worker) or the JAX package."""
+    probe = """
+import importlib, sys
+for name in ("dostransformer_tpu_torch.data.featurize_edos",
+             "dostransformer_tpu_torch.data.featurize_phdos",
+             "dostransformer_tpu_torch.data.pool",
+             "dostransformer_tpu_torch.data.io"):
+    importlib.import_module(name)
+print(",".join(sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("torch", "jax",
+                                             "dostransformer_tpu"))))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"imported {out.stdout.strip()}"
 
 
 def test_kernel_library_is_keyed_by_the_sources(tmp_path, monkeypatch):

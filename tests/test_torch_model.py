@@ -181,11 +181,18 @@ def test_unported_options_raise(kwargs):
         build_model("edos", hidden=H, layers=1, t_layers=1, **kwargs)
 
 
-@pytest.mark.parametrize("task,embedder", [("phdos", "graphnetwork"),
-                                           ("edos", "graphnetwork"),
-                                           ("phdos", "mlp2")])
-def test_registry_other_families_raise(task, embedder):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(task, embedder, hidden=H)
+@pytest.mark.parametrize("task,embedder", [
+    ("edos", "DOSTransformer"), ("edos", "graphnetwork"),
+    ("edos", "Graphnetwork2"), ("edos", "mlp"), ("edos", "MLP2"),
+    ("phdos", "DOSTransformer"), ("phdos", "DOSTransformer_phonon"),
+    ("phdos", "graphnetwork"), ("phdos", "graphnetwork2"), ("phdos", "mlp"),
+    ("phdos", "mlp2")])
+def test_registry_builds_every_family(task, embedder):
+    """Each of the JAX registry's 11 (task, embedder) names builds
+    (case-insensitively); an unknown name or task still raises."""
+    model = build_model(task, embedder, hidden=H, layers=1, t_layers=1)
+    assert sum(p.numel() for p in model.parameters()) > 0
     with pytest.raises(ValueError):
-        build_model("edos", "no_such_model")
+        build_model(task, "no_such_model")
+    with pytest.raises(ValueError):
+        build_model("no_such_task", embedder)
