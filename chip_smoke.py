@@ -117,6 +117,29 @@ Every width (the JAX package runs any hidden width; so does the card):
      shared memory at every width) against their plain versions, bit for
      bit on a rerun, timed beside their bounds.
 
+bf16 serving (a model with dtype="bfloat16": f32 parameters, bf16
+activations, f32 outputs):
+
+  27. the bf16 forms of #1 (both forms: eDOS, phDOS at B = 8 and 1, hidden
+     1,024 and 50), #3 (D = 256 at the eDOS and phDOS shapes, D = 50 and
+     1,024; its f32 row statistics too) and #6 (the phDOS count, E = 2,048
+     and N = 64 at F = 1 and 256) against their plain versions in bf16
+     (2^-7 of the largest value, exact counts), bit-identical on a second
+     run, each timed beside the f32 form on the same inputs, its bf16 bound
+     (#3's operations at the bf16 tensor-core peak) and the library call
+     (SDPA in bf16 for #3, zeros + index_add_ for #6);
+  28. the eDOS flagship (with and without fuse_ln_attn) and the phDOS
+     flagship served through Predictor.from_torch(..., dtype="bfloat16"):
+     the 96-sample request at batch 8 with the launches counted from 0
+     (exactly 3 #1, 6 #3 (or #5) and for phDOS 3 #6 a forward, no backward),
+     the short and mixed requests within 0.03 (relative RMS) of the CPU's
+     bf16 model and of its f32 model; samples/s bf16 against f32, four
+     readings each taken in turns in one process;
+  29. the h1024 eDOS flagship served in bf16: the same launch counts, five
+     samples against the CPU's bf16 model (0.03) and f32 model (0.06),
+     device time a forward at batch 8 (CUDA events) and samples/s, bf16
+     against f32 in turns.
+
 The training runtime (checkpoints, resume, best/, the device-resident
 datasets, remat, clipping and schedules, artifacts, TensorBoard):
 
@@ -365,7 +388,9 @@ ATTENTION_KERNELS = {"fused_attention": ("attn_fwd_kernel",
                                              "dkv_sliced_kernel")}
 # the sliced forms (D > 512), instantiated at 16 column groups
 SLICED_KERNELS = {
-    "attn_fwd_sliced_kernel": "attn_fwd_sliced_kernelILi16E",
+    "attn_fwd_sliced_kernel": "attn_fwd_sliced_kernelIfLi16E",
+    "attn_fwd_sliced_kernel<bf16>":
+        "attn_fwd_sliced_kernelI13__nv_bfloat16Li16E",
     "stats_sliced_kernel": "stats_sliced_kernelILi16E",
     "dq_sliced_kernel": "dq_sliced_kernelILi16E",
     "dkv_sliced_kernel": "dkv_sliced_kernelILi16E",
@@ -378,14 +403,21 @@ MP_EXTRAS = ("form", "tile", "smem_bytes", "ms_generic", "sub_kernels_ms")
 # the __global__ functions of the two message-passing sources whose
 # registers and stack phase 2 prints (template arguments as nvcc mangles them)
 MP_KERNELS = {
-    "edge_tc_kernel<1,2,4> 32x256": "edge_tc_kernelILi1ELi2ELi4E",
-    "edge_tc_kernel<1,1,1> 16x64": "edge_tc_kernelILi1ELi1ELi1E",
+    "edge_tc_kernel<1,2,4> 32x256": "edge_tc_kernelIfLi1ELi2ELi4E",
+    "edge_tc_kernel<1,1,1> 16x64": "edge_tc_kernelIfLi1ELi1ELi1E",
+    "edge_tc_kernel<bf16,1,2,4> 32x256":
+        "edge_tc_kernelI13__nv_bfloat16Li1ELi2ELi4E",
+    "edge_tc_kernel<bf16,1,1,1> 16x64":
+        "edge_tc_kernelI13__nv_bfloat16Li1ELi1ELi1E",
+    "edge_kernel<bf16>": "11edge_kernelI13__nv_bfloat16E",
     "edge_bwd_tc_kernel<1,4>": "edge_bwd_tc_kernelILi1ELi4E",
     "edge_bwd_tc_kernel<2,4>": "edge_bwd_tc_kernelILi2ELi4E",
     "edge_bwd_tc_kernel<1,2>": "edge_bwd_tc_kernelILi1ELi2E",
-    "gw1_tc_kernel": "gw1_tc_kernel", "edge_kernel": "11edge_kernel",
+    "gw1_tc_kernel": "gw1_tc_kernel", "edge_kernel": "11edge_kernelIfE",
     "edge_bwd_kernel": "15edge_bwd_kernel", "gw1_kernel": "10gw1_kernel",
-    "agg_kernel": "agg_kernel", "tail_kernel": "11tail_kernel"}
+    "agg_kernel": "10agg_kernelIfE",
+    "agg_kernel<bf16>": "10agg_kernelI13__nv_bfloat16E",
+    "tail_kernel": "11tail_kernel"}
 # bf16 operands of the LayerNorm backward: the kernel keeps g = dy * scale in
 # f32 where the plain version rounds it to bf16, so within 3% of the largest
 # value (the JAX package's bound for the same comparison)
@@ -483,11 +515,12 @@ def nbytes(*tensors) -> int:
 
 
 def compare(name, kernel_fn, plain_fn, rtols=None, repeat=False, work=None,
-            library_fn=None, floor=1.0):
+            library_fn=None, floor=1.0, flops_per_s=F32_FLOPS_PER_S):
     """Run kernel and plain version on the same inputs; each output must be
     within its rtol (default KERNEL_RTOL) x max(floor, max|plain|); with
     ``repeat`` a second kernel run must give the same bits. ``work`` is
-    (bytes moved, f32 operations) for these inputs; ``library_fn`` the one
+    (bytes moved, operations) for these inputs, the operations at
+    ``flops_per_s`` (f32 outside the tensor cores unless given); ``library_fn`` the one
     PyTorch call that computes the same function. Returns a dict: err, rel,
     ms, plain_ms, bytes_ms, ops_ms (the two lower bounds), library_ms."""
     got = kernel_fn()
@@ -520,7 +553,7 @@ def compare(name, kernel_fn, plain_fn, rtols=None, repeat=False, work=None,
            "library_ms": None}
     if work is not None:
         out["bytes_ms"] = work[0] / HBM_BYTES_PER_S * 1e3
-        out["ops_ms"] = work[1] / F32_FLOPS_PER_S * 1e3
+        out["ops_ms"] = work[1] / flops_per_s * 1e3
     if library_fn is not None:
         out["library_ms"] = median_ms(library_fn)
     lib = ("" if library_fn is None
@@ -2732,6 +2765,351 @@ def spread(readings) -> str:
             f"{max(readings):.1f})")
 
 
+# --- bf16 serving (27-29) ------------------------------------------------
+
+# bf16 forms of #1, #3 and #6 against their plain versions on the card: both
+# compute in f32 from the same bf16 inputs (to ~1e-6, summation order) and
+# round at the same points (#3: the normalised softmax weights, then the
+# output), so at most one bf16 ulp (2^-8 of the value) apart; 2 ulps of the
+# largest value
+BF16_KERNEL_RTOL = 2.0 ** -7
+# a bf16 model on the card against the same weights on the CPU, as the
+# relative root-mean-square error |card - CPU|_2 / |CPU|_2 of the outputs:
+# against the CPU's bf16 model <= 0.03 (the card rounds the attention's
+# weights elsewhere and cuBLAS breaks bf16 ties elsewhere than the CPU);
+# against its f32 model <= 0.03, the JAX package's bf16-against-f32 limit
+# (tests/test_train.py, rtol 0.03 on a mean of squares), at hidden 256, and
+# <= 0.06 at hidden 1,024, where the CPU's own bf16 model is 0.027 from f32
+# (0.013 and 0.017 at hidden 256, eDOS and phDOS, 5 samples, seed 0)
+BF16_MODEL_REL = 0.03
+BF16_H1024_F32_REL = 0.06
+# tensor-core peak in bf16 (NVIDIA H100 SXM data sheet, dense)
+BF16_FLOPS_PER_S = 989e12
+
+
+def bf16_mp_args(g, dev, b, a, e, m, h):
+    """Message-passing operands at (B, A, E, M, H), a last graph with no real
+    edge, f32; the caller casts the three projections to bf16."""
+    rand = lambda *s: torch.randn(*s, generator=g).to(dev)
+    idx = lambda: torch.randint(0, a, (b, e), generator=g,
+                                dtype=torch.int32).to(dev)
+    mask = (torch.rand(b, e, generator=g) > 0.25).float()
+    mask[-1] = 0.0
+    return (rand(b, a, m), rand(b, a, m), rand(b, e, m), idx(), idx(),
+            mask.to(dev), rand(m).abs() + 0.5, rand(m) * 0.1,
+            torch.tensor([0.25], device=dev), rand(h, m) * m ** -0.5,
+            rand(h) * 0.1)
+
+
+def bf16_row(run, f32_ms):
+    """A bf16 comparison's numbers under the keys of the kernels line."""
+    return {"ms_bf16": run["ms"], "ms_f32": f32_ms,
+            "plain_ms_bf16": run["plain_ms"],
+            "bound_ms_bf16": max(run["bytes_ms"], run["ops_ms"]),
+            "bound_by_bf16": ("bytes" if run["bytes_ms"] >= run["ops_ms"]
+                              else "operations"),
+            "library_ms_bf16": run["library_ms"],
+            "bf16_max_abs_err": run["err"], "bf16_rel_err": run["rel"]}
+
+
+def phase_bf16_kernels(dev):
+    """27: the bf16 forms of #1, #3 and #6 against their plain versions on
+    the card (bf16 in both), each run twice and required to repeat bit for
+    bit, timed beside the f32 form on the same inputs widened, the bf16
+    bound and the library call. Returns {kernel: {"ms_bf16", ...,
+    "bf16_by_shape"}}: the mean of a forward's calls at the flagship
+    shapes, and every shape's row."""
+    g = torch.Generator().manual_seed(27)
+    out = {}
+
+    # 1: eDOS, phDOS at B=8 and B=1, hidden 1,024 and hidden 50
+    mp_shapes = {"eDOS": (BATCH, 32, 384, 2 * HIDDEN, HIDDEN),
+                 "phDOS B=8": (BATCH, 16, 128, 2 * HIDDEN, HIDDEN),
+                 "phDOS B=1": (1, 16, 128, 2 * HIDDEN, HIDDEN),
+                 "h1024": (BATCH, 32, 384, 2 * WIDE, WIDE),
+                 "hidden 50": (BATCH, 16, 128, 2 * NARROW, NARROW)}
+    rows = {}
+    for label, shape in mp_shapes.items():
+        args32 = bf16_mp_args(g, dev, *shape)
+        args = tuple(t.bfloat16() for t in args32[:3]) + args32[3:]
+        b, a, e, m, h = shape
+        tc = fused_mp_form(m, h) != FORM_GENERIC
+        name = f"fused_mp_edge bf16[{label}]"
+        print(f"{name}: B={b} A={a} E={e} M={m} H={h}, form "
+              f"{'tensor-core' if tc else 'generic'}")
+        run = compare(name, lambda: fused_mp_edge(*args),
+                      lambda: mp_edge_reference(*args),
+                      rtols=(BF16_KERNEL_RTOL,) * 2, repeat=True,
+                      work=mp_work(args, fused_mp_edge(*args)))
+        if tc:  # the generic form's bf16 twin on the same inputs
+            generic = fused_mp_forward_kernel(*args, form=FORM_GENERIC)
+            for i, (x, w) in enumerate(zip(generic, mp_edge_reference(*args))):
+                err = (x.float() - w.float()).abs().max().item()
+                check(x.dtype == torch.bfloat16 and err <= BF16_KERNEL_RTOL
+                      * max(1.0, w.float().abs().max().item()),
+                      f"{name}: generic form, output {i} max abs err "
+                      f"{err:.3e}")
+            run["ms_generic_bf16"] = median_ms(
+                lambda: fused_mp_forward_kernel(*args, form=FORM_GENERIC))
+        row = bf16_row(run, median_ms(lambda: fused_mp_edge(*args32)))
+        row.update({k: run[k] for k in ("ms_generic_bf16",) if k in run})
+        print(f"  f32 form on the same inputs {row['ms_f32']:.4f} ms; bf16 "
+              f"bound {row['bound_ms_bf16']:.4f} ms ({row['bound_by_bf16']})"
+              + (f"; generic bf16 form {run['ms_generic_bf16']:.4f} ms"
+                 if tc else ""))
+        rows[label] = row
+    out["fused_mp_edge"] = rows
+
+    # 3: D = 256 at the eDOS and phDOS shapes, D = 50 (phDOS), D = 1,024
+    attn = {}
+    cases = ([(f"eDOS {k}", s, HIDDEN) for k, s in attention_shapes().items()]
+             + [(f"phDOS {k}", s, HIDDEN)
+                for k, s in phdos_attention_shapes().items()]
+             + [(f"D=50 phDOS {k}", s, NARROW)
+                for k, s in phdos_attention_shapes().items()]
+             + [(f"D=1024 eDOS {k}", s, WIDE)
+                for k, s in attention_shapes().items()])
+    for label, (bb, lq, lk), d in cases:
+        q32 = torch.randn(bb, lq, d, generator=g).to(dev)
+        k32 = torch.randn(bb, lk, d, generator=g).to(dev)
+        q, k = q32.bfloat16(), k32.bfloat16()
+        km = None
+        if lk != lq:  # atom keys: pad atoms masked, last graph all masked
+            n_real = torch.randint(4, lk + 1, (bb,), generator=g)
+            km = (torch.arange(lk)[None] < n_real[:, None])
+            km[-1] = False
+            km = km.to(dev)
+        bias = (key_bias(km) if km is not None
+                else torch.zeros(bb, lk, device=dev))
+        name = f"fused_attention bf16[{label}]"
+        print(f"{name}: B={bb} Lq={lq} Lk={lk} D={d}, keys = values")
+        work = (nbytes(q, k, bias) + nbytes(q), 4 * bb * lq * lk * d)
+        run = compare(name, lambda: fused_attention_fwd(q, k, k, bias)[0],
+                      lambda: dot_product_attention(q, k, k, km),
+                      rtols=(BF16_KERNEL_RTOL,), repeat=True, work=work,
+                      flops_per_s=BF16_FLOPS_PER_S,
+                      library_fn=lambda: sdpa(q, k, k, bias.bfloat16()))
+        # the row statistics the next PR's bf16 backward will read: f32,
+        # from scores that are exact products of bf16 values
+        _, stats = fused_attention_fwd(q, k, k, bias, want_stats=True)
+        want = attention_stats_reference(q, k, bias)
+        real = ~(bias == -1e30).all(-1)
+        for what, got_s, want_s in (
+                ("row max", stats[0][real], want[0][real]),
+                ("log-sum-exp", stats[0][real] + stats[1][real].log(),
+                 want[0][real] + want[1][real].log())):
+            err = (got_s - want_s).abs().max().item()
+            check(stats.dtype == torch.float32 and err <= KERNEL_RTOL
+                  * max(1.0, want_s.abs().max().item()),
+                  f"{name}: {what} max abs err {err:.3e}")
+        check(torch.equal(fused_attention_fwd(q, k, k, bias)[0],
+                          fused_attention_fwd(q, k, k.clone(), bias)[0]),
+              f"{name}: v is k differs from two copies")
+        check(torch.equal(fused_attention(q, k, k, km),
+                          fused_attention_fwd(q, k, k, bias)[0]),
+              f"{name}: the op differs from the kernel's wrapper")
+        row = bf16_row(run, median_ms(
+            lambda: fused_attention_fwd(q32, k32, k32, bias)[0]))
+        print(f"  row statistics f32 within {KERNEL_RTOL} rel; f32 form on "
+              f"the same inputs {row['ms_f32']:.4f} ms; bf16 bound "
+              f"{row['bound_ms_bf16']:.5f} ms ({row['bound_by_bf16']})")
+        attn[label] = row
+    out["fused_attention"] = attn
+
+    # 6: the phDOS count and E = 2,048, N = 64 (F = 1, exact; F = 256)
+    batch = collate(synthetic_phdos_samples(BATCH, seed=0)).to(dev)
+    ids = torch.randint(0, 64, (BATCH, 2048), generator=g,
+                        dtype=torch.int32).to(dev)
+    cases = {"phDOS count": (batch.edge_mask[..., None], batch.receivers,
+                             batch.atoms_per_graph),
+             "E=2048 N=64 F=1": ((torch.rand(BATCH, 2048, 1, generator=g)
+                                  > 0.1).float().to(dev), ids, 64),
+             f"E=2048 N=64 F={HIDDEN}": (
+                 torch.randn(BATCH, 2048, HIDDEN, generator=g).to(dev), ids,
+                 64)}
+    seg = {}
+    for label, (data32, sids, n) in cases.items():
+        data = data32.bfloat16()
+        bb, ee, f = data.shape
+        name = f"batched_segment_sum bf16[{label}]"
+        print(f"{name}: B={bb} E={ee} F={f} N={n}")
+        ok = (sids >= 0) & (sids < n)
+        flat = torch.where(ok, sids + torch.arange(bb, device=dev)[:, None]
+                           * n, bb * n).reshape(-1).long()
+        rows_ = data.reshape(bb * ee, f)
+        library = lambda: torch.zeros(bb * n + 1, f, device=dev,
+                                      dtype=torch.bfloat16).index_add_(
+            0, flat, rows_)
+        work = (nbytes(data, sids) + bb * n * f * 2,
+                float(ok.sum().item()) * f)
+        run = compare(name, lambda: batched_segment_sum(data, sids, n),
+                      lambda: segment_sum_reference(data, sids, n),
+                      rtols=(BF16_KERNEL_RTOL,), repeat=True, work=work,
+                      library_fn=library)
+        if f == 1:
+            check(torch.equal(batched_segment_sum(data, sids, n),
+                              segment_sum_reference(data, sids, n)),
+                  f"{name}: the bf16 edge counts are not exact")
+        seg[label] = bf16_row(run, median_ms(
+            lambda: batched_segment_sum(data32, sids, n)))
+        print(f"  f32 form on the same inputs {seg[label]['ms_f32']:.4f} ms")
+    out["batched_segment_sum"] = seg
+
+    # the kernels line: a forward's calls at the flagship shapes
+    line = {}
+    for name, rows in out.items():
+        main = {"fused_mp_edge": ["eDOS"],
+                "fused_attention": [f"eDOS {k}" for k in attention_shapes()],
+                "batched_segment_sum": ["phDOS count"]}[name]
+        mean = lambda key: (None if any(rows[r][key] is None for r in main)
+                            else statistics.mean(rows[r][key] for r in main))
+        line[name] = {key: mean(key) for key in (
+            "ms_bf16", "ms_f32", "plain_ms_bf16", "bound_ms_bf16",
+            "library_ms_bf16")}
+        line[name]["bf16_max_rel_err"] = max(r["bf16_rel_err"]
+                                             for r in rows.values())
+        line[name]["bf16_by_shape"] = rows
+    return line
+
+
+def bf16_launches(task, n, fused=False) -> dict:
+    """Kernel launches of n bf16 serving forwards: the forward kernels'
+    bf16 forms, no backward."""
+    attn = "fused_attention_ln" if fused else "fused_attention"
+    return launch_counts(fused_mp_edge=LAYERS * n,
+                         batched_segment_sum=LAYERS * n if task == "phdos"
+                         else 0, **{attn: 3 * T_LAYERS * n})
+
+
+def check_bf16_outputs(label, dos, cpu16, cpu32, bins,
+                       f32_limit=BF16_MODEL_REL):
+    """A bf16 model's served output: f32 [N, bins], finite, within
+    BF16_MODEL_REL (relative RMS) of the CPU's bf16 model and within
+    ``f32_limit`` of its f32 model. Returns the two relative RMS errors."""
+    check(dos.dtype == np.float32 and dos.shape == (len(cpu16), bins)
+          and bool(np.isfinite(dos).all()),
+          f"{label}: output {dos.dtype} {dos.shape} or non-finite")
+    errs = []
+    for what, ref, limit in (("CPU bf16", cpu16, BF16_MODEL_REL),
+                             ("CPU f32", cpu32, f32_limit)):
+        # (an eDOS output clamped to 0 everywhere has no norm: 0 / tiny)
+        rel = float(np.linalg.norm(dos - ref)
+                    / max(float(np.linalg.norm(ref)), 1e-30))
+        top = float(np.abs(dos - ref).max()
+                    / max(float(np.abs(ref).max()), 1e-30))
+        print(f"  {label} vs the {what} model: relative RMS error {rel:.3e} "
+              f"(limit {limit}); max abs err / max |CPU| {top:.3e}")
+        check(rel <= limit, f"{label}: {rel:.3e} from the {what} model")
+        errs.append(rel)
+    own = float(np.linalg.norm(cpu16 - cpu32)
+                / max(float(np.linalg.norm(cpu32)), 1e-30))
+    print(f"  (the CPU's bf16 model vs its f32 model: relative RMS error "
+          f"{own:.3e})")
+    return errs
+
+
+# the CPU's outputs of each flagship request, by (task, request, dtype): the
+# LayerNorm lever changes no output, so the fused run reuses the unfused one's
+CPU_OUTPUTS = {}
+
+
+def phase_bf16_serving(task, served, fused=False):
+    """28: a flagship served in bf16 through Predictor.from_torch(...,
+    dtype="bfloat16") (with ``fused``, also fuse_ln_attn): the 96-sample
+    request at batch 8 with the launches counted from 0 (exactly 3 #1, 6 #3
+    or #5, and for phDOS 3 #6 a forward, all bf16 forms, no backward); the
+    short and mixed requests against the CPU's bf16 and f32 models; then
+    samples/s bf16 against f32, taken in turns. Returns (launches,
+    {"bf16": [...], "f32": [...]}, the largest relative errors)."""
+    kw, weights, requests = served["kw"], served["weights"], served["requests"]
+    lever = dict(fuse_ln_attn=True) if fused else {}
+    gpu = Predictor.from_torch(weights, device="cuda", dtype="bfloat16",
+                               **lever, **kw)
+    f32 = (Predictor.from_torch(weights, device="cuda", **lever, **kw)
+           if fused else served["gpu"])
+    check(all(p.dtype == torch.float32 for p in gpu.model.parameters()),
+          f"{task} bf16: a parameter is not f32")
+    tag = f"{task} bf16{' fuse_ln_attn' if fused else ''}"
+    reset_launches()
+    dos = gpu.predict(requests["96"])
+    launches = read_launches()
+    want = bf16_launches(task, expected_batches(requests["96"]), fused)
+    print(f"{tag} request 96: launches {launches}")
+    check(launches == want, f"{tag}: launches {launches}, expected {want}")
+    check(dos.dtype == np.float32 and bool(np.isfinite(dos).all()),
+          f"{tag}: the 96-sample output is {dos.dtype} or non-finite")
+    if task == "edos":
+        check(bool((dos >= 0).all()), f"{tag}: negative output despite clamp")
+    errs = []
+    for label, samples in requests.items():
+        if label == "96":
+            continue
+        refs = []
+        for dtype in ("bfloat16", "float32"):
+            key = (task, label, dtype)
+            if key not in CPU_OUTPUTS:
+                CPU_OUTPUTS[key] = Predictor.from_torch(
+                    weights, device="cpu", dtype=dtype, **kw).predict(samples)
+            refs.append(CPU_OUTPUTS[key])
+        errs += check_bf16_outputs(f"{tag} request {label}",
+                                   gpu.predict(samples), *refs,
+                                   served["bins"])
+    rates = {"bf16": [], "f32": []}
+    for name, predictor in (("f32", f32), ("bf16", gpu), ("bf16", gpu),
+                            ("f32", f32)) * 2:
+        rates[name].append(serving_rate(predictor, requests["96"]))
+    return launches, rates, max(errs)
+
+
+def phase_h1024_bf16_serving(workdir):
+    """29: the h1024 eDOS flagship served in bf16 (the one card-bound
+    shape): the 96-sample request with the launches counted from 0, five
+    samples against the CPU's bf16 and f32 models, then device time a
+    forward (CUDA events, a batch of 8 from the request) and samples/s,
+    bf16 against f32 in turns. Returns (launches, {"device_ms": {...},
+    "rates": {...}})."""
+    model = build_model("edos", layers=LAYERS, t_layers=T_LAYERS, hidden=WIDE,
+                        generator=torch.Generator().manual_seed(0))
+    weights = os.path.join(workdir, "edos_h1024.pt")
+    torch.save(model.state_dict(), weights)
+    requests = {"96": synthetic_edos_samples(96, seed=0),
+                "5 (short batch)": synthetic_edos_samples(5, seed=1)}
+    kw = dict(task="edos", example=requests["96"][0], layers=LAYERS,
+              t_layers=T_LAYERS, hidden=WIDE, batch_size=BATCH)
+    gpu = {dt: Predictor.from_torch(weights, device="cuda", dtype=dt, **kw)
+           for dt in ("bfloat16", "float32")}
+    reset_launches()
+    dos = gpu["bfloat16"].predict(requests["96"])
+    launches = read_launches()
+    want = bf16_launches("edos", expected_batches(requests["96"]))
+    print(f"h1024 bf16 request 96: launches {launches}")
+    check(launches == want, f"h1024 bf16: launches {launches}, expected "
+                            f"{want}")
+    check(dos.dtype == np.float32 and bool(np.isfinite(dos).all())
+          and bool((dos >= 0).all()), "h1024 bf16: the 96-sample output")
+    five = requests["5 (short batch)"]
+    cpu = {dt: Predictor.from_torch(weights, device="cpu", dtype=dt,
+                                    **kw).predict(five)
+           for dt in ("bfloat16", "float32")}
+    err = check_bf16_outputs("h1024 bf16 request 5",
+                             gpu["bfloat16"].predict(five), cpu["bfloat16"],
+                             cpu["float32"], BINS, BF16_H1024_F32_REL)
+    batch = next(iter(GraphLoader(requests["96"], BATCH))).to(
+        gpu["bfloat16"].device)
+
+    def forward(dt):
+        with torch.inference_mode():
+            return gpu[dt].model(batch)
+
+    device_ms = {"bfloat16": [], "float32": []}
+    rates = {"bfloat16": [], "float32": []}
+    for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+        device_ms[dt].append(median_ms(lambda: forward(dt), runs=20))
+        rates[dt].append(serving_rate(gpu[dt], requests["96"]))
+    return launches, {"device_ms": device_ms, "rates": rates,
+                      "max_rel_err": max(err)}
+
+
 def kernel_resources(so, wanted) -> dict:
     """Registers a thread and stack bytes (a nonzero stack means spills or
     local arrays) of the compiled kernels whose mangled names contain one of
@@ -2751,10 +3129,22 @@ def kernel_resources(so, wanted) -> dict:
     return found
 
 
+START = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """Seconds since the script started, after ``what``."""
+    print(f"[{time.perf_counter() - START:.1f} s] {what}")
+
+
 def main():
     if sys.argv[1:]:
         sys.exit(f"chip_smoke: takes no arguments, got {sys.argv[1:]}")
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bf16 products accumulate in f32 (the contract the CPU versions and
+    # the JAX package keep); cuBLAS may otherwise reduce split-K partials in
+    # bf16
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -2768,13 +3158,17 @@ def main():
 
     _, seconds = kernels.build(force=True)
     kernels.library()
+    stamp("build")
     print(f"built {len(kernels.SOURCES)} CUDA sources for sm_90a in "
           f"{seconds:.1f} s")
     # the attention kernels at the flagship width (D = 256 = 32 x 8)
+    # (the forward kernel is a template over the operand type)
     resources = kernel_resources(kernels.library_path(), {
-        k: f"{k}ILi{HIDDEN // 32}ELb1E"
+        k: f"{k}I{'f' if k == 'attn_fwd_kernel' else ''}Li{HIDDEN // 32}ELb1E"
         for names in ATTENTION_KERNELS.values() for k in names
-        if "sliced" not in k})
+        if "sliced" not in k} | {
+        "attn_fwd_kernel<bf16>":
+            f"attn_fwd_kernelI13__nv_bfloat16Li{HIDDEN // 32}ELb1E"})
     print(f"attention kernels at D={HIDDEN}, registers a thread and stack "
           f"bytes (cuobjdump -res-usage): {json.dumps(resources)}")
     mp_resources = kernel_resources(kernels.library_path(), MP_KERNELS)
@@ -2799,6 +3193,7 @@ def main():
 
     results = phase_kernels(dev)
     results.update(phase_backward_kernels(dev))
+    stamp("phases 3, 3b")
     results.update(phase_segment_sum(dev))
     phdos_results = phase_phdos_kernels(dev)
     ln_results, ln_phdos = phase_attention_ln_kernel(dev)
@@ -2810,6 +3205,11 @@ def main():
     # 21: #1 and #2 at the widths the generic forms were redesigned for
     for name, rows in phase_repaired_mp(dev).items():
         wide_mp[name].update(rows)
+    stamp("phases 3c-3h, 21")
+    # 27: the bf16 forms of #1, #3 and #6
+    for name, row in phase_bf16_kernels(dev).items():
+        results[name].update(row)
+    stamp("phase 27")
 
     paths, losses = {}, {}
     with tempfile.TemporaryDirectory() as root:
@@ -2831,6 +3231,7 @@ def main():
         rate = phase_train_rate("edos")
         print(f"{rate:.1f} samples/s training (eDOS flagship, batch {BATCH}, "
               f"f32, 20 steps, host collation and upload included) on {smi}")
+        stamp("phases 4-8")
 
         paths["phdos_serving"], rate, phdos_served = phase_phdos_serving(
             subdir("phdos_serving"))
@@ -2862,6 +3263,7 @@ def main():
               f"of 4 readings: {spread(rates)} on {smi}")
         paths["phdos50_serving"], paths["phdos50_training"] = (
             phase_narrow_phdos(subdir("phdos50")))
+        stamp("phases 9-12, 17-20")
 
         # 22-23: the training runtime through the entry points
         paths["edos_training_ckpt"], paths["edos_serving_ckpt"] = (
@@ -2878,6 +3280,7 @@ def main():
         paths.update(phase_baseline_paths(subdir("baselines")))
         paths["edos_training_data"], rates = phase_data_layer(
             subdir("data_layer"))
+        stamp("phases 22-26")
 
         # 13: serving with the LayerNorm fused into the attention forward
         for task, served in (("edos", edos_served), ("phdos", phdos_served)):
@@ -2888,6 +3291,31 @@ def main():
                   f"turns in one process: fuse_ln_attn "
                   f"{spread(rates['fused'])}, unfused "
                   f"{spread(rates['unfused'])} on {smi}")
+
+        stamp("phase 13")
+        # 28-29: bf16 serving, the flagships and h1024
+        bf16_errs = {}
+        for task, served, fused in (("edos", edos_served, False),
+                                    ("edos", edos_served, True),
+                                    ("phdos", phdos_served, False)):
+            name = f"{task}_serving_bf16{'_fused' if fused else ''}"
+            paths[name], rates, bf16_errs[name] = phase_bf16_serving(
+                task, served, fused)
+            print(f"{task} serving samples/s{' (fuse_ln_attn)' if fused else ''}"
+                  f", 96-sample request, batch {BATCH}, median (least-most) of "
+                  f"4 readings taken in turns in one process: bf16 "
+                  f"{spread(rates['bf16'])}, f32 {spread(rates['f32'])} on "
+                  f"{smi}")
+        paths["edos1024_serving_bf16"], h1024 = phase_h1024_bf16_serving(
+            subdir("edos1024_bf16"))
+        for what, unit in (("device_ms", "ms of device time a forward at "
+                                         "batch 8 (CUDA events, median of 20)"),
+                           ("rates", "samples/s, 96-sample request")):
+            print(f"h1024 eDOS serving, {unit}, two readings each taken in "
+                  f"turns: bf16 {spread(h1024[what]['bfloat16'])}, f32 "
+                  f"{spread(h1024[what]['float32'])} on {smi}")
+        bf16_errs["edos1024_serving_bf16"] = h1024["max_rel_err"]
+        stamp("phases 28-29")
 
         # 14: training with both levers on, against the unfused runs above
         trainings = (("edos", phase_training_path),
@@ -2921,9 +3349,11 @@ def main():
               f"{spread(rates['device'])}, host loader "
               f"{spread(rates['host'])} on {smi}")
 
+    stamp("phases 14, 15, 24")
     # 16: where the device time goes (last: the profiler slows what follows)
     phase_profile()
     phase_sub_kernels()
+    stamp("phase 16")
 
     csrc, tpu = "dostransformer_tpu_torch/csrc", "dostransformer_tpu"
     sources = {
@@ -2945,11 +3375,13 @@ def main():
     for path, counts in paths.items():
         task, _, mode, variant = re.fullmatch(
             r"(edos|phdos)(\d*)_(serving|training)(_levers|_fused|_host|"
-            r"_ckpt|_remat|_data|_graphnetwork|_mlp2)?", path).groups()
+            r"_ckpt|_remat|_data|_graphnetwork|_mlp2|_bf16|_bf16_fused)?",
+            path).groups()
         if variant in ("_graphnetwork", "_mlp2"):
             want = baseline_step_launches(task, variant[1:])
         else:
-            want = step_launches(task, variant in ("_levers", "_fused"))
+            want = step_launches(task, variant in ("_levers", "_fused",
+                                                   "_bf16_fused"))
         if mode == "serving":
             want.update(dict.fromkeys(BACKWARD, 0))
         for name in sources:
@@ -2976,9 +3408,16 @@ def main():
                "library_ms": r["library_ms"],
                "launches_by_path": {p: c[name] for p, c in paths.items()}}
         check(row["launches"] > 0, f"{name} never launched on {on}")
+        # the bf16 serving paths: their launches and model errors
+        row["launches_bf16"] = {p: c[name] for p, c in paths.items()
+                                if "_bf16" in p}
+        if name in ("fused_mp_edge", "fused_attention", "batched_segment_sum"):
+            check(any(row["launches_bf16"].values()),
+                  f"{name}: no bf16 serving path launched it")
+            row["bf16_serving_max_rel_err"] = bf16_errs
         if name in ATTENTION_KERNELS:
-            row["resources"] = {k: resources[k] for k in ATTENTION_KERNELS[name]
-                                if k in resources}
+            row["resources"] = {k: v for k, v in resources.items()
+                                if k.split("<")[0] in ATTENTION_KERNELS[name]}
         if name in ("fused_attention_ln", "layer_norm_bwd"):
             row["resources"] = {
                 k: v for k, v in ln_resources.items()
@@ -3000,7 +3439,9 @@ def main():
                 if key.startswith("d"):
                     row["max_abs_err"] = max(row["max_abs_err"], w["err"])
         for key in ("unfused_ms", "ms_by_rows", "bf16_max_rel_err",
-                    "ms_bf16", "ms_other_aliasing", "ms_raw_form_by_rows",
+                    "ms_bf16", "ms_f32", "plain_ms_bf16", "bound_ms_bf16",
+                    "library_ms_bf16", "bf16_by_shape",
+                    "ms_other_aliasing", "ms_raw_form_by_rows",
                     "library_ms_by_rows",
                     "ms_two_tensors", "ms_op", "ms_no_stats", "by_shape",
                     "generic_width", *MP_EXTRAS):

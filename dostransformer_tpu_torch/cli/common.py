@@ -71,7 +71,8 @@ _NOT_PORTED = {
                       "ROADMAP.md's do-not-port list (an XLA cache)"),
     "pad_bins": (lambda a: a.pad_bins != 0,
                  "ROADMAP.md's do-not-port list (TPU lane alignment)"),
-    "dtype": (lambda a: a.dtype != "float32", "ROADMAP.md, the bf16 slice"),
+    "dtype": (lambda a: a.dtype != "float32",
+              f"{_Q1} item 11's training PR (bf16 backward kernels)"),
     "attn_drop": (lambda a: a.attn_drop > 0.0,
                   f"{_Q1} item 2 (attention dropout)"),
     "use_pallas": (lambda a: a.use_pallas is not None,

@@ -41,6 +41,11 @@
 // forms of the two product shapes (attention_ln.cu with bf16 operands) skip
 // the split and round only the probabilities.
 //
+// Operands of either dtype (the LN-fused forward, and the bf16 form of the
+// attention forward) are staged raw by stage_raw_async, the operand's bytes
+// at the front of each f32 row, and expanded in place once they have landed:
+// normalised (attention_ln.cu) or widened (widen_rows).
+//
 // Staging. cp.async copies, zero-filling rows past the end and the columns
 // past the row's width up to the staged 32 NC (16-byte copies where rows are
 // 16-byte aligned, 4-byte ones otherwise); with two buffers the next tile is
@@ -51,6 +56,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -428,6 +434,137 @@ __device__ __forceinline__ void store_pair(float* row, int col, int d,
   }
 }
 
+// a value as the operand dtype holds it
+template <typename T>
+__device__ __forceinline__ float rounded(float v);
+template <>
+__device__ __forceinline__ float rounded<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float rounded<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// 16 bytes as 4 floats or 8 bf16 values
+__device__ __forceinline__ void unpack(const uint4& r, float (&v)[4]) {
+  v[0] = __uint_as_float(r.x); v[1] = __uint_as_float(r.y);
+  v[2] = __uint_as_float(r.z); v[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void unpack(const uint4& r, float (&v)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store1(float* p, float a) { *p = a; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float a) {
+  *p = __float2bfloat16(a);
+}
+
+// row[col], row[col + 1] of an output row of width D of which the first
+// `lim` columns are this block's (col even): one store where D is even
+// (the row is then aligned for it), else element by element
+template <typename T>
+__device__ __forceinline__ void store_pair_t(T* row, int col, int lim, int D,
+                                             float a, float b) {
+  if (D % 2 == 0) {
+    if (col < lim) store2(row + col, a, b);
+  } else {
+    if (col < lim) store1(row + col, a);
+    if (col + 1 < lim) store1(row + col + 1, b);
+  }
+}
+
+// rows [r0, r0 + rows) of src ([n_total][d] of T), columns [c0, c0 + w) ->
+// the FRONT of the rows of dst ([rows][32 NC + kPad] floats), raw; zeros for
+// rows at or past n_total. 16-byte copies where a row's bytes allow it,
+// else 4-byte ones (asynchronous), else (bf16 rows of odd width) one value
+// at a time, synchronously: visible after the tile ring's barrier as well.
+template <typename T, int NC>
+__device__ __forceinline__ void stage_raw_async(float* dst, const T* src,
+                                                int r0, int rows, int n_total,
+                                                int d, int c0, int w) {
+  constexpr int W = 32 * NC;
+  constexpr int S = W + kPad;
+  constexpr int E = (int)sizeof(T);
+  const char* base = reinterpret_cast<const char*>(src);
+  if (d == W && c0 == 0) {  // whole rows, the width known at compile time
+    constexpr int C = W * E / 16;
+    for (int idx = threadIdx.x; idx < rows * C; idx += kThreads) {
+      const int i = idx / C;
+      const int c = idx % C;
+      const bool ok = r0 + i < n_total;
+      cp_async16(reinterpret_cast<float*>(
+                     reinterpret_cast<char*>(dst + i * S) + 16 * c),
+                 reinterpret_cast<const float*>(
+                     base + (size_t)(ok ? r0 + i : 0) * W * E + 16 * c),
+                 ok);
+    }
+  } else if ((d * E) % 16 == 0 || (d * E) % 4 == 0) {
+    const int unit = (d * E) % 16 == 0 ? 16 : 4;
+    const int C = w * E / unit;  // copies a row
+    for (int idx = threadIdx.x; idx < rows * C; idx += kThreads) {
+      const int i = idx / C;
+      const int c = idx % C;
+      const bool ok = r0 + i < n_total;
+      const char* from =
+          base + ((size_t)(ok ? r0 + i : 0) * d + c0) * E + unit * c;
+      char* to = reinterpret_cast<char*>(dst + i * S) + unit * c;
+      if (unit == 16)
+        cp_async16(reinterpret_cast<float*>(to),
+                   reinterpret_cast<const float*>(from), ok);
+      else
+        cp_async4(to, from, ok);
+    }
+  } else {
+    const uint16_t* from = reinterpret_cast<const uint16_t*>(src);
+    for (int idx = threadIdx.x; idx < rows * w; idx += kThreads) {
+      const int i = idx / w;
+      const int c = idx % w;
+      const bool ok = r0 + i < n_total;
+      reinterpret_cast<uint16_t*>(dst + i * S)[c] =
+          ok ? from[(size_t)(r0 + i) * d + c0 + c] : (uint16_t)0;
+    }
+  }
+}
+
+// The first rows16 rows of a staged tile whose rows hold raw bf16 values at
+// their front (stage_raw_async), widened in place: 32 NC floats a row, the
+// w values and zeros past w and in the rows at or past n. One warp a row,
+// NC values a lane, all read before any is written. A bf16 value is a TF32
+// value, so the widened tiles feed the single-pass *_exact products.
+template <int NC>
+__device__ __forceinline__ void widen_rows(float* tile, int rows16, int n,
+                                           int w, int warp, int lane) {
+  constexpr int S = 32 * NC + kPad;
+  for (int row = warp; row < rows16; row += kWarps) {
+    const __nv_bfloat16* raw =
+        reinterpret_cast<const __nv_bfloat16*>(tile + row * S);
+    float v[NC];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int col = lane + 32 * j;
+      v[j] = row < n && col < w ? __bfloat162float(raw[col]) : 0.f;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < NC; ++j) tile[row * S + lane + 32 * j] = v[j];
+  }
+}
+
 // The sliced kernels (D > 32 NC, NC = 16): the feature dimension is cut
 // into n chunks of 32 NC columns (the last one narrower); a block owns the
 // output columns of ONE chunk, its slice, and forms the full scores (and
@@ -472,6 +609,27 @@ __device__ __forceinline__ void softmax_tile(const float* parts,
       p_s[row * kProbStride + pos] = p;
       if (lane == 0) corr_s[row] = corr;
     }
+  }
+}
+
+// Pass two of the two-pass softmax of the bf16 attention forward: with the
+// rows' final max m and sum l (pass one, softmax_tile<false>), the
+// calling warp's rows' weights p = exp(s - m) / l, NORMALISED and then
+// rounded to bf16, where the TPU kernel rounds them, written in prob_pos
+// order (lane = key k0 + lane; keys at or past Lk get 0).
+__device__ __forceinline__ void normalised_bf16_probs(
+    const float* parts, const float* bias_b, int k0, int Lk, float scale,
+    int warp, int lane, const float (&m)[4], const float (&l)[4],
+    float* p_s) {
+  const bool valid = k0 + lane < Lk;
+  const float bj = valid ? bias_b[k0 + lane] : 0.f;
+  const int pos = prob_pos(lane);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = 4 * warp + r;
+    const float s = fmaf(sum_partials(parts, row, lane), scale, bj);
+    p_s[row * kProbStride + pos] =
+        valid ? rounded<__nv_bfloat16>(expf(s - m[r]) / l[r]) : 0.f;
   }
 }
 

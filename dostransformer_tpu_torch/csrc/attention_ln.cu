@@ -63,120 +63,11 @@
 // from device memory (L2) before its chunks arrive, and each staged chunk
 // is normalised in place with them.
 
-#include <cuda_bf16.h>
-
 #include "attention_core.cuh"
 
 namespace {
 
 using namespace attn;
-
-// a value as the operand dtype holds it
-template <typename T>
-__device__ __forceinline__ float rounded(float v);
-template <>
-__device__ __forceinline__ float rounded<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float rounded<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// 16 bytes as 4 floats or 8 bf16 values
-__device__ __forceinline__ void unpack(const uint4& r, float (&v)[4]) {
-  v[0] = __uint_as_float(r.x); v[1] = __uint_as_float(r.y);
-  v[2] = __uint_as_float(r.z); v[3] = __uint_as_float(r.w);
-}
-__device__ __forceinline__ void unpack(const uint4& r, float (&v)[8]) {
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store1(float* p, float a) { *p = a; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float a) {
-  *p = __float2bfloat16(a);
-}
-
-// row[col], row[col + 1] of an output row of width D of which the first
-// `lim` columns are this block's (col even): one store where D is even
-// (the row is then aligned for it), else element by element
-template <typename T>
-__device__ __forceinline__ void store_pair_t(T* row, int col, int lim, int D,
-                                             float a, float b) {
-  if (D % 2 == 0) {
-    if (col < lim) store2(row + col, a, b);
-  } else {
-    if (col < lim) store1(row + col, a);
-    if (col + 1 < lim) store1(row + col + 1, b);
-  }
-}
-
-// rows [r0, r0 + rows) of src ([n_total][d] of T), columns [c0, c0 + w) ->
-// the FRONT of the rows of dst ([rows][32 NC + kPad] floats), raw; zeros for
-// rows at or past n_total. 16-byte copies where a row's bytes allow it,
-// else 4-byte ones (asynchronous), else (bf16 rows of odd width) one value
-// at a time, synchronously: visible after the tile ring's barrier as well.
-template <typename T, int NC>
-__device__ __forceinline__ void stage_raw_async(float* dst, const T* src,
-                                                int r0, int rows, int n_total,
-                                                int d, int c0, int w) {
-  constexpr int W = 32 * NC;
-  constexpr int S = W + kPad;
-  constexpr int E = (int)sizeof(T);
-  const char* base = reinterpret_cast<const char*>(src);
-  if (d == W && c0 == 0) {  // whole rows, the width known at compile time
-    constexpr int C = W * E / 16;
-    for (int idx = threadIdx.x; idx < rows * C; idx += kThreads) {
-      const int i = idx / C;
-      const int c = idx % C;
-      const bool ok = r0 + i < n_total;
-      cp_async16(reinterpret_cast<float*>(
-                     reinterpret_cast<char*>(dst + i * S) + 16 * c),
-                 reinterpret_cast<const float*>(
-                     base + (size_t)(ok ? r0 + i : 0) * W * E + 16 * c),
-                 ok);
-    }
-  } else if ((d * E) % 16 == 0 || (d * E) % 4 == 0) {
-    const int unit = (d * E) % 16 == 0 ? 16 : 4;
-    const int C = w * E / unit;  // copies a row
-    for (int idx = threadIdx.x; idx < rows * C; idx += kThreads) {
-      const int i = idx / C;
-      const int c = idx % C;
-      const bool ok = r0 + i < n_total;
-      const char* from =
-          base + ((size_t)(ok ? r0 + i : 0) * d + c0) * E + unit * c;
-      char* to = reinterpret_cast<char*>(dst + i * S) + unit * c;
-      if (unit == 16)
-        cp_async16(reinterpret_cast<float*>(to),
-                   reinterpret_cast<const float*>(from), ok);
-      else
-        cp_async4(to, from, ok);
-    }
-  } else {
-    const uint16_t* from = reinterpret_cast<const uint16_t*>(src);
-    for (int idx = threadIdx.x; idx < rows * w; idx += kThreads) {
-      const int i = idx / w;
-      const int c = idx % w;
-      const bool ok = r0 + i < n_total;
-      reinterpret_cast<uint16_t*>(dst + i * S)[c] =
-          ok ? from[(size_t)(r0 + i) * d + c0 + c] : (uint16_t)0;
-    }
-  }
-}
 
 // The shared LayerNorm of the first n rows of a staged tile of ROWS rows, in
 // place: raw T values at the front of each row -> 32 NC floats, the d

@@ -1,4 +1,5 @@
-// Fused message-passing edge pipeline, forward, float32, for sm_90a.
+// Fused message-passing edge pipeline, forward, float32 or bfloat16
+// operands, for sm_90a.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` of
 // dostransformer_tpu/ops/fused_mp.py (launched by `_fused_fwd_call`, public
@@ -60,7 +61,21 @@
 //     zero row to mid (as a one-hot row that matches no node did on the TPU)
 //     and reaches no node of agg. Pad edges (index 0, mask 0) still get their
 //     e_out row, which the caller's edge residual uses.
+//   * bf16 form (a bf16 model: src_proj, dst_proj, edge_proj, e_out and agg
+//     bf16; LayerNorm scale and bias, the slope, W1 and b1 stay f32, as the
+//     TPU kernel takes them uncast): both forms are templates over the
+//     operand type, so every width the f32 form runs also runs in bf16. The
+//     three rows load as bf16 (16-byte loads of 8 values in the tensor-core
+//     form) and are widened to f32 in registers; mid, the LayerNorm, PReLU
+//     and the product against the f32 W1 (3xTF32) are the f32 kernel's,
+//     on the same shared memory. e_out is rounded to bf16 once at its store,
+//     and its unrounded f32 rows also go to a scratch buffer, from which
+//     agg_kernel sums agg in f32 and rounds it once: the TPU kernel's two
+//     rounding points (its e_out store, its agg buffer's final cast). What
+//     bounds it stays the W1 product's operations; the bytes it must move
+//     roughly halve.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -83,15 +98,43 @@ constexpr int kTileStride = kTileM + 1;  // floats a staged row (no conflicts)
 constexpr size_t kGenericSmemFloats =
     (size_t)(kTileE + kTileH) * kTileStride + 2 * kTileE;
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// e_out[at] (and e_out[at + 1]): f32 as computed; bf16 rounded once, with
+// the f32 values also in e32, the aggregation's source
+__device__ __forceinline__ void store_edge(float* e_out, float* /*e32*/,
+                                           size_t at, float v) {
+  e_out[at] = v;
+}
+__device__ __forceinline__ void store_edge(__nv_bfloat16* e_out, float* e32,
+                                           size_t at, float v) {
+  e_out[at] = __float2bfloat16(v);
+  e32[at] = v;
+}
+__device__ __forceinline__ void store_edge_pair(float* e_out, float* /*e32*/,
+                                                size_t at, float a, float b) {
+  *reinterpret_cast<float2*>(e_out + at) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_edge_pair(__nv_bfloat16* e_out,
+                                                float* e32, size_t at,
+                                                float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(e_out + at) = __floats2bfloat162_rn(a, b);
+  *reinterpret_cast<float2*>(e32 + at) = make_float2(a, b);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-edge_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
-            const float* __restrict__ ep, const int* __restrict__ senders,
+edge_kernel(const T* __restrict__ sp, const T* __restrict__ dp,
+            const T* __restrict__ ep, const int* __restrict__ senders,
             const int* __restrict__ receivers,
             const float* __restrict__ ln_scale,
             const float* __restrict__ ln_bias,
             const float* __restrict__ alpha, const float* __restrict__ w1,
-            const float* __restrict__ b1, float* __restrict__ e_out, int A,
-            int E, int M, int H) {
+            const float* __restrict__ b1, T* __restrict__ e_out,
+            float* __restrict__ e32, int A, int E, int M, int H) {
   extern __shared__ float smem[];
   float* a_s = smem;                           // [kTileE][kTileStride]
   float* w_s = a_s + kTileE * kTileStride;     // [kTileH][kTileStride]
@@ -109,9 +152,11 @@ edge_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
     const size_t be = (size_t)b * E + e0 + i;
     const int s = senders[be];
     const int r = receivers[be];
-    const float vs = s >= 0 && s < A ? sp[((size_t)b * A + s) * M + m] : 0.f;
-    const float vd = r >= 0 && r < A ? dp[((size_t)b * A + r) * M + m] : 0.f;
-    return (vs + vd) + ep[be * M + m];
+    const float vs =
+        s >= 0 && s < A ? widen(sp[((size_t)b * A + s) * M + m]) : 0.f;
+    const float vd =
+        r >= 0 && r < A ? widen(dp[((size_t)b * A + r) * M + m]) : 0.f;
+    return (vs + vd) + widen(ep[be * M + m]);
   };
 
   // 1. the LayerNorm statistics of each row, one warp a row, in two passes
@@ -189,7 +234,9 @@ edge_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int h = h0 + th + 64 * j;
-        if (h < H) e_out[((size_t)b * E + e) * H + h] = acc[k][j] + b1[h];
+        if (h < H)
+          store_edge(e_out, e32, ((size_t)b * E + e) * H + h,
+                     acc[k][j] + b1[h]);
       }
     }
   }
@@ -245,16 +292,17 @@ __device__ __forceinline__ void chunk_product(const float* a_base, int AS,
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[mt][nt][i];
 }
 
-template <int WE, int MT, int NT>
+template <typename T, int WE, int MT, int NT>
 __global__ void __launch_bounds__(kThreads)
-edge_tc_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
-               const float* __restrict__ ep, const int* __restrict__ senders,
+edge_tc_kernel(const T* __restrict__ sp, const T* __restrict__ dp,
+               const T* __restrict__ ep, const int* __restrict__ senders,
                const int* __restrict__ receivers,
                const float* __restrict__ ln_scale,
                const float* __restrict__ ln_bias,
                const float* __restrict__ alpha, const float* __restrict__ w1,
-               const float* __restrict__ b1, float* __restrict__ e_out,
-               int N, int A, int E, int M, int H, int stages) {
+               const float* __restrict__ b1, T* __restrict__ e_out,
+               float* __restrict__ e32, int N, int A, int E, int M, int H,
+               int stages) {
   constexpr int WH = mp::kWarps / WE;
   constexpr int TE = WE * MT * 16;
   constexpr int HB = WH * NT * 8;
@@ -353,21 +401,23 @@ edge_tc_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
     for (int mt = 0; mt < MT; ++mt) {
       const int n = n0 + (we * MT + mt) * 16 + g;
       if (n < N)
-        *reinterpret_cast<float2*>(e_out + (size_t)n * H + h) =
-            make_float2(acc[mt][nt][0] + bx, acc[mt][nt][1] + by);
+        store_edge_pair(e_out, e32, (size_t)n * H + h, acc[mt][nt][0] + bx,
+                        acc[mt][nt][1] + by);
       if (n + 8 < N)
-        *reinterpret_cast<float2*>(e_out + (size_t)(n + 8) * H + h) =
-            make_float2(acc[mt][nt][2] + bx, acc[mt][nt][3] + by);
+        store_edge_pair(e_out, e32, (size_t)(n + 8) * H + h,
+                        acc[mt][nt][2] + bx, acc[mt][nt][3] + by);
     }
   }
 }
 
 // agg[b, node, h] = sum over the edges e with receivers[b, e] == node and
 // mask[b, e] != 0 of e_out[b, e, h] * mask[b, e] (an edge with mask 0 adds
-// nothing and is not listed). One block per (node, graph, 256 outputs).
+// nothing and is not listed), from the f32 e_out (the bf16 form's scratch),
+// stored as T. One block per (node, graph, 256 outputs).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 agg_kernel(const float* __restrict__ e_out, const int* __restrict__ receivers,
-           const float* __restrict__ mask, float* __restrict__ agg, int A,
+           const float* __restrict__ mask, T* __restrict__ agg, int A,
            int E, int H) {
   __shared__ int list[kThreads];
   __shared__ int counts[mp::kWarps];
@@ -440,24 +490,24 @@ size_t tile_smem_bytes(int tile, int M) {
   return tile_fixed_bytes(tile, M) + stages * tile_stage_bytes(tile);
 }
 
-template <int WE, int MT, int NT>
-cudaError_t launch_edge_tc(const float* sp, const float* dp, const float* ep,
+template <typename T, int WE, int MT, int NT>
+cudaError_t launch_edge_tc(const T* sp, const T* dp, const T* ep,
                            const int* senders, const int* receivers,
                            const float* ln_scale, const float* ln_bias,
                            const float* alpha, const float* w1,
-                           const float* b1, float* e_out, int N, int A, int E,
-                           int M, int H, int stages, size_t smem,
-                           cudaStream_t st) {
+                           const float* b1, T* e_out, float* e32, int N,
+                           int A, int E, int M, int H, int stages,
+                           size_t smem, cudaStream_t st) {
   constexpr int TE = WE * MT * 16;
   constexpr int HB = (mp::kWarps / WE) * NT * 8;
-  auto kernel = edge_tc_kernel<WE, MT, NT>;
+  auto kernel = edge_tc_kernel<T, WE, MT, NT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(mp::ceil_div(N, TE), mp::ceil_div(H, HB));
   kernel<<<grid, kThreads, smem, st>>>(sp, dp, ep, senders, receivers,
                                        ln_scale, ln_bias, alpha, w1, b1, e_out,
-                                       N, A, E, M, H, stages);
+                                       e32, N, A, E, M, H, stages);
   return cudaGetLastError();
 }
 
@@ -506,49 +556,87 @@ extern "C" void dostpu_fused_mp_edge_tile(int B, int E, int M, int H,
   *hb = f <= 0 ? H : kTiles[f - 1].hb;
 }
 
-// All pointers are device pointers into contiguous float32 (int32 for the
-// indices) tensors: src_proj/dst_proj [B, A, M], edge_proj [B, E, M],
-// senders/receivers/edge_mask [B, E], ln_scale/ln_bias [M], alpha [1],
-// w1 [H, M] (torch Linear layout), b1 [H]; outputs e_out [B, E, H] and
-// agg [B, A, H]. `form` as dostpu_fused_mp_edge_smem_bytes takes it. Returns
-// the CUDA error code of the launches (0 on success).
-extern "C" int dostpu_fused_mp_edge_fwd(
-    const float* src_proj, const float* dst_proj, const float* edge_proj,
-    const int* senders, const int* receivers, const float* edge_mask,
-    const float* ln_scale, const float* ln_bias, const float* alpha,
-    const float* w1, const float* b1, float* e_out, float* agg, int B, int A,
-    int E, int M, int H, int form, void* stream) {
-  if (B <= 0 || A <= 0 || E <= 0 || M <= 0 || H <= 0 || B > 65535
-      || (long)B * E > 0x7fffffffL)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+namespace {
+
+// the edge kernel of the form taken, then agg_kernel; e32 is the f32 rows of
+// e_out that agg_kernel sums (e_out itself for f32 operands)
+template <typename T>
+cudaError_t launch_fwd(const T* sp, const T* dp, const T* ep,
+                       const int* senders, const int* receivers,
+                       const float* edge_mask, const float* ln_scale,
+                       const float* ln_bias, const float* alpha,
+                       const float* w1, const float* b1, T* e_out, T* agg,
+                       float* e32, int B, int A, int E, int M, int H, int f,
+                       size_t smem, cudaStream_t st) {
   const int N = B * E;
-  const int f = resolve_form(form, N, M, H);
-  if (f < 0) return cudaErrorInvalidValue;
-  const size_t smem = dostpu_fused_mp_edge_smem_bytes(B, E, M, H, form);
   cudaError_t err;
   if (f == 0) {
     err = cudaFuncSetAttribute(
-        edge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        edge_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid_e((E + kTileE - 1) / kTileE, B);
-    edge_kernel<<<grid_e, kThreads, smem, st>>>(
-        src_proj, dst_proj, edge_proj, senders, receivers, ln_scale, ln_bias,
-        alpha, w1, b1, e_out, A, E, M, H);
+    edge_kernel<T><<<grid_e, kThreads, smem, st>>>(
+        sp, dp, ep, senders, receivers, ln_scale, ln_bias, alpha, w1, b1,
+        e_out, e32, A, E, M, H);
     err = cudaGetLastError();
   } else {
     const int stages = std::max(2, tile_stages(f - 1, M));
 #define DOSTPU_LAUNCH_TILE(WE, MT, NT)                                      \
-  launch_edge_tc<WE, MT, NT>(src_proj, dst_proj, edge_proj, senders,        \
-                             receivers, ln_scale, ln_bias, alpha, w1, b1,   \
-                             e_out, N, A, E, M, H, stages, smem, st)
+  launch_edge_tc<T, WE, MT, NT>(sp, dp, ep, senders, receivers, ln_scale,   \
+                                ln_bias, alpha, w1, b1, e_out, e32, N, A, E, \
+                                M, H, stages, smem, st)
     err = f - 1 == 0 ? DOSTPU_LAUNCH_TILE(1, 2, 4)   // 32 x 256
                      : DOSTPU_LAUNCH_TILE(1, 1, 1);  // 16 x 64
 #undef DOSTPU_LAUNCH_TILE
   }
   if (err != cudaSuccess) return err;
   const dim3 grid_a(A, B, (H + kThreads - 1) / kThreads);
-  agg_kernel<<<grid_a, kThreads, 0, st>>>(e_out, receivers, edge_mask, agg,
-                                          A, E, H);
+  agg_kernel<T><<<grid_a, kThreads, 0, st>>>(e32, receivers, edge_mask, agg,
+                                             A, E, H);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// All pointers are device pointers into contiguous tensors:
+// src_proj/dst_proj [B, A, M], edge_proj [B, E, M], e_out [B, E, H] and
+// agg [B, A, H] float32, or bfloat16 when `bf16` is non-zero (16-byte
+// aligned); senders/receivers [B, E] int32; edge_mask [B, E], ln_scale/ln_bias
+// [M], alpha [1], w1 [H, M] (torch Linear layout), b1 [H] float32 in both
+// forms; e32 [B, E, H] float32 scratch for the bf16 form (the unrounded
+// e_out that agg sums), null for float32. `form` as
+// dostpu_fused_mp_edge_smem_bytes takes it; the shared memory and tiles are
+// the same for both dtypes. Returns the CUDA error code of the launches (0 on
+// success).
+extern "C" int dostpu_fused_mp_edge_fwd(
+    const void* src_proj, const void* dst_proj, const void* edge_proj,
+    const int* senders, const int* receivers, const float* edge_mask,
+    const float* ln_scale, const float* ln_bias, const float* alpha,
+    const float* w1, const float* b1, void* e_out, void* agg, float* e32,
+    int B, int A, int E, int M, int H, int form, int bf16, void* stream) {
+  if (B <= 0 || A <= 0 || E <= 0 || M <= 0 || H <= 0 || B > 65535
+      || (long)B * E > 0x7fffffffL)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int f = resolve_form(form, B * E, M, H);
+  if (f < 0) return cudaErrorInvalidValue;
+  const size_t smem = dostpu_fused_mp_edge_smem_bytes(B, E, M, H, form);
+  if (bf16) {
+    using T = __nv_bfloat16;
+    if (e32 == nullptr || (f > 0 && M % 8 != 0)) return cudaErrorInvalidValue;
+    return launch_fwd(static_cast<const T*>(src_proj),
+                      static_cast<const T*>(dst_proj),
+                      static_cast<const T*>(edge_proj), senders, receivers,
+                      edge_mask, ln_scale, ln_bias, alpha, w1, b1,
+                      static_cast<T*>(e_out), static_cast<T*>(agg), e32, B, A,
+                      E, M, H, f, smem, st);
+  }
+  float* out = static_cast<float*>(e_out);
+  return launch_fwd(static_cast<const float*>(src_proj),
+                    static_cast<const float*>(dst_proj),
+                    static_cast<const float*>(edge_proj), senders, receivers,
+                    edge_mask, ln_scale, ln_bias, alpha, w1, b1, out,
+                    static_cast<float*>(agg), out, B, A, E, M, H, f, smem,
+                    st);
 }

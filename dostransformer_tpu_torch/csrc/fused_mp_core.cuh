@@ -13,6 +13,8 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
+
 #include "attention_core.cuh"
 
 namespace mp {
@@ -93,12 +95,16 @@ struct RowStats {
   float mean, rstd;
 };
 
-// The three rows whose sum is mid of flat edge n (graph n / E): an
-// out-of-range index adds a zero row. at(i) is mid's i-th 4 floats.
-struct MidRow {
-  const float* sp_row;
-  const float* dp_row;
-  const float* ep_row;
+// The three rows whose sum is mid of flat edge n (graph n / E), of the
+// operand type T (float, or bf16 for the bf16 form of the forward): an
+// out-of-range index adds a zero row. at(i) is mid's i-th 4 floats; for
+// bf16, at8(i) is its i-th 8 values, one 16-byte load of each row widened
+// to f32 in registers. The sum is f32 in both: (sp + dp) + ep.
+template <typename T>
+struct MidRowT {
+  const T* sp_row;
+  const T* dp_row;
+  const T* ep_row;
   bool s_ok, r_ok;
 
   __device__ __forceinline__ float4 at(int i) const {
@@ -112,16 +118,43 @@ struct MidRow {
     v.w = (a.w + d.w) + v.w;
     return v;
   }
-};
 
-__device__ __forceinline__ MidRow mid_row(
-    const float* __restrict__ sp, const float* __restrict__ dp,
-    const float* __restrict__ ep, const int* __restrict__ senders,
+  __device__ __forceinline__ void at8(int i, float (&v)[8]) const {
+    float a[8], d[8];
+    widen8(s_ok ? ld16(sp_row, i) : make_uint4(0u, 0u, 0u, 0u), a);
+    widen8(r_ok ? ld16(dp_row, i) : make_uint4(0u, 0u, 0u, 0u), d);
+    widen8(ld16(ep_row, i), v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = (a[j] + d[j]) + v[j];
+  }
+
+  // the i-th 16 bytes of a bf16 row
+  __device__ __forceinline__ static uint4 ld16(const T* p, int i) {
+    return reinterpret_cast<const uint4*>(p)[i];
+  }
+
+  // 8 bf16 values -> f32 (element 0 is the low half of the first word)
+  __device__ __forceinline__ static void widen8(const uint4& r,
+                                                float (&v)[8]) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j] = __uint_as_float(w[j] << 16);
+      v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  }
+};
+using MidRow = MidRowT<float>;
+
+template <typename T>
+__device__ __forceinline__ MidRowT<T> mid_row(
+    const T* __restrict__ sp, const T* __restrict__ dp,
+    const T* __restrict__ ep, const int* __restrict__ senders,
     const int* __restrict__ receivers, size_t n, int A, int E, int M) {
   const size_t b = n / E;
   const int s = senders[n];
   const int r = receivers[n];
-  MidRow row;
+  MidRowT<T> row;
   row.s_ok = s >= 0 && s < A;
   row.r_ok = r >= 0 && r < A;
   row.sp_row = sp + (b * A + (row.s_ok ? s : 0)) * M;
@@ -130,17 +163,11 @@ __device__ __forceinline__ MidRow mid_row(
   return row;
 }
 
-// One warp: mid of a row (M % 4 == 0) -> row[0, M) in shared memory
-// (16-byte aligned), with its LayerNorm statistics in two passes (mean, then
-// centred variance).
-__device__ __forceinline__ RowStats gather_mid_row(const MidRow& mid, int M,
-                                                   int lane, float* row) {
-  float sum = 0.f;
-  for (int i = lane; i < M / 4; i += 32) {
-    const float4 v = mid.at(i);
-    st4(row, i, v);
-    sum += (v.x + v.y) + (v.z + v.w);
-  }
+// the second pass of a row's LayerNorm statistics: the centred variance of
+// the M floats of row (shared memory), given the row's sum
+__device__ __forceinline__ RowStats row_stats_from(float sum, int M,
+                                                   int lane,
+                                                   const float* row) {
   RowStats st;
   st.mean = warp_sum(sum) / M;
   float sq = 0.f;
@@ -154,9 +181,38 @@ __device__ __forceinline__ RowStats gather_mid_row(const MidRow& mid, int M,
   return st;
 }
 
+// One warp: mid of a row (M % 4 == 0) -> row[0, M) in shared memory
+// (16-byte aligned), with its LayerNorm statistics in two passes (mean, then
+// centred variance).
+__device__ __forceinline__ RowStats gather_mid_row(const MidRow& mid, int M,
+                                                   int lane, float* row) {
+  float sum = 0.f;
+  for (int i = lane; i < M / 4; i += 32) {
+    const float4 v = mid.at(i);
+    st4(row, i, v);
+    sum += (v.x + v.y) + (v.z + v.w);
+  }
+  return row_stats_from(sum, M, lane, row);
+}
+
+// The same from bf16 rows (M % 8 == 0): 8 values a lane a load
 __device__ __forceinline__ RowStats gather_mid_row(
-    const float* __restrict__ sp, const float* __restrict__ dp,
-    const float* __restrict__ ep, const int* __restrict__ senders,
+    const MidRowT<__nv_bfloat16>& mid, int M, int lane, float* row) {
+  float sum = 0.f;
+  for (int i = lane; i < M / 8; i += 32) {
+    float v[8];
+    mid.at8(i, v);
+    st4(row, 2 * i, make_float4(v[0], v[1], v[2], v[3]));
+    st4(row, 2 * i + 1, make_float4(v[4], v[5], v[6], v[7]));
+    sum += ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + (v[6] + v[7]));
+  }
+  return row_stats_from(sum, M, lane, row);
+}
+
+template <typename T>
+__device__ __forceinline__ RowStats gather_mid_row(
+    const T* __restrict__ sp, const T* __restrict__ dp,
+    const T* __restrict__ ep, const int* __restrict__ senders,
     const int* __restrict__ receivers, size_t n, int A, int E, int M,
     int lane, float* row) {
   return gather_mid_row(mid_row(sp, dp, ep, senders, receivers, n, A, E, M),
@@ -237,11 +293,22 @@ __device__ __forceinline__ void sum_listed_rows(
   }
 }
 
+// an f32 value as the output dtype holds it: rounded once
+__device__ __forceinline__ float out_value(float* /*dst*/, float v) {
+  return v;
+}
+__device__ __forceinline__ __nv_bfloat16 out_value(__nv_bfloat16* /*dst*/,
+                                                   float v) {
+  return __float2bfloat16(v);
+}
+
 // the slices' sums, added in slice order -> dst[c0 + thread] (one column a
-// thread); red is shared, [kScatterSlices][kThreads]
+// thread, f32 or rounded once to bf16); red is shared,
+// [kScatterSlices][kThreads]
+template <typename T>
 __device__ __forceinline__ void store_slice_sums(
     const float (&acc)[kScatterSlices], float (&red)[kScatterSlices][kThreads],
-    float* __restrict__ dst, int F, int c0, int lane, int slice) {
+    T* __restrict__ dst, int F, int c0, int lane, int slice) {
 #pragma unroll
   for (int j = 0; j < kScatterSlices; ++j)
     red[slice][lane + kScatterLanes * j] = acc[j];
@@ -249,7 +316,8 @@ __device__ __forceinline__ void store_slice_sums(
   float total = red[0][threadIdx.x];
 #pragma unroll
   for (int s = 1; s < kScatterSlices; ++s) total += red[s][threadIdx.x];
-  if (c0 + (int)threadIdx.x < F) dst[c0 + threadIdx.x] = total;
+  if (c0 + (int)threadIdx.x < F)
+    dst[c0 + threadIdx.x] = out_value(dst, total);
   __syncthreads();  // red may be reused
 }
 

@@ -1,4 +1,4 @@
-// Batched segment sum, float32, for sm_90a.
+// Batched segment sum, float32 or bfloat16, for sm_90a.
 //
 // Replaces the Pallas TPU kernel `_segment_sum_kernel` of
 // dostransformer_tpu/ops/segment.py (launched by `segment_sum_pallas`),
@@ -35,6 +35,13 @@
 // row blocks allow and no larger than one batch a slot needs. Every data
 // element is read once, by one thread.
 //
+// bfloat16 data (the phDOS edge count of a bf16 model) takes the same
+// partition and the same kernels, instantiated for it: rows load as bf16
+// (4 values, 8 bytes, a lane where V = 4) and are widened to f32 in
+// registers, every sum is f32 in the same fixed order, and the output is
+// rounded to bf16 once. So the bf16 form's output is the f32 form's on the
+// widened data, rounded once; counts up to 256 are exact in bf16.
+//
 // F = 1 (the model's edge count) takes segment_count_kernel instead: a block
 // per (segment, graph) whose 256 threads scan the graph's edges (eight in
 // flight a thread, each row loaded beside its id: one trip to memory), then
@@ -43,6 +50,7 @@
 // design there (0.0071-0.0075 against 0.0061-0.0063 ms at the phDOS count on
 // an H100), while at F = 256 it is 3x faster and at 2,048 edges 12x.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -123,14 +131,38 @@ struct Vec<4> {
   }
 };
 
+// V values of a row of In at p, widened to f32
+__device__ __forceinline__ float load_row(const float* p, Vec<1>) {
+  return *p;
+}
+__device__ __forceinline__ float4 load_row(const float* p, Vec<4>) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float load_row(const __nv_bfloat16* p, Vec<1>) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ float4 load_row(const __nv_bfloat16* p, Vec<4>) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);  // 4 values, 8 bytes
+  return make_float4(__uint_as_float(r.x << 16),
+                     __uint_as_float(r.x & 0xffff0000u),
+                     __uint_as_float(r.y << 16),
+                     __uint_as_float(r.y & 0xffff0000u));
+}
+
+// an f32 sum as the output dtype holds it: rounded once
+__device__ __forceinline__ void store_sum(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_sum(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
 // grid (feature slices, B, segment ranges), kMaxThreads threads: the first
 // L * P add edges. A slot's first batch of rows is loaded before the ids
 // arrive (the rows do not depend on them; only where they go does), so at
 // F = 1 the ids and the rows come in one trip to device memory.
-template <int V>
+template <typename In, int V>
 __global__ void __launch_bounds__(kMaxThreads)
-segment_sum_kernel(const float* __restrict__ data, const int* __restrict__ ids,
-                   float* __restrict__ out, int N, int E, int F, int L, int P,
+segment_sum_kernel(const In* __restrict__ data, const int* __restrict__ ids,
+                   In* __restrict__ out, int N, int E, int F, int L, int P,
                    int NS, int id_chunk) {
   using T = typename Vec<V>::T;
   extern __shared__ __align__(16) float smem[];
@@ -146,7 +178,7 @@ segment_sum_kernel(const float* __restrict__ data, const int* __restrict__ ids,
   const int f = (blockIdx.x * L + lane) * V;  // this lane's first feature
   const bool adds = slot < P && f < F;
   const int* ids_b = ids + (size_t)b * E;
-  const float* data_b = data + (size_t)b * E * F;
+  const In* data_b = data + (size_t)b * E * F;
   float* mine = priv + (size_t)slot * block_f + lane * V;
   // whole 16-byte vectors where the blocks allow (block_f % 4 == 0)
   const bool wide = block_f % 4 == 0;
@@ -162,8 +194,8 @@ segment_sum_kernel(const float* __restrict__ data, const int* __restrict__ ids,
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int ee = e + u * P;
-      val[u] = ee < ce ? *reinterpret_cast<const T*>(
-                             data_b + (size_t)(c0 + ee) * F + f)
+      val[u] = ee < ce ? load_row(data_b + (size_t)(c0 + ee) * F + f,
+                                  Vec<V>())
                        : Vec<V>::zero();
     }
   };
@@ -214,21 +246,22 @@ segment_sum_kernel(const float* __restrict__ data, const int* __restrict__ ids,
   for (int i = threadIdx.x; i < ns * tf; i += blockDim.x) {
     const int n = i / tf;
     const int c = blockIdx.x * tf + i % tf;
-    if (c < F) out[((size_t)b * N + n0 + n) * F + c] = priv[i];
+    if (c < F) store_sum(out + ((size_t)b * N + n0 + n) * F + c, priv[i]);
   }
 }
 
 // F = 1: grid (N, B), kMaxThreads threads; thread t sums the values of the
 // edges t, t + 256, ... whose id is this block's segment, in edge order
+template <typename In>
 __global__ void __launch_bounds__(kMaxThreads)
-segment_count_kernel(const float* __restrict__ data,
-                     const int* __restrict__ ids, float* __restrict__ out,
+segment_count_kernel(const In* __restrict__ data,
+                     const int* __restrict__ ids, In* __restrict__ out,
                      int N, int E) {
   __shared__ float part[kMaxThreads];
   const int n = blockIdx.x;
   const int b = blockIdx.y;
   const int* ids_b = ids + (size_t)b * E;
-  const float* data_b = data + (size_t)b * E;
+  const In* data_b = data + (size_t)b * E;
   float acc = 0.f;
   for (int e0 = threadIdx.x; e0 < E; e0 += kBatch * kMaxThreads) {
     int id[kBatch];
@@ -237,7 +270,7 @@ segment_count_kernel(const float* __restrict__ data,
     for (int u = 0; u < kBatch; ++u) {  // the row does not wait for its id
       const int e = e0 + u * kMaxThreads;
       id[u] = e < E ? ids_b[e] : -1;
-      v[u] = e < E ? data_b[e] : 0.f;
+      v[u] = e < E ? load_row(data_b + e, Vec<1>()) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u)
@@ -249,7 +282,34 @@ segment_count_kernel(const float* __restrict__ data,
     if (threadIdx.x < s) part[threadIdx.x] += part[threadIdx.x + s];
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[(size_t)b * N + n] = part[0];
+  if (threadIdx.x == 0) store_sum(out + (size_t)b * N + n, part[0]);
+}
+
+template <typename In>
+int launch(const In* data, const int* ids, In* out, int B, int E, int F,
+           int N, void* stream) {
+  if (B <= 0 || E < 0 || F <= 0 || N <= 0 || B > 65535)
+    return cudaErrorInvalidValue;
+  const Plan p = plan(B, E, F, N);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (F == 1) {
+    segment_count_kernel<In><<<dim3(N, B), kMaxThreads, 0, st>>>(
+        data, ids, out, N, E);
+    return cudaGetLastError();
+  }
+  if (p.seg_blocks > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(p.slices, B, p.seg_blocks);
+  const int threads = kMaxThreads;
+  auto kernel =
+      p.vec == 4 ? segment_sum_kernel<In, 4> : segment_sum_kernel<In, 1>;
+  if (p.smem > 48 * 1024) {  // above the default limit only
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, threads, p.smem, st>>>(data, ids, out, N, E, F, p.lanes,
+                                        p.slots, p.segs, p.id_chunk);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -271,25 +331,13 @@ extern "C" void dostpu_segment_sum_plan(int B, int E, int F, int N, int* vec,
 extern "C" int dostpu_segment_sum(const float* data, const int* ids,
                                   float* out, int B, int E, int F, int N,
                                   void* stream) {
-  if (B <= 0 || E < 0 || F <= 0 || N <= 0 || B > 65535)
-    return cudaErrorInvalidValue;
-  const Plan p = plan(B, E, F, N);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (F == 1) {
-    segment_count_kernel<<<dim3(N, B), kMaxThreads, 0, st>>>(data, ids, out,
-                                                             N, E);
-    return cudaGetLastError();
-  }
-  if (p.seg_blocks > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(p.slices, B, p.seg_blocks);
-  const int threads = kMaxThreads;
-  auto kernel = p.vec == 4 ? segment_sum_kernel<4> : segment_sum_kernel<1>;
-  if (p.smem > 48 * 1024) {  // above the default limit only
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<grid, threads, p.smem, st>>>(data, ids, out, N, E, F, p.lanes,
-                                        p.slots, p.segs, p.id_chunk);
-  return cudaGetLastError();
+  return launch(data, ids, out, B, E, F, N, stream);
+}
+
+// The same with data and out bfloat16: f32 sums, rounded once.
+extern "C" int dostpu_segment_sum_bf16(const __nv_bfloat16* data,
+                                       const int* ids, __nv_bfloat16* out,
+                                       int B, int E, int F, int N,
+                                       void* stream) {
+  return launch(data, ids, out, B, E, F, N, stream);
 }

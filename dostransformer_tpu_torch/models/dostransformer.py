@@ -42,6 +42,15 @@ transformer layer in the backward instead of keeping their activations
 (``torch.utils.checkpoint``, where the JAX package puts ``flax.linen.remat``):
 the same gradients for one more forward of each.
 
+``dtype`` is the compute dtype, as in the JAX package: "float32" (the
+default) or "bfloat16". Parameters stay float32 either way (the same
+state_dict, loaded the same way); a bf16 model casts its inputs, energy
+tokens and prompt tokens to bf16, every layer casts its parameters to the
+operand's dtype at use, LayerNorm statistics and the softmax run in f32,
+and the three outputs come back as float32. On the card the bf16 forward
+runs the bf16 forms of the fused message-passing, attention (and, with
+``fuse_ln_attn``, LN-fused attention) and segment-sum kernels.
+
 Parameters are created on the meta device and then materialised on
 ``device`` and drawn from ``generator`` (on the CPU, so a seed gives the same
 weights on every device).
@@ -64,12 +73,16 @@ from dostransformer_tpu_torch.nn.modules import (
     GraphEncoderPhDOS,
     Processor,
     TorchLinear,
+    leaky_relu,
     run_message_passing,
 )
 from dostransformer_tpu_torch.nn.transformer import TransformerEncoder
 from dostransformer_tpu_torch.ops.geometry import edge_geometry_phdos
 
 _LATER = "ROADMAP.md queue 1"
+# compute dtypes by name: those the port runs, and those it does not yet
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_UNPORTED_DTYPES = {"float64": "item 5, f64 phDOS"}
 
 
 class _DOSTransformerBase(nn.Module):
@@ -91,10 +104,13 @@ class _DOSTransformerBase(nn.Module):
         if padding not in ("mask", "ref"):
             raise ValueError(f"unknown padding {padding!r}; expected 'mask' "
                              f"or 'ref'")
-        unported = {"attn_drop > 0 (item 2, attention dropout)":
+        if dtype not in DTYPES and dtype not in _UNPORTED_DTYPES:
+            raise ValueError(f"unknown dtype {dtype!r}; expected one of "
+                             f"{sorted([*DTYPES, *_UNPORTED_DTYPES])}")
+        unported = {f"dtype {dtype} ({_UNPORTED_DTYPES.get(dtype)})":
+                        dtype in _UNPORTED_DTYPES,
+                    "attn_drop > 0 (item 2, attention dropout)":
                         attn_drop > 0.0,
-                    "dtype other than float32 (bf16 slice)":
-                        dtype != "float32",
                     "bins_pad (TPU lane alignment; not ported)":
                         bins_pad is not None,
                     "tp_axis (item 9, parallelism)": tp_axis is not None}
@@ -107,6 +123,7 @@ class _DOSTransformerBase(nn.Module):
         self.hidden = hidden
         self.padding = padding
         self.remat = remat
+        self.cdtype = DTYPES[dtype]
         with torch.device("meta"):
             self.embeddings = nn.Embedding(n_bins, hidden)
             setattr(self, self._PROMPT, nn.Embedding(7, hidden // 2))
@@ -142,23 +159,26 @@ class _DOSTransformerBase(nn.Module):
         # "mask": pad atoms are masked out of the keys; "ref": zero pad rows
         # act as keys, as in the reference (which builds no key mask)
         key_mask = g.node_mask > 0.5 if self.padding == "mask" else None
-        energies = self.embeddings.weight.expand(b, -1, -1)
+        energies = self.embeddings.weight.to(self.cdtype).expand(b, -1, -1)
         energies = self.transformer(energies, x_dense, x_dense, key_mask)
 
         graph = readout(x)[:, None, :].expand(b, self.n_bins, self.hidden)
         dos_global, dos_system = self._heads(g, energies, graph, x_dense,
                                              key_mask)
-        return dos_global, x, dos_system
+        # the node embeddings widen bf16 back to f32, as the outputs do
+        return dos_global, x.float(), dos_system
 
     def _heads(self, g: GraphBatch, energies, graph, x_dense, key_mask):
         """The global and system heads share transformer_self,
         transformer_source and out_layer; attention, LN and FFN act per
         batch element, so both heads run as ONE 2B-batch pass."""
         b = energies.shape[0]
-        dos_in_g = F.leaky_relu(self.fc(torch.cat([energies, graph], -1)))
-        prompt = getattr(self, self._PROMPT)(g.system.long())
+        dos_in_g = leaky_relu(self.fc(torch.cat([energies, graph], -1)))
+        prompt = F.embedding(g.system.long(),
+                             getattr(self, self._PROMPT).weight.to(
+                                 self.cdtype))
         prompt = prompt[:, None, :].expand(b, self.n_bins, prompt.shape[-1])
-        dos_in_s = F.leaky_relu(
+        dos_in_s = leaky_relu(
             self.fc_prompt(torch.cat([energies, graph, prompt], -1)))
 
         both = torch.cat([dos_in_g, dos_in_s], 0)            # [2B, bins, h]
@@ -166,13 +186,13 @@ class _DOSTransformerBase(nn.Module):
         km = torch.cat([key_mask, key_mask], 0) if key_mask is not None else None
         both = self.transformer_self(both)
         both = self.transformer_source(both, kv, kv, km)
-        both = self.out_layer(both)[..., 0]                  # [2B, bins]
+        # the outputs widen bf16 back to f32
+        both = self.out_layer(both)[..., 0].float()          # [2B, bins]
         return both[:b], both[b:]
 
 
 class DOSTransformerEDOS(_DOSTransformerBase):
-    """eDOS flagship (201 bins, scatter-sum), float32, serving and
-    training."""
+    """eDOS flagship (201 bins, scatter-sum), serving and training."""
 
     def __init__(self, layers: int = 3, t_layers: int = 2, hidden: int = 256,
                  n_bins: int = 201, padding: str = "mask", node_in: int = 200,
@@ -183,18 +203,19 @@ class DOSTransformerEDOS(_DOSTransformerBase):
             lambda: GraphDecoderEDOS(hidden), **options)
 
     def forward(self, g: GraphBatch):
-        # features stored in bf16 (a device dataset's bf16 storage) are
-        # widened back to f32 here, as the JAX model casts its inputs
-        x, edge_attr, u = self.GN_encoder(g.nodes.float(), g.edges.float(),
-                                          g.glob)
+        # the inputs in the compute dtype, as the JAX model casts them (also
+        # features stored in bf16, a device dataset's bf16 storage)
+        x, edge_attr, u = self.GN_encoder(
+            *(t.to(self.cdtype) for t in (g.nodes, g.edges, g.glob)))
         return self._run(g, x, edge_attr,
                          lambda x: self.GN_decoder(x, u, g.node_mask))
 
 
 class DOSTransformerPhDOS(_DOSTransformerBase):
-    """phDOS flagship (51 bins, scatter-mean), float32, serving and
-    training. Node features are 118 atomic-mass rows; the 4 edge features
-    are computed from ``g.edge_vec`` with cutoff radius ``r_max``."""
+    """phDOS flagship (51 bins, scatter-mean), serving and training. Node
+    features are 118 atomic-mass rows; the 4 edge features are computed in
+    f32 from ``g.edge_vec`` with cutoff radius ``r_max``, then cast to the
+    compute dtype."""
 
     _PROMPT = "prompt_token"
     EDGE_FEATURES = 4  # SH l<=1: 1x0e + 1x1o
@@ -209,7 +230,8 @@ class DOSTransformerPhDOS(_DOSTransformerBase):
         self.r_max = r_max
 
     def forward(self, g: GraphBatch):
-        edge_attr = edge_geometry_phdos(g.edge_vec, self.r_max)
-        x, edge_attr = self.GN_encoder(g.nodes.float(), edge_attr)
+        edge_attr = edge_geometry_phdos(g.edge_vec.float(), self.r_max)
+        x, edge_attr = self.GN_encoder(g.nodes.to(self.cdtype),
+                                       edge_attr.to(self.cdtype))
         return self._run(g, x, edge_attr,
                          lambda x: self.GN_decoder(x, g.node_mask))

@@ -53,8 +53,10 @@ def build_model(task: str, embedder: str = "DOSTransformer", *,
                 **kwargs) -> nn.Module:
     """Instantiate a model by (task, embedder) name (case-insensitive).
     ``kwargs`` go to the model: padding, input widths, device, generator,
-    the LayerNorm levers ``fuse_ln_attn`` and ``ln_lp``, and the options
-    that are not ported yet (which raise). As in the JAX package, each
+    the LayerNorm levers ``fuse_ln_attn`` and ``ln_lp``, the compute
+    ``dtype`` ("float32" or "bfloat16"; the flagships only, as in the JAX
+    registry: the baselines take none), and the options that are not
+    ported yet (which raise). As in the JAX package, each
     family is given only the arguments it takes: ``layers`` only where it
     has processors, the transformer's only to the flagships, whose other
     options raise where they are not ported."""

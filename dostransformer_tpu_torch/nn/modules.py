@@ -21,6 +21,14 @@ count of real edges per receiver (the segment-sum kernel on the card).
 Every path keeps autograd: the projected weight slices, the row gathers and
 the single PReLU slope (passed to the kernel as ``alpha``) all receive
 gradients.
+
+Mixed precision, as in the JAX package: parameters stay float32 and each
+is cast to the operand's dtype where it is used (the Linear weights and
+biases, the PReLU slope), so bf16 activations run the products in bf16;
+LayerNorm statistics are f32 and its output is cast back. bf16 rounds where
+the JAX package rounds (:func:`linear`, :func:`leaky_relu`). The fused edge
+pipeline takes its LayerNorm parameters, slope, W1 and b1 uncast (f32), as
+the TPU kernel does.
 """
 
 from __future__ import annotations
@@ -40,6 +48,29 @@ from dostransformer_tpu_torch.ops.segment import batched_segment_sum
 Parts = Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]]
 
 
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """x @ weight^T + bias with the parameters cast to x's dtype. In bf16
+    the product is rounded before the bias is added, as the JAX package
+    rounds it (``y = x @ k; y + b``); a fused call would round once. f32
+    keeps the one fused call (the two differ by an f32 rounding)."""
+    weight = weight.to(x.dtype)
+    if bias is None:
+        return F.linear(x, weight)
+    if x.dtype == torch.bfloat16:
+        return F.linear(x, weight) + bias.to(x.dtype)
+    return F.linear(x, weight, bias.to(x.dtype))
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """Leaky ReLU, slope 0.01 as the operand's dtype holds it: JAX casts the
+    Python scalar to bf16 before it multiplies, so in bf16 the slope is
+    bf16(0.01) = 0.010009765625 (in f32 it is f32(0.01), F.leaky_relu's
+    own)."""
+    return F.leaky_relu(
+        x, 0.010009765625 if x.dtype == torch.bfloat16 else 0.01)
+
+
 class TorchLinear(nn.Linear):
     """nn.Linear with torch's default initialisation drawn from a passed
     generator.
@@ -56,22 +87,33 @@ class TorchLinear(nn.Linear):
 
     def forward(self, x: Union[torch.Tensor, Parts]) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
-            return F.linear(x, self.weight, self.bias)
+            return linear(x, self.weight, self.bias)
+        dtype = x[0][0].dtype
+        bias = None if self.bias is None else self.bias.to(dtype)
+        weight = self.weight.to(dtype)
         off, y = 0, None
         for t, idx in x:
-            part = F.linear(t, self.weight[:, off:off + t.shape[-1]])
+            part = F.linear(t, weight[:, off:off + t.shape[-1]])
             if idx is not None:
                 part = gather_rows(part, idx)
             y = part if y is None else y + part
             off += t.shape[-1]
-        return y if self.bias is None else y + self.bias
+        return y if bias is None else y + bias
+
+
+class PReLU(nn.PReLU):
+    """nn.PReLU (one shared slope, init 0.25) with the slope cast to the
+    operand's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.prelu(x, self.weight.to(x.dtype))
 
 
 class MLP2(nn.Sequential):
     """Linear(in->h) -> PReLU -> Linear(h->h): the encoder MLP."""
 
     def __init__(self, in_features: int, hidden: int):
-        super().__init__(TorchLinear(in_features, hidden), nn.PReLU(),
+        super().__init__(TorchLinear(in_features, hidden), PReLU(),
                          TorchLinear(hidden, hidden))
 
 
@@ -81,7 +123,7 @@ class MLPBlock(nn.Sequential):
 
     def __init__(self, in_features: int, mid: int, out: int):
         super().__init__(TorchLinear(in_features, mid), LayerNorm(mid),
-                         nn.PReLU(), TorchLinear(mid, out))
+                         PReLU(), TorchLinear(mid, out))
 
     def forward(self, x: Union[torch.Tensor, Parts]) -> torch.Tensor:
         lin0, ln, prelu, lin1 = self
@@ -90,13 +132,13 @@ class MLPBlock(nn.Sequential):
     def fused_edge(self, x, senders, receivers, edge_attr, edge_mask):
         """The block on the edge input [x[senders], x[receivers], edge_attr]
         through the fused kernel; returns (e_out [B, E, out], the masked sum
-        of e_out onto receivers [B, A, out])."""
+        of e_out onto receivers [B, A, out]), both in x's dtype."""
         lin0, ln, prelu, lin1 = self
         h = x.shape[-1]
-        w0 = lin0.weight
+        w0 = lin0.weight.to(x.dtype)
         src_proj = F.linear(x, w0[:, :h])
         dst_proj = F.linear(x, w0[:, h:2 * h])
-        edge_proj = F.linear(edge_attr, w0[:, 2 * h:], lin0.bias)
+        edge_proj = linear(edge_attr, w0[:, 2 * h:], lin0.bias)
         return fused_mp_edge(src_proj, dst_proj, edge_proj, senders,
                              receivers, edge_mask, ln.weight, ln.bias,
                              prelu.weight, lin1.weight, lin1.bias)

@@ -32,6 +32,11 @@ the environment names, see ``cli/common.py``):
 With both on, layer_norms.0 lives in the fused kernel and layer_norms.1 and
 the final LayerNorm go through ``layer_norm_lp``. Parameters and state_dict
 keys are the same under every setting.
+
+In a bf16 model the stack runs on bf16 activations: the FFN's weights are
+cast at use, the LayerNorms take f32 statistics and cast back, and the
+attention's scores and softmax are f32 (the bf16 forms of the attention
+forward kernels on the card).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dostransformer_tpu_torch.nn.init import xavier_linear_
 from dostransformer_tpu_torch.nn.layernorm import LayerNorm, LayerNormLP
+from dostransformer_tpu_torch.nn.modules import linear
 from dostransformer_tpu_torch.ops.attention import (
     fused_attention,
     fused_attention_ln,
@@ -52,11 +58,16 @@ from dostransformer_tpu_torch.ops.attention import (
 
 
 class XavierLinear(nn.Linear):
-    """The transformer FFN Linear: xavier_uniform weight, zero bias."""
+    """The transformer FFN Linear: xavier_uniform weight, zero bias; both
+    cast to the operand's dtype at use (f32 parameters, bf16 products in a
+    bf16 model)."""
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         if not self.weight.is_meta:
             xavier_linear_(self.weight, self.bias, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.weight, self.bias)
 
 
 class TransformerEncoderLayer(nn.Module):

@@ -30,6 +30,14 @@ LayerNorm backward kernel (``csrc/layernorm_bwd.cu``) the raw inputs with
 their row means and rstd, so no xhat is written to memory; for CPU tensors
 both are the plain composition :func:`ln_attention_reference`.
 
+bf16 operands (a bf16 model): the forward kernel has a bf16 form (q, k, v
+and the output bf16; scores, softmax and the row statistics f32) that
+rounds where the TPU kernel and :func:`dot_product_attention` round: the
+normalised softmax weights to bf16, then the output (two passes over the
+keys, see ``csrc/attention.cu``). The backward kernel's bf16 form is not written yet:
+bf16 into :func:`fused_attention_bwd` raises (ROADMAP.md queue 1 item 11);
+the plain backward takes bf16.
+
 The three attention kernels take every feature width D >= 1:
 :func:`attention_plan` is the Python mirror of how they split it (rows
 staged at ceil(D / 32) x 32 columns up to D = 512; above it blocks that each
@@ -131,7 +139,8 @@ def fused_attention_fwd(q, k, v, bias, want_stats=False):
     [B, Lk]: returns (out, stats), stats the rows' [2, B, Lq] max and sum
     for the backward kernel, or None unless ``want_stats``. k and v may be
     one tensor (the kernel then stages each tile once). CUDA tensors only
-    (float32, contiguous, any D >= 1; anything else raises). Counted in
+    (q, k and v of one dtype, float32 or bfloat16; bias float32;
+    contiguous, any D >= 1; anything else raises). Counted in
     ``fused_attention.launches``."""
     if not q.is_cuda:
         raise ValueError("fused_attention_fwd: the kernel takes CUDA tensors; "
@@ -139,11 +148,13 @@ def fused_attention_fwd(q, k, v, bias, want_stats=False):
     b, lq, d = q.shape
     lk = k.shape[1]
     attention_plan(d)
-    operands = {"q": (q, (b, lq, d)), "k": (k, (b, lk, d)),
-                "v": (v, (b, lk, d)), "key_mask": (bias, (b, lk))}
-    for arg, (t, shape) in operands.items():
+    kernels.require("fused_attention", "q", q, device=q.device,
+                    dtype={torch.float32, torch.bfloat16}, shape=(b, lq, d))
+    operands = {"k": (k, q.dtype, (b, lk, d)), "v": (v, q.dtype, (b, lk, d)),
+                "key_mask": (bias, torch.float32, (b, lk))}
+    for arg, (t, dtype, shape) in operands.items():
         kernels.require("fused_attention", arg, t, device=q.device,
-                        dtype=torch.float32, shape=shape)
+                        dtype=dtype, shape=shape)
     out = torch.empty_like(q)
     stats = (torch.empty((2, b, lq), device=q.device, dtype=torch.float32)
              if want_stats else None)
@@ -152,7 +163,7 @@ def fused_attention_fwd(q, k, v, bias, want_stats=False):
         code = kernels.library().dostpu_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), stats.data_ptr() if want_stats else None, b, lq,
-            lk, d, d ** -0.5, stream)
+            lk, d, d ** -0.5, int(q.dtype == torch.bfloat16), stream)
     kernels.check(code, "fused_attention")
     fused_attention.launches += 1
     return out, stats
@@ -164,12 +175,16 @@ def fused_attention_bwd(q, k, v, bias, o, g, stats=None):
     is additive. ``stats`` is the forward kernel's [2, B, Lq] row max and
     row sum; without it the kernel recomputes them first, to the same bits.
     Same result as :func:`attention_bwd_reference`. CUDA tensors only
-    (float32, contiguous, any D >= 1; anything else raises).
+    (float32, contiguous, any D >= 1; anything else raises: bf16 too, whose
+    form of this kernel is ROADMAP.md queue 1 item 11's training PR).
     ``fused_attention_bwd.launches`` counts calls that launched the
     kernels (one per call, however many kernels it takes)."""
     if not q.is_cuda:
         raise ValueError("fused_attention_bwd: the kernel takes CUDA tensors; "
                          "use attention_bwd_reference on the CPU")
+    if torch.bfloat16 in (q.dtype, g.dtype):
+        raise TypeError(f"fused_attention_bwd: the kernel has no bf16 form "
+                        f"yet; it is {kernels.BF16_TRAINING}")
     b, lq, d = q.shape
     lk = k.shape[1]
     attention_plan(d)
@@ -245,8 +260,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Same contract as :func:`dot_product_attention`, differentiable in q,
     k and v.
 
-    CUDA tensors go through the kernels (float32, contiguous, any D >= 1;
-    anything else raises), CPU tensors through the plain versions.
+    CUDA tensors go through the kernels (float32, or the forward's bf16
+    form for bf16 operands; contiguous, any D >= 1; anything else raises),
+    CPU tensors through the plain versions.
     ``fused_attention.launches`` counts forward kernel launches."""
     return _FusedAttention.apply(q, k, v, key_mask)
 
@@ -386,8 +402,8 @@ def fused_attention_ln(x: torch.Tensor, x_k: torch.Tensor, x_v: torch.Tensor,
 
     CUDA tensors go through the kernels (inputs of one dtype, float32 or
     bfloat16, ln_scale and ln_bias float32, any D >= 1; anything else
-    raises; the backward kernels take float32), CPU tensors through the
-    plain versions. ``fused_attention_ln.launches`` counts forward
+    raises; the backward kernels take float32 and refuse bf16, ROADMAP.md
+    queue 1 item 11), CPU tensors through the plain versions. ``fused_attention_ln.launches`` counts forward
     kernel launches."""
     return _FusedAttentionLN.apply(x, x_k, x_v, ln_scale, ln_bias, key_mask)
 

@@ -20,6 +20,16 @@ Linear weight ``[H, M]`` (out, in) — the JAX functions take the flax kernel
 ``[M, H]``. The kernel reads it as it lies, so no transpose is copied per
 call.
 
+bf16 operands (a bf16 model): the forward takes src_proj, dst_proj and
+edge_proj in bf16 and returns e_out and agg in bf16, with every other
+operand (edge_mask, the LayerNorm's scale and bias, alpha, w1, b1) f32, as
+the TPU kernel takes them. It rounds where that kernel rounds: mid, the
+LayerNorm, PReLU and ``act @ W1^T + b1`` are f32; e_out is rounded once;
+agg sums the unrounded f32 e_out and is rounded once. The plain version
+rounds at the same two points. The backward kernel's bf16 form is not
+written yet: bf16 into :func:`fused_mp_edge_bwd` raises (ROADMAP.md queue 1
+item 11); the plain backward computes in f32 from widened operands.
+
 Each kernel has two hand-written forms, chosen by the widths alone
 (:func:`fused_mp_form` for the forward, :func:`fused_mp_bwd_form` for the
 backward): where M and H are multiples of 32 and a block of the kernel fits
@@ -123,17 +133,24 @@ def mp_edge_reference(src_proj, dst_proj, edge_proj, senders, receivers,
     src_proj/dst_proj [B, A, M], edge_proj [B, E, M], senders/receivers
     [B, E] int, edge_mask [B, E], ln_scale/ln_bias [M], alpha [1],
     w1 [H, M] (torch layout), b1 [H]; returns (e_out [B, E, H],
-    agg [B, A, H])."""
+    agg [B, A, H]) in the projections' dtype. bf16 projections are widened
+    to f32 first and everything is f32 up to e_out, which is rounded once;
+    agg sums the unrounded e_out and is rounded once (the TPU kernel's
+    rounding points, not those of the unfused composition)."""
+    dtype = src_proj.dtype
+    f = torch.promote_types(dtype, torch.float32)
+    src_proj, dst_proj, edge_proj = (t.to(f) for t in (src_proj, dst_proj,
+                                                        edge_proj))
     mid = (gather_rows(src_proj, senders) + gather_rows(dst_proj, receivers)
            + edge_proj)
     mu = mid.mean(-1, keepdim=True)
     var = ((mid - mu) ** 2).mean(-1, keepdim=True)
     norm = (mid - mu) * torch.rsqrt(var + LN_EPS) * ln_scale + ln_bias
     act = torch.clamp(norm, min=0.0) + alpha * torch.clamp(norm, max=0.0)
-    e_out = torch.nn.functional.linear(act, w1, b1)
-    agg = segment_sum_reference(e_out * edge_mask[..., None], receivers,
-                                src_proj.shape[1])
-    return e_out, agg
+    e_out = torch.nn.functional.linear(act, w1.to(f), b1.to(f))
+    agg = segment_sum_reference(e_out * edge_mask[..., None].to(f),
+                                receivers, src_proj.shape[1])
+    return e_out.to(dtype), agg.to(dtype)
 
 
 def mp_edge_bwd_reference(src_proj, dst_proj, edge_proj, senders, receivers,
@@ -145,8 +162,12 @@ def mp_edge_bwd_reference(src_proj, dst_proj, edge_proj, senders, receivers,
     returns (g_src_proj, g_dst_proj, g_edge_proj, g_ln_scale, g_ln_bias,
     g_alpha [1], g_w1 [H, M], g_b1 [H]). Every edge scatters its g_mid onto
     its sender and receiver, pad edges (mask 0) included; the mask only
-    weighs the aggregation's gradient."""
+    weighs the aggregation's gradient. bf16 operands are widened to f32:
+    every gradient is f32."""
     a = src_proj.shape[1]
+    f = torch.promote_types(src_proj.dtype, torch.float32)
+    src_proj, dst_proj, edge_proj, g_eout, g_agg = (
+        t.to(f) for t in (src_proj, dst_proj, edge_proj, g_eout, g_agg))
     mid = (gather_rows(src_proj, senders) + gather_rows(dst_proj, receivers)
            + edge_proj)
     mu = mid.mean(-1, keepdim=True)
@@ -219,15 +240,15 @@ def fused_mp_edge_bwd_tile(b, e, m, h, form=FORM_BY_SHAPE):
 
 
 def _mp_operands(src_proj, dst_proj, edge_proj, senders, receivers,
-                 edge_mask, ln_scale, ln_bias, alpha, w1):
+                 edge_mask, ln_scale, ln_bias, alpha, w1, proj_dtype):
     b, a, m = src_proj.shape
     e = senders.shape[1]
     h = w1.shape[0]
     f32, i32 = torch.float32, torch.int32
     return {
-        "src_proj": (src_proj, f32, (b, a, m)),
-        "dst_proj": (dst_proj, f32, (b, a, m)),
-        "edge_proj": (edge_proj, f32, (b, e, m)),
+        "src_proj": (src_proj, proj_dtype, (b, a, m)),
+        "dst_proj": (dst_proj, src_proj.dtype, (b, a, m)),
+        "edge_proj": (edge_proj, src_proj.dtype, (b, e, m)),
         "senders": (senders, i32, (b, e)), "receivers": (receivers, i32, (b, e)),
         "edge_mask": (edge_mask, f32, (b, e)), "ln_scale": (ln_scale, f32, (m,)),
         "ln_bias": (ln_bias, f32, (m,)), "alpha": (alpha, f32, (1,)),
@@ -237,12 +258,14 @@ def _mp_operands(src_proj, dst_proj, edge_proj, senders, receivers,
 def _fused_mp_edge_fwd(src_proj, dst_proj, edge_proj, senders, receivers,
                        edge_mask, ln_scale, ln_bias, alpha, w1, b1,
                        form=FORM_BY_SHAPE):
-    """Launch the forward kernel (CUDA tensors only)."""
+    """Launch the forward kernel (CUDA tensors only): its f32 form, or its
+    bf16 form for bf16 projections."""
     b, a, m = src_proj.shape
     e = senders.shape[1]
     h = w1.shape[0]
     operands = _mp_operands(src_proj, dst_proj, edge_proj, senders,
-                            receivers, edge_mask, ln_scale, ln_bias, alpha, w1)
+                            receivers, edge_mask, ln_scale, ln_bias, alpha, w1,
+                            {torch.float32, torch.bfloat16})
     operands["b1"] = (b1, torch.float32, (h,))
     _require_all("fused_mp_edge", operands, src_proj.device)
     _check_form("fused_mp_edge", form, m, h)
@@ -250,8 +273,13 @@ def _fused_mp_edge_fwd(src_proj, dst_proj, edge_proj, senders, receivers,
     _check_smem("fused_mp_edge",
                 lib.dostpu_fused_mp_edge_smem_bytes(b, e, m, h, form),
                 src_proj.device)
-    e_out = torch.empty((b, e, h), device=src_proj.device, dtype=torch.float32)
-    agg = torch.empty((b, a, h), device=src_proj.device, dtype=torch.float32)
+    bf16 = src_proj.dtype == torch.bfloat16
+    out = dict(device=src_proj.device, dtype=src_proj.dtype)
+    e_out = torch.empty((b, e, h), **out)
+    agg = torch.empty((b, a, h), **out)
+    # the bf16 form's unrounded e_out, which agg sums
+    e32 = (torch.empty((b, e, h), device=src_proj.device,
+                       dtype=torch.float32) if bf16 else None)
     with torch.cuda.device(src_proj.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.dostpu_fused_mp_edge_fwd(
@@ -259,7 +287,8 @@ def _fused_mp_edge_fwd(src_proj, dst_proj, edge_proj, senders, receivers,
             senders.data_ptr(), receivers.data_ptr(), edge_mask.data_ptr(),
             ln_scale.data_ptr(), ln_bias.data_ptr(), alpha.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), e_out.data_ptr(), agg.data_ptr(),
-            b, a, e, m, h, form, stream)
+            None if e32 is None else e32.data_ptr(), b, a, e, m, h, form,
+            int(bf16), stream)
     kernels.check(code, "fused_mp_edge")
     fused_mp_edge.launches += 1
     return e_out, agg
@@ -270,18 +299,23 @@ def fused_mp_edge_bwd(src_proj, dst_proj, edge_proj, senders, receivers,
                       form=FORM_BY_SHAPE):
     """The backward kernel (``csrc/fused_mp_bwd.cu``); same contract as
     :func:`mp_edge_bwd_reference`. CUDA tensors only (float32, int32
-    indices, contiguous; anything else raises). ``fused_mp_edge_bwd.launches``
-    counts kernel launches."""
+    indices, contiguous; anything else raises: bf16 operands too, whose
+    form of this kernel is ROADMAP.md queue 1 item 11's training PR).
+    ``fused_mp_edge_bwd.launches`` counts kernel launches."""
     if not src_proj.is_cuda:
         raise ValueError("fused_mp_edge_bwd: the kernel takes CUDA tensors; "
                          "use mp_edge_bwd_reference on the CPU")
+    if torch.bfloat16 in (src_proj.dtype, g_eout.dtype):
+        raise TypeError(f"fused_mp_edge_bwd: the kernel has no bf16 form "
+                        f"yet; it is {kernels.BF16_TRAINING}")
     b, a, m = src_proj.shape
     e = senders.shape[1]
     h = w1.shape[0]
     dev = src_proj.device
     g_eout, g_agg = g_eout.contiguous(), g_agg.contiguous()
     operands = _mp_operands(src_proj, dst_proj, edge_proj, senders,
-                            receivers, edge_mask, ln_scale, ln_bias, alpha, w1)
+                            receivers, edge_mask, ln_scale, ln_bias, alpha, w1,
+                            torch.float32)
     operands["g_eout"] = (g_eout, torch.float32, (b, e, h))
     operands["g_agg"] = (g_agg, torch.float32, (b, a, h))
     _require_all("fused_mp_edge_bwd", operands, dev)
@@ -346,8 +380,9 @@ def fused_mp_edge(src_proj, dst_proj, edge_proj, senders, receivers,
     """Fused edge pipeline; same contract as :func:`mp_edge_reference`, and
     differentiable in every float argument.
 
-    CUDA tensors go through the kernels (float32, int32 indices, contiguous;
-    anything else raises), CPU tensors through the plain versions.
+    CUDA tensors go through the kernels (float32, or the forward's bf16
+    form for bf16 projections; int32 indices, contiguous; anything else
+    raises), CPU tensors through the plain versions.
     ``fused_mp_edge.launches`` counts forward kernel launches."""
     return _FusedMPEdge.apply(src_proj, dst_proj, edge_proj, senders,
                               receivers, edge_mask, ln_scale, ln_bias, alpha,

@@ -54,22 +54,24 @@ _SIGNATURES = {
     "dostpu_fused_mp_edge_bwd_tile": ([_I] * 5 + [_IP] * 3, None),
     "dostpu_fused_mp_edge_bwd_scratch_floats": ([_I] * 5, ctypes.c_size_t),
     # src_proj dst_proj edge_proj senders receivers edge_mask ln_scale
-    # ln_bias alpha w1 b1 e_out agg B A E M H form stream
-    "dostpu_fused_mp_edge_fwd": ([_P] * 13 + [_I] * 6 + [_P], _I),
+    # ln_bias alpha w1 b1 e_out agg e_out32|null B A E M H form bf16 stream
+    "dostpu_fused_mp_edge_fwd": ([_P] * 14 + [_I] * 7 + [_P], _I),
     # src_proj dst_proj edge_proj senders receivers edge_mask ln_scale
     # ln_bias alpha w1 g_eout g_agg | g_src_proj g_dst_proj g_edge_proj
     # g_ln_scale g_ln_bias g_alpha g_w1 g_b1 scratch | B A E M H form stream
     "dostpu_fused_mp_edge_bwd": ([_P] * 21 + [_I] * 6 + [_P], _I),
     # D -> nc slices
     "dostpu_attention_plan": ([_I, _IP, _IP], None),
-    # q k v bias out stats|null B Lq Lk D scale stream
-    "dostpu_attention_fwd": ([_P] * 6 + [_I] * 4 + [ctypes.c_float, _P], _I),
+    # q k v bias out stats|null B Lq Lk D scale bf16 stream
+    "dostpu_attention_fwd": ([_P] * 6 + [_I] * 4 + [ctypes.c_float, _I, _P],
+                             _I),
     # B Lq Lk D
     "dostpu_attention_bwd_scratch_floats": ([_I] * 4, ctypes.c_size_t),
     # q k v bias o g dq dk dv stats_in|null scratch B Lq Lk D scale stream
     "dostpu_attention_bwd": ([_P] * 11 + [_I] * 4 + [ctypes.c_float, _P], _I),
-    # data ids out B E F N stream
+    # data ids out B E F N stream (float32; the same for bfloat16)
     "dostpu_segment_sum": ([_P] * 3 + [_I] * 4 + [_P], _I),
+    "dostpu_segment_sum_bf16": ([_P] * 3 + [_I] * 4 + [_P], _I),
     # B E F N -> vec lanes slots segs
     "dostpu_segment_sum_plan": ([_I] * 4 + [_IP] * 4, None),
     # x xk xv ln_scale ln_bias key_mask|null out B Lq Lk D scale eps bf16
@@ -160,16 +162,24 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+# where the backward kernels' bf16 forms are planned
+BF16_TRAINING = ("ROADMAP.md queue 1 item 11, its training PR (the bf16 "
+                 "forms of the backward kernels)")
+
+
 def require(kernel: str, arg: str, t, *, device, dtype, shape) -> None:
-    """Raise unless ``t`` is a contiguous, 16-byte aligned ``dtype`` tensor
-    of ``shape`` on ``device``: what a kernel's C entry point assumes of
-    every pointer it is given."""
+    """Raise unless ``t`` is a contiguous, 16-byte aligned tensor of
+    ``shape`` on ``device`` whose dtype is ``dtype`` (or one of them, for a
+    set): what a kernel's C entry point assumes of every pointer it is
+    given."""
     if t.device != device:
         raise ValueError(f"{kernel}: {arg} is on {t.device}, expected "
                          f"{device}")
-    if t.dtype != dtype:
+    dtypes = dtype if isinstance(dtype, (set, frozenset, tuple)) else {dtype}
+    if t.dtype not in dtypes:
+        names = " or ".join(sorted(str(d) for d in dtypes))
         raise TypeError(f"{kernel}: {arg} is {t.dtype}, the kernel takes "
-                        f"{dtype}")
+                        f"{names}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{kernel}: {arg} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")

@@ -2,7 +2,8 @@
 
 Counterpart of dostransformer_tpu/ops/segment.py `batched_segment_sum` and
 `batched_segment_mean` (per-graph sums over batch-leading padded arrays),
-with `segment_sum_pallas`'s kernel contract: exact f32 sums, segment ids
+with `segment_sum_pallas`'s kernel contract: f32 sums (bf16 data is summed
+in f32 and rounded once), segment ids
 below 0 or at or above ``num_segments`` dropped (as ``jax.ops.segment_sum``
 drops them), any edge count and feature width. Callers mask pad rows
 (multiply data by the mask) before aggregating.
@@ -30,13 +31,15 @@ from dostransformer_tpu_torch.ops import kernels
 def segment_sum_reference(data: torch.Tensor, segment_ids: torch.Tensor,
                           num_segments: int) -> torch.Tensor:
     """data [B, E, F], segment_ids [B, E] (local, in [0, num_segments))
-    -> [B, num_segments, F]."""
+    -> [B, num_segments, F] in data's dtype. bf16 data is summed in f32 and
+    rounded once, as the kernel's bf16 form sums it."""
     valid = (segment_ids >= 0) & (segment_ids < num_segments)
     ids = torch.where(valid, segment_ids, 0).long()
-    data = torch.where(valid[..., None], data, 0)
-    out = data.new_zeros((data.shape[0], num_segments) + data.shape[2:])
-    index = ids.reshape(ids.shape + (1,) * (data.ndim - 2)).expand_as(data)
-    return out.scatter_add_(1, index, data)
+    wide = data.to(torch.promote_types(data.dtype, torch.float32))
+    wide = torch.where(valid[..., None], wide, 0)
+    out = wide.new_zeros((data.shape[0], num_segments) + data.shape[2:])
+    index = ids.reshape(ids.shape + (1,) * (data.ndim - 2)).expand_as(wide)
+    return out.scatter_add_(1, index, wide).to(data.dtype)
 
 
 # csrc/segment_sum.cu's partition constants
@@ -85,21 +88,24 @@ def _gather_segments(g: torch.Tensor, segment_ids: torch.Tensor,
 
 
 def _segment_sum_kernel(data, segment_ids, num_segments):
-    """Launch the kernel (CUDA tensors only)."""
+    """Launch the kernel (CUDA tensors only): its f32 form, or its bf16 form
+    for bf16 data."""
     b, e, f = data.shape
     dev = data.device
     kernels.require("batched_segment_sum", "data", data, device=dev,
-                    dtype=torch.float32, shape=(b, e, f))
+                    dtype={torch.float32, torch.bfloat16}, shape=(b, e, f))
     kernels.require("batched_segment_sum", "segment_ids", segment_ids,
                     device=dev, dtype=torch.int32, shape=(b, e))
-    out = torch.empty((b, num_segments, f), device=dev, dtype=torch.float32)
+    out = torch.empty((b, num_segments, f), device=dev, dtype=data.dtype)
     if out.numel() == 0:
         return out
+    lib = kernels.library()
+    entry = (lib.dostpu_segment_sum_bf16 if data.dtype == torch.bfloat16
+             else lib.dostpu_segment_sum)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        code = kernels.library().dostpu_segment_sum(
-            data.data_ptr(), segment_ids.data_ptr(), out.data_ptr(), b, e, f,
-            num_segments, stream)
+        code = entry(data.data_ptr(), segment_ids.data_ptr(), out.data_ptr(),
+                     b, e, f, num_segments, stream)
     kernels.check(code, "batched_segment_sum")
     batched_segment_sum.launches += 1
     return out
@@ -129,9 +135,9 @@ def batched_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     """Same contract as :func:`segment_sum_reference`, differentiable in
     ``data``.
 
-    CUDA tensors go through the kernel (data float32 [B, E, F], ids int32,
-    both contiguous; anything else raises), CPU tensors through the plain
-    version. ``batched_segment_sum.launches`` counts kernel launches."""
+    CUDA tensors go through the kernel (data float32 or bfloat16
+    [B, E, F], ids int32, both contiguous; anything else raises), CPU
+    tensors through the plain version. ``batched_segment_sum.launches`` counts kernel launches."""
     return _SegmentSum.apply(data, segment_ids, num_segments)
 
 

@@ -9,7 +9,10 @@ small and large crystals pads each group only to its own shape; results come
 back in input order with the dummy-graph rows of short batches dropped.
 Outputs stay on the device until the whole request is done and are copied
 to the host once per call. eDOS predictions are clamped at 0 (the
-reference's eval clamp); phDOS predictions are not.
+reference's eval clamp); phDOS predictions are not. A model built with
+``dtype="bfloat16"`` (a keyword of :meth:`Predictor.from_torch` and
+:meth:`Predictor.from_checkpoint`, passed to the model as in the JAX
+package) serves in bf16 from the same f32 weights; its spectra are f32.
 
 Example:
     predictor = Predictor.from_torch("model.pt", task="edos",
@@ -93,8 +96,10 @@ class Predictor:
         "edos" or "phdos"; phDOS weights saved in float64 by the reference
         load into the float32 model. ``fuse_ln_attn`` and ``ln_lp`` are the
         model's LayerNorm switches (nn/transformer.py); the weights load the
-        same either way. The model runs on ``device``, the card by default;
-        with no card visible this raises unless ``device="cpu"`` is given."""
+        same either way. ``model_kwargs`` go to the model (``padding``,
+        ``dtype="bfloat16"`` for bf16 compute on f32 weights). The model
+        runs on ``device``, the card by default; with no card visible this
+        raises unless ``device="cpu"`` is given."""
         model = _build_for(example, task, embedder, layers, t_layers, hidden,
                            entry_device(device), fuse_ln_attn, ln_lp,
                            model_kwargs)

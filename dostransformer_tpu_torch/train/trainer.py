@@ -18,6 +18,11 @@ index tensor [S, B], uploaded once an epoch; every step goes through
 for the caller to fetch once per chunk of epochs. :meth:`Trainer.eval_epoch`
 scores a list of batches and stacks their metrics. Data and tensor
 parallelism are ROADMAP.md queue 1 item 9.
+
+A bf16 model (``dtype="bfloat16"``; its parameters and gradients stay f32)
+evaluates on either device and trains on the CPU through the plain
+versions; on the card its train step raises at the first backward kernel,
+whose bf16 form is ROADMAP.md queue 1 item 11's training PR.
 """
 
 from __future__ import annotations

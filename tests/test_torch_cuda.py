@@ -76,6 +76,8 @@ def dev():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products accumulate in f32, as the plain versions' on the CPU
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -918,3 +920,159 @@ def test_baseline_on_the_card_matches_the_cpu(dev, task, name):
                                        atol=1e-3, msg=pname)
     gnn = name.startswith("graphnetwork")
     assert launches == [2 * gnn, 2 * gnn, 2 * (gnn and task == "phdos"), 0]
+
+
+# --- the bf16 forms of the forward kernels (#1, #3, #6) ----------------------
+# #1, #3 and #6 compute in f32 from the same bf16 inputs as their plain
+# versions (which agree to ~1e-6 before rounding) and round where they round
+# (#3: the normalised softmax weights, then the output): at most one bf16 ulp
+# apart, 2^-8 of the value; held to 2 ulps of the largest value.
+BF16_REL = 2.0 ** -7
+
+
+def _bf16_mp_args(dev, shape):
+    args = _mp_args(dev, *shape)
+    return [t.bfloat16() for t in args[:3]] + args[3:]
+
+
+@pytest.mark.parametrize("shape", MP_SHAPES)
+def test_fused_mp_edge_bf16_matches_plain(dev, shape):
+    """e_out and agg bf16, agg summed from the unrounded e_out; both forms
+    where the widths take the tensor-core form; bit-identical reruns."""
+    args = _bf16_mp_args(dev, shape)
+    before = fused_mp_edge.launches
+    got = fused_mp_edge(*args)
+    assert fused_mp_edge.launches == before + 1
+    want = mp_edge_reference(*args)
+    forms = [got]
+    if fused_mp_form(shape[3], shape[4]) == FORM_TENSOR_CORE:
+        forms.append(fused_mp_forward_kernel(*args, form=FORM_GENERIC))
+    for out in forms:
+        for x, w in zip(out, want):
+            assert x.dtype == w.dtype == torch.bfloat16
+            _close_scaled(x.float(), w.float(), BF16_REL)
+    again = fused_mp_edge(*args)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+@pytest.mark.parametrize("shape", [(8, 201, 32, 256), (16, 201, 201, 256),
+                                   (8, 51, 16, 256), (16, 51, 51, 256),
+                                   (1, 51, 8, 256), (3, 5, 70, 96),
+                                   (2, 40, 33, 50), (2, 9, 7, 33),
+                                   (2, 40, 33, 512), (2, 40, 33, 544),
+                                   (2, 33, 40, 1024), (2, 9, 7, 1025)])
+def test_fused_attention_bf16_matches_plain(dev, shape):
+    """q, k and v bf16 at every width (the sliced kernels above 512), keys
+    and values one tensor and two, masked and not; the f32 row statistics
+    within 1e-5 of the plain scores'; bit-identical reruns."""
+    b, lq, lk, d = shape
+    g = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn(b, n, d, generator=g).to(dev, torch.bfloat16)
+               for n in (lq, lk, lk))
+    km = (torch.rand(b, lk, generator=g) > 0.3).to(dev)
+    km[-1] = False
+    for mask in (km, None):
+        for vv in (k, v):
+            before = fused_attention.launches
+            got = fused_attention(q, k, vv, mask)
+            assert fused_attention.launches == before + 1
+            want = dot_product_attention(q, k, vv, mask)
+            assert got.dtype == want.dtype == torch.bfloat16
+            _close_scaled(got.float(), want.float(), BF16_REL)
+            assert torch.equal(fused_attention(q, k, vv, mask), got)
+    bias = key_bias(km)
+    _, stats = fused_attention_fwd(q, k, k, bias, want_stats=True)
+    want = attention_stats_reference(q, k, bias)
+    real = km.any(-1)
+    assert stats.dtype == torch.float32
+    torch.testing.assert_close(stats[:, real], want[:, real], **TOL)
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 1, 16), (8, 2048, 1, 64),
+                                   (8, 2048, 256, 64), (3, 70, 5, 13),
+                                   (2, 90, 300, 7), (1, 9, 1, 1)])
+def test_batched_segment_sum_bf16_matches_plain(dev, shape):
+    """bf16 in and out, f32 sums rounded once: counts exact, other data
+    within BF16_REL; bit-identical reruns."""
+    b, e, f, n = shape
+    data, ids = _segment_args(dev, b, e, f, n)
+    data = data.bfloat16()
+    got = batched_segment_sum(data, ids, n)
+    want = segment_sum_reference(data, ids, n)
+    assert got.dtype == want.dtype == torch.bfloat16
+    if f == 1:
+        assert torch.equal(got, want)
+    else:
+        _close_scaled(got.float(), want.float(), BF16_REL)
+    assert torch.equal(batched_segment_sum(data, ids, n), got)
+
+
+def test_bf16_rejections(dev):
+    """f64 and f16 go nowhere; bf16 into the backward kernels (#2, #4)
+    raises and names the training PR that brings their bf16 forms; a bf16
+    model's train step on the card raises there, at its first backward
+    kernel, and never falls back to a plain version."""
+    args = _mp_args(dev, 2, 5, 9, 32, 16)
+    q = torch.randn(2, 4, 64, device=dev)
+    data, ids = _segment_args(dev, 3, 70, 5, 13)
+    for dtype in (torch.float64, torch.float16):
+        with pytest.raises(TypeError):
+            fused_mp_edge(*[t.to(dtype) for t in args[:3]], *args[3:])
+        with pytest.raises(TypeError):
+            fused_attention(q.to(dtype), q.to(dtype), q.to(dtype))
+        with pytest.raises(TypeError):
+            batched_segment_sum(data.to(dtype), ids, 13)
+    bf = [t.bfloat16() for t in args[:3]]
+    cot = (torch.randn(2, 9, 16, device=dev).bfloat16(),
+           torch.randn(2, 5, 16, device=dev).bfloat16())
+    with pytest.raises(TypeError, match="item 11"):
+        fused_mp_edge_bwd(*bf, *args[3:10], *cot)
+    qb = q.bfloat16()
+    with pytest.raises(TypeError, match="item 11"):
+        fused_attention_bwd(qb, qb, qb, torch.zeros(2, 4, device=dev), qb, qb)
+    from dostransformer_tpu_torch.data.graph import collate
+    from dostransformer_tpu_torch.data.synthetic import synthetic_edos_samples
+    from dostransformer_tpu_torch.models.registry import build_model
+    from dostransformer_tpu_torch.train.trainer import Trainer
+
+    model = build_model("edos", hidden=32, layers=1, t_layers=1,
+                        dtype="bfloat16", device=dev)
+    batch = collate(synthetic_edos_samples(3, seed=0), num_graphs=4)
+    before = (fused_mp_edge_bwd.launches, fused_attention_bwd.launches)
+    with pytest.raises(TypeError, match="item 11"):
+        Trainer(model).train_step(batch)
+    assert (fused_mp_edge_bwd.launches,
+            fused_attention_bwd.launches) == before
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+@pytest.mark.parametrize("task", ["edos", "phdos"])
+def test_bf16_model_on_the_card_matches_the_cpu(dev, task, fuse):
+    """A small bf16 model, card against the same weights on the CPU: f32
+    outputs within 0.03 relative RMS (the card rounds the attention's
+    weights elsewhere), through the bf16 forms of the kernels."""
+    from dostransformer_tpu_torch.data.graph import collate
+    from dostransformer_tpu_torch.data import synthetic
+    from dostransformer_tpu_torch.models.registry import build_model
+
+    make = (synthetic.synthetic_edos_samples if task == "edos"
+            else synthetic.synthetic_phdos_samples)
+    batch = collate(make(5, seed=2), num_graphs=8)
+    cpu = build_model(task, hidden=64, layers=2, t_layers=1, dtype="bfloat16",
+                      fuse_ln_attn=fuse,
+                      generator=torch.Generator().manual_seed(3))
+    card = build_model(task, hidden=64, layers=2, t_layers=1,
+                       dtype="bfloat16", fuse_ln_attn=fuse, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    before = (fused_mp_edge.launches, batched_segment_sum.launches)
+    with torch.inference_mode():
+        want = cpu(batch)
+        got = card(batch.to(dev))
+    assert fused_mp_edge.launches == before[0] + 2
+    assert batched_segment_sum.launches == before[1] + (2 if task == "phdos"
+                                                        else 0)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        g = g.cpu()
+        assert (g - w).norm() <= 0.03 * w.norm(), float((g - w).norm()
+                                                        / w.norm())

@@ -174,11 +174,18 @@ def test_init_is_seeded():
                        torch.full((1,), 0.25))
 
 
-@pytest.mark.parametrize("kwargs", [{"attn_drop": 0.1}, {"dtype": "bfloat16"},
+@pytest.mark.parametrize("kwargs", [{"attn_drop": 0.1}, {"dtype": "float64"},
                                     {"bins_pad": 256}, {"tp_axis": "model"}])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model("edos", hidden=H, layers=1, t_layers=1, **kwargs)
+
+
+def test_unknown_dtype_raises():
+    """A dtype name the JAX model does not know raises ValueError there and
+    here (bf16 is spelt "bfloat16")."""
+    with pytest.raises(ValueError, match="unknown dtype"):
+        build_model("edos", hidden=H, layers=1, t_layers=1, dtype="bf16")
 
 
 @pytest.mark.parametrize("task,embedder", [
