@@ -140,6 +140,38 @@ activations, f32 outputs):
      device time a forward at batch 8 (CUDA events) and samples/s, bf16
      against f32 in turns.
 
+bf16 training (the same model trained: f32 parameters, gradients and
+optimizer state, bf16 activations):
+
+  30. the bf16 forms of the backward kernels against their plain versions
+     in bf16: #2 (eDOS, phDOS at B = 8 and 1, hidden 1,024 in a cluster of
+     four, hidden 50 in the generic form, and the generic form beside the
+     tensor-core one at the eDOS shape; f32 gradients from bf16 operands,
+     held to the f32 limits 1e-5 and 1e-4) and #4 (D = 256 at the eDOS and
+     phDOS shapes, D = 1,024 sliced, D = 50; bf16 gradients within 2^-7 of
+     the largest value; bit-equal without the forward's statistics and with
+     two copies of the keys); each bit-identical on a second run and timed
+     beside the f32 form on the same inputs, the bound (#2's f32 operations,
+     W1 being f32; #4's 10 B Lq Lk D at the bf16 tensor-core peak) and, for
+     #4, SDPA's bf16 backward;
+  31. bf16 Trainer.train_steps on the card against the same weights and
+     batches on the CPU in bf16 (and in f32, for the scale): the eDOS and
+     phDOS flagships and eDOS with both levers (3 steps), h1024 at batch 2
+     (1 step); every step's launches exact (the forward's bf16 forms and
+     3 #2 + 6 #4 in the backward; with the levers 6 #5 and 20 #7); the
+     first-step gradients (relative RMS for each parameter and for all
+     together) and every step's loss within 3 times the CPU's own bf16-to-
+     f32 distance measured here;
+  32. cli.main_edos --dtype bfloat16 (2 epochs, 48 learnable samples) with
+     checkpoints, a run stopped after epoch 1 and resumed (losses and best
+     metrics exactly equal), with --bf16_data --remat, and cli.main_phdos --dtype
+     bfloat16: exact launches per step and eval batch, epoch losses within
+     0.03 of the same runs in f32; best/ served through
+     Predictor.from_checkpoint(..., dtype="bfloat16") against the CPU;
+  33. a record without a limit: train samples/s bf16 against f32 in turns
+     (eDOS and phDOS at hidden 256, eDOS at 1,024) and the device time of an
+     h1024 train step (CUDA events).
+
 The training runtime (checkpoints, resume, best/, the device-resident
 datasets, remat, clipping and schedules, artifacts, TensorBoard):
 
@@ -231,7 +263,7 @@ above must launch neither of their kernels):
      batch uploaded per step, and already on the card) and serving forwards
      of both flagships at
      batch 8, with the LayerNorm levers off and with both on, and of the
-     h1024 eDOS flagship with the levers off: wall time
+     h1024 eDOS flagship with the levers off, in f32 and in bf16: wall time
      without the profiler, then under torch.profiler the
      device time and device activities per step, the busy share, and the
      kernels by device time, and what the levers add to or take from each;
@@ -391,9 +423,11 @@ SLICED_KERNELS = {
     "attn_fwd_sliced_kernel": "attn_fwd_sliced_kernelIfLi16E",
     "attn_fwd_sliced_kernel<bf16>":
         "attn_fwd_sliced_kernelI13__nv_bfloat16Li16E",
-    "stats_sliced_kernel": "stats_sliced_kernelILi16E",
-    "dq_sliced_kernel": "dq_sliced_kernelILi16E",
-    "dkv_sliced_kernel": "dkv_sliced_kernelILi16E",
+    "stats_sliced_kernel": "stats_sliced_kernelIfLi16E",
+    "dq_sliced_kernel": "dq_sliced_kernelIfLi16E",
+    "dkv_sliced_kernel": "dkv_sliced_kernelIfLi16E",
+    "dq_sliced_kernel<bf16>": "dq_sliced_kernelI13__nv_bfloat16Li16E",
+    "dkv_sliced_kernel<bf16>": "dkv_sliced_kernelI13__nv_bfloat16Li16E",
     "attn_ln_fwd_sliced_kernel<float>": "attn_ln_fwd_sliced_kernelIfLi16E",
     "attn_ln_fwd_sliced_kernel<bf16>":
         "attn_ln_fwd_sliced_kernelI13__nv_bfloat16Li16E"}
@@ -410,11 +444,19 @@ MP_KERNELS = {
     "edge_tc_kernel<bf16,1,1,1> 16x64":
         "edge_tc_kernelI13__nv_bfloat16Li1ELi1ELi1E",
     "edge_kernel<bf16>": "11edge_kernelI13__nv_bfloat16E",
-    "edge_bwd_tc_kernel<1,4>": "edge_bwd_tc_kernelILi1ELi4E",
-    "edge_bwd_tc_kernel<2,4>": "edge_bwd_tc_kernelILi2ELi4E",
-    "edge_bwd_tc_kernel<1,2>": "edge_bwd_tc_kernelILi1ELi2E",
+    "edge_bwd_tc_kernel<1,4>": "edge_bwd_tc_kernelIfLi1ELi4E",
+    "edge_bwd_tc_kernel<2,4>": "edge_bwd_tc_kernelIfLi2ELi4E",
+    "edge_bwd_tc_kernel<1,2>": "edge_bwd_tc_kernelIfLi1ELi2E",
+    "edge_bwd_tc_kernel<bf16,1,4>":
+        "edge_bwd_tc_kernelI13__nv_bfloat16Li1ELi4E",
+    "edge_bwd_tc_kernel<bf16,2,4>":
+        "edge_bwd_tc_kernelI13__nv_bfloat16Li2ELi4E",
+    "edge_bwd_tc_kernel<bf16,1,2>":
+        "edge_bwd_tc_kernelI13__nv_bfloat16Li1ELi2E",
     "gw1_tc_kernel": "gw1_tc_kernel", "edge_kernel": "11edge_kernelIfE",
-    "edge_bwd_kernel": "15edge_bwd_kernel", "gw1_kernel": "10gw1_kernel",
+    "edge_bwd_kernel": "15edge_bwd_kernelIfE",
+    "edge_bwd_kernel<bf16>": "15edge_bwd_kernelI13__nv_bfloat16E",
+    "gw1_kernel": "10gw1_kernel",
     "agg_kernel": "10agg_kernelIfE",
     "agg_kernel<bf16>": "10agg_kernelI13__nv_bfloat16E",
     "tail_kernel": "11tail_kernel"}
@@ -1762,7 +1804,7 @@ def phase_profile():
     """16b: where the device time goes: train steps and serving forwards of
     both flagships at batch 8, with the LayerNorm levers off and then with
     both on (the train step with the batch on the card, and the serving
-    forward). First the wall time of every case without the profiler (host
+    forward), and of the h1024 eDOS flagship in f32 and in bf16. First the wall time of every case without the profiler (host
     clock, synchronised at both ends; taken before torch.profiler runs at
     all, which slows every later launch), then each case under
     torch.profiler: the device time and the device activities per step or
@@ -1778,10 +1820,13 @@ def phase_profile():
         clamp = task == "edos"
         batches = list(GraphLoader(learnable(96, seed=0), BATCH))[:8]
         on_card = [b.to("cuda") for b in batches]
-        lever_settings = ({}, {"fuse_ln_attn": True, "ln_lp": True})
-        for levers in lever_settings[:1] if hidden == WIDE else lever_settings:
+        # (levers, compute dtype): h1024 with the levers off, f32 and bf16
+        settings = ((({}, "float32"), ({}, "bfloat16")) if hidden == WIDE
+                    else (({}, "float32"),
+                          ({"fuse_ln_attn": True, "ln_lp": True}, "float32")))
+        for levers, dtype in settings:
             model = build_model(task, layers=LAYERS, t_layers=T_LAYERS,
-                                hidden=hidden, device="cuda",
+                                hidden=hidden, device="cuda", dtype=dtype,
                                 generator=torch.Generator().manual_seed(2),
                                 **levers)
             trainer = Trainer(model, clamp_targets=clamp, eval_clamp=clamp)
@@ -1808,10 +1853,11 @@ def phase_profile():
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) / len(inputs) * 1e3
                 cases.append((f"{name} {label}, levers "
-                              f"{'both on' if levers else 'off'}", fn, inputs,
-                              wall))
+                              f"{'both on' if levers else 'off'}"
+                              + (", bf16" if dtype == "bfloat16" else ""),
+                              fn, inputs, wall))
 
-    print(f"profile, both flagships, batch {BATCH}, f32:")
+    print(f"profile, both flagships, batch {BATCH}, f32 (h1024 also bf16):")
     out = {}
     for label, fn, inputs, wall in cases:
         with profile(activities=[ProfilerActivity.CPU,
@@ -2955,14 +3001,22 @@ def phase_bf16_kernels(dev):
         print(f"  f32 form on the same inputs {seg[label]['ms_f32']:.4f} ms")
     out["batched_segment_sum"] = seg
 
-    # the kernels line: a forward's calls at the flagship shapes
+    return bf16_line(out, {
+        "fused_mp_edge": ["eDOS"],
+        "fused_attention": [f"eDOS {k}" for k in attention_shapes()],
+        "batched_segment_sum": ["phDOS count"]})
+
+
+def bf16_line(out, main):
+    """The kernels line's bf16 columns of each kernel in ``out``: the mean
+    over its ``main`` shapes (a forward's or a step's calls at the flagship
+    shapes), the largest error, and every shape's row."""
     line = {}
     for name, rows in out.items():
-        main = {"fused_mp_edge": ["eDOS"],
-                "fused_attention": [f"eDOS {k}" for k in attention_shapes()],
-                "batched_segment_sum": ["phDOS count"]}[name]
-        mean = lambda key: (None if any(rows[r][key] is None for r in main)
-                            else statistics.mean(rows[r][key] for r in main))
+        shapes = main[name]
+        mean = lambda key: (None if any(rows[r][key] is None for r in shapes)
+                            else statistics.mean(rows[r][key]
+                                                 for r in shapes))
         line[name] = {key: mean(key) for key in (
             "ms_bf16", "ms_f32", "plain_ms_bf16", "bound_ms_bf16",
             "library_ms_bf16")}
@@ -3110,6 +3164,351 @@ def phase_h1024_bf16_serving(workdir):
                       "max_rel_err": max(err)}
 
 
+# --- bf16 training (30-33) -------------------------------------------------
+
+# a bf16 model's training on the card against the same weights on the CPU:
+# two bf16 realisations (the card's kernels and cuBLAS, the CPU's plain
+# versions) stand about as far apart as bf16 stands from f32 (phases 28-29),
+# and that distance moves with the width and the depth; so the limits
+# are this multiple of the CPU's own bf16-to-f32 distance, measured in the
+# same phase on the same weights and batches
+BF16_TRAIN_FACTOR = 3.0
+# a bf16 training run against the same run in f32: the JAX package's own
+# bound (tests/test_train.py, rtol 0.03 on the first-step loss)
+BF16_RUN_RTOL = 0.03
+
+
+def rel_rms(got, want) -> float:
+    """|got - want|_2 / |want|_2 (0 where both are 0)."""
+    num = float((got.float() - want.float()).norm())
+    den = float(want.float().norm())
+    return 0.0 if num == 0.0 else num / max(den, 1e-30)
+
+
+def mp_bwd_args(g, dev, b, a, e, m, h):
+    """The backward's operands at (B, A, E, M, H): bf16_mp_args without b1,
+    plus the cotangents g_eout [B, E, H] and g_agg [B, A, H], f32."""
+    args = bf16_mp_args(g, dev, b, a, e, m, h)[:10]
+    return args + (torch.randn(b, e, h, generator=g).to(dev),
+                   torch.randn(b, a, h, generator=g).to(dev))
+
+
+def phase_bf16_backward_kernels(dev):
+    """30: the bf16 forms of #2 and #4 against their plain versions in bf16
+    on the card, each run twice and required to repeat bit for bit, timed
+    beside the f32 form on the same inputs widened, the bound and (#4) SDPA's
+    bf16 backward. #2's outputs are f32 from bf16-exact inputs: the f32
+    limits. #4's are bf16: 2^-7 of the largest value, bit-equal without the
+    forward's statistics and with two copies of the keys. Returns the
+    kernels line's bf16 columns, as phase 27's."""
+    g = torch.Generator().manual_seed(30)
+    out = {}
+
+    # 2: eDOS, phDOS at B=8 and B=1, hidden 1,024 (a cluster of four) and
+    # hidden 50 (the generic form)
+    mp_shapes = {"eDOS": (BATCH, 32, 384, 2 * HIDDEN, HIDDEN),
+                 "phDOS B=8": (BATCH, 16, 128, 2 * HIDDEN, HIDDEN),
+                 "phDOS B=1": (1, 16, 128, 2 * HIDDEN, HIDDEN),
+                 "h1024": (BATCH, 32, 384, 2 * WIDE, WIDE),
+                 "hidden 50": (BATCH, 16, 128, 2 * NARROW, NARROW)}
+    rtols = (KERNEL_RTOL,) * 3 + (PARAM_GRAD_RTOL,) * 5
+    rows = {}
+    for label, shape in mp_shapes.items():
+        args32 = mp_bwd_args(g, dev, *shape)
+        bf = {0, 1, 2, 10, 11}  # the projections and the cotangents
+        args = tuple(t.bfloat16() if i in bf else t
+                     for i, t in enumerate(args32))
+        b, a, e, m, h = shape
+        tc = fused_mp_bwd_form(m, h) != FORM_GENERIC
+        tile = fused_mp_edge_bwd_tile(b, e, m, h)
+        name = f"fused_mp_edge_bwd bf16[{label}]"
+        print(f"{name}: B={b} A={a} E={e} M={m} H={h}, form "
+              f"{'tensor-core' if tc else 'generic'}, {tile[0]} edges x "
+              f"{tile[1]} blocks")
+        run = compare(name, lambda: fused_mp_edge_bwd(*args),
+                      lambda: mp_edge_bwd_reference(*args), rtols=rtols,
+                      repeat=True,
+                      work=mp_work(args, fused_mp_edge_bwd(*args),
+                                   backward=True))
+        if tc and label == "eDOS":  # the generic form's bf16 twin
+            generic = fused_mp_edge_bwd(*args, form=FORM_GENERIC)
+            for i, (x, w, tol) in enumerate(
+                    zip(generic, mp_edge_bwd_reference(*args), rtols)):
+                err = (x - w).abs().max().item()
+                check(x.dtype == torch.float32 and err <= tol
+                      * max(1.0, w.abs().max().item()),
+                      f"{name}: generic form, output {i} max abs err "
+                      f"{err:.3e}")
+            run["ms_generic_bf16"] = median_ms(
+                lambda: fused_mp_edge_bwd(*args, form=FORM_GENERIC))
+        row = bf16_row(run, median_ms(lambda: fused_mp_edge_bwd(*args32)))
+        row.update({k: run[k] for k in ("ms_generic_bf16",) if k in run})
+        print(f"  f32 form on the same inputs {row['ms_f32']:.4f} ms; bound "
+              f"{row['bound_ms_bf16']:.4f} ms ({row['bound_by_bf16']}, f32 "
+              f"operations: W1 is f32)"
+              + (f"; generic bf16 form {run['ms_generic_bf16']:.4f} ms"
+                 if "ms_generic_bf16" in run else ""))
+        rows[label] = row
+    out["fused_mp_edge_bwd"] = rows
+
+    # 4: D = 256 at the eDOS and phDOS shapes, D = 1,024 (sliced), D = 50
+    attn = {}
+    cases = ([(f"eDOS {k}", s, HIDDEN) for k, s in attention_shapes().items()]
+             + [(f"phDOS {k}", s, HIDDEN)
+                for k, s in phdos_attention_shapes().items()]
+             + [(f"D=1024 eDOS {k}", s, WIDE)
+                for k, s in attention_shapes().items()]
+             + [(f"D=50 phDOS {k}", s, NARROW)
+                for k, s in phdos_attention_shapes().items()])
+    for label, (bb, lq, lk), d in cases:
+        q32, k32, go32 = (torch.randn(bb, n, d, generator=g).to(dev)
+                          for n in (lq, lk, lq))
+        q, k, go = q32.bfloat16(), k32.bfloat16(), go32.bfloat16()
+        km = torch.ones(bb, lk, dtype=torch.bool)
+        if lk != lq:  # atom keys: pad atoms masked
+            n_real = torch.randint(4, lk + 1, (bb,), generator=g)
+            km = torch.arange(lk)[None] < n_real[:, None]
+        km[-1] = False  # a dummy graph: every key masked
+        bias = key_bias(km.to(dev))
+        o, stats = fused_attention_fwd(q, k, k, bias, want_stats=True)
+        o32, stats32 = fused_attention_fwd(q32, k32, k32, bias,
+                                           want_stats=True)
+        name = f"fused_attention_bwd bf16[{label}]"
+        print(f"{name}: B={bb} Lq={lq} Lk={lk} D={d}, keys = values, the "
+              f"forward's row statistics")
+        before = fused_attention_bwd.launches
+        got = fused_attention_bwd(q, k, k, bias, o, go, stats)
+        check(fused_attention_bwd.launches == before + 1
+              and all(t.dtype == torch.bfloat16 for t in got),
+              f"{name}: one launch and bf16 gradients")
+        work = (nbytes(q, k, bias, go, stats) + nbytes(q, k, k.clone()),
+                10 * bb * lq * lk * d)
+        run = compare(name,
+                      lambda: fused_attention_bwd(q, k, k, bias, o, go,
+                                                  stats),
+                      lambda: attention_bwd_reference(q, k, k, bias, go),
+                      rtols=(BF16_KERNEL_RTOL,) * 3, repeat=True, work=work,
+                      flops_per_s=BF16_FLOPS_PER_S,
+                      library_fn=sdpa_backward(q, k, k, bias.bfloat16(), go))
+        check_attention_backward(name, q, k, bias, o, go, stats, got, run)
+        row = bf16_row(run, median_ms(
+            lambda: fused_attention_bwd(q32, k32, k32, bias, o32, go32,
+                                        stats32)))
+        row.update(ms_no_stats_bf16=run["ms_no_stats"],
+                   ms_two_tensors_bf16=run["ms_two_tensors"])
+        print(f"  f32 form on the same inputs {row['ms_f32']:.4f} ms; bf16 "
+              f"bound {row['bound_ms_bf16']:.5f} ms ({row['bound_by_bf16']})"
+              f"; SDPA's bf16 backward {row['library_ms_bf16']:.4f} ms")
+        attn[label] = row
+    out["fused_attention_bwd"] = attn
+
+    return bf16_line(out, {
+        "fused_mp_edge_bwd": ["eDOS"],
+        "fused_attention_bwd": [f"eDOS {k}" for k in attention_shapes()]})
+
+
+def phase_bf16_card_vs_cpu(task, hidden=HIDDEN, samples=21, batch=BATCH,
+                           **levers):
+    """31: a bf16 model's Trainer.train_steps on the card against the same
+    weights and batches on the CPU in bf16, and in f32 for the scale
+    (``samples`` at ``batch``: 21 at 8 are 3 steps, the last short): every
+    card step launches exactly the path's kernels, bf16 forms forward and
+    backward; the first step's gradients (relative RMS for each parameter
+    and for all together) and every step's loss within BF16_TRAIN_FACTOR of
+    the CPU bf16 model's own distance from its f32 model. Returns the card
+    steps' launches together."""
+    learnable = (synthetic_edos_learnable if task == "edos"
+                 else synthetic_phdos_learnable)
+    clamp = task == "edos"
+    kw = dict(layers=LAYERS, t_layers=T_LAYERS, hidden=hidden, **levers)
+    cpu16 = build_model(task, dtype="bfloat16",
+                        generator=torch.Generator().manual_seed(1), **kw)
+    cpu32 = build_model(task, **kw)
+    cpu32.load_state_dict(cpu16.state_dict())
+    card = copy.deepcopy(cpu16).to("cuda")
+    models = {"card": card, "cpu bf16": cpu16, "cpu f32": cpu32}
+    trainers = {k: Trainer(m, clamp_targets=clamp, eval_clamp=clamp)
+                for k, m in models.items()}
+    batches = list(GraphLoader(learnable(samples, seed=5), batch))
+    losses = {k: [] for k in models}
+    grads = {}
+    totals = launch_counts()
+    want = step_launches(task, bool(levers))
+    for step, b in enumerate(batches):
+        for k, trainer in trainers.items():
+            reset_launches()
+            losses[k].append(trainer.train_step(b)["loss"].item())
+            if k == "card":
+                counts = read_launches()
+                check(counts == want, f"{task} bf16 step {step}: launches "
+                                      f"{counts}, expected {want}")
+                for name, v in counts.items():
+                    totals[name] += v
+            if step == 0:
+                grads[k] = {n: p.grad.detach().float().cpu()
+                            for n, p in models[k].named_parameters()}
+    names = list(grads["cpu bf16"])
+    cat = lambda d: torch.cat([d[n].flatten() for n in names])
+    own = rel_rms(cat(grads["cpu bf16"]), cat(grads["cpu f32"]))
+    got = rel_rms(cat(grads["card"]), cat(grads["cpu bf16"]))
+    worst = (0.0, "", 0.0)
+    for n in names:
+        own_p = rel_rms(grads["cpu bf16"][n], grads["cpu f32"][n])
+        got_p = rel_rms(grads["card"][n], grads["cpu bf16"][n])
+        limit = BF16_TRAIN_FACTOR * max(own_p, own)
+        check(got_p <= limit, f"{task} bf16 first-step gradient of {n}: "
+                              f"{got_p:.3e} from the CPU's, limit {limit:.3e}")
+        if got_p / max(own_p, own) > worst[0]:
+            worst = (got_p / max(own_p, own), n, got_p)
+    print(f"  first-step gradients, relative RMS: card vs CPU bf16 {got:.3e}, "
+          f"CPU bf16 vs CPU f32 {own:.3e} (limit {BF16_TRAIN_FACTOR} x); per "
+          f"parameter the worst is {worst[1]} at {worst[2]:.3e}, "
+          f"{worst[0]:.2f} x its own distance")
+    check(got <= BF16_TRAIN_FACTOR * own,
+          f"{task} bf16 first-step gradients: {got:.3e} from the CPU's, "
+          f"limit {BF16_TRAIN_FACTOR} x {own:.3e}")
+    own_loss = max(abs(a - b) / abs(b) for a, b in zip(losses["cpu bf16"],
+                                                       losses["cpu f32"]))
+    # one batch's loss may land near f32 by chance: the gradients' distance
+    # is the floor of bf16's own noise at this depth
+    limit = BF16_TRAIN_FACTOR * max(own_loss, own)
+    for step, (lc, l16, l32) in enumerate(zip(*losses.values())):
+        rel = abs(lc - l16) / abs(l16)
+        print(f"  step {step}: loss card {lc:.7f}, CPU bf16 {l16:.7f}, CPU "
+              f"f32 {l32:.7f}; card vs CPU bf16 {rel:.3e} (limit "
+              f"{limit:.3e})")
+        check(rel <= limit, f"{task} bf16 step {step}: card loss {lc} vs "
+                            f"CPU {l16}")
+    return totals
+
+
+def phase_bf16_cli(workdir):
+    """32: the training CLIs in bf16 on the card. cli.main_edos --dtype
+    bfloat16 for two epochs on 48 learnable samples with --checkpoint_dir
+    --checkpoint_every 1, a run stopped after epoch 1 and resumed (epoch
+    losses and best metrics exactly the uninterrupted run's), one with
+    --bf16_data --remat (the bf16 forward kernels replayed in the
+    backward), and the same run in f32; then cli.main_phdos --dtype
+    bfloat16 and its f32 twin. Exact launches per train step and eval
+    batch; every bf16 run's epoch losses within BF16_RUN_RTOL of its f32
+    twin's. best/ is served through Predictor.from_checkpoint(...,
+    dtype="bfloat16") on the card against the CPU's bf16 and f32 models.
+    Returns {path: launches}."""
+    n_train = len(edos_random_split(range(48))[0])
+    steps = math.ceil(n_train / BATCH)
+    bf16 = ["--dtype", "bfloat16"]
+    runs, paths = {}, {}
+
+    def train(cli, task, name, epochs, extra):
+        run_dir = os.path.join(workdir, name)
+        os.makedirs(run_dir)
+        argv = edos_run_argv(run_dir, epochs, n=48, extra=extra)
+        result, per_call, launches = run_counted(cli, argv)
+        done = 1 if name == "resumed" else 0  # epochs the checkpoint holds
+        # with --remat the forward's launches repeat in the backward; an
+        # eval batch runs the forward once
+        plain = step_launches(task, False)
+        want = remat_step_launches(task) if "--remat" in extra else plain
+        losses = check_training_run(
+            f"{task} training run {name}", result, per_call, want,
+            (epochs - done) * steps, os.path.join(run_dir, "train.jsonl"),
+            run_dir, epochs - done,
+            want_eval=dict(plain, **dict.fromkeys(BACKWARD, 0)))
+        runs[name] = (result, losses)
+        return launches
+
+    ck = lambda name: ["--checkpoint_dir", os.path.join(workdir, name),
+                       "--checkpoint_every", "1"]
+    paths["edos_training_bf16_ckpt"] = train(main_edos, "edos", "whole", 2,
+                                             bf16 + ck("ck_whole"))
+    train(main_edos, "edos", "first", 1, bf16 + ck("ck_cut"))
+    train(main_edos, "edos", "resumed", 2, bf16 + ck("ck_cut"))
+    paths["edos_training_bf16_data"] = train(
+        main_edos, "edos", "bf16_data", 2, bf16 + ["--bf16_data", "--remat"])
+    train(main_edos, "edos", "f32", 2, [])
+    paths["phdos_training_bf16"] = train(main_phdos, "phdos", "phdos_bf16",
+                                         2, bf16)
+    train(main_phdos, "phdos", "phdos_f32", 2, [])
+
+    whole, resumed = runs["whole"], runs["resumed"]
+    cut = runs["first"][1] + resumed[1]
+    print(f"bf16 epoch losses, uninterrupted {whole[1]}; stopped after "
+          f"epoch 1 and resumed {cut}")
+    check(cut == whole[1], f"bf16: resumed losses {cut} differ from the "
+                           f"uninterrupted {whole[1]}")
+    for key in ("best_epoch", "best_valid_rmse", "best_valid_mae", "test"):
+        check(resumed[0][key] == whole[0][key],
+              f"bf16 resumed {key} {resumed[0][key]} differs from "
+              f"{whole[0][key]}")
+    for name, twin in (("whole", "f32"), ("bf16_data", "f32"),
+                       ("phdos_bf16", "phdos_f32")):
+        got, want = runs[name][1], runs[twin][1]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        print(f"{name} epoch losses {got} vs f32 {want}: max relative "
+              f"difference {rel:.3e} (limit {BF16_RUN_RTOL})")
+        check(rel <= BF16_RUN_RTOL, f"{name}: bf16 losses {got} do not "
+                                    f"track f32 {want}")
+
+    samples = synthetic_edos_samples(20, seed=3)
+    kw = dict(task="edos", example=samples[0], layers=LAYERS,
+              t_layers=T_LAYERS, hidden=HIDDEN, batch_size=BATCH)
+    best = os.path.join(workdir, "ck_whole")
+    gpu = Predictor.from_checkpoint(best, device="cuda", dtype="bfloat16",
+                                    **kw)
+    reset_launches()
+    dos = gpu.predict(samples)
+    paths["edos_serving_bf16_ckpt"] = read_launches()
+    want = bf16_launches("edos", expected_batches(samples))
+    check(paths["edos_serving_bf16_ckpt"] == want,
+          f"best/ in bf16: launches {paths['edos_serving_bf16_ckpt']}, "
+          f"expected {want}")
+    cpu = [Predictor.from_checkpoint(best, device="cpu", dtype=dt,
+                                     **kw).predict(samples)
+           for dt in ("bfloat16", "float32")]
+    check_bf16_outputs("best/ served in bf16", dos, *cpu, BINS)
+    return paths
+
+
+def phase_bf16_train_rates():
+    """33: a record, no limit. Train samples/s bf16 against f32 (batch 8,
+    batches on the card, synchronised at both ends), readings taken in turns
+    in one process, at hidden 256 (eDOS, phDOS) and 1,024 (eDOS); device ms
+    a step by CUDA events at hidden 1,024."""
+    out = {}
+    for label, task, hidden, steps in (("eDOS h256", "edos", HIDDEN, 10),
+                                       ("phDOS h256", "phdos", HIDDEN, 10),
+                                       ("eDOS h1024", "edos", WIDE, 4)):
+        learnable = (synthetic_edos_learnable if task == "edos"
+                     else synthetic_phdos_learnable)
+        batches = [b.to("cuda") for b in
+                   GraphLoader(learnable(8 * steps, seed=0), BATCH)]
+        trainers = {dt: Trainer(build_model(
+            task, layers=LAYERS, t_layers=T_LAYERS, hidden=hidden,
+            dtype=dt, device="cuda",
+            generator=torch.Generator().manual_seed(2)),
+            clamp_targets=task == "edos", eval_clamp=task == "edos")
+            for dt in ("float32", "bfloat16")}
+        for trainer in trainers.values():  # warm
+            trainer.train_step(batches[0])
+        rates = {dt: [] for dt in trainers}
+        ms = {dt: [] for dt in trainers}
+        for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in batches:
+                trainers[dt].train_step(b)
+            torch.cuda.synchronize()
+            rates[dt].append(len(batches) * BATCH
+                             / (time.perf_counter() - t0))
+            if hidden == WIDE:
+                ms[dt].append(median_ms(
+                    lambda: trainers[dt].train_step(batches[0]), runs=6,
+                    warmup=1))
+        out[label] = {"rates": rates} | ({"device_ms": ms}
+                                         if hidden == WIDE else {})
+    return out
+
+
 def kernel_resources(so, wanted) -> dict:
     """Registers a thread and stack bytes (a nonzero stack means spills or
     local arrays) of the compiled kernels whose mangled names contain one of
@@ -3161,14 +3560,15 @@ def main():
     stamp("build")
     print(f"built {len(kernels.SOURCES)} CUDA sources for sm_90a in "
           f"{seconds:.1f} s")
-    # the attention kernels at the flagship width (D = 256 = 32 x 8)
-    # (the forward kernel is a template over the operand type)
+    # the attention kernels at the flagship width (D = 256 = 32 x 8), each
+    # a template over the operand type
+    bf16_mangled = "I13__nv_bfloat16"
     resources = kernel_resources(kernels.library_path(), {
-        k: f"{k}I{'f' if k == 'attn_fwd_kernel' else ''}Li{HIDDEN // 32}ELb1E"
+        k: f"{k}IfLi{HIDDEN // 32}ELb1E"
         for names in ATTENTION_KERNELS.values() for k in names
         if "sliced" not in k} | {
-        "attn_fwd_kernel<bf16>":
-            f"attn_fwd_kernelI13__nv_bfloat16Li{HIDDEN // 32}ELb1E"})
+        f"{k}<bf16>": f"{k}{bf16_mangled}Li{HIDDEN // 32}ELb1E"
+        for k in ("attn_fwd_kernel", "dq_kernel", "dkv_kernel")})
     print(f"attention kernels at D={HIDDEN}, registers a thread and stack "
           f"bytes (cuobjdump -res-usage): {json.dumps(resources)}")
     mp_resources = kernel_resources(kernels.library_path(), MP_KERNELS)
@@ -3210,6 +3610,10 @@ def main():
     for name, row in phase_bf16_kernels(dev).items():
         results[name].update(row)
     stamp("phase 27")
+    # 30: the bf16 forms of #2 and #4
+    for name, row in phase_bf16_backward_kernels(dev).items():
+        results[name].update(row)
+    stamp("phase 30")
 
     paths, losses = {}, {}
     with tempfile.TemporaryDirectory() as root:
@@ -3317,6 +3721,20 @@ def main():
         bf16_errs["edos1024_serving_bf16"] = h1024["max_rel_err"]
         stamp("phases 28-29")
 
+        # 31: bf16 train steps, card against CPU
+        for path, task, kw in (
+                ("edos_training_bf16_steps", "edos", {}),
+                ("phdos_training_bf16_steps", "phdos", {}),
+                ("edos_training_bf16_levers", "edos",
+                 dict(fuse_ln_attn=True, ln_lp=True)),
+                ("edos1024_training_bf16_steps", "edos",
+                 dict(hidden=WIDE, samples=2, batch=2))):
+            print(f"card vs CPU, bf16 train steps: {path}")
+            paths[path] = phase_bf16_card_vs_cpu(task, **kw)
+        # 32: the training CLIs in bf16, resume, best/ served in bf16
+        paths.update(phase_bf16_cli(subdir("bf16_cli")))
+        stamp("phases 31-32")
+
         # 14: training with both levers on, against the unfused runs above
         trainings = (("edos", phase_training_path),
                      ("phdos", phase_phdos_training))
@@ -3350,6 +3768,18 @@ def main():
               f"{spread(rates['host'])} on {smi}")
 
     stamp("phases 14, 15, 24")
+    # 33: bf16 against f32 train rates and device time a step (a record)
+    for label, r in phase_bf16_train_rates().items():
+        print(f"{label} training samples/s (batch {BATCH}, batches on the "
+              f"card, two readings each taken in turns): bf16 "
+              f"{spread(r['rates']['bfloat16'])}, f32 "
+              f"{spread(r['rates']['float32'])} on {smi}")
+        if "device_ms" in r:
+            print(f"{label} device ms a train step (CUDA events, median of "
+                  f"6, two readings each taken in turns): bf16 "
+                  f"{spread(r['device_ms']['bfloat16'])}, f32 "
+                  f"{spread(r['device_ms']['float32'])} on {smi}")
+    stamp("phase 33")
     # 16: where the device time goes (last: the profiler slows what follows)
     phase_profile()
     phase_sub_kernels()
@@ -3375,13 +3805,13 @@ def main():
     for path, counts in paths.items():
         task, _, mode, variant = re.fullmatch(
             r"(edos|phdos)(\d*)_(serving|training)(_levers|_fused|_host|"
-            r"_ckpt|_remat|_data|_graphnetwork|_mlp2|_bf16|_bf16_fused)?",
-            path).groups()
+            r"_ckpt|_remat|_data|_graphnetwork|_mlp2|_bf16(?:_fused|_levers"
+            r"|_data|_ckpt|_steps)?)?", path).groups()
         if variant in ("_graphnetwork", "_mlp2"):
             want = baseline_step_launches(task, variant[1:])
         else:
-            want = step_launches(task, variant in ("_levers", "_fused",
-                                                   "_bf16_fused"))
+            want = step_launches(task, variant in (
+                "_levers", "_fused", "_bf16_fused", "_bf16_levers"))
         if mode == "serving":
             want.update(dict.fromkeys(BACKWARD, 0))
         for name in sources:
@@ -3408,12 +3838,13 @@ def main():
                "library_ms": r["library_ms"],
                "launches_by_path": {p: c[name] for p, c in paths.items()}}
         check(row["launches"] > 0, f"{name} never launched on {on}")
-        # the bf16 serving paths: their launches and model errors
+        # the bf16 paths (serving and training): their launches, and the
+        # serving paths' model errors
         row["launches_bf16"] = {p: c[name] for p, c in paths.items()
                                 if "_bf16" in p}
+        check(any(row["launches_bf16"].values()),
+              f"{name}: no bf16 path launched it")
         if name in ("fused_mp_edge", "fused_attention", "batched_segment_sum"):
-            check(any(row["launches_bf16"].values()),
-                  f"{name}: no bf16 serving path launched it")
             row["bf16_serving_max_rel_err"] = bf16_errs
         if name in ATTENTION_KERNELS:
             row["resources"] = {k: v for k, v in resources.items()

@@ -71,8 +71,6 @@ _NOT_PORTED = {
                       "ROADMAP.md's do-not-port list (an XLA cache)"),
     "pad_bins": (lambda a: a.pad_bins != 0,
                  "ROADMAP.md's do-not-port list (TPU lane alignment)"),
-    "dtype": (lambda a: a.dtype != "float32",
-              f"{_Q1} item 11's training PR (bf16 backward kernels)"),
     "attn_drop": (lambda a: a.attn_drop > 0.0,
                   f"{_Q1} item 2 (attention dropout)"),
     "use_pallas": (lambda a: a.use_pallas is not None,
@@ -152,7 +150,10 @@ def build_arg_parser(task: str) -> argparse.ArgumentParser:
                    help="torch.autograd anomaly detection: a NaN produced "
                         "in the backward raises where it appeared")
     p.add_argument("--dtype", type=str, default="float32",
-                   choices=["float32", "bfloat16"])
+                   choices=["float32", "bfloat16"],
+                   help="compute dtype (parameters, their gradients and the "
+                        "optimizer state stay float32; LayerNorm statistics "
+                        "and the softmax f32)")
     p.add_argument("--host_loader", action="store_true",
                    help="collate and upload batches from the host each step "
                         "instead of the device-resident dataset (which "
@@ -160,8 +161,8 @@ def build_arg_parser(task: str) -> argparse.ArgumentParser:
                         "device)")
     p.add_argument("--bf16_data", action="store_true",
                    help="store the device dataset's node and edge features "
-                        "in bfloat16 (the model widens them to f32); "
-                        "targets and masks stay f32")
+                        "in bfloat16 (the model casts them to its compute "
+                        "dtype); targets and masks stay f32")
     p.add_argument("--bucketed", action="store_true",
                    help="partition the device dataset by atom bucket and "
                         "pad each group only to its bucket's shapes; "

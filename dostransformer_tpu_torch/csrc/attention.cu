@@ -119,23 +119,15 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* bias_b = bias + (size_t)b * Lk;
   const int n_tiles = (Lk + kTileN - 1) / kTileN;
 
-  // rows [r0, r0 + rows) of src -> dst: f32 rows as they are, bf16 raw
-  auto stage_rows = [&](float* dst, const T* src, int r0, int rows,
-                        int n_total) {
-    if constexpr (kSplit)
-      stage_cols_async<NC>(dst, src, r0, rows, n_total, D, 0, D);
-    else
-      stage_raw_async<T, NC>(dst, src, r0, rows, n_total, D, 0, D);
-  };
   // iteration it stages key tile it % n_tiles; v only where it is used
   auto stage = [&](int it, int buf) {
     float* dst = kv_s + buf * tile_floats;
     const int r0 = (it % n_tiles) * kTileN;
-    stage_rows(dst, kb, r0, kTileN, Lk);
+    stage_rows<T, NC>(dst, kb, r0, kTileN, Lk, D, 0, D);
     if (!v_is_k && (kSplit || it >= n_tiles))
-      stage_rows(dst + kTileN * S, vb, r0, kTileN, Lk);
+      stage_rows<T, NC>(dst + kTileN * S, vb, r0, kTileN, Lk, D, 0, D);
   };
-  stage_rows(q_s, q + (size_t)b * Lq * D, q0, kTileM, Lq);
+  stage_rows<T, NC>(q_s, q + (size_t)b * Lq * D, q0, kTileM, Lq, D, 0, D);
   stage(0, 0);
   cp_async_commit();
 
@@ -260,15 +252,6 @@ attn_fwd_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* bias_b = bias + (size_t)b * Lk;
   const int n_tiles = (Lk + kTileN - 1) / kTileN;
 
-  // columns [c, c + w) of rows [r0, r0 + rows) of src -> dst
-  auto stage_chunk = [&](float* dst, const T* src, int r0, int rows,
-                         int n_total, int c, int w) {
-    if constexpr (kSplit)
-      stage_cols_async<NC>(dst, src, r0, rows, n_total, D, c, w);
-    else
-      stage_raw_async<T, NC>(dst, src, r0, rows, n_total, D, c, w);
-  };
-
   float m_run[4], l_run[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -291,10 +274,10 @@ attn_fwd_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int cc = slice_chunk(ci, slice, n_chunks) * W;
       const int w = min(W, D - cc);
       __syncthreads();  // the previous chunk's (or tile's) reads are done
-      stage_chunk(a_s, qb, q0, kTileM, Lq, cc, w);
-      stage_chunk(t_s, kb, k0, kTileN, Lk, cc, w);
+      stage_rows<T, NC>(a_s, qb, q0, kTileM, Lq, D, cc, w);
+      stage_rows<T, NC>(t_s, kb, k0, kTileN, Lk, D, cc, w);
       if (!v_is_k && ci == 0 && uses_v)
-        stage_chunk(v_s, vb, k0, kTileN, Lk, s0, min(W, D - s0));
+        stage_rows<T, NC>(v_s, vb, k0, kTileN, Lk, D, s0, min(W, D - s0));
       cp_async_commit();
       cp_async_wait_all();
       __syncthreads();

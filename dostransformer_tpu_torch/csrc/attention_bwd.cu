@@ -1,4 +1,5 @@
-// Projection-free attention backward, float32, for sm_90a.
+// Projection-free attention backward, float32 or bfloat16 operands, for
+// sm_90a.
 //
 // Replaces the Pallas TPU kernel `_attn_bwd_kernel` of
 // dostransformer_tpu/ops/attention.py (launched by `_fused_attention_bwd`
@@ -46,6 +47,29 @@
 //     operand through the same staged tiles for the scores and dp, the
 //     block's own slice last, in the forward's chunk order (so the scores
 //     repeat the forward's bits for slice 0, whose statistics it wrote).
+//   * bf16 form (q, k, v, g and dq, dk, dv bf16; bias, the row statistics,
+//     delta and every sum f32; every D; the kernels are templates over the
+//     operand type, as the forward's are). It rounds where the TPU kernel
+//     `_attn_bwd_kernel` rounds: s and dp accumulate in f32 from the bf16
+//     values; p32 = exp(s - m) / l in f32 (divided, as the forward's bf16
+//     form and the TPU kernel divide), from the forward's f32 statistics
+//     when given; dv = bf16(p32)^T g, ds = p32 (dp - rowsum(dp p32)) in f32
+//     then rounded to bf16, dq = bf16((bf16(ds) k) scale) and
+//     dk = bf16((bf16(ds)^T q) scale), each output rounded once after the
+//     scale; the query chunks' partial dk and dv are added in f32 in chunk
+//     order and rounded once. Rows are staged raw and widened in place
+//     (stage_raw_async, widen_rows), and every product has bf16 operands
+//     (the probabilities and ds are rounded before they are staged), so
+//     each is ONE exact TF32 pass (the *_exact shapes) instead of three.
+//     delta: the f32 form takes rowsum(g o) from the forward output, equal
+//     to rowsum(dp p) in exact arithmetic; a bf16 o has been rounded twice
+//     (bf16(p) v, then the store), which would shift every ds of a row by
+//     ~2^-8 relative. So the bf16 dq kernels walk the key tiles twice: the
+//     first pass forms s, p32 and dp for delta = rowsum(dp p32) only (in
+//     f32, lane by lane, then across the warp), the second forms them again
+//     for ds and dq (two score and two dp products more than one pass: four
+//     single-pass products where the f32 form takes nine TF32 passes). o is
+//     not read. The dkv kernels take delta from the dq kernel, as in f32.
 
 #include "attention_core.cuh"
 
@@ -55,16 +79,43 @@ using namespace attn;
 
 constexpr int kResidentBlocks = 264;  // two on each of an H100's 132 SMs
 
+// the calling warp's partial tile of a product of staged rows: 3xTF32 for
+// f32 operands, one exact pass for widened bf16 ones
+template <bool kSplit, int NC>
+__device__ __forceinline__ void partial_tile_t(const float* a_s,
+                                               const float* t_s, int stride,
+                                               int halves, int warp, int lane,
+                                               float* parts,
+                                               bool add = false) {
+  if constexpr (kSplit)
+    partial_tile<NC>(a_s, t_s, stride, halves, warp, lane, parts, add);
+  else
+    partial_tile_exact<NC>(a_s, t_s, stride, halves, warp, lane, parts, add);
+}
+
+template <bool kSplit, int NC>
+__device__ __forceinline__ void prob_times_rows_t(const float* p_s,
+                                                  const float* t_s, int stride,
+                                                  int c0, int halves, int lane,
+                                                  float (&acc)[NC][4]) {
+  if constexpr (kSplit)
+    prob_times_rows<NC>(p_s, t_s, stride, c0, halves, lane, acc);
+  else
+    prob_times_rows_exact<NC>(p_s, t_s, stride, c0, halves, lane, acc);
+}
+
 // rows of m and l for a caller without the forward's: the forward's loop
-// without p v
+// without p v (bf16: its first pass, to the same bits)
 // kFull (the three kernels below): D == 32 NC, known at compile time
-template <int NC, bool kFull>
+// T (the three kernels below): float, or bf16 staged raw and widened
+template <typename T, int NC, bool kFull>
 __global__ void __launch_bounds__(kThreads)
-stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
+stats_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const float* __restrict__ bias, float* __restrict__ m_out,
              float* __restrict__ l_out, int Lq, int Lk, int D_, float scale,
              int nbuf) {
   constexpr int S = 32 * NC + kPad;
+  constexpr bool kSplit = sizeof(T) == 4;
   const int D = kFull ? 32 * NC : D_;
   constexpr int tile_floats = kTileN * S;
   extern __shared__ __align__(16) float smem[];
@@ -75,14 +126,14 @@ stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * kTileM;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const float* kb = k + (size_t)b * Lk * D;
+  const T* kb = k + (size_t)b * Lk * D;
   const int n_tiles = (Lk + kTileN - 1) / kTileN;
 
   auto stage = [&](int tile, int buf) {
-    stage_cols_async<NC>(k_s + buf * tile_floats, kb, tile * kTileN, kTileN,
-                         Lk, D, 0, D);
+    stage_rows<T, NC>(k_s + buf * tile_floats, kb, tile * kTileN, kTileN, Lk,
+                      D, 0, D);
   };
-  stage_cols_async<NC>(q_s, q + (size_t)b * Lq * D, q0, kTileM, Lq, D, 0, D);
+  stage_rows<T, NC>(q_s, q + (size_t)b * Lq * D, q0, kTileM, Lq, D, 0, D);
   stage(0, 0);
   cp_async_commit();
 
@@ -96,8 +147,15 @@ stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int buf = ring_acquire(it, n_tiles, nbuf, stage);
     const int k0 = it * kTileN;
     const int nk = min(kTileN, Lk - k0);
-    partial_tile<NC>(q_s, k_s + buf * tile_floats, S, (nk + 15) / 16, warp,
-                     lane, parts);
+    const int halves = (nk + 15) / 16;
+    if constexpr (!kSplit) {  // the tile has landed raw
+      if (it == 0)
+        widen_rows<NC>(q_s, kTileM, min(kTileM, Lq - q0), D, warp, lane);
+      widen_rows<NC>(k_s + buf * tile_floats, 16 * halves, nk, D, warp, lane);
+      __syncthreads();
+    }
+    partial_tile_t<kSplit, NC>(q_s, k_s + buf * tile_floats, S, halves, warp,
+                               lane, parts);
     __syncthreads();
     softmax_tile<false>(parts, bias + (size_t)b * Lk, k0, Lk, scale, warp,
                         lane, m_run, l_run, nullptr, nullptr);
@@ -116,14 +174,15 @@ stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // stats_kernel above 32 NC columns: the scores chunk by chunk, in the order
 // of the forward's slice 0
-template <int NC>
+template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
-stats_sliced_kernel(const float* __restrict__ q, const float* __restrict__ k,
+stats_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ bias, float* __restrict__ m_out,
                     float* __restrict__ l_out, int Lq, int Lk, int D,
                     float scale) {
   constexpr int W = 32 * NC;
   constexpr int S = W + kPad;
+  constexpr bool kSplit = sizeof(T) == 4;
   extern __shared__ __align__(16) float smem[];
   float* a_s = smem;
   float* t_s = a_s + kTileM * S;
@@ -133,8 +192,9 @@ stats_sliced_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_chunks = (D + W - 1) / W;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const float* qb = q + (size_t)b * Lq * D;
-  const float* kb = k + (size_t)b * Lk * D;
+  const int nq = min(kTileM, Lq - q0);
+  const T* qb = q + (size_t)b * Lq * D;
+  const T* kb = k + (size_t)b * Lk * D;
   const int n_tiles = (Lk + kTileN - 1) / kTileN;
 
   float m_run[4], l_run[4];
@@ -145,17 +205,24 @@ stats_sliced_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * kTileN;
-    const int halves = (min(kTileN, Lk - k0) + 15) / 16;
+    const int nk = min(kTileN, Lk - k0);
+    const int halves = (nk + 15) / 16;
     for (int ci = 0; ci < n_chunks; ++ci) {
       const int cc = slice_chunk(ci, 0, n_chunks) * W;
       const int w = min(W, D - cc);
       __syncthreads();
-      stage_cols_async<NC>(a_s, qb, q0, kTileM, Lq, D, cc, w);
-      stage_cols_async<NC>(t_s, kb, k0, kTileN, Lk, D, cc, w);
+      stage_rows<T, NC>(a_s, qb, q0, kTileM, Lq, D, cc, w);
+      stage_rows<T, NC>(t_s, kb, k0, kTileN, Lk, D, cc, w);
       cp_async_commit();
       cp_async_wait_all();
       __syncthreads();
-      partial_tile<NC>(a_s, t_s, S, halves, warp, lane, parts, ci > 0);
+      if constexpr (!kSplit) {
+        widen_rows<NC>(a_s, kTileM, nq, w, warp, lane);
+        widen_rows<NC>(t_s, 16 * halves, nk, w, warp, lane);
+        __syncthreads();
+      }
+      partial_tile_t<kSplit, NC>(a_s, t_s, S, halves, warp, lane, parts,
+                                 ci > 0);
     }
     __syncthreads();
     softmax_tile<false>(parts, bias + (size_t)b * Lk, k0, Lk, scale, warp,
@@ -174,44 +241,71 @@ stats_sliced_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // one element of p and of ds from its summed score s and dp: what the dq
-// and dkv kernels share. bj is the key's bias; m, inv_l and delta are the
-// query's row max, 1 / row sum and rowsum(g * o).
+// and dkv kernels share. bj is the key's bias; m, il and delta are the
+// query's row max, 1 / row sum (f32 form) or row sum (bf16 form: p is
+// divided by it) and rowsum(dp * p).
+template <bool kSplit>
 __device__ __forceinline__ void p_and_ds(float s, float dp, bool valid,
                                          float scale, float bj, float m,
-                                         float inv_l, float delta, float& p,
+                                         float il, float delta, float& p,
                                          float& ds) {
-  p = valid ? expf(fmaf(s, scale, bj) - m) * inv_l : 0.f;
+  if constexpr (kSplit)
+    p = valid ? expf(fmaf(s, scale, bj) - m) * il : 0.f;
+  else
+    p = valid ? expf(fmaf(s, scale, bj) - m) / il : 0.f;
   ds = valid ? p * (dp - delta) : 0.f;
 }
 
-// delta = rowsum(g * o) of the block's 16 query rows (to the shared dl_s,
-// and to delta_out unless it is null) and the rows' statistics (m_s, and
-// 1 / l in il_s): one warp a row, four rows a warp
+// a probability or ds as the second product's operand: f32 as it is, bf16
+// rounded (the TPU kernel's casts of p and ds to the operand dtype)
+template <bool kSplit>
+__device__ __forceinline__ float operand(float v) {
+  if constexpr (kSplit)
+    return v;
+  else
+    return rounded<__nv_bfloat16>(v);
+}
+
+// the rows' statistics of the block's 16 query rows (m_s; 1 / l, or l in
+// the bf16 form, in il_s) and, in the f32 form, delta = rowsum(g * o) (to
+// the shared dl_s, and to delta_out unless it is null): one warp a row,
+// four rows a warp. (The bf16 form forms delta from dp and p: dq_kernel.)
+template <typename T>
 __device__ __forceinline__ void row_inputs(
-    const float* __restrict__ g, const float* __restrict__ o,
+    const T* __restrict__ g, const float* __restrict__ o,
     const float* __restrict__ m_in, const float* __restrict__ l_in,
     float* __restrict__ delta_out, float* m_s, float* il_s, float* dl_s,
     int b, int q0, int Lq, int D, int warp, int lane) {
+  constexpr bool kSplit = sizeof(T) == 4;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = 4 * warp + r;
     const int i = q0 + row;
     const size_t at = (size_t)b * Lq + i;
     float s = 0.f;
-    if (i < Lq)
-      for (int c = lane; c < D; c += 32) s = fmaf(g[at * D + c], o[at * D + c], s);
-    s = warp_sum(s);
+    if constexpr (kSplit) {
+      if (i < Lq)
+        for (int c = lane; c < D; c += 32)
+          s = fmaf(g[at * D + c], o[at * D + c], s);
+      s = warp_sum(s);
+    }
     if (lane == 0) {
-      dl_s[row] = s;
       m_s[row] = i < Lq ? m_in[at] : 0.f;
-      il_s[row] = i < Lq ? 1.f / l_in[at] : 0.f;
-      if (i < Lq && delta_out != nullptr) delta_out[at] = s;
+      if (kSplit) {
+        dl_s[row] = s;
+        il_s[row] = i < Lq ? 1.f / l_in[at] : 0.f;
+        if (i < Lq && delta_out != nullptr) delta_out[at] = s;
+      } else {
+        il_s[row] = i < Lq ? l_in[at] : 1.f;
+      }
     }
   }
 }
 
 // p and ds of the [16 x 32] tile from the summed score and dp partials,
-// ds to ds_s in prob_pos order (the query rows' view: lane = key)
+// ds (rounded to bf16 in the bf16 form) to ds_s in prob_pos order (the
+// query rows' view: lane = key)
+template <bool kSplit>
 __device__ __forceinline__ void ds_tile(const float* s_parts,
                                         const float* dp_parts,
                                         const float* bias_b, int k0, int Lk,
@@ -225,22 +319,64 @@ __device__ __forceinline__ void ds_tile(const float* s_parts,
   for (int r = 0; r < 4; ++r) {
     const int row = 4 * warp + r;
     float p, ds;
-    p_and_ds(sum_partials(s_parts, row, lane),
-             sum_partials(dp_parts, row, lane), valid, scale, bj, m_s[row],
-             il_s[row], dl_s[row], p, ds);
-    ds_s[row * kProbStride + pos] = ds;
+    p_and_ds<kSplit>(sum_partials(s_parts, row, lane),
+                     sum_partials(dp_parts, row, lane), valid, scale, bj,
+                     m_s[row], il_s[row], dl_s[row], p, ds);
+    ds_s[row * kProbStride + pos] = operand<kSplit>(ds);
   }
 }
 
-template <int NC, bool kFull>
+// the bf16 dq kernels' first pass, one key tile: each lane adds p32 * dp of
+// its key to its share of the calling warp's rows' delta
+__device__ __forceinline__ void delta_tile(const float* s_parts,
+                                           const float* dp_parts,
+                                           const float* bias_b, int k0,
+                                           int Lk, float scale,
+                                           const float* m_s,
+                                           const float* il_s, int warp,
+                                           int lane, float (&dsum)[4]) {
+  const bool valid = k0 + lane < Lk;
+  const float bj = valid ? bias_b[k0 + lane] : 0.f;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = 4 * warp + r;
+    float p, ds;
+    const float dp = sum_partials(dp_parts, row, lane);
+    p_and_ds<false>(sum_partials(s_parts, row, lane), dp, valid, scale, bj,
+                    m_s[row], il_s[row], 0.f, p, ds);
+    dsum[r] = fmaf(p, dp, dsum[r]);
+  }
+}
+
+// the end of the first pass: the lanes' shares added across the warp, the
+// rows' delta to dl_s and (unless null) delta_out
+__device__ __forceinline__ void finish_delta(const float (&dsum)[4],
+                                             float* dl_s,
+                                             float* __restrict__ delta_out,
+                                             int b, int q0, int Lq, int warp,
+                                             int lane) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = 4 * warp + r;
+    const float s = warp_sum(dsum[r]);
+    if (lane == 0) {
+      dl_s[row] = s;
+      if (q0 + row < Lq && delta_out != nullptr)
+        delta_out[(size_t)b * Lq + q0 + row] = s;
+    }
+  }
+}
+
+template <typename T, int NC, bool kFull>
 __global__ void __launch_bounds__(kThreads)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const float* __restrict__ bias,
-          const float* __restrict__ o, const float* __restrict__ g,
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const float* __restrict__ bias,
+          const float* __restrict__ o, const T* __restrict__ g,
           const float* __restrict__ m_in, const float* __restrict__ l_in,
-          float* __restrict__ dq, float* __restrict__ delta_out, int Lq,
-          int Lk, int D_, float scale, int nbuf) {
+          T* __restrict__ dq, float* __restrict__ delta_out, int Lq, int Lk,
+          int D_, float scale, int nbuf) {
   constexpr int S = 32 * NC + kPad;
+  constexpr bool kSplit = sizeof(T) == 4;
   const int D = kFull ? 32 * NC : D_;
   const bool v_is_k = v == k;
   const int tile_floats = (v_is_k ? 1 : 2) * kTileN * S;
@@ -252,7 +388,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* dp_parts = s_parts + kPartFloats;
   float* ds_s = dp_parts + kPartFloats;  // permuted [16][36]
   float* m_s = ds_s + kProbFloats;       // [16] row max
-  float* il_s = m_s + kTileM;            // [16] 1 / row sum
+  float* il_s = m_s + kTileM;            // [16] 1 / row sum (bf16: row sum)
   float* dl_s = il_s + kTileM;           // [16] delta
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * kTileM;
@@ -260,64 +396,73 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int lane = threadIdx.x % 32;
   const int gq = lane >> 2, t = lane & 3;
   const int c0 = warp * 8 * NC;
-  const float* kb = k + (size_t)b * Lk * D;
-  const float* vb = v + (size_t)b * Lk * D;
+  const T* kb = k + (size_t)b * Lk * D;
+  const T* vb = v + (size_t)b * Lk * D;
   const float* bias_b = bias + (size_t)b * Lk;
   const int n_tiles = (Lk + kTileN - 1) / kTileN;
 
-  auto stage = [&](int tile, int buf) {
+  // iteration it stages key tile it % n_tiles
+  auto stage = [&](int it, int buf) {
     float* dst = kv_s + buf * tile_floats;
-    stage_cols_async<NC>(dst, kb, tile * kTileN, kTileN, Lk, D, 0, D);
+    const int r0 = (it % n_tiles) * kTileN;
+    stage_rows<T, NC>(dst, kb, r0, kTileN, Lk, D, 0, D);
     if (!v_is_k)
-      stage_cols_async<NC>(dst + kTileN * S, vb, tile * kTileN, kTileN, Lk,
-                           D, 0, D);
+      stage_rows<T, NC>(dst + kTileN * S, vb, r0, kTileN, Lk, D, 0, D);
   };
-  stage_cols_async<NC>(q_s, q + (size_t)b * Lq * D, q0, kTileM, Lq, D, 0, D);
-  stage_cols_async<NC>(g_s, g + (size_t)b * Lq * D, q0, kTileM, Lq, D, 0, D);
+  stage_rows<T, NC>(q_s, q + (size_t)b * Lq * D, q0, kTileM, Lq, D, 0, D);
+  stage_rows<T, NC>(g_s, g + (size_t)b * Lq * D, q0, kTileM, Lq, D, 0, D);
   stage(0, 0);
   cp_async_commit();
-  // delta and the rows' statistics while the copies fly
+  // the rows' statistics (f32: and delta) while the copies fly
   row_inputs(g, o, m_in, l_in, delta_out, m_s, il_s, dl_s, b, q0, Lq, D, warp,
              lane);
 
   float acc[NC][4];
   zero_acc<NC>(acc);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int buf = ring_acquire(it, n_tiles, nbuf, stage);
-    const float* k_s = kv_s + buf * tile_floats;
-    const float* v_s = v_is_k ? k_s : k_s + kTileN * S;
-    const int k0 = it * kTileN;
+  float dsum[4] = {0.f, 0.f, 0.f, 0.f};  // bf16: the lanes' shares of delta
+  // f32: one pass; bf16: the key tiles twice, the first for delta only
+  const int n_iter = (kSplit ? 1 : 2) * n_tiles;
+  for (int it = 0; it < n_iter; ++it) {
+    const int buf = ring_acquire(it, n_iter, nbuf, stage);
+    float* k_s = kv_s + buf * tile_floats;
+    float* v_s = v_is_k ? k_s : k_s + kTileN * S;
+    const int k0 = (it % n_tiles) * kTileN;
     const int nk = min(kTileN, Lk - k0);
-    partial_tile<NC>(q_s, k_s, S, (nk + 15) / 16, warp, lane, s_parts);
-    partial_tile<NC>(g_s, v_s, S, (nk + 15) / 16, warp, lane, dp_parts);
+    const int halves = (nk + 15) / 16;
+    if constexpr (!kSplit) {  // the tile has landed raw: widen it
+      if (it == 0) {
+        widen_rows<NC>(q_s, kTileM, min(kTileM, Lq - q0), D, warp, lane);
+        widen_rows<NC>(g_s, kTileM, min(kTileM, Lq - q0), D, warp, lane);
+      }
+      widen_rows<NC>(k_s, 16 * halves, nk, D, warp, lane);
+      if (!v_is_k) widen_rows<NC>(v_s, 16 * halves, nk, D, warp, lane);
+      __syncthreads();
+    }
+    partial_tile_t<kSplit, NC>(q_s, k_s, S, halves, warp, lane, s_parts);
+    partial_tile_t<kSplit, NC>(g_s, v_s, S, halves, warp, lane, dp_parts);
     __syncthreads();
-    ds_tile(s_parts, dp_parts, bias_b, k0, Lk, scale, m_s, il_s, dl_s, ds_s,
-            warp, lane);
+    if (!kSplit && it < n_tiles) {  // bf16, first pass
+      delta_tile(s_parts, dp_parts, bias_b, k0, Lk, scale, m_s, il_s, warp,
+                 lane, dsum);
+      if (it == n_tiles - 1)
+        finish_delta(dsum, dl_s, delta_out, b, q0, Lq, warp, lane);
+      continue;
+    }
+    ds_tile<kSplit>(s_parts, dp_parts, bias_b, k0, Lk, scale, m_s, il_s, dl_s,
+                    ds_s, warp, lane);
     __syncthreads();
-    prob_times_rows<NC>(ds_s, k_s, S, c0, (nk + 15) / 16, lane, acc);
+    prob_times_rows_t<kSplit, NC>(ds_s, k_s, S, c0, halves, lane, acc);
   }
 
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = gq + 8 * half;
     if (q0 + row >= Lq) continue;
-    float* at = dq + ((size_t)b * Lq + q0 + row) * D;
+    T* at = dq + ((size_t)b * Lq + q0 + row) * D;
 #pragma unroll
     for (int n = 0; n < NC; ++n)
-      store_pair(at, c0 + 8 * n + 2 * t, D, acc[n][2 * half] * scale,
-                 acc[n][2 * half + 1] * scale);
-  }
-}
-
-// the columns [c0, c0 + W) of a row of width D from the accumulators of a
-// sliced block (the pair at col, col + 1 of the slice; ds the slice's width)
-__device__ __forceinline__ void store_slice_pair(float* row, int col, int ds,
-                                                 int D, float a, float b) {
-  if (D % 2 == 0) {
-    if (col < ds) *reinterpret_cast<float2*>(row + col) = make_float2(a, b);
-  } else {
-    if (col < ds) row[col] = a;
-    if (col + 1 < ds) row[col + 1] = b;
+      store_pair_t(at, c0 + 8 * n + 2 * t, D, D, acc[n][2 * half] * scale,
+                   acc[n][2 * half + 1] * scale);
   }
 }
 
@@ -326,17 +471,18 @@ __device__ __forceinline__ void store_slice_pair(float* row, int col, int ds,
 // last), a v chunk [32][W+4] when v is another tensor, the score and dp
 // partial tiles, the ds tile and the rows' statistics. The blocks of slice
 // 0 write delta.
-template <int NC>
+template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
-dq_sliced_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ bias,
-                 const float* __restrict__ o, const float* __restrict__ g,
+dq_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ bias,
+                 const float* __restrict__ o, const T* __restrict__ g,
                  const float* __restrict__ m_in,
-                 const float* __restrict__ l_in, float* __restrict__ dq,
+                 const float* __restrict__ l_in, T* __restrict__ dq,
                  float* __restrict__ delta_out, int Lq, int Lk, int D,
                  float scale) {
   constexpr int W = 32 * NC;
   constexpr int S = W + kPad;
+  constexpr bool kSplit = sizeof(T) == 4;
   const bool v_is_k = v == k;
   extern __shared__ __align__(16) float smem[];
   float* a_s = smem;                    // [16][S] q chunk
@@ -358,42 +504,64 @@ dq_sliced_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int lane = threadIdx.x % 32;
   const int gq = lane >> 2, t = lane & 3;
   const int c0 = warp * 8 * NC;
-  const float* qb = q + (size_t)b * Lq * D;
-  const float* gb = g + (size_t)b * Lq * D;
-  const float* kb = k + (size_t)b * Lk * D;
-  const float* vb = v + (size_t)b * Lk * D;
+  const int nq = min(kTileM, Lq - q0);
+  const T* qb = q + (size_t)b * Lq * D;
+  const T* gb = g + (size_t)b * Lq * D;
+  const T* kb = k + (size_t)b * Lk * D;
+  const T* vb = v + (size_t)b * Lk * D;
   const float* bias_b = bias + (size_t)b * Lk;
   const int n_tiles = (Lk + kTileN - 1) / kTileN;
+  float* delta_to = slice == 0 ? delta_out : nullptr;
 
-  // every slice's blocks form delta (the same bits); slice 0's write it
-  row_inputs(g, o, m_in, l_in, slice == 0 ? delta_out : nullptr, m_s, il_s,
-             dl_s, b, q0, Lq, D, warp, lane);
+  // every slice's blocks form delta (f32: the same bits); slice 0's write it
+  row_inputs(g, o, m_in, l_in, delta_to, m_s, il_s, dl_s, b, q0, Lq, D, warp,
+             lane);
 
   float acc[NC][4];
   zero_acc<NC>(acc);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kTileN;
-    const int halves = (min(kTileN, Lk - k0) + 15) / 16;
+  float dsum[4] = {0.f, 0.f, 0.f, 0.f};
+  // f32: one pass; bf16: the key tiles twice, the first for delta only
+  const int n_iter = (kSplit ? 1 : 2) * n_tiles;
+  for (int it = 0; it < n_iter; ++it) {
+    const int k0 = (it % n_tiles) * kTileN;
+    const int nk = min(kTileN, Lk - k0);
+    const int halves = (nk + 15) / 16;
     for (int ci = 0; ci < n_chunks; ++ci) {
       const int cc = slice_chunk(ci, slice, n_chunks) * W;
       const int w = min(W, D - cc);
       __syncthreads();
-      stage_cols_async<NC>(a_s, qb, q0, kTileM, Lq, D, cc, w);
-      stage_cols_async<NC>(g_s, gb, q0, kTileM, Lq, D, cc, w);
-      stage_cols_async<NC>(t_s, kb, k0, kTileN, Lk, D, cc, w);
-      if (!v_is_k) stage_cols_async<NC>(u_s, vb, k0, kTileN, Lk, D, cc, w);
+      stage_rows<T, NC>(a_s, qb, q0, kTileM, Lq, D, cc, w);
+      stage_rows<T, NC>(g_s, gb, q0, kTileM, Lq, D, cc, w);
+      stage_rows<T, NC>(t_s, kb, k0, kTileN, Lk, D, cc, w);
+      if (!v_is_k) stage_rows<T, NC>(u_s, vb, k0, kTileN, Lk, D, cc, w);
       cp_async_commit();
       cp_async_wait_all();
       __syncthreads();
-      partial_tile<NC>(a_s, t_s, S, halves, warp, lane, s_parts, ci > 0);
-      partial_tile<NC>(g_s, v_is_k ? t_s : u_s, S, halves, warp, lane,
-                       dp_parts, ci > 0);
+      if constexpr (!kSplit) {
+        widen_rows<NC>(a_s, kTileM, nq, w, warp, lane);
+        widen_rows<NC>(g_s, kTileM, nq, w, warp, lane);
+        widen_rows<NC>(t_s, 16 * halves, nk, w, warp, lane);
+        if (!v_is_k) widen_rows<NC>(u_s, 16 * halves, nk, w, warp, lane);
+        __syncthreads();
+      }
+      partial_tile_t<kSplit, NC>(a_s, t_s, S, halves, warp, lane, s_parts,
+                                 ci > 0);
+      partial_tile_t<kSplit, NC>(g_s, v_is_k ? t_s : u_s, S, halves, warp,
+                                 lane, dp_parts, ci > 0);
     }
     __syncthreads();
-    ds_tile(s_parts, dp_parts, bias_b, k0, Lk, scale, m_s, il_s, dl_s, ds_s,
-            warp, lane);
+    if (!kSplit && it < n_tiles) {  // bf16, first pass
+      delta_tile(s_parts, dp_parts, bias_b, k0, Lk, scale, m_s, il_s, warp,
+                 lane, dsum);
+      if (it == n_tiles - 1)
+        finish_delta(dsum, dl_s, delta_to, b, q0, Lq, warp, lane);
+      continue;
+    }
+    ds_tile<kSplit>(s_parts, dp_parts, bias_b, k0, Lk, scale, m_s, il_s, dl_s,
+                    ds_s, warp, lane);
     __syncthreads();
-    prob_times_rows<NC>(ds_s, t_s, S, c0, halves, lane, acc);  // k's slice
+    prob_times_rows_t<kSplit, NC>(ds_s, t_s, S, c0, halves, lane,
+                                  acc);  // k's slice
   }
 
   const int ds = min(W, D - s0);
@@ -401,17 +569,17 @@ dq_sliced_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int half = 0; half < 2; ++half) {
     const int row = gq + 8 * half;
     if (q0 + row >= Lq) continue;
-    float* at = dq + ((size_t)b * Lq + q0 + row) * D + s0;
+    T* at = dq + ((size_t)b * Lq + q0 + row) * D + s0;
 #pragma unroll
-    for (int n = 0; n < NC; ++n)
-      store_slice_pair(at, c0 + 8 * n + 2 * t, ds, D,
-                       acc[n][2 * half] * scale,
-                       acc[n][2 * half + 1] * scale);
+    for (int n = 0; n < NC; ++n)  // a pair lies in the slice where D is even
+      store_pair_t(at, c0 + 8 * n + 2 * t, ds, D, acc[n][2 * half] * scale,
+                   acc[n][2 * half + 1] * scale);
   }
 }
 
 // p^T and ds^T of the [16 keys x 32 queries] tile (rows = the block's keys)
-// into pt_s and dst_s, prob_pos order
+// into pt_s and dst_s, prob_pos order (rounded to bf16 in the bf16 form)
+template <bool kSplit>
 __device__ __forceinline__ void dkv_tile(const float* s_parts,
                                          const float* dp_parts,
                                          const float* bias_s, const float* m_s,
@@ -425,16 +593,18 @@ __device__ __forceinline__ void dkv_tile(const float* s_parts,
     const int row = 4 * warp + r;
     const bool valid = lane < nq && j0 + row < Lk;
     float p, ds;
-    p_and_ds(sum_partials(s_parts, row, lane),
-             sum_partials(dp_parts, row, lane), valid, scale, bias_s[row],
-             m_s[lane], il_s[lane], dl_s[lane], p, ds);
-    pt_s[row * kProbStride + pos] = p;
-    dst_s[row * kProbStride + pos] = ds;
+    p_and_ds<kSplit>(sum_partials(s_parts, row, lane),
+                     sum_partials(dp_parts, row, lane), valid, scale,
+                     bias_s[row], m_s[lane], il_s[lane], dl_s[lane], p, ds);
+    pt_s[row * kProbStride + pos] = operand<kSplit>(p);
+    dst_s[row * kProbStride + pos] = operand<kSplit>(ds);
   }
 }
 
-// m, 1 / l and delta of the query tile [i0, i0 + 32) (those at or past
-// i_end 0) -> m_s, il_s, dl_s, by the block's first 32 threads
+// m, 1 / l (bf16: l) and delta of the query tile [i0, i0 + 32) (those at
+// or past i_end 0, and l 1) -> m_s, il_s, dl_s, by the block's first 32
+// threads
+template <bool kSplit>
 __device__ __forceinline__ void query_tile_inputs(
     const float* __restrict__ m_in, const float* __restrict__ l_in,
     const float* __restrict__ delta_in, float* m_s, float* il_s, float* dl_s,
@@ -444,23 +614,44 @@ __device__ __forceinline__ void query_tile_inputs(
     const bool ok = i < i_end;
     const size_t at = (size_t)b * Lq + i;
     m_s[threadIdx.x] = ok ? m_in[at] : 0.f;
-    il_s[threadIdx.x] = ok ? 1.f / l_in[at] : 0.f;
+    if constexpr (kSplit)
+      il_s[threadIdx.x] = ok ? 1.f / l_in[at] : 0.f;
+    else
+      il_s[threadIdx.x] = ok ? l_in[at] : 1.f;
     dl_s[threadIdx.x] = ok ? delta_in[at] : 0.f;
   }
 }
 
+// dk and dv at row `at` of the outputs (dk_part null: one query chunk, the
+// outputs themselves, rounded once) or of this chunk's f32 partials
+template <typename T>
+__device__ __forceinline__ void store_dkv(T* dk, T* dv, float* dk_part,
+                                          float* dv_part, size_t at, int col,
+                                          int lim, int D, float k0, float k1,
+                                          float v0, float v1) {
+  if (dk_part != nullptr) {
+    store_pair_t(dk_part + at, col, lim, D, k0, k1);
+    store_pair_t(dv_part + at, col, lim, D, v0, v1);
+  } else {
+    store_pair_t(dk + at, col, lim, D, k0, k1);
+    store_pair_t(dv + at, col, lim, D, v0, v1);
+  }
+}
+
 // grid (key tiles of 16, query chunks, B); chunk_len is a multiple of 32.
-// dk_out / dv_out are [chunks][B][Lk][D] (the outputs themselves when there
-// is one chunk).
-template <int NC, bool kFull>
+// With one chunk the block writes dk and dv (dk_part and dv_part null);
+// with several, dk_part / dv_part are [chunks][B][Lk][D] f32 partials.
+template <typename T, int NC, bool kFull>
 __global__ void __launch_bounds__(kThreads)
-dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ bias,
-           const float* __restrict__ g, const float* __restrict__ m_in,
+dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, const float* __restrict__ bias,
+           const T* __restrict__ g, const float* __restrict__ m_in,
            const float* __restrict__ l_in, const float* __restrict__ delta_in,
-           float* __restrict__ dk_out, float* __restrict__ dv_out, int B,
+           T* __restrict__ dk, T* __restrict__ dv,
+           float* __restrict__ dk_part, float* __restrict__ dv_part, int B,
            int Lq, int Lk, int D_, int chunk_len, float scale, int nbuf) {
   constexpr int S = 32 * NC + kPad;
+  constexpr bool kSplit = sizeof(T) == 4;
   const int D = kFull ? 32 * NC : D_;
   constexpr int tile_floats = 2 * kTileN * S;  // a Q tile, then a G tile
   const bool v_is_k = v == k;
@@ -484,21 +675,19 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int lane = threadIdx.x % 32;
   const int gk = lane >> 2, t = lane & 3;
   const int c0 = warp * 8 * NC;
-  const float* qb = q + (size_t)b * Lq * D;
-  const float* gb = g + (size_t)b * Lq * D;
+  const T* qb = q + (size_t)b * Lq * D;
+  const T* gb = g + (size_t)b * Lq * D;
   const int n_tiles = (i_end - i_begin + kTileN - 1) / kTileN;
 
   auto stage = [&](int tile, int buf) {
     float* dst = qg_s + buf * tile_floats;
-    stage_cols_async<NC>(dst, qb, i_begin + tile * kTileN, kTileN, Lq, D, 0,
-                         D);
-    stage_cols_async<NC>(dst + kTileN * S, gb, i_begin + tile * kTileN,
-                         kTileN, Lq, D, 0, D);
+    stage_rows<T, NC>(dst, qb, i_begin + tile * kTileN, kTileN, Lq, D, 0, D);
+    stage_rows<T, NC>(dst + kTileN * S, gb, i_begin + tile * kTileN, kTileN,
+                      Lq, D, 0, D);
   };
-  stage_cols_async<NC>(k_s, k + (size_t)b * Lk * D, j0, kTileM, Lk, D, 0, D);
+  stage_rows<T, NC>(k_s, k + (size_t)b * Lk * D, j0, kTileM, Lk, D, 0, D);
   if (!v_is_k)
-    stage_cols_async<NC>(v_s, v + (size_t)b * Lk * D, j0, kTileM, Lk, D, 0,
-                         D);
+    stage_rows<T, NC>(v_s, v + (size_t)b * Lk * D, j0, kTileM, Lk, D, 0, D);
   stage(0, 0);
   cp_async_commit();
   if (threadIdx.x < kTileM)
@@ -511,38 +700,47 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int it = 0; it < n_tiles; ++it) {
     const int buf = ring_acquire(it, n_tiles, nbuf, stage);
-    const float* q_s = qg_s + buf * tile_floats;
-    const float* g_s = q_s + kTileN * S;
+    float* q_s = qg_s + buf * tile_floats;
+    float* g_s = q_s + kTileN * S;
     const int i0 = i_begin + it * kTileN;
     const int nq = min(kTileN, i_end - i0);
+    const int halves = (nq + 15) / 16;
     // read again only after the next barrier
-    query_tile_inputs(m_in, l_in, delta_in, m_s, il_s, dl_s, b, Lq, i0,
-                      i_end);
+    query_tile_inputs<kSplit>(m_in, l_in, delta_in, m_s, il_s, dl_s, b, Lq,
+                              i0, i_end);
+    if constexpr (!kSplit) {  // the tiles have landed raw: widen them
+      if (it == 0) {
+        widen_rows<NC>(k_s, kTileM, min(kTileM, Lk - j0), D, warp, lane);
+        if (!v_is_k)
+          widen_rows<NC>(v_s, kTileM, min(kTileM, Lk - j0), D, warp, lane);
+      }
+      widen_rows<NC>(q_s, 16 * halves, nq, D, warp, lane);
+      widen_rows<NC>(g_s, 16 * halves, nq, D, warp, lane);
+      __syncthreads();
+    }
     // rows = the block's keys, columns = the tile's queries
-    partial_tile<NC>(k_s, q_s, S, (nq + 15) / 16, warp, lane, s_parts);
-    partial_tile<NC>(v_s, g_s, S, (nq + 15) / 16, warp, lane, dp_parts);
+    partial_tile_t<kSplit, NC>(k_s, q_s, S, halves, warp, lane, s_parts);
+    partial_tile_t<kSplit, NC>(v_s, g_s, S, halves, warp, lane, dp_parts);
     __syncthreads();
-    dkv_tile(s_parts, dp_parts, bias_s, m_s, il_s, dl_s, pt_s, dst_s, nq, j0,
-             Lk, scale, warp, lane);
+    dkv_tile<kSplit>(s_parts, dp_parts, bias_s, m_s, il_s, dl_s, pt_s, dst_s,
+                     nq, j0, Lk, scale, warp, lane);
     __syncthreads();
-    prob_times_rows<NC>(pt_s, g_s, S, c0, (nq + 15) / 16, lane, acc_v);
-    prob_times_rows<NC>(dst_s, q_s, S, c0, (nq + 15) / 16, lane, acc_k);
+    prob_times_rows_t<kSplit, NC>(pt_s, g_s, S, c0, halves, lane, acc_v);
+    prob_times_rows_t<kSplit, NC>(dst_s, q_s, S, c0, halves, lane, acc_k);
   }
 
-  const size_t chunk_off = (size_t)blockIdx.y * B * Lk * D;
+  const size_t chunk_off =
+      dk_part != nullptr ? (size_t)blockIdx.y * B * Lk * D : 0;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = gk + 8 * half;
     if (j0 + row >= Lk) continue;
     const size_t at = chunk_off + ((size_t)b * Lk + j0 + row) * D;
 #pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      const int col = c0 + 8 * n + 2 * t;
-      store_pair(dk_out + at, col, D, acc_k[n][2 * half] * scale,
-                 acc_k[n][2 * half + 1] * scale);
-      store_pair(dv_out + at, col, D, acc_v[n][2 * half],
-                 acc_v[n][2 * half + 1]);
-    }
+    for (int n = 0; n < NC; ++n)
+      store_dkv(dk, dv, dk_part, dv_part, at, c0 + 8 * n + 2 * t, D, D,
+                acc_k[n][2 * half] * scale, acc_k[n][2 * half + 1] * scale,
+                acc_v[n][2 * half], acc_v[n][2 * half + 1]);
   }
 }
 
@@ -550,17 +748,19 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // chunks, B). Shared memory: k and v chunks of the block's keys [16][W+4]
 // (one where v is k), q and g chunks of the query tile [32][W+4] (the
 // slice, last), the partial tiles, p^T and ds^T, the statistics.
-template <int NC>
+template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
-dkv_sliced_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ bias,
-                  const float* __restrict__ g, const float* __restrict__ m_in,
+dkv_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const float* __restrict__ bias,
+                  const T* __restrict__ g, const float* __restrict__ m_in,
                   const float* __restrict__ l_in,
-                  const float* __restrict__ delta_in,
-                  float* __restrict__ dk_out, float* __restrict__ dv_out,
-                  int B, int Lq, int Lk, int D, int chunk_len, float scale) {
+                  const float* __restrict__ delta_in, T* __restrict__ dk,
+                  T* __restrict__ dv, float* __restrict__ dk_part,
+                  float* __restrict__ dv_part, int B, int Lq, int Lk, int D,
+                  int chunk_len, float scale) {
   constexpr int W = 32 * NC;
   constexpr int S = W + kPad;
+  constexpr bool kSplit = sizeof(T) == 4;
   const bool v_is_k = v == k;
   extern __shared__ __align__(16) float smem[];
   float* kc_s = smem;                                  // [16][S]
@@ -580,16 +780,17 @@ dkv_sliced_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int s0 = slice * W;
   const int b = blockIdx.z;
   const int j0 = (blockIdx.x / n_chunks) * kTileM;
+  const int nk = min(kTileM, Lk - j0);
   const int i_begin = blockIdx.y * chunk_len;
   const int i_end = min(Lq, i_begin + chunk_len);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int gk = lane >> 2, t = lane & 3;
   const int c0 = warp * 8 * NC;
-  const float* qb = q + (size_t)b * Lq * D;
-  const float* gb = g + (size_t)b * Lq * D;
-  const float* kb = k + (size_t)b * Lk * D;
-  const float* vb = v + (size_t)b * Lk * D;
+  const T* qb = q + (size_t)b * Lq * D;
+  const T* gb = g + (size_t)b * Lq * D;
+  const T* kb = k + (size_t)b * Lk * D;
+  const T* vb = v + (size_t)b * Lk * D;
   const int n_tiles = (i_end - i_begin + kTileN - 1) / kTileN;
   if (threadIdx.x < kTileM)
     bias_s[threadIdx.x] = j0 + threadIdx.x < Lk
@@ -608,42 +809,49 @@ dkv_sliced_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int w = min(W, D - cc);
       __syncthreads();
       if (ci == 0)  // read again only after the next barrier
-        query_tile_inputs(m_in, l_in, delta_in, m_s, il_s, dl_s, b, Lq, i0,
-                          i_end);
-      stage_cols_async<NC>(kc_s, kb, j0, kTileM, Lk, D, cc, w);
-      if (!v_is_k) stage_cols_async<NC>(vc_s, vb, j0, kTileM, Lk, D, cc, w);
-      stage_cols_async<NC>(qc_s, qb, i0, kTileN, i_end, D, cc, w);
-      stage_cols_async<NC>(gc_s, gb, i0, kTileN, i_end, D, cc, w);
+        query_tile_inputs<kSplit>(m_in, l_in, delta_in, m_s, il_s, dl_s, b,
+                                  Lq, i0, i_end);
+      stage_rows<T, NC>(kc_s, kb, j0, kTileM, Lk, D, cc, w);
+      if (!v_is_k) stage_rows<T, NC>(vc_s, vb, j0, kTileM, Lk, D, cc, w);
+      stage_rows<T, NC>(qc_s, qb, i0, kTileN, i_end, D, cc, w);
+      stage_rows<T, NC>(gc_s, gb, i0, kTileN, i_end, D, cc, w);
       cp_async_commit();
       cp_async_wait_all();
       __syncthreads();
-      partial_tile<NC>(kc_s, qc_s, S, halves, warp, lane, s_parts, ci > 0);
-      partial_tile<NC>(vc_s, gc_s, S, halves, warp, lane, dp_parts, ci > 0);
+      if constexpr (!kSplit) {
+        widen_rows<NC>(kc_s, kTileM, nk, w, warp, lane);
+        if (!v_is_k) widen_rows<NC>(vc_s, kTileM, nk, w, warp, lane);
+        widen_rows<NC>(qc_s, 16 * halves, nq, w, warp, lane);
+        widen_rows<NC>(gc_s, 16 * halves, nq, w, warp, lane);
+        __syncthreads();
+      }
+      partial_tile_t<kSplit, NC>(kc_s, qc_s, S, halves, warp, lane, s_parts,
+                                 ci > 0);
+      partial_tile_t<kSplit, NC>(vc_s, gc_s, S, halves, warp, lane, dp_parts,
+                                 ci > 0);
     }
     __syncthreads();
-    dkv_tile(s_parts, dp_parts, bias_s, m_s, il_s, dl_s, pt_s, dst_s, nq, j0,
-             Lk, scale, warp, lane);
+    dkv_tile<kSplit>(s_parts, dp_parts, bias_s, m_s, il_s, dl_s, pt_s, dst_s,
+                     nq, j0, Lk, scale, warp, lane);
     __syncthreads();
     // the last chunks staged were the slice's
-    prob_times_rows<NC>(pt_s, gc_s, S, c0, halves, lane, acc_v);
-    prob_times_rows<NC>(dst_s, qc_s, S, c0, halves, lane, acc_k);
+    prob_times_rows_t<kSplit, NC>(pt_s, gc_s, S, c0, halves, lane, acc_v);
+    prob_times_rows_t<kSplit, NC>(dst_s, qc_s, S, c0, halves, lane, acc_k);
   }
 
   const int ds = min(W, D - s0);
-  const size_t chunk_off = (size_t)blockIdx.y * B * Lk * D;
+  const size_t chunk_off =
+      dk_part != nullptr ? (size_t)blockIdx.y * B * Lk * D : 0;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = gk + 8 * half;
     if (j0 + row >= Lk) continue;
     const size_t at = chunk_off + ((size_t)b * Lk + j0 + row) * D + s0;
 #pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      const int col = c0 + 8 * n + 2 * t;
-      store_slice_pair(dk_out + at, col, ds, D, acc_k[n][2 * half] * scale,
-                       acc_k[n][2 * half + 1] * scale);
-      store_slice_pair(dv_out + at, col, ds, D, acc_v[n][2 * half],
-                       acc_v[n][2 * half + 1]);
-    }
+    for (int n = 0; n < NC; ++n)
+      store_dkv(dk, dv, dk_part, dv_part, at, c0 + 8 * n + 2 * t, ds, D,
+                acc_k[n][2 * half] * scale, acc_k[n][2 * half + 1] * scale,
+                acc_v[n][2 * half], acc_v[n][2 * half + 1]);
   }
 }
 
@@ -652,12 +860,20 @@ __device__ __forceinline__ void add_to(float4& a, float4 b) {
   a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
 }
 
-// dk, dv [n V each: float4 where B Lk D % 4 == 0, else float] = the chunks'
-// partials added in chunk order
-template <typename V>
+// a sum as the output holds it: f32 as it is, bf16 rounded once
+__device__ __forceinline__ float out_sum(float*, float v) { return v; }
+__device__ __forceinline__ float4 out_sum(float4*, float4 v) { return v; }
+__device__ __forceinline__ __nv_bfloat16 out_sum(__nv_bfloat16*, float v) {
+  return __float2bfloat16(v);
+}
+
+// dk, dv [n V each: float4 where B Lk D % 4 == 0, else float; O the
+// outputs' element, V itself or bf16 for the bf16 form] = the chunks' f32
+// partials added in chunk order, rounded once
+template <typename V, typename O>
 __global__ void __launch_bounds__(256)
 reduce_kernel(const V* __restrict__ dk_part, const V* __restrict__ dv_part,
-              V* __restrict__ dk, V* __restrict__ dv, size_t n, int chunks) {
+              O* __restrict__ dk, O* __restrict__ dv, size_t n, int chunks) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= 2 * n) return;
   const bool is_v = idx >= n;
@@ -665,7 +881,8 @@ reduce_kernel(const V* __restrict__ dk_part, const V* __restrict__ dv_part,
   const V* src = is_v ? dv_part : dk_part;
   V sum = src[at];
   for (int c = 1; c < chunks; ++c) add_to(sum, src[(size_t)c * n + at]);
-  (is_v ? dv : dk)[at] = sum;
+  O* dst = is_v ? dv : dk;
+  dst[at] = out_sum(dst, sum);
 }
 
 struct Chunks {
@@ -730,24 +947,35 @@ cudaError_t reduce_chunks(const Chunks& chunks, const float* partials,
   if (chunks.count == 1) return cudaSuccess;
   if (n % 4 == 0) {  // the partials' halves are then 16-byte aligned too
     const size_t n4 = n / 4;
-    reduce_kernel<float4><<<(unsigned)((2 * n4 + 255) / 256), 256, 0, st>>>(
+    reduce_kernel<float4, float4>
+        <<<(unsigned)((2 * n4 + 255) / 256), 256, 0, st>>>(
         reinterpret_cast<const float4*>(partials),
         reinterpret_cast<const float4*>(partials + chunks.count * n),
         reinterpret_cast<float4*>(dk), reinterpret_cast<float4*>(dv), n4,
         chunks.count);
   } else {
-    reduce_kernel<float><<<(unsigned)((2 * n + 255) / 256), 256, 0, st>>>(
-        partials, partials + chunks.count * n, dk, dv, n, chunks.count);
+    reduce_kernel<float, float>
+        <<<(unsigned)((2 * n + 255) / 256), 256, 0, st>>>(
+            partials, partials + chunks.count * n, dk, dv, n, chunks.count);
   }
   return cudaGetLastError();
 }
 
-template <int NC, bool kFull>
-cudaError_t launch_t(const float* q, const float* k, const float* v,
-                     const float* bias, const float* o, const float* g,
-                     float* dq, float* dk, float* dv, const float* stats_in,
-                     float* scratch, int B, int Lq, int Lk, int D, float scale,
-                     cudaStream_t st) {
+cudaError_t reduce_chunks(const Chunks& chunks, const float* partials,
+                          __nv_bfloat16* dk, __nv_bfloat16* dv, size_t n,
+                          cudaStream_t st) {
+  if (chunks.count == 1) return cudaSuccess;
+  reduce_kernel<float, __nv_bfloat16>
+      <<<(unsigned)((2 * n + 255) / 256), 256, 0, st>>>(
+          partials, partials + chunks.count * n, dk, dv, n, chunks.count);
+  return cudaGetLastError();
+}
+
+template <typename T, int NC, bool kFull>
+cudaError_t launch_t(const T* q, const T* k, const T* v, const float* bias,
+                     const float* o, const T* g, T* dq, T* dk, T* dv,
+                     const float* stats_in, float* scratch, int B, int Lq,
+                     int Lk, int D, float scale, cudaStream_t st) {
   constexpr size_t S = 32 * NC + kPad;
   constexpr size_t F = sizeof(float);
   const size_t rows = (size_t)B * Lq;
@@ -766,9 +994,9 @@ cudaError_t launch_t(const float* q, const float* k, const float* v,
     const int nbuf = pick_buffers(fixed, tile);
     if (nbuf == 0) return cudaErrorInvalidValue;
     const size_t smem = fixed + nbuf * tile;
-    if ((err = allow_smem(stats_kernel<NC, kFull>, smem)) != cudaSuccess)
+    if ((err = allow_smem(stats_kernel<T, NC, kFull>, smem)) != cudaSuccess)
       return err;
-    stats_kernel<NC, kFull><<<q_grid, kThreads, smem, st>>>(
+    stats_kernel<T, NC, kFull><<<q_grid, kThreads, smem, st>>>(
         q, k, bias, scratch, scratch + rows, Lq, Lk, D, scale, nbuf);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     m = scratch;
@@ -781,9 +1009,9 @@ cudaError_t launch_t(const float* q, const float* k, const float* v,
     const int nbuf = pick_buffers(fixed, tile);
     if (nbuf == 0) return cudaErrorInvalidValue;
     const size_t smem = fixed + nbuf * tile;
-    if ((err = allow_smem(dq_kernel<NC, kFull>, smem)) != cudaSuccess)
+    if ((err = allow_smem(dq_kernel<T, NC, kFull>, smem)) != cudaSuccess)
       return err;
-    dq_kernel<NC, kFull><<<q_grid, kThreads, smem, st>>>(
+    dq_kernel<T, NC, kFull><<<q_grid, kThreads, smem, st>>>(
         q, k, v, bias, o, g, m, l, dq, delta, Lq, Lk, D, scale, nbuf);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
@@ -795,39 +1023,38 @@ cudaError_t launch_t(const float* q, const float* k, const float* v,
   const int nbuf = pick_buffers(fixed, tile);
   if (nbuf == 0) return cudaErrorInvalidValue;
   const size_t smem = fixed + nbuf * tile;
-  if ((err = allow_smem(dkv_kernel<NC, kFull>, smem)) != cudaSuccess)
+  if ((err = allow_smem(dkv_kernel<T, NC, kFull>, smem)) != cudaSuccess)
     return err;
   const bool direct = chunks.count == 1;
   const size_t n = (size_t)B * Lk * D;
   const dim3 grid((Lk + kTileM - 1) / kTileM, chunks.count, B);
-  dkv_kernel<NC, kFull><<<grid, kThreads, smem, st>>>(
-      q, k, v, bias, g, m, l, delta, direct ? dk : partials,
-      direct ? dv : partials + chunks.count * n, B, Lq, Lk, D, chunks.len,
-      scale, nbuf);
+  dkv_kernel<T, NC, kFull><<<grid, kThreads, smem, st>>>(
+      q, k, v, bias, g, m, l, delta, dk, dv, direct ? nullptr : partials,
+      direct ? nullptr : partials + chunks.count * n, B, Lq, Lk, D,
+      chunks.len, scale, nbuf);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return reduce_chunks(chunks, partials, dk, dv, n, st);
 }
 
-template <int NC>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* bias, const float* o, const float* g,
-                   float* dq, float* dk, float* dv, const float* stats_in,
-                   float* scratch, int B, int Lq, int Lk, int D, float scale,
-                   cudaStream_t st) {
+template <typename T, int NC>
+cudaError_t launch(const T* q, const T* k, const T* v, const float* bias,
+                   const float* o, const T* g, T* dq, T* dk, T* dv,
+                   const float* stats_in, float* scratch, int B, int Lq,
+                   int Lk, int D, float scale, cudaStream_t st) {
   if (D == 32 * NC)
-    return launch_t<NC, true>(q, k, v, bias, o, g, dq, dk, dv, stats_in,
-                              scratch, B, Lq, Lk, D, scale, st);
-  return launch_t<NC, false>(q, k, v, bias, o, g, dq, dk, dv, stats_in,
-                             scratch, B, Lq, Lk, D, scale, st);
+    return launch_t<T, NC, true>(q, k, v, bias, o, g, dq, dk, dv, stats_in,
+                                 scratch, B, Lq, Lk, D, scale, st);
+  return launch_t<T, NC, false>(q, k, v, bias, o, g, dq, dk, dv, stats_in,
+                                scratch, B, Lq, Lk, D, scale, st);
 }
 
 // the sliced kernels: D > 512
-cudaError_t launch_sliced(const float* q, const float* k, const float* v,
-                          const float* bias, const float* o, const float* g,
-                          float* dq, float* dk, float* dv,
-                          const float* stats_in, float* scratch, int B,
-                          int Lq, int Lk, int D, float scale,
-                          cudaStream_t st) {
+template <typename T>
+cudaError_t launch_sliced(const T* q, const T* k, const T* v,
+                          const float* bias, const float* o, const T* g,
+                          T* dq, T* dk, T* dv, const float* stats_in,
+                          float* scratch, int B, int Lq, int Lk, int D,
+                          float scale, cudaStream_t st) {
   constexpr int NC = kSliceMaxNC;
   constexpr size_t S = 32 * NC + kPad;
   constexpr size_t F = sizeof(float);
@@ -843,9 +1070,9 @@ cudaError_t launch_sliced(const float* q, const float* k, const float* v,
   const float* l = stats_in == nullptr ? nullptr : stats_in + rows;
   if (stats_in == nullptr) {
     const size_t smem = ((kTileM + kTileN) * S + kPartFloats) * F;
-    if ((err = allow_smem(stats_sliced_kernel<NC>, smem)) != cudaSuccess)
+    if ((err = allow_smem(stats_sliced_kernel<T, NC>, smem)) != cudaSuccess)
       return err;
-    stats_sliced_kernel<NC>
+    stats_sliced_kernel<T, NC>
         <<<dim3((Lq + kTileM - 1) / kTileM, B), kThreads, smem, st>>>(
             q, k, bias, scratch, scratch + rows, Lq, Lk, D, scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -856,9 +1083,9 @@ cudaError_t launch_sliced(const float* q, const float* k, const float* v,
     const size_t smem = ((2 * kTileM + kv * kTileN) * S + 2 * kPartFloats
                          + kProbFloats + 3 * kTileM) * F;
     if (smem > kSmemMax) return cudaErrorInvalidValue;
-    if ((err = allow_smem(dq_sliced_kernel<NC>, smem)) != cudaSuccess)
+    if ((err = allow_smem(dq_sliced_kernel<T, NC>, smem)) != cudaSuccess)
       return err;
-    dq_sliced_kernel<NC>
+    dq_sliced_kernel<T, NC>
         <<<dim3((Lq + kTileM - 1) / kTileM, B, slices), kThreads, smem, st>>>(
             q, k, v, bias, o, g, m, l, dq, delta, Lq, Lk, D, scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -868,19 +1095,49 @@ cudaError_t launch_sliced(const float* q, const float* k, const float* v,
   const size_t smem = ((kv * kTileM + 2 * kTileN) * S + 2 * kPartFloats
                        + 2 * kProbFloats + 3 * kTileN + kTileM) * F;
   if (smem > kSmemMax) return cudaErrorInvalidValue;
-  if ((err = allow_smem(dkv_sliced_kernel<NC>, smem)) != cudaSuccess)
+  if ((err = allow_smem(dkv_sliced_kernel<T, NC>, smem)) != cudaSuccess)
     return err;
   const bool direct = chunks.count == 1;
   const size_t n = (size_t)B * Lk * D;
   const long key_blocks = (long)((Lk + kTileM - 1) / kTileM) * slices;
   if (key_blocks > 0x7fffffffL) return cudaErrorInvalidValue;
-  dkv_sliced_kernel<NC>
+  dkv_sliced_kernel<T, NC>
       <<<dim3((unsigned)key_blocks, chunks.count, B), kThreads, smem, st>>>(
-          q, k, v, bias, g, m, l, delta, direct ? dk : partials,
-          direct ? dv : partials + chunks.count * n, B, Lq, Lk, D, chunks.len,
-          scale);
+          q, k, v, bias, g, m, l, delta, dk, dv, direct ? nullptr : partials,
+          direct ? nullptr : partials + chunks.count * n, B, Lq, Lk, D,
+          chunks.len, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   return reduce_chunks(chunks, partials, dk, dv, n, st);
+}
+
+template <typename T>
+int dispatch(const void* q_, const void* k_, const void* v_,
+             const float* bias, const float* o, const void* g_, void* dq_,
+             void* dk_, void* dv_, const float* stats_in, float* scratch,
+             int B, int Lq, int Lk, int D, float scale, cudaStream_t st) {
+  const T* q = static_cast<const T*>(q_);
+  const T* k = static_cast<const T*>(k_);
+  const T* v = static_cast<const T*>(v_);
+  const T* g = static_cast<const T*>(g_);
+  T* dq = static_cast<T*>(dq_);
+  T* dk = static_cast<T*>(dk_);
+  T* dv = static_cast<T*>(dv_);
+  if (slices_of(D) > 1)
+    return launch_sliced<T>(q, k, v, bias, o, g, dq, dk, dv, stats_in,
+                            scratch, B, Lq, Lk, D, scale, st);
+  switch ((D + 31) / 32) {
+#define DOSTPU_CASE(nc)                                                       \
+  case nc:                                                                    \
+    return launch<T, nc>(q, k, v, bias, o, g, dq, dk, dv, stats_in, scratch, \
+                         B, Lq, Lk, D, scale, st);
+    DOSTPU_CASE(1) DOSTPU_CASE(2) DOSTPU_CASE(3) DOSTPU_CASE(4)
+    DOSTPU_CASE(5) DOSTPU_CASE(6) DOSTPU_CASE(7) DOSTPU_CASE(8)
+    DOSTPU_CASE(9) DOSTPU_CASE(10) DOSTPU_CASE(11) DOSTPU_CASE(12)
+    DOSTPU_CASE(13) DOSTPU_CASE(14) DOSTPU_CASE(15) DOSTPU_CASE(16)
+#undef DOSTPU_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -892,36 +1149,28 @@ extern "C" size_t dostpu_attention_bwd_scratch_floats(int B, int Lq, int Lk,
   return scratch_floats(B, Lq, Lk, D);
 }
 
-// All pointers are device pointers into contiguous, 16-byte aligned float32
-// tensors: q/o/g [B, Lq, D], k/v [B, Lk, D] (v may be k itself), bias
-// [B, Lk]; outputs dq [B, Lq, D], dk/dv [B, Lk, D]; stats_in is the
-// forward's [2, B, Lq] (row max, then row sum) or null; scratch holds
-// dostpu_attention_bwd_scratch_floats(B, Lq, Lk, D) floats. Any D >= 1.
-// Returns the CUDA error code of the launches.
-extern "C" int dostpu_attention_bwd(const float* q, const float* k,
-                                    const float* v, const float* bias,
-                                    const float* o, const float* g, float* dq,
-                                    float* dk, float* dv,
+// All pointers are device pointers into contiguous, 16-byte aligned
+// tensors: q/o/g [B, Lq, D], k/v [B, Lk, D] (v may be k itself) and the
+// outputs dq [B, Lq, D], dk/dv [B, Lk, D]: q, k, v, g, dq, dk and dv float32,
+// or bfloat16 when `bf16` is non-zero; o (read by the f32 form only, may be
+// null for bf16), bias [B, Lk], stats_in (the forward's [2, B, Lq]: row max,
+// then row sum, or null) and scratch (dostpu_attention_bwd_scratch_floats(B,
+// Lq, Lk, D) floats) float32 in both forms. Any D >= 1. Returns the CUDA
+// error code of the launches.
+extern "C" int dostpu_attention_bwd(const void* q, const void* k,
+                                    const void* v, const float* bias,
+                                    const float* o, const void* g, void* dq,
+                                    void* dk, void* dv,
                                     const float* stats_in, float* scratch,
                                     int B, int Lq, int Lk, int D, float scale,
-                                    void* stream) {
+                                    int bf16, void* stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0 || B > 65535 || D <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (slices_of(D) > 1)
-    return launch_sliced(q, k, v, bias, o, g, dq, dk, dv, stats_in, scratch,
+  if (bf16)
+    return dispatch<__nv_bfloat16>(q, k, v, bias, o, g, dq, dk, dv, stats_in,
+                                   scratch, B, Lq, Lk, D, scale, st);
+  if (o == nullptr) return cudaErrorInvalidValue;
+  return dispatch<float>(q, k, v, bias, o, g, dq, dk, dv, stats_in, scratch,
                          B, Lq, Lk, D, scale, st);
-  switch ((D + 31) / 32) {
-#define DOSTPU_CASE(nc)                                                      \
-  case nc:                                                                   \
-    return launch<nc>(q, k, v, bias, o, g, dq, dk, dv, stats_in, scratch, B, \
-                      Lq, Lk, D, scale, st);
-    DOSTPU_CASE(1) DOSTPU_CASE(2) DOSTPU_CASE(3) DOSTPU_CASE(4)
-    DOSTPU_CASE(5) DOSTPU_CASE(6) DOSTPU_CASE(7) DOSTPU_CASE(8)
-    DOSTPU_CASE(9) DOSTPU_CASE(10) DOSTPU_CASE(11) DOSTPU_CASE(12)
-    DOSTPU_CASE(13) DOSTPU_CASE(14) DOSTPU_CASE(15) DOSTPU_CASE(16)
-#undef DOSTPU_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
 }

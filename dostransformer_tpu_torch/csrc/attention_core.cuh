@@ -541,6 +541,19 @@ __device__ __forceinline__ void stage_raw_async(float* dst, const T* src,
   }
 }
 
+// columns [c0, c0 + w) of rows [r0, r0 + rows) of src ([n_total][d] of T)
+// -> dst: f32 rows as they are (stage_cols_async), bf16 rows raw
+// (stage_raw_async; widen_rows widens them once they have landed)
+template <typename T, int NC>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src, int r0,
+                                           int rows, int n_total, int d,
+                                           int c0, int w) {
+  if constexpr (sizeof(T) == 4)
+    stage_cols_async<NC>(dst, src, r0, rows, n_total, d, c0, w);
+  else
+    stage_raw_async<T, NC>(dst, src, r0, rows, n_total, d, c0, w);
+}
+
 // The first rows16 rows of a staged tile whose rows hold raw bf16 values at
 // their front (stage_raw_async), widened in place: 32 NC floats a row, the
 // w values and zeros past w and in the rows at or past n. One warp a row,

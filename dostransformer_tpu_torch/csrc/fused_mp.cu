@@ -90,6 +90,7 @@ constexpr int kTileH = 256;    // W1 rows (outputs) per pass
 constexpr int kTileM = 32;     // W1 columns per shared-memory chunk
 using mp::kLnEps;
 using mp::warp_sum;
+using mp::widen;
 
 // The generic form's shared memory, a constant: a block keeps no whole row
 // of mid, only each row's statistics, a [kTileE x kTileM] tile of act and a
@@ -98,10 +99,6 @@ constexpr int kTileStride = kTileM + 1;  // floats a staged row (no conflicts)
 constexpr size_t kGenericSmemFloats =
     (size_t)(kTileE + kTileH) * kTileStride + 2 * kTileE;
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 // e_out[at] (and e_out[at + 1]): f32 as computed; bf16 rounded once, with
 // the f32 values also in e32, the aggregation's source

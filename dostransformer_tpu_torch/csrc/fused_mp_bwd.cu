@@ -1,4 +1,5 @@
-// Fused message-passing edge pipeline, backward, float32, for sm_90a.
+// Fused message-passing edge pipeline, backward, float32 or bfloat16
+// operands, for sm_90a.
 //
 // Replaces the Pallas TPU kernel `_bwd_kernel` of
 // dostransformer_tpu/ops/fused_mp.py (launched by `_fused_bwd_call`, the VJP
@@ -86,8 +87,25 @@
 //     an out-of-range index reaches no node. D: the other blocks sum the
 //     partials in a fixed order (8 threads a column over the blocks of
 //     pass A, then a fixed tree).
+//   * bf16 form (a bf16 model's backward: src_proj, dst_proj, edge_proj and
+//     the cotangents g_eout, g_agg bf16; the LayerNorm scale and bias, the
+//     slope and W1 f32 parameters, as the TPU kernel takes them): the two
+//     pass-A kernels are templates over the operand type, so every width
+//     and shape the f32 form takes also runs in bf16. The five operands are
+//     read as bf16 and widened to f32 on load (the tensor-core form: 16-byte
+//     loads of 8 values for mid's rows where a block keeps the whole row,
+//     8-byte loads of 4 values elsewhere, as the forward's bf16 form stages
+//     them; the generic form: one value a load, so a width such as M = 100,
+//     whose bf16 rows are no multiple of 8, needs no tail path); g_e, act and
+//     xhat go to the f32 scratch as in the f32 form. Everything after the
+//     load is the f32 kernel's arithmetic (the products with W1 3xTF32), and
+//     all eight gradients are f32, as the TPU kernel's are: passes B, C and
+//     D read only f32 scratch and are shared by both forms. The bytes it
+//     must read shrink by the operands' half; what bounds it stays the two
+//     products' f32 operations.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -117,18 +135,18 @@ int gemm_splits(int N) {
   return s < 1 ? 1 : (s > 64 ? 64 : s);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-edge_bwd_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
-                const float* __restrict__ ep, const int* __restrict__ senders,
+edge_bwd_kernel(const T* __restrict__ sp, const T* __restrict__ dp,
+                const T* __restrict__ ep, const int* __restrict__ senders,
                 const int* __restrict__ receivers,
                 const float* __restrict__ mask,
                 const float* __restrict__ ln_scale,
                 const float* __restrict__ ln_bias,
                 const float* __restrict__ alpha, const float* __restrict__ w1,
-                const float* __restrict__ g_eout,
-                const float* __restrict__ g_agg, float* __restrict__ g_ep,
-                float* __restrict__ act_out, float* __restrict__ ge_out,
-                float* __restrict__ xhat_out,
+                const T* __restrict__ g_eout, const T* __restrict__ g_agg,
+                float* __restrict__ g_ep, float* __restrict__ act_out,
+                float* __restrict__ ge_out, float* __restrict__ xhat_out,
                 float* __restrict__ part_lns, float* __restrict__ part_lnb,
                 float* __restrict__ part_b1, float* __restrict__ part_alpha,
                 int A, int E, int M, int H) {
@@ -160,13 +178,14 @@ edge_bwd_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
     const int r = receivers[be];
     const bool s_ok = s >= 0 && s < A;
     const bool r_ok = r >= 0 && r < A;
-    const float* sp_row = sp + ((size_t)b * A + (s_ok ? s : 0)) * M;
-    const float* dp_row = dp + ((size_t)b * A + (r_ok ? r : 0)) * M;
-    const float* ep_row = ep + be * M;
+    const T* sp_row = sp + ((size_t)b * A + (s_ok ? s : 0)) * M;
+    const T* dp_row = dp + ((size_t)b * A + (r_ok ? r : 0)) * M;
+    const T* ep_row = ep + be * M;
     float sum = 0.f;
     for (int m = lane; m < M; m += 32) {
-      const float v = ((s_ok ? sp_row[m] : 0.f) + (r_ok ? dp_row[m] : 0.f))
-                      + ep_row[m];
+      const float v = ((s_ok ? mp::widen(sp_row[m]) : 0.f)
+                       + (r_ok ? mp::widen(dp_row[m]) : 0.f))
+                      + mp::widen(ep_row[m]);
       xrow[m] = v;
       sum += v;
     }
@@ -185,9 +204,10 @@ edge_bwd_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
     }
     if (lane == 0) rstd_s[i] = rstd;
     const float mk = mask[be];
-    const float* ga_row = g_agg + ((size_t)b * A + (r_ok ? r : 0)) * H;
+    const T* ga_row = g_agg + ((size_t)b * A + (r_ok ? r : 0)) * H;
     for (int h = lane; h < H; h += 32)
-      ge_out[be * H + h] = g_eout[be * H + h] + (r_ok ? mk * ga_row[h] : 0.f);
+      ge_out[be * H + h] = mp::widen(g_eout[be * H + h])
+                           + (r_ok ? mk * mp::widen(ga_row[h]) : 0.f);
   }
 
   // 2. g_act = g_e @ W1 into g_ep's rows: thread (te, th) owns edges
@@ -457,11 +477,12 @@ int tc_gemm_chunk(int N, int M, int H) {
 
 // MT m16 row tiles (TE = 16 MT edges) and NT n8 column tiles a warp; the
 // blocks of a cluster (1, 2 or 4, the launch's cluster dimension) own
-// M / cluster columns each of the same TE edges.
-template <int MT, int NT>
+// M / cluster columns each of the same TE edges. T: the operand type of
+// sp, dp, ep, g_eout and g_agg (float, or bf16 widened on load).
+template <typename T, int MT, int NT>
 __global__ void __launch_bounds__(kThreads)
-edge_bwd_tc_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
-                   const float* __restrict__ ep,
+edge_bwd_tc_kernel(const T* __restrict__ sp, const T* __restrict__ dp,
+                   const T* __restrict__ ep,
                    const int* __restrict__ senders,
                    const int* __restrict__ receivers,
                    const float* __restrict__ mask,
@@ -469,8 +490,8 @@ edge_bwd_tc_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
                    const float* __restrict__ ln_bias,
                    const float* __restrict__ alpha,
                    const float* __restrict__ w1,
-                   const float* __restrict__ g_eout,
-                   const float* __restrict__ g_agg, float* __restrict__ g_ep,
+                   const T* __restrict__ g_eout,
+                   const T* __restrict__ g_agg, float* __restrict__ g_ep,
                    float* __restrict__ act_out, float* __restrict__ ge_out,
                    float* __restrict__ part_lns, float* __restrict__ part_lnb,
                    float* __restrict__ part_b1, float* __restrict__ part_alpha,
@@ -543,17 +564,17 @@ edge_bwd_tc_kernel(const float* __restrict__ sp, const float* __restrict__ dp,
       continue;
     }
     const size_t n = (size_t)(n0 + i);
-    const mp::MidRow mid =
+    const mp::MidRowT<T> mid =
         mp::mid_row(sp, dp, ep, senders, receivers, n, A, E, M);
     const mp::RowStats st = cs == 1 ? mp::gather_mid_row(mid, M, lane, xrow)
                                     : mp::mid_row_stats(mid, M, lane);
     const int r = receivers[n];
     const bool r_ok = r >= 0 && r < A;
     const float mk = r_ok ? mask[n] : 0.f;
-    const float* ga_row = g_agg + ((n / E) * A + (r_ok ? r : 0)) * H;
+    const T* ga_row = g_agg + ((n / E) * A + (r_ok ? r : 0)) * H;
     for (int j = lane; j < H / 4; j += 32) {
-      float4 v = mp::ld4(g_eout + n * H, j);
-      const float4 ga = mp::ld4(ga_row, j);
+      float4 v = mp::ld4w(g_eout + n * H, j);
+      const float4 ga = mp::ld4w(ga_row, j);
       v.x += mk * ga.x;
       v.y += mk * ga.y;
       v.z += mk * ga.z;
@@ -1017,17 +1038,17 @@ Plan make_plan(int form, int B, int E, int M, int H) {
   return p;
 }
 
-template <int MT, int NT>
+template <typename T, int MT, int NT>
 cudaError_t launch_edge_bwd_tc(
-    const float* sp, const float* dp, const float* ep, const int* senders,
+    const T* sp, const T* dp, const T* ep, const int* senders,
     const int* receivers, const float* mask, const float* ln_scale,
     const float* ln_bias, const float* alpha, const float* w1,
-    const float* g_eout, const float* g_agg, float* g_ep, float* act,
+    const T* g_eout, const T* g_agg, float* g_ep, float* act,
     float* ge, float* part_lns, float* part_lnb, float* part_b1,
     float* part_alpha, int N, int A, int E, int M, int H, const Plan& plan,
     cudaStream_t st) {
   const size_t smem = tc_smem_bytes(MT, plan.cluster, M, H);
-  auto kernel = edge_bwd_tc_kernel<MT, NT>;
+  auto kernel = edge_bwd_tc_kernel<T, MT, NT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1087,26 +1108,16 @@ extern "C" size_t dostpu_fused_mp_edge_bwd_scratch_floats(int B, int E, int M,
          + (size_t)p.splits * H * M;
 }
 
-// All pointers are device pointers into contiguous float32 (int32 for the
-// indices) tensors. Inputs as the forward's (src_proj/dst_proj [B, A, M],
-// edge_proj [B, E, M], senders/receivers/edge_mask [B, E], ln_scale/ln_bias
-// [M], alpha [1], w1 [H, M]) plus g_eout [B, E, H] and g_agg [B, A, H];
-// outputs g_src_proj/g_dst_proj [B, A, M], g_edge_proj [B, E, M],
-// g_ln_scale/g_ln_bias [M], g_alpha [1], g_w1 [H, M], g_b1 [H]; scratch of
-// dostpu_fused_mp_edge_bwd_scratch_floats floats (same form). Returns the
-// CUDA error code of the launches (0 on success).
-extern "C" int dostpu_fused_mp_edge_bwd(
-    const float* src_proj, const float* dst_proj, const float* edge_proj,
-    const int* senders, const int* receivers, const float* edge_mask,
-    const float* ln_scale, const float* ln_bias, const float* alpha,
-    const float* w1, const float* g_eout, const float* g_agg, float* g_sp,
-    float* g_dp, float* g_ep, float* g_lns, float* g_lnb, float* g_alpha,
-    float* g_w1, float* g_b1, float* scratch, int B, int A, int E, int M,
-    int H, int form, void* stream) {
-  if (B <= 0 || A <= 0 || E <= 0 || M <= 0 || H <= 0 || B > 65535
-      || (long)B * E > 0x7fffffffL)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+namespace {
+
+template <typename T>
+int run_bwd(const T* src_proj, const T* dst_proj, const T* edge_proj,
+            const int* senders, const int* receivers, const float* edge_mask,
+            const float* ln_scale, const float* ln_bias, const float* alpha,
+            const float* w1, const T* g_eout, const T* g_agg, float* g_sp,
+            float* g_dp, float* g_ep, float* g_lns, float* g_lnb,
+            float* g_alpha, float* g_w1, float* g_b1, float* scratch, int B,
+            int A, int E, int M, int H, int form, cudaStream_t st) {
   const Plan plan = make_plan(form, B, E, M, H);
   if (plan.mt < 0) return cudaErrorInvalidValue;
   const int n = B * E;
@@ -1125,10 +1136,10 @@ extern "C" int dostpu_fused_mp_edge_bwd(
   if (plan.mt == 0) {
     const size_t smem = kEdgeSmemFloats * sizeof(float);
     err = cudaFuncSetAttribute(
-        edge_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        edge_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
-    edge_bwd_kernel<<<dim3(plan.nblk / B, B), kThreads, smem, st>>>(
+    edge_bwd_kernel<T><<<dim3(plan.nblk / B, B), kThreads, smem, st>>>(
         src_proj, dst_proj, edge_proj, senders, receivers, edge_mask,
         ln_scale, ln_bias, alpha, w1, g_eout, g_agg, g_ep, act, ge, xhat,
         part_lns, part_lnb, part_b1, part_alpha, A, E, M, H);
@@ -1140,11 +1151,11 @@ extern "C" int dostpu_fused_mp_edge_bwd(
                                             plan.chunk);
   } else {
 #define DOSTPU_LAUNCH_EDGE(MT, NT)                                            \
-  launch_edge_bwd_tc<MT, NT>(src_proj, dst_proj, edge_proj, senders,         \
-                             receivers, edge_mask, ln_scale, ln_bias, alpha, \
-                             w1, g_eout, g_agg, g_ep, act, ge, part_lns,     \
-                             part_lnb, part_b1, part_alpha, n, A, E, M, H,   \
-                             plan, st)
+  launch_edge_bwd_tc<T, MT, NT>(src_proj, dst_proj, edge_proj, senders,      \
+                                receivers, edge_mask, ln_scale, ln_bias,     \
+                                alpha, w1, g_eout, g_agg, g_ep, act, ge,     \
+                                part_lns, part_lnb, part_b1, part_alpha, n,  \
+                                A, E, M, H, plan, st)
     if (plan.cluster == 4)  // 16 edges, 128 columns a pass: 16 a warp
       err = DOSTPU_LAUNCH_EDGE(1, 2);
     else
@@ -1172,4 +1183,50 @@ extern "C" int dostpu_fused_mp_edge_bwd(
       part_lnb, part_b1, part_alpha, part_w1, g_lns, g_lnb, g_b1, g_alpha,
       g_w1, plan.nblk, plan.nalpha, plan.splits, H, w1_blocks);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// All pointers are device pointers into contiguous tensors. Inputs as the
+// forward's (src_proj/dst_proj [B, A, M], edge_proj [B, E, M],
+// senders/receivers/edge_mask [B, E], ln_scale/ln_bias [M], alpha [1],
+// w1 [H, M]) plus g_eout [B, E, H] and g_agg [B, A, H]: src_proj, dst_proj,
+// edge_proj, g_eout and g_agg float32, or bfloat16 when `bf16` is non-zero
+// (16-byte aligned), the indices int32, the rest float32 in both forms.
+// Outputs, float32 in both forms: g_src_proj/g_dst_proj [B, A, M],
+// g_edge_proj [B, E, M], g_ln_scale/g_ln_bias [M], g_alpha [1], g_w1 [H, M],
+// g_b1 [H]; scratch of dostpu_fused_mp_edge_bwd_scratch_floats floats (same
+// form; the same for both dtypes). Returns the CUDA error code of the
+// launches (0 on success).
+extern "C" int dostpu_fused_mp_edge_bwd(
+    const void* src_proj, const void* dst_proj, const void* edge_proj,
+    const int* senders, const int* receivers, const float* edge_mask,
+    const float* ln_scale, const float* ln_bias, const float* alpha,
+    const float* w1, const void* g_eout, const void* g_agg, float* g_sp,
+    float* g_dp, float* g_ep, float* g_lns, float* g_lnb, float* g_alpha,
+    float* g_w1, float* g_b1, float* scratch, int B, int A, int E, int M,
+    int H, int form, int bf16, void* stream) {
+  if (B <= 0 || A <= 0 || E <= 0 || M <= 0 || H <= 0 || B > 65535
+      || (long)B * E > 0x7fffffffL)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    using T = __nv_bfloat16;
+    return run_bwd(static_cast<const T*>(src_proj),
+                   static_cast<const T*>(dst_proj),
+                   static_cast<const T*>(edge_proj), senders, receivers,
+                   edge_mask, ln_scale, ln_bias, alpha, w1,
+                   static_cast<const T*>(g_eout),
+                   static_cast<const T*>(g_agg), g_sp, g_dp, g_ep, g_lns,
+                   g_lnb, g_alpha, g_w1, g_b1, scratch, B, A, E, M, H, form,
+                   st);
+  }
+  return run_bwd(static_cast<const float*>(src_proj),
+                 static_cast<const float*>(dst_proj),
+                 static_cast<const float*>(edge_proj), senders, receivers,
+                 edge_mask, ln_scale, ln_bias, alpha, w1,
+                 static_cast<const float*>(g_eout),
+                 static_cast<const float*>(g_agg), g_sp, g_dp, g_ep, g_lns,
+                 g_lnb, g_alpha, g_w1, g_b1, scratch, B, A, E, M, H, form,
+                 st);
 }

@@ -67,6 +67,25 @@ __device__ __forceinline__ void st4(float* p, int i, float4 v) {
   reinterpret_cast<float4*>(p)[i] = v;
 }
 
+// an operand value widened to f32 (bf16 -> f32 is exact)
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// values 4 i .. 4 i + 3 of an operand row as f32: one 16-byte load of f32,
+// one 8-byte load of bf16 (the row 8-byte aligned: M % 4 == 0)
+__device__ __forceinline__ float4 ld4w(const float* p, int i) {
+  return ld4(p, i);
+}
+__device__ __forceinline__ float4 ld4w(const __nv_bfloat16* p, int i) {
+  const uint2 r = reinterpret_cast<const uint2*>(p)[i];
+  return make_float4(__uint_as_float(r.x << 16),
+                     __uint_as_float(r.x & 0xffff0000u),
+                     __uint_as_float(r.y << 16),
+                     __uint_as_float(r.y & 0xffff0000u));
+}
+
 // x = hi + lo for the 3xTF32 products, in two operations: hi is x cut to
 // TF32's 10 mantissa bits and lo = x - hi, exact in f32. The tensor core
 // reads only the top 19 bits of an operand, so lo goes in as it is and loses
@@ -96,10 +115,10 @@ struct RowStats {
 };
 
 // The three rows whose sum is mid of flat edge n (graph n / E), of the
-// operand type T (float, or bf16 for the bf16 form of the forward): an
-// out-of-range index adds a zero row. at(i) is mid's i-th 4 floats; for
-// bf16, at8(i) is its i-th 8 values, one 16-byte load of each row widened
-// to f32 in registers. The sum is f32 in both: (sp + dp) + ep.
+// operand type T (float, or bf16 for the bf16 forms): an out-of-range
+// index adds a zero row. at(i) is mid's i-th 4 values; for bf16, at8(i) is
+// its i-th 8 values, one 16-byte load of each row widened to f32 in
+// registers. The sum is f32 in both: (sp + dp) + ep.
 template <typename T>
 struct MidRowT {
   const T* sp_row;
@@ -109,9 +128,9 @@ struct MidRowT {
 
   __device__ __forceinline__ float4 at(int i) const {
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4 a = s_ok ? ld4(sp_row, i) : zero;
-    const float4 d = r_ok ? ld4(dp_row, i) : zero;
-    float4 v = ld4(ep_row, i);
+    const float4 a = s_ok ? ld4w(sp_row, i) : zero;
+    const float4 d = r_ok ? ld4w(dp_row, i) : zero;
+    float4 v = ld4w(ep_row, i);
     v.x = (a.x + d.x) + v.x;
     v.y = (a.y + d.y) + v.y;
     v.z = (a.z + d.z) + v.z;
@@ -221,9 +240,10 @@ __device__ __forceinline__ RowStats gather_mid_row(
 
 // gather_mid_row's statistics without keeping the row (a block that keeps
 // only some of its columns): mid is formed twice from device memory, in the
-// same order, so the mean and rstd are the same bits
-__device__ __forceinline__ RowStats mid_row_stats(const MidRow& mid, int M,
-                                                  int lane) {
+// same order, so every block of a cluster has the same mean and rstd bits
+template <typename T>
+__device__ __forceinline__ RowStats mid_row_stats(const MidRowT<T>& mid,
+                                                  int M, int lane) {
   float sum = 0.f;
   for (int i = lane; i < M / 4; i += 32) {
     const float4 v = mid.at(i);

@@ -49,7 +49,10 @@ tokens and prompt tokens to bf16, every layer casts its parameters to the
 operand's dtype at use, LayerNorm statistics and the softmax run in f32,
 and the three outputs come back as float32. On the card the bf16 forward
 runs the bf16 forms of the fused message-passing, attention (and, with
-``fuse_ln_attn``, LN-fused attention) and segment-sum kernels.
+``fuse_ln_attn``, LN-fused attention) and segment-sum kernels, and its
+backward the bf16 forms of the message-passing and attention backward
+kernels (with ``remat`` the recomputed forward runs the bf16 forward
+kernels again).
 
 Parameters are created on the meta device and then materialised on
 ``device`` and drawn from ``generator`` (on the CPU, so a seed gives the same

@@ -34,9 +34,11 @@ bf16 operands (a bf16 model): the forward kernel has a bf16 form (q, k, v
 and the output bf16; scores, softmax and the row statistics f32) that
 rounds where the TPU kernel and :func:`dot_product_attention` round: the
 normalised softmax weights to bf16, then the output (two passes over the
-keys, see ``csrc/attention.cu``). The backward kernel's bf16 form is not written yet:
-bf16 into :func:`fused_attention_bwd` raises (ROADMAP.md queue 1 item 11);
-the plain backward takes bf16.
+keys, see ``csrc/attention.cu``). So has the backward kernel (q, k, v, g
+and dq, dk, dv bf16), which rounds where the TPU kernel ``_attn_bwd_kernel``
+and :func:`attention_bwd_reference` round: p and ds to bf16 before their
+products, each output once after its scale; it forms delta from dp and the
+f32 softmax, not from the rounded output (see ``csrc/attention_bwd.cu``).
 
 The three attention kernels take every feature width D >= 1:
 :func:`attention_plan` is the Python mirror of how they split it (rows
@@ -102,7 +104,12 @@ def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     accumulate in at least f32, the softmax runs at f32, and
     ``ds = p * (dp - rowsum(dp * p))``. With ``stats`` (the forward's
     [2, B, Lq] row max and row sum) the softmax is ``exp(s - m) / l``, as
-    the backward kernel forms it. Returns (dq, dk, dv)."""
+    the backward kernel forms it. bf16 operands round where the JAX Pallas
+    kernel ``_attn_bwd_kernel`` rounds: p and ds to bf16 before their
+    products, which sum in f32; dv once, dq and dk once after the scale
+    (the JAX ``_softmax_attn_bwd`` rounds dq and dk before the scale as
+    well: one rounding more where the scale is no power of 2). Returns
+    (dq, dk, dv) in q's dtype."""
     acc = torch.promote_types(q.dtype, torch.float32)
     scale = q.shape[-1] ** -0.5
     s = (torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
@@ -113,11 +120,12 @@ def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
         p32 = (torch.exp(s.to(torch.float32) - stats[0][..., None])
                / stats[1][..., None])
     p = p32.to(q.dtype)
-    dv = torch.matmul(p.transpose(-1, -2), g)
+    dv = torch.matmul(p.transpose(-1, -2).to(acc), g.to(acc)).to(q.dtype)
     dp = torch.matmul(g.to(acc), v.to(acc).transpose(-1, -2))
     ds = (p32 * (dp - (dp * p32).sum(-1, keepdim=True))).to(q.dtype)
-    dq = torch.matmul(ds, k) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    dq = (torch.matmul(ds.to(acc), k.to(acc)) * scale).to(q.dtype)
+    dk = (torch.matmul(ds.transpose(-1, -2).to(acc), q.to(acc))
+          * scale).to(q.dtype)
     return dq, dk, dv
 
 
@@ -174,29 +182,32 @@ def fused_attention_bwd(q, k, v, bias, o, g, stats=None):
     forward output o and upstream gradient g, both [B, Lq, D]; bias [B, Lk]
     is additive. ``stats`` is the forward kernel's [2, B, Lq] row max and
     row sum; without it the kernel recomputes them first, to the same bits.
-    Same result as :func:`attention_bwd_reference`. CUDA tensors only
-    (float32, contiguous, any D >= 1; anything else raises: bf16 too, whose
-    form of this kernel is ROADMAP.md queue 1 item 11's training PR).
-    ``fused_attention_bwd.launches`` counts calls that launched the
-    kernels (one per call, however many kernels it takes)."""
+    Same result as :func:`attention_bwd_reference`. CUDA tensors only: q,
+    k, v and g of one dtype, float32 or bfloat16 (the bf16 form, which
+    returns bf16 gradients and reads no o: pass it or None), o float32 for
+    the f32 form, bias and stats float32; contiguous, any D >= 1; anything
+    else raises. ``fused_attention_bwd.launches`` counts calls that
+    launched the kernels (one per call, however many kernels it takes)."""
     if not q.is_cuda:
         raise ValueError("fused_attention_bwd: the kernel takes CUDA tensors; "
                          "use attention_bwd_reference on the CPU")
-    if torch.bfloat16 in (q.dtype, g.dtype):
-        raise TypeError(f"fused_attention_bwd: the kernel has no bf16 form "
-                        f"yet; it is {kernels.BF16_TRAINING}")
     b, lq, d = q.shape
     lk = k.shape[1]
     attention_plan(d)
     g = g.contiguous()
-    operands = {"q": (q, (b, lq, d)), "k": (k, (b, lk, d)),
-                "v": (v, (b, lk, d)), "bias": (bias, (b, lk)),
-                "o": (o, (b, lq, d)), "g": (g, (b, lq, d))}
+    kernels.require("fused_attention_bwd", "q", q, device=q.device,
+                    dtype={torch.float32, torch.bfloat16}, shape=(b, lq, d))
+    bf16 = q.dtype == torch.bfloat16
+    operands = {"k": (k, q.dtype, (b, lk, d)), "v": (v, q.dtype, (b, lk, d)),
+                "bias": (bias, torch.float32, (b, lk)),
+                "g": (g, q.dtype, (b, lq, d))}
+    if not bf16:
+        operands["o"] = (o, torch.float32, (b, lq, d))
     if stats is not None:
-        operands["stats"] = (stats, (2, b, lq))
-    for arg, (t, shape) in operands.items():
+        operands["stats"] = (stats, torch.float32, (2, b, lq))
+    for arg, (t, dtype, shape) in operands.items():
         kernels.require("fused_attention_bwd", arg, t, device=q.device,
-                        dtype=torch.float32, shape=shape)
+                        dtype=dtype, shape=shape)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = kernels.library()
     # row statistics and delta, and the query chunks' partial dk and dv
@@ -207,9 +218,10 @@ def fused_attention_bwd(q, k, v, bias, o, g, stats=None):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.dostpu_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            o.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), None if stats is None else stats.data_ptr(),
-            scratch.data_ptr(), b, lq, lk, d, d ** -0.5, stream)
+            None if bf16 else o.data_ptr(), g.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            None if stats is None else stats.data_ptr(), scratch.data_ptr(),
+            b, lq, lk, d, d ** -0.5, int(bf16), stream)
     kernels.check(code, "fused_attention_bwd")
     fused_attention_bwd.launches += 1
     return dq, dk, dv
@@ -227,10 +239,11 @@ def _bias(q: torch.Tensor, lk: int, key_mask: torch.Tensor | None):
 
 class _FusedAttention(torch.autograd.Function):
     """Forward and backward through the kernels (CUDA) or the plain
-    versions (CPU). Saves q, k, v, the key mask, the output o (the
-    backward's delta is rowsum(g * o)) and, on the card when a gradient is
-    wanted, the forward kernel's row statistics. k and v may be one tensor;
-    autograd then sums dk and dv."""
+    versions (CPU). Saves q, k, v, the key mask, the output o (the f32
+    backward kernel's delta is rowsum(g * o)) and, on the card when a
+    gradient is wanted, the forward kernel's row statistics. k and v may be
+    one tensor; autograd then sums dk and dv. bf16 operands give bf16
+    gradients."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask):
@@ -334,8 +347,8 @@ class _FusedAttentionLN(torch.autograd.Function):
     """Saves the raw inputs, the LayerNorm parameters, the key mask and the
     output o: no LayerNorm output is kept. The backward recomputes q, k, v
     with their rows' mean and rstd (one ``native_layer_norm`` per distinct
-    tensor), takes dq, dk, dv from the attention backward (the kernel needs
-    o for its row statistics, so o is saved rather than recomputed) and runs
+    tensor), takes dq, dk, dv from the attention backward (its f32 form
+    needs o for delta, so o is saved rather than recomputed) and runs
     one LayerNorm backward per distinct input tensor on the raw input with
     (mean, rstd): xhat is formed inside that backward, never written out.
     The LayerNorm backward is linear in its upstream gradient, so inputs
@@ -401,10 +414,9 @@ def fused_attention_ln(x: torch.Tensor, x_k: torch.Tensor, x_v: torch.Tensor,
     x_k, x_v, ln_scale and ln_bias; x_k, x_v and x may be one tensor.
 
     CUDA tensors go through the kernels (inputs of one dtype, float32 or
-    bfloat16, ln_scale and ln_bias float32, any D >= 1; anything else
-    raises; the backward kernels take float32 and refuse bf16, ROADMAP.md
-    queue 1 item 11), CPU tensors through the plain versions. ``fused_attention_ln.launches`` counts forward
-    kernel launches."""
+    bfloat16, ln_scale and ln_bias float32, any D >= 1, forward and
+    backward; anything else raises), CPU tensors through the plain versions.
+    ``fused_attention_ln.launches`` counts forward kernel launches."""
     return _FusedAttentionLN.apply(x, x_k, x_v, ln_scale, ln_bias, key_mask)
 
 

@@ -26,9 +26,11 @@ operand (edge_mask, the LayerNorm's scale and bias, alpha, w1, b1) f32, as
 the TPU kernel takes them. It rounds where that kernel rounds: mid, the
 LayerNorm, PReLU and ``act @ W1^T + b1`` are f32; e_out is rounded once;
 agg sums the unrounded f32 e_out and is rounded once. The plain version
-rounds at the same two points. The backward kernel's bf16 form is not
-written yet: bf16 into :func:`fused_mp_edge_bwd` raises (ROADMAP.md queue 1
-item 11); the plain backward computes in f32 from widened operands.
+rounds at the same two points. The backward (kernel and plain version)
+takes the projections and the cotangents g_eout, g_agg in bf16, widens them
+to f32 and returns all eight gradients in f32, as the TPU kernel does; the
+autograd engine then casts the three projections' gradients to bf16, their
+inputs' dtype (the JAX custom VJP hands them on in f32).
 
 Each kernel has two hand-written forms, chosen by the widths alone
 (:func:`fused_mp_form` for the forward, :func:`fused_mp_bwd_form` for the
@@ -163,7 +165,7 @@ def mp_edge_bwd_reference(src_proj, dst_proj, edge_proj, senders, receivers,
     g_alpha [1], g_w1 [H, M], g_b1 [H]). Every edge scatters its g_mid onto
     its sender and receiver, pad edges (mask 0) included; the mask only
     weighs the aggregation's gradient. bf16 operands are widened to f32:
-    every gradient is f32."""
+    every gradient is f32, as the JAX ``_bwd_kernel``'s are."""
     a = src_proj.shape[1]
     f = torch.promote_types(src_proj.dtype, torch.float32)
     src_proj, dst_proj, edge_proj, g_eout, g_agg = (
@@ -298,16 +300,14 @@ def fused_mp_edge_bwd(src_proj, dst_proj, edge_proj, senders, receivers,
                       edge_mask, ln_scale, ln_bias, alpha, w1, g_eout, g_agg,
                       form=FORM_BY_SHAPE):
     """The backward kernel (``csrc/fused_mp_bwd.cu``); same contract as
-    :func:`mp_edge_bwd_reference`. CUDA tensors only (float32, int32
-    indices, contiguous; anything else raises: bf16 operands too, whose
-    form of this kernel is ROADMAP.md queue 1 item 11's training PR).
+    :func:`mp_edge_bwd_reference`. CUDA tensors only: src_proj, dst_proj,
+    edge_proj, g_eout and g_agg of one dtype, float32 or bfloat16 (its bf16
+    form), every other float operand float32, int32 indices, contiguous;
+    anything else raises. The eight gradients are float32 in both forms.
     ``fused_mp_edge_bwd.launches`` counts kernel launches."""
     if not src_proj.is_cuda:
         raise ValueError("fused_mp_edge_bwd: the kernel takes CUDA tensors; "
                          "use mp_edge_bwd_reference on the CPU")
-    if torch.bfloat16 in (src_proj.dtype, g_eout.dtype):
-        raise TypeError(f"fused_mp_edge_bwd: the kernel has no bf16 form "
-                        f"yet; it is {kernels.BF16_TRAINING}")
     b, a, m = src_proj.shape
     e = senders.shape[1]
     h = w1.shape[0]
@@ -315,9 +315,9 @@ def fused_mp_edge_bwd(src_proj, dst_proj, edge_proj, senders, receivers,
     g_eout, g_agg = g_eout.contiguous(), g_agg.contiguous()
     operands = _mp_operands(src_proj, dst_proj, edge_proj, senders,
                             receivers, edge_mask, ln_scale, ln_bias, alpha, w1,
-                            torch.float32)
-    operands["g_eout"] = (g_eout, torch.float32, (b, e, h))
-    operands["g_agg"] = (g_agg, torch.float32, (b, a, h))
+                            {torch.float32, torch.bfloat16})
+    operands["g_eout"] = (g_eout, src_proj.dtype, (b, e, h))
+    operands["g_agg"] = (g_agg, src_proj.dtype, (b, a, h))
     _require_all("fused_mp_edge_bwd", operands, dev)
     _check_form("fused_mp_edge_bwd", form, m, h)
     lib = kernels.library()
@@ -339,7 +339,8 @@ def fused_mp_edge_bwd(src_proj, dst_proj, edge_proj, senders, receivers,
                 src_proj, dst_proj, edge_proj, senders, receivers, edge_mask,
                 ln_scale, ln_bias, alpha, w1, g_eout, g_agg, g_src, g_dst,
                 g_edge, g_scale, g_bias, g_alpha, g_w1, g_b1, scratch)),
-            b, a, e, m, h, form, stream)
+            b, a, e, m, h, form, int(src_proj.dtype == torch.bfloat16),
+            stream)
     kernels.check(code, "fused_mp_edge_bwd")
     fused_mp_edge_bwd.launches += 1
     return g_src, g_dst, g_edge, g_scale, g_bias, g_alpha, g_w1, g_b1
@@ -351,7 +352,8 @@ fused_mp_edge_bwd.launches = 0
 class _FusedMPEdge(torch.autograd.Function):
     """Forward and backward through the kernels (CUDA) or the plain
     versions (CPU). The residuals are those the JAX VJP saves: the inputs
-    minus b1; the backward recomputes the intermediates."""
+    minus b1; the backward recomputes the intermediates and returns f32
+    gradients (for bf16 projections the engine casts those three to bf16)."""
 
     @staticmethod
     def forward(ctx, src_proj, dst_proj, edge_proj, senders, receivers,
@@ -380,9 +382,9 @@ def fused_mp_edge(src_proj, dst_proj, edge_proj, senders, receivers,
     """Fused edge pipeline; same contract as :func:`mp_edge_reference`, and
     differentiable in every float argument.
 
-    CUDA tensors go through the kernels (float32, or the forward's bf16
-    form for bf16 projections; int32 indices, contiguous; anything else
-    raises), CPU tensors through the plain versions.
+    CUDA tensors go through the kernels (float32, or their bf16 forms for
+    bf16 projections; int32 indices, contiguous; anything else raises), CPU
+    tensors through the plain versions.
     ``fused_mp_edge.launches`` counts forward kernel launches."""
     return _FusedMPEdge.apply(src_proj, dst_proj, edge_proj, senders,
                               receivers, edge_mask, ln_scale, ln_bias, alpha,

@@ -58,8 +58,9 @@ _SIGNATURES = {
     "dostpu_fused_mp_edge_fwd": ([_P] * 14 + [_I] * 7 + [_P], _I),
     # src_proj dst_proj edge_proj senders receivers edge_mask ln_scale
     # ln_bias alpha w1 g_eout g_agg | g_src_proj g_dst_proj g_edge_proj
-    # g_ln_scale g_ln_bias g_alpha g_w1 g_b1 scratch | B A E M H form stream
-    "dostpu_fused_mp_edge_bwd": ([_P] * 21 + [_I] * 6 + [_P], _I),
+    # g_ln_scale g_ln_bias g_alpha g_w1 g_b1 scratch | B A E M H form bf16
+    # stream
+    "dostpu_fused_mp_edge_bwd": ([_P] * 21 + [_I] * 7 + [_P], _I),
     # D -> nc slices
     "dostpu_attention_plan": ([_I, _IP, _IP], None),
     # q k v bias out stats|null B Lq Lk D scale bf16 stream
@@ -67,8 +68,10 @@ _SIGNATURES = {
                              _I),
     # B Lq Lk D
     "dostpu_attention_bwd_scratch_floats": ([_I] * 4, ctypes.c_size_t),
-    # q k v bias o g dq dk dv stats_in|null scratch B Lq Lk D scale stream
-    "dostpu_attention_bwd": ([_P] * 11 + [_I] * 4 + [ctypes.c_float, _P], _I),
+    # q k v bias o|null g dq dk dv stats_in|null scratch B Lq Lk D scale
+    # bf16 stream
+    "dostpu_attention_bwd": ([_P] * 11 + [_I] * 4 + [ctypes.c_float, _I, _P],
+                             _I),
     # data ids out B E F N stream (float32; the same for bfloat16)
     "dostpu_segment_sum": ([_P] * 3 + [_I] * 4 + [_P], _I),
     "dostpu_segment_sum_bf16": ([_P] * 3 + [_I] * 4 + [_P], _I),
@@ -160,11 +163,6 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
-
-
-# where the backward kernels' bf16 forms are planned
-BF16_TRAINING = ("ROADMAP.md queue 1 item 11, its training PR (the bf16 "
-                 "forms of the backward kernels)")
 
 
 def require(kernel: str, arg: str, t, *, device, dtype, shape) -> None:

@@ -19,10 +19,11 @@ for the caller to fetch once per chunk of epochs. :meth:`Trainer.eval_epoch`
 scores a list of batches and stacks their metrics. Data and tensor
 parallelism are ROADMAP.md queue 1 item 9.
 
-A bf16 model (``dtype="bfloat16"``; its parameters and gradients stay f32)
-evaluates on either device and trains on the CPU through the plain
-versions; on the card its train step raises at the first backward kernel,
-whose bf16 form is ROADMAP.md queue 1 item 11's training PR.
+A bf16 model (``dtype="bfloat16"``) trains and evaluates on either device:
+its parameters, their gradients and the optimizer state stay f32, the
+activations are bf16, and on the card its backward runs the bf16 forms of
+the message-passing and attention backward kernels (the plain versions on
+the CPU). A step recomputes nothing in f32 that the forward ran in bf16.
 """
 
 from __future__ import annotations

@@ -1008,41 +1008,180 @@ def test_batched_segment_sum_bf16_matches_plain(dev, shape):
 
 
 def test_bf16_rejections(dev):
-    """f64 and f16 go nowhere; bf16 into the backward kernels (#2, #4)
-    raises and names the training PR that brings their bf16 forms; a bf16
-    model's train step on the card raises there, at its first backward
-    kernel, and never falls back to a plain version."""
+    """f64 and f16 go nowhere, forward and backward kernels alike; the bf16
+    backward kernels take one operand dtype (bf16 operands with f32
+    cotangents raise rather than widen silently)."""
     args = _mp_args(dev, 2, 5, 9, 32, 16)
     q = torch.randn(2, 4, 64, device=dev)
+    bias = torch.zeros(2, 4, device=dev)
     data, ids = _segment_args(dev, 3, 70, 5, 13)
+    cot = (torch.randn(2, 9, 16, device=dev), torch.randn(2, 5, 16, device=dev))
     for dtype in (torch.float64, torch.float16):
         with pytest.raises(TypeError):
             fused_mp_edge(*[t.to(dtype) for t in args[:3]], *args[3:])
         with pytest.raises(TypeError):
+            fused_mp_edge_bwd(*[t.to(dtype) for t in args[:3]], *args[3:10],
+                              *(c.to(dtype) for c in cot))
+        with pytest.raises(TypeError):
             fused_attention(q.to(dtype), q.to(dtype), q.to(dtype))
+        with pytest.raises(TypeError):
+            x = q.to(dtype)
+            fused_attention_bwd(x, x, x, bias, x, x)
         with pytest.raises(TypeError):
             batched_segment_sum(data.to(dtype), ids, 13)
     bf = [t.bfloat16() for t in args[:3]]
-    cot = (torch.randn(2, 9, 16, device=dev).bfloat16(),
-           torch.randn(2, 5, 16, device=dev).bfloat16())
-    with pytest.raises(TypeError, match="item 11"):
+    with pytest.raises(TypeError):
         fused_mp_edge_bwd(*bf, *args[3:10], *cot)
     qb = q.bfloat16()
-    with pytest.raises(TypeError, match="item 11"):
-        fused_attention_bwd(qb, qb, qb, torch.zeros(2, 4, device=dev), qb, qb)
+    with pytest.raises(TypeError):
+        fused_attention_bwd(qb, qb, qb, bias, None, q)
+
+
+def _bf16_bwd_args(dev, shape):
+    """The backward's operands with bf16 projections and cotangents (a
+    dummy graph last)."""
+    b, a, e, m, h = shape
+    args = _mp_args(dev, *shape)
+    args[5][-1] = 0.0
+    g = torch.Generator().manual_seed(5)
+    cot = (torch.randn(b, e, h, generator=g), torch.randn(b, a, h, generator=g))
+    return ([t.bfloat16() for t in args[:3]] + args[3:10]
+            + [c.to(dev).bfloat16() for c in cot])
+
+
+@pytest.mark.parametrize("shape", MP_SHAPES)
+def test_fused_mp_edge_bwd_bf16_matches_plain(dev, shape):
+    """bf16 projections and cotangents: all eight gradients f32, within the
+    f32 limits of the plain version (both widen the same bf16 values), in
+    the form the widths take and the generic form; one launch a call;
+    bit-identical reruns."""
+    args = _bf16_bwd_args(dev, shape)
+    before = fused_mp_edge_bwd.launches
+    got = fused_mp_edge_bwd(*args)
+    assert fused_mp_edge_bwd.launches == before + 1
+    want = mp_edge_bwd_reference(*args)
+    forms = [got]
+    if fused_mp_bwd_form(shape[3], shape[4]) == FORM_TENSOR_CORE:
+        forms.append(fused_mp_edge_bwd(*args, form=FORM_GENERIC))
+    for out in forms:
+        for i, (x, w) in enumerate(zip(out, want)):
+            assert x.dtype == w.dtype == torch.float32
+            _close_scaled(x, w, 1e-5 if i < 3 else 1e-4)
+    again = fused_mp_edge_bwd(*args)
+    assert all(torch.equal(x, y) for x, y in zip(again, got))
+
+
+@pytest.mark.parametrize("shape", [(8, 201, 32, 256), (16, 201, 201, 256),
+                                   (8, 51, 16, 256), (16, 51, 51, 256),
+                                   (1, 51, 8, 256), (3, 5, 70, 96),
+                                   (2, 40, 33, 50), (2, 9, 7, 33),
+                                   (2, 40, 33, 512), (2, 40, 33, 544),
+                                   (2, 33, 40, 1024), (2, 9, 7, 1025)])
+def test_fused_attention_bwd_bf16_matches_plain(dev, shape):
+    """q, k, v and g bf16 at every width (the sliced kernels above 512):
+    dq, dk, dv bf16 within BF16_REL of the plain backward, keys and values
+    one tensor and two, masked and not (a fully masked graph last); the
+    same bits without the forward's statistics and with two copies of the
+    keys; bit-identical reruns; one launch a call."""
+    b, lq, lk, d = shape
+    g = torch.Generator().manual_seed(12)
+    q, k, v, go = (torch.randn(b, n, d, generator=g).to(dev, torch.bfloat16)
+                   for n in (lq, lk, lk, lq))
+    km = (torch.rand(b, lk, generator=g) > 0.3)
+    km[-1] = False
+    for bias in (key_bias(km.to(dev)), torch.zeros(b, lk, device=dev)):
+        for vv in (k, v):
+            o, stats = fused_attention_fwd(q, k, vv, bias, want_stats=True)
+            before = fused_attention_bwd.launches
+            got = fused_attention_bwd(q, k, vv, bias, o, go, stats)
+            assert fused_attention_bwd.launches == before + 1
+            want = attention_bwd_reference(q, k, vv, bias, go)
+            for x, w in zip(got, want):
+                assert x.dtype == w.dtype == torch.bfloat16
+                _close_scaled(x.float(), w.float(), BF16_REL)
+            for other in (fused_attention_bwd(q, k, vv, bias, o, go),
+                          fused_attention_bwd(q, k, vv.clone(), bias, None,
+                                              go, stats),
+                          fused_attention_bwd(q, k, vv, bias, o, go, stats)):
+                assert all(torch.equal(x, y) for x, y in zip(other, got))
+
+
+@pytest.mark.parametrize("levers", [False, True])
+@pytest.mark.parametrize("task", ["edos", "phdos"])
+def test_bf16_train_step_on_the_card(dev, task, levers):
+    """A small bf16 model's Trainer.train_step on the card: the bf16 forms
+    forward and backward (exact launches: 2 #2 and 3 #4 at 2 processors and
+    1 layer a stack; with the levers 3 #5 and 11 #7), every gradient f32,
+    finite and within 3 times the CPU bf16 model's own distance from its
+    f32 model (relative RMS over all parameters), the loss too."""
+    from dostransformer_tpu_torch.data import synthetic
     from dostransformer_tpu_torch.data.graph import collate
-    from dostransformer_tpu_torch.data.synthetic import synthetic_edos_samples
     from dostransformer_tpu_torch.models.registry import build_model
     from dostransformer_tpu_torch.train.trainer import Trainer
 
-    model = build_model("edos", hidden=32, layers=1, t_layers=1,
-                        dtype="bfloat16", device=dev)
-    batch = collate(synthetic_edos_samples(3, seed=0), num_graphs=4)
-    before = (fused_mp_edge_bwd.launches, fused_attention_bwd.launches)
-    with pytest.raises(TypeError, match="item 11"):
-        Trainer(model).train_step(batch)
-    assert (fused_mp_edge_bwd.launches,
-            fused_attention_bwd.launches) == before
+    make = (synthetic.synthetic_edos_learnable if task == "edos"
+            else synthetic.synthetic_phdos_learnable)
+    batch = collate(make(5, seed=2), num_graphs=8)
+    kw = dict(hidden=64, layers=2, t_layers=1, fuse_ln_attn=levers,
+              ln_lp=levers)
+    cpu = build_model(task, dtype="bfloat16",
+                      generator=torch.Generator().manual_seed(3), **kw)
+    cpu32 = build_model(task, **kw)
+    cpu32.load_state_dict(cpu.state_dict())
+    card = build_model(task, dtype="bfloat16", device=dev, **kw)
+    card.load_state_dict(cpu.state_dict())
+    counters = (fused_mp_edge, fused_mp_edge_bwd, fused_attention,
+                fused_attention_bwd, fused_attention_ln, layer_norm_bwd)
+    before = [c.launches for c in counters]
+    clamp = task == "edos"
+    loss = Trainer(card, clamp_targets=clamp).train_step(batch)["loss"]
+    launches = [c.launches - n for c, n in zip(counters, before)]
+    assert launches == ([2, 2, 0, 3, 3, 11] if levers else [2, 2, 3, 3, 0, 0])
+    losses = [Trainer(m, clamp_targets=clamp).train_step(batch)["loss"].item()
+              for m in (cpu, cpu32)]
+    grads = [torch.cat([p.grad.float().cpu().flatten()
+                        for p in m.parameters()]) for m in (card, cpu, cpu32)]
+    assert all(p.grad.dtype == torch.float32 for p in card.parameters())
+    assert bool(torch.isfinite(grads[0]).all())
+    own = float((grads[1] - grads[2]).norm() / grads[2].norm())
+    got = float((grads[0] - grads[1]).norm() / grads[1].norm())
+    assert got <= 3 * own, (got, own)
+    rel = abs(loss.item() - losses[0]) / abs(losses[0])
+    assert rel <= 3 * max(own, abs(losses[0] - losses[1]) / abs(losses[1]))
+
+
+@pytest.mark.parametrize("task", ["edos", "phdos"])
+def test_bf16_remat_train_step_on_the_card(dev, task):
+    """remat=True in bf16: torch.utils.checkpoint replays the bf16 forward
+    kernels in the backward (the forward's launches twice a step), and the
+    step's loss and gradients are those of the step without remat, bit for
+    bit (the kernels repeat their bits)."""
+    from dostransformer_tpu_torch.data import synthetic
+    from dostransformer_tpu_torch.data.graph import collate
+    from dostransformer_tpu_torch.models.registry import build_model
+    from dostransformer_tpu_torch.train.trainer import Trainer
+
+    make = (synthetic.synthetic_edos_learnable if task == "edos"
+            else synthetic.synthetic_phdos_learnable)
+    batch = collate(make(5, seed=2), num_graphs=8).to(dev)
+    models = [build_model(task, hidden=64, layers=2, t_layers=1,
+                          dtype="bfloat16", device=dev, remat=remat,
+                          generator=torch.Generator().manual_seed(3))
+              for remat in (False, True)]
+    counters = (fused_mp_edge, batched_segment_sum, fused_attention,
+                fused_mp_edge_bwd, fused_attention_bwd)
+    losses, launches = [], []
+    for model in models:
+        before = [c.launches for c in counters]
+        losses.append(Trainer(model, clamp_targets=task == "edos")
+                      .train_step(batch)["loss"])
+        launches.append([c.launches - n for c, n in zip(counters, before)])
+    seg = 2 if task == "phdos" else 0
+    assert launches == [[2, seg, 3, 2, 3], [4, 2 * seg, 6, 2, 3]]
+    assert torch.equal(losses[0], losses[1])
+    for (name, p), q in zip(models[0].named_parameters(),
+                            models[1].parameters()):
+        assert torch.equal(p.grad, q.grad) and torch.equal(p, q), name
 
 
 @pytest.mark.parametrize("fuse", [False, True])

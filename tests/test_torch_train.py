@@ -12,6 +12,7 @@ each gradient tensor's largest element for whole-model gradients (f32
 through ~10 layers of products summed in another order)."""
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -35,7 +36,7 @@ from dostransformer_tpu.train.trainer import Trainer as JTrainer  # noqa: E402
 from dostransformer_tpu.train.trainer import TrainState  # noqa: E402
 from dostransformer_tpu.train.trainer import make_adamw as jmake_adamw  # noqa: E402
 from dostransformer_tpu_torch import config  # noqa: E402
-from dostransformer_tpu_torch.cli import main_edos  # noqa: E402
+from dostransformer_tpu_torch.cli import main_edos, main_phdos  # noqa: E402
 from dostransformer_tpu_torch.data import datasets, graph, synthetic  # noqa: E402
 from dostransformer_tpu_torch.models.dostransformer import (  # noqa: E402
     DOSTransformerEDOS,
@@ -311,11 +312,55 @@ def test_main_edos_trains_on_the_cpu(tmp_path):
             == (tmp_path / "jax" / name).read_bytes())
 
 
+def _bf16_cli_run(tmp_path, cli, task, extra):
+    """A bf16 run of a training CLI on the CPU at a tiny size, 2 epochs:
+    finite epoch losses and test metrics, and the experiments block
+    byte-identical to the JAX package's for the same flags (the compute
+    dtype is not part of the run's name)."""
+    log = tmp_path / "run.jsonl"
+    result = cli.main([
+        "--synthetic", "16", "--synthetic_learnable", "--epochs", "2",
+        "--eval", "1", "--hidden", str(H), "--layers", "2",
+        "--transformer", "1", "--batch_size", "4", "--device", "cpu",
+        "--dtype", "bfloat16", *extra, "--results_dir", str(tmp_path),
+        "--log_jsonl", str(log)])
+    losses = [json.loads(line)["loss"] for line in log.read_text().splitlines()
+              if '"loss"' in line]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert all(np.isfinite(v) for v in result["test"].values())
+    kw = dict(epochs=2, eval_every=1, hidden=H, layers=2, transformer=1,
+              batch_size=4, dtype="bfloat16")
+    cfg, jcfg = config.TrainConfig(**kw), JConfig(**kw)
+    assert config.exp_get_name(cfg) == jexp_get_name(jcfg)
+    _write_results_line(task, jcfg, result, str(tmp_path / "jax"))
+    name = "experiments_DOSTransformer.txt"
+    assert ((tmp_path / name).read_bytes()
+            == (tmp_path / "jax" / name).read_bytes())
+
+
+def test_main_edos_trains_in_bf16_on_the_cpu(tmp_path):
+    """main_edos --dtype bfloat16 --device cpu (the device-resident
+    dataset, the plain versions forward and backward)."""
+    _bf16_cli_run(tmp_path, main_edos, "edos", [])
+
+
+def test_main_phdos_trains_in_bf16_with_bf16_data_on_the_cpu(tmp_path):
+    """main_phdos --dtype bfloat16 --bf16_data --device cpu: features
+    stored in bf16, cast to the compute dtype by the model."""
+    _bf16_cli_run(tmp_path, main_phdos, "phdos", ["--bf16_data"])
+
+
+def test_main_edos_trains_in_bf16_with_the_host_loader(tmp_path):
+    """main_edos --dtype bfloat16 --host_loader --remat: batches collated
+    on the host, each processor and transformer layer recomputed in the
+    backward in bf16."""
+    _bf16_cli_run(tmp_path, main_edos, "edos", ["--host_loader", "--remat"])
+
+
 @pytest.mark.parametrize("flags", [
     ["--data_parallel"], ["--tensor_parallel", "2"], ["--x64"],
     ["--compile_cache", "cc"], ["--pad_bins", "256"],
-    ["--dtype", "bfloat16"], ["--attn_drop", "0.1"], ["--use_pallas"],
-    ["--no_pallas"]])
+    ["--attn_drop", "0.1"], ["--use_pallas"], ["--no_pallas"]])
 def test_main_edos_rejects_unported_flags(flags, capsys):
     with pytest.raises(SystemExit):
         main_edos.main(["--synthetic", "8", *flags])
