@@ -270,6 +270,50 @@ above must launch neither of their kernels):
      then the device time of each sub-kernel of the
      message-passing calls of 3, 3b and 3d.
 
+The rest of serving (the phases above serve their Predictor requests through
+the eager forward, ``graphs=False``, so their launch counts stay exact per
+batch; their main_predict runs are graph-served and count two forwards a
+geometry, the warm-up and the capture):
+
+  34. Predictor through one CUDA graph per batch geometry (pinned, streamed
+     uploads; one copy to the host a request) against the eager forward on
+     the same weights: the eDOS flagship in f32, in bf16 and with
+     fuse_ln_attn, and the phDOS flagship, each on the 96-sample, 5-sample
+     and mixed-bucket requests, bit-equal expected (else within 1e-5 of the
+     largest value, with the difference printed); graphs captured equal to
+     the distinct geometries, none more for a second request; the graph
+     path's launches, counted alone, exactly two forwards a graph (warm-up
+     and capture); the 96-sample request through main_predict
+     (graph-served by default) against eager, its launches exactly two
+     forwards a geometry; samples/s of the 96-sample request graph against
+     eager (eDOS, phDOS; five readings each in turns), and the median and p90
+     latency of 20 five-sample requests; a record of what the ops'
+     torch.library dispatch costs the eager train step (host microseconds a
+     call through the op against the wrapper straight, and train samples/s
+     both ways in turns). After 16 (the profiler slows what follows): the
+     kernels of the five-sample requests' replays by name from
+     torch.profiler (the wrappers' counters run at a graph's warm-up and
+     capture, not at its replays): exactly 3 #1 and 6 #3 (#5 with
+     fuse_ln_attn), phDOS also 3 #6, a replay, and no backward kernel; the
+     device's busy share of the 96-sample request, graph against eager
+     (device time over the wall time of the same profiled call);
+  35. main_predict --export from a checkpoint (eDOS and phDOS): the
+     program's dostpu ops (3 fused_mp_edge_fwd, 6 attention_fwd, phDOS also
+     3 segment_sum) and the artifact's size; main_predict --from_exported in
+     a fresh process, which must import no module of models/ or train/ (nor
+     jax) and write the live Predictor's predictions at the artifact's
+     geometry; the artifact served in this process eagerly (exact launches a
+     batch) and through its one graph (exactly two forwards: warm-up and
+     capture); an artifact exported on the CPU served on the card
+     (move_to_device_pass);
+  36. main_serve on 127.0.0.1:0 in a thread, from a checkpoint and from the
+     artifact, each at --coalesce_ms 0 and 2: /healthz; 8 client threads x
+     10 requests of 1-12 samples, each response against a direct predict of
+     the same samples (1e-5 of the largest value) with its ids; an empty
+     body 400, a declared 300 MB body 413, an unknown path 404; requests/s
+     and p50 / p99 latency; the servers' launches exactly two forwards for
+     each graph their predictors captured.
+
 The eDOS paths must launch no batched_segment_sum (eDOS sums its messages
 in the fused kernel). The line before the last is a JSON object with one row
 per kernel: error and times at the eDOS flagship shapes (the phDOS shapes'
@@ -291,8 +335,12 @@ with its mask-to-bias ops) and ``resources``, for the LN-fused forward
 ``unfused_ms``, ``ms_bf16``, ``ms_other_aliasing`` and ``resources``, for
 the LayerNorm backward ``ms_by_rows``, ``ms_raw_form_by_rows`` (x with mean
 and rstd), ``library_ms_by_rows`` and ``resources``, and
-``launches_by_path``, the launches on each of the twenty-one paths driven
-(each with the counts set to 0 just before and read just after). ``launches`` is
+``launches_by_path``, the launches on each path driven (each with the
+counts set to 0 just before and read just after; on the graph-served paths
+(``*_graph``, ``*_graph_cli`` for main_predict, ``*_exported``, ``*_http``)
+the warm-up and capture runs alone, two forwards a graph), and for the four
+forward kernels
+``launches_per_replay`` (phase 34's profile, by case). ``launches`` is
 the count on the phDOS training path with both levers on, the only path
 that launches six of the seven kernels; for fused_attention, which that path
 replaces, it is the count on the phDOS training path with the levers off
@@ -980,6 +1028,23 @@ def expected_batches(samples) -> int:
     return sum(math.ceil(n / BATCH) for n in groups.values())
 
 
+def group_shapes(samples) -> set:
+    """The (atoms, edges) geometries a bucketed request's groups collate
+    to, each one graph."""
+    groups = {}
+    for s in samples:
+        groups.setdefault(bucket_size(s.n_nodes), []).append(s)
+    return {(loader.atoms_per_graph, loader.edges_per_graph)
+            for loader in (GraphLoader(g, BATCH) for g in groups.values())}
+
+
+def graph_forwards(samples) -> int:
+    """The forwards the wrappers' counters see when a new graph-served
+    predictor (main_predict's) serves a request: two a geometry (the eager
+    warm-up and the capture), none at a replay."""
+    return 2 * len(group_shapes(samples))
+
+
 def check_dos(label, dos, n):
     check(dos.shape == (n, BINS), f"{label}: shape {dos.shape} != {(n, BINS)}")
     check(bool(np.isfinite(dos).all()), f"{label}: non-finite output")
@@ -1027,7 +1092,7 @@ def phase_main_path(workdir):
 
     kw = dict(task="edos", example=requests["96"][0], layers=LAYERS,
               t_layers=T_LAYERS, hidden=HIDDEN, batch_size=BATCH)
-    gpu = Predictor.from_torch(weights, device="cuda", **kw)
+    gpu = Predictor.from_torch(weights, device="cuda", graphs=False, **kw)
     cpu = Predictor.from_torch(weights, device="cpu", **kw)
 
     reset_launches()
@@ -1048,13 +1113,14 @@ def phase_main_path(workdir):
                       "CLI output sample_id order")
                 check(list(z["mp_id"]) == [s.mp_id for s in samples],
                       "CLI output mp_id order")
+            n_batches, how = graph_forwards(samples), "graph-served forwards"
         else:
             dos = gpu.predict(samples)
-        n_batches = expected_batches(samples)
+            n_batches, how = expected_batches(samples), "batches"
         total_batches += n_batches
         mp = fused_mp_edge.launches - before[0]
         attn = fused_attention.launches - before[1]
-        print(f"request {label}: {n_batches} batches, fused_mp_edge "
+        print(f"request {label}: {n_batches} {how}, fused_mp_edge "
               f"launches {mp}, fused_attention launches {attn}")
         check(mp == LAYERS * n_batches,
               f"{label}: {mp} fused_mp_edge launches, expected "
@@ -1065,7 +1131,7 @@ def phase_main_path(workdir):
         check_dos(label, dos, len(samples))
         outputs[label] = dos
     launches = read_launches()
-    print(f"serving path: {total_batches} batches, launches {launches}")
+    print(f"serving path: {total_batches} forwards, launches {launches}")
     check(launches["fused_mp_edge_bwd"] == launches["fused_attention_bwd"]
           == 0, "serving launched a backward kernel")
     check(launches["batched_segment_sum"] == 0,
@@ -1416,7 +1482,7 @@ def phase_phdos_serving(workdir):
     save_samples(path, requests["96"])
     kw = dict(task="phdos", example=requests["96"][0], layers=LAYERS,
               t_layers=T_LAYERS, hidden=HIDDEN, batch_size=BATCH)
-    gpu = Predictor.from_torch(weights, device="cuda", **kw)
+    gpu = Predictor.from_torch(weights, device="cuda", graphs=False, **kw)
     cpu = Predictor.from_torch(weights, device="cpu", **kw)
     check(not gpu.clamp, "the phDOS predictor clamps")
 
@@ -1436,14 +1502,15 @@ def phase_phdos_serving(workdir):
                 dos = z["dos"]
                 check(list(z["sample_id"]) == [s.sample_id for s in samples],
                       "phDOS CLI output sample_id order")
+            n, how = graph_forwards(samples), "graph-served forwards"
         else:
             dos = gpu.predict(samples)
-        n = expected_batches(samples)
+            n, how = expected_batches(samples), "batches"
         got = {k: v - before[k] for k, v in read_launches().items()}
         want = dict.fromkeys(got, 0)
         want.update(fused_mp_edge=LAYERS * n, fused_attention=3 * T_LAYERS * n,
                     batched_segment_sum=LAYERS * n)
-        print(f"phDOS request {label}: {n} batches, launches {got}")
+        print(f"phDOS request {label}: {n} {how}, launches {got}")
         check(got == want, f"phDOS request {label}: launches {got}, expected "
                            f"{want}")
         check(dos.shape == (len(samples), PH_BINS),
@@ -1741,7 +1808,8 @@ def phase_fused_serving(task, served, workdir):
     samples through Predictor(fuse_ln_attn=True). Returns (launches,
     {"fused": [samples/s, ...], "unfused": [...]}, six readings each)."""
     kw, weights, requests = served["kw"], served["weights"], served["requests"]
-    gpu = Predictor.from_torch(weights, device="cuda", fuse_ln_attn=True, **kw)
+    gpu = Predictor.from_torch(weights, device="cuda", graphs=False,
+                               fuse_ln_attn=True, **kw)
     cpu = Predictor.from_torch(weights, device="cpu", fuse_ln_attn=True, **kw)
     reset_launches()
     for label in ("96", "5 (short batch)"):
@@ -1757,14 +1825,13 @@ def phase_fused_serving(task, served, workdir):
                 "--device", "cuda"])
             with np.load(out_path) as z:
                 dos = z["dos"]
+            n, how = graph_forwards(samples), "graph-served forwards"
         else:
             dos = gpu.predict(samples)
-        n = expected_batches(samples)
+            n, how = expected_batches(samples), "batches"
         got = {k: v - before[k] for k, v in read_launches().items()}
-        want = launch_counts(
-            fused_mp_edge=LAYERS * n, fused_attention_ln=3 * T_LAYERS * n,
-            batched_segment_sum=LAYERS * n if task == "phdos" else 0)
-        print(f"{task} fused request {label}: {n} batches, launches {got}")
+        want = serving_launches(task, n, fused=True)
+        print(f"{task} fused request {label}: {n} {how}, launches {got}")
         check(got == want, f"{task} fused request {label}: launches {got}, "
                            f"expected {want}")
         check(dos.shape == (len(samples), served["bins"])
@@ -2088,7 +2155,7 @@ def phase_h1024_serving(workdir):
     save_samples(path, requests["96"])
     kw = dict(task="edos", example=requests["96"][0], layers=LAYERS,
               t_layers=T_LAYERS, hidden=WIDE, batch_size=BATCH)
-    gpu = Predictor.from_torch(weights, device="cuda", **kw)
+    gpu = Predictor.from_torch(weights, device="cuda", graphs=False, **kw)
     cpu = Predictor.from_torch(weights, device="cpu", **kw)
     reset_launches()
     outputs = {}
@@ -2104,13 +2171,13 @@ def phase_h1024_serving(workdir):
                 "--device", "cuda"])
             with np.load(out_path) as z:
                 dos = z["dos"]
+            n, how = graph_forwards(samples), "graph-served forwards"
         else:
             dos = gpu.predict(samples)
-        n = expected_batches(samples)
+            n, how = expected_batches(samples), "batches"
         got = {k: v - before[k] for k, v in read_launches().items()}
-        want = launch_counts(fused_mp_edge=LAYERS * n,
-                             fused_attention=3 * T_LAYERS * n)
-        print(f"h1024 request {label}: {n} batches, launches {got}")
+        want = serving_launches("edos", n)
+        print(f"h1024 request {label}: {n} {how}, launches {got}")
         check(got == want, f"h1024 request {label}: launches {got}, "
                            f"expected {want}")
         check_dos(f"h1024 {label}", dos, len(samples))
@@ -2190,7 +2257,7 @@ def phase_narrow_phdos(workdir):
     samples = synthetic_phdos_samples(5, seed=1)
     kw = dict(task="phdos", example=samples[0], layers=LAYERS,
               t_layers=T_LAYERS, hidden=NARROW, batch_size=BATCH)
-    gpu = Predictor.from_torch(weights, device="cuda", **kw)
+    gpu = Predictor.from_torch(weights, device="cuda", graphs=False, **kw)
     cpu = Predictor.from_torch(weights, device="cpu", **kw)
     reset_launches()
     dos = gpu.predict(samples)
@@ -2348,9 +2415,7 @@ def phase_checkpoint_resume(workdir):
                        "--input", request, "--output", out, "--device",
                        "cuda", *shape])
     serving = read_launches()
-    n = expected_batches(samples)
-    want = launch_counts(fused_mp_edge=LAYERS * n,
-                         fused_attention=3 * T_LAYERS * n)
+    want = serving_launches("edos", graph_forwards(samples))
     check(serving == want, f"serving best/: launches {serving}, expected "
                            f"{want}")
     with np.load(out) as z:
@@ -3026,9 +3091,9 @@ def bf16_line(out, main):
     return line
 
 
-def bf16_launches(task, n, fused=False) -> dict:
-    """Kernel launches of n bf16 serving forwards: the forward kernels'
-    bf16 forms, no backward."""
+def serving_launches(task, n, fused=False) -> dict:
+    """Kernel launches of n serving forwards: the forward kernels (in bf16
+    their bf16 forms), no backward."""
     attn = "fused_attention_ln" if fused else "fused_attention"
     return launch_counts(fused_mp_edge=LAYERS * n,
                          batched_segment_sum=LAYERS * n if task == "phdos"
@@ -3077,9 +3142,10 @@ def phase_bf16_serving(task, served, fused=False):
     {"bf16": [...], "f32": [...]}, the largest relative errors)."""
     kw, weights, requests = served["kw"], served["weights"], served["requests"]
     lever = dict(fuse_ln_attn=True) if fused else {}
-    gpu = Predictor.from_torch(weights, device="cuda", dtype="bfloat16",
-                               **lever, **kw)
-    f32 = (Predictor.from_torch(weights, device="cuda", **lever, **kw)
+    gpu = Predictor.from_torch(weights, device="cuda", graphs=False,
+                               dtype="bfloat16", **lever, **kw)
+    f32 = (Predictor.from_torch(weights, device="cuda", graphs=False,
+                                **lever, **kw)
            if fused else served["gpu"])
     check(all(p.dtype == torch.float32 for p in gpu.model.parameters()),
           f"{task} bf16: a parameter is not f32")
@@ -3087,7 +3153,7 @@ def phase_bf16_serving(task, served, fused=False):
     reset_launches()
     dos = gpu.predict(requests["96"])
     launches = read_launches()
-    want = bf16_launches(task, expected_batches(requests["96"]), fused)
+    want = serving_launches(task, expected_batches(requests["96"]), fused)
     print(f"{tag} request 96: launches {launches}")
     check(launches == want, f"{tag}: launches {launches}, expected {want}")
     check(dos.dtype == np.float32 and bool(np.isfinite(dos).all()),
@@ -3130,12 +3196,13 @@ def phase_h1024_bf16_serving(workdir):
                 "5 (short batch)": synthetic_edos_samples(5, seed=1)}
     kw = dict(task="edos", example=requests["96"][0], layers=LAYERS,
               t_layers=T_LAYERS, hidden=WIDE, batch_size=BATCH)
-    gpu = {dt: Predictor.from_torch(weights, device="cuda", dtype=dt, **kw)
+    gpu = {dt: Predictor.from_torch(weights, device="cuda", graphs=False,
+                                    dtype=dt, **kw)
            for dt in ("bfloat16", "float32")}
     reset_launches()
     dos = gpu["bfloat16"].predict(requests["96"])
     launches = read_launches()
-    want = bf16_launches("edos", expected_batches(requests["96"]))
+    want = serving_launches("edos", expected_batches(requests["96"]))
     print(f"h1024 bf16 request 96: launches {launches}")
     check(launches == want, f"h1024 bf16: launches {launches}, expected "
                             f"{want}")
@@ -3453,12 +3520,12 @@ def phase_bf16_cli(workdir):
     kw = dict(task="edos", example=samples[0], layers=LAYERS,
               t_layers=T_LAYERS, hidden=HIDDEN, batch_size=BATCH)
     best = os.path.join(workdir, "ck_whole")
-    gpu = Predictor.from_checkpoint(best, device="cuda", dtype="bfloat16",
-                                    **kw)
+    gpu = Predictor.from_checkpoint(best, device="cuda", graphs=False,
+                                    dtype="bfloat16", **kw)
     reset_launches()
     dos = gpu.predict(samples)
     paths["edos_serving_bf16_ckpt"] = read_launches()
-    want = bf16_launches("edos", expected_batches(samples))
+    want = serving_launches("edos", expected_batches(samples))
     check(paths["edos_serving_bf16_ckpt"] == want,
           f"best/ in bf16: launches {paths['edos_serving_bf16_ckpt']}, "
           f"expected {want}")
@@ -3509,6 +3576,643 @@ def phase_bf16_train_rates():
     return out
 
 
+# --- the rest of serving (34-36): CUDA graphs, torch.export artifacts, the
+# coalescing batcher and the HTTP server ------------------------------------
+
+# graph-served against eager on the same weights and batches: the same
+# kernels and cuBLAS calls on the same inputs, so bit-equal is expected; where
+# not, 1e-5 of the largest eager value (the kernel tolerance) and the reason
+GRAPH_REL = 1e-5
+# the __global__ functions that mark one call of each forward kernel (a
+# message-passing call is its edge kernel, then agg_kernel), for counting the
+# launches inside a replayed graph, where the wrappers' counters do not run
+CALL_KERNELS = {
+    "fused_mp_edge": ("agg_kernel",),
+    "fused_attention": ("attn_fwd_kernel", "attn_fwd_sliced_kernel"),
+    "fused_attention_ln": ("attn_ln_fwd_kernel", "attn_ln_fwd_sliced_kernel"),
+    "batched_segment_sum": ("segment_count_kernel", "segment_sum_kernel")}
+# the __global__ functions of the three backward sources (but attention_bwd.cu's
+# reduce_kernel, whose name PyTorch's reductions share)
+BACKWARD_KERNELS = (
+    "edge_bwd_kernel", "edge_bwd_tc_kernel", "gw1_kernel", "gw1_tc_kernel",
+    "tail_kernel", "stats_kernel", "stats_sliced_kernel", "dq_kernel",
+    "dq_sliced_kernel", "dkv_kernel", "dkv_sliced_kernel", "ln_bwd_kernel")
+# the four serving cases of phase 34: (label, task, Predictor keywords)
+GRAPH_CASES = (("edos", "edos", {}), ("phdos", "phdos", {}),
+               ("edos_bf16", "edos", {"dtype": "bfloat16"}),
+               ("edos_fused", "edos", {"fuse_ln_attn": True}))
+
+
+def same_or_close(label, got, want) -> str:
+    """'bit-equal', or the max abs difference within GRAPH_REL of the
+    largest expected value (else raise)."""
+    if np.array_equal(got, want):
+        return "bit-equal"
+    err = float(np.abs(got - want).max())
+    limit = GRAPH_REL * max(1.0, float(np.abs(want).max()))
+    check(err <= limit, f"{label}: max abs difference {err:.3e} over "
+                        f"{limit:.3e}")
+    return f"max abs diff {err:.3e} (limit {limit:.3e})"
+
+
+def request_ms(predictor, samples) -> float:
+    t0 = time.perf_counter()
+    predictor.predict(samples)  # ends in one copy to the host: synchronised
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_graph_serving(edos_served, phdos_served):
+    """34: Predictor through one CUDA graph per geometry against the eager
+    forward (graphs=False) on the same weights: eDOS f32, phDOS f32, eDOS
+    bf16 and eDOS with fuse_ln_attn, each on the 96-sample, 5-sample and
+    mixed-bucket requests, the eager outputs worked out first so that the
+    launches between reset and read are the graph path's alone (exactly two
+    forwards a graph); graphs captured = distinct geometries, a second
+    request of a captured geometry captures none; main_predict's graph path
+    counted on its own; then eDOS and phDOS
+    samples/s graph against eager in turns and the latency of 20 five-sample
+    requests. Returns (launch counts by path, the predictors by case, the
+    readings)."""
+    served = {"edos": edos_served, "phdos": phdos_served}
+    requests = {
+        "edos": edos_served["requests"],
+        "phdos": {**phdos_served["requests"], "16 mixed": [
+            s for pair in zip(
+                synthetic_phdos_samples(10, seed=2, min_atoms=2, max_atoms=6),
+                synthetic_phdos_samples(6, seed=3, min_atoms=20, max_atoms=30))
+            for s in pair] + synthetic_phdos_samples(4, seed=4)}}
+    paths, predictors = {}, {}
+    for label, task, kw in GRAPH_CASES:
+        s = served[task]
+        graph = Predictor.from_torch(s["weights"], device="cuda", **s["kw"],
+                                     **kw)
+        eager = Predictor.from_torch(s["weights"], device="cuda", graphs=False,
+                                     **s["kw"], **kw)
+        check(graph.graphs is not None and eager.graphs is None,
+              f"{label}: graph/eager predictors")
+        fused = bool(kw.get("fuse_ln_attn"))
+        oracle = {name: eager.predict(samples)
+                  for name, samples in requests[task].items()}
+        # the graph path alone between reset and read: its wrappers count
+        # at each geometry's warm-up and capture, never at a replay
+        reset_launches()
+        shapes, got = set(), {}
+        for name, samples in requests[task].items():
+            got[name] = graph.predict(samples)
+            shapes |= group_shapes(samples)
+            check(graph.graph_count == len(shapes),
+                  f"{label} {name}: {graph.graph_count} graphs for "
+                  f"{len(shapes)} geometries")
+        path = (f"{task}_serving{'_bf16' if 'bf16' in label else ''}"
+                f"{'_fused' if fused else ''}_graph")
+        paths[path] = read_launches()
+        want = serving_launches(task, 2 * graph.graph_count, fused)
+        print(f"graph-served {label}: {graph.graph_count} graphs, launches "
+              f"{paths[path]} (2 forwards a graph: warm-up and capture)")
+        check(paths[path] == want, f"{label}: graph path launches "
+                                   f"{paths[path]}, expected {want}")
+        for name in requests[task]:
+            how = same_or_close(f"{label} {name} graph vs eager", got[name],
+                                oracle[name])
+            print(f"graph-served {label} request {name}: {how} against "
+                  f"eager")
+        if not kw:  # the entry point a user calls, graph-served by default
+            out = os.path.join(os.path.dirname(s["request_path"]),
+                               f"{task}_graph_preds.npz")
+            big = requests[task]["96"]
+            reset_launches()
+            main_predict.main([
+                "--task", task, "--torch_state_dict", s["weights"],
+                "--input", s["request_path"], "--output", out, "--layers",
+                str(LAYERS), "--transformer", str(T_LAYERS), "--hidden",
+                str(HIDDEN), "--batch_size", str(BATCH), "--device", "cuda"])
+            paths[f"{path}_cli"] = read_launches()
+            want = serving_launches(task, graph_forwards(big))
+            check(paths[f"{path}_cli"] == want,
+                  f"{label} main_predict launches {paths[f'{path}_cli']}, "
+                  f"expected {want}")
+            with np.load(out) as z:
+                how = same_or_close(f"{label} main_predict", z["dos"],
+                                    oracle["96"])
+            print(f"graph-served {label} through main_predict, 96 samples: "
+                  f"{how} against eager; launches {paths[f'{path}_cli']}")
+        captured = graph.graph_count
+        graph.predict(requests[task]["96"])
+        check(graph.graph_count == captured,
+              f"{label}: a second request of captured geometries captured "
+              f"{graph.graph_count - captured} more graphs")
+        predictors[label] = {"graph": graph, "eager": eager,
+                             "requests": requests[task]}
+
+    readings = {}
+    for task in ("edos", "phdos"):
+        p = predictors[task]
+        rates = {"graph": [], "eager": []}
+        for name in ("eager", "graph", "graph", "eager") * 2 + ("eager",
+                                                               "graph"):
+            rates[name].append(serving_rate(p[name], p["requests"]["96"]))
+        short = p["requests"]["5 (short batch)"]
+        latency = {name: sorted(request_ms(p[name], short)
+                                for _ in range(20))
+                   for name in ("graph", "eager")}
+        readings[task] = {"rates": rates, "latency_ms": latency}
+        print(f"{task} serving samples/s, 96-sample request, batch {BATCH}, "
+              f"f32, median (least-most) of 5 readings taken in turns in one "
+              f"process: graph-served {spread(rates['graph'])}, eager "
+              f"{spread(rates['eager'])} on {CARD}")
+        for name, ms in latency.items():
+            print(f"{task} 5-sample request latency, {name}, 20 requests: "
+                  f"median {statistics.median(ms):.3f} ms, p90 "
+                  f"{ms[17]:.3f} ms (least {ms[0]:.3f}, most {ms[-1]:.3f}) "
+                  f"on {CARD}")
+    return paths, predictors, readings
+
+
+def phase_graph_replays(predictors, readings):
+    """34, profiled (after 16): the kernels of each case's 5-sample request
+    (a replay for each of its atom buckets) by name from torch.profiler,
+    which must be exactly 3 #1 and 6 #3 (or #5), phDOS also 3 #6, a replay,
+    and no backward kernel;
+    then the device's busy share of the 96-sample request, graph-served and
+    eager: device time over the wall time of the same profiled call (and,
+    beside it, over phase 34's unprofiled median wall time).
+    Returns {case: {kernel: launches a replay}}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    per_replay = {}
+    for label, task, kw in GRAPH_CASES:
+        graph = predictors[label]["graph"]
+        short = predictors[label]["requests"]["5 (short batch)"]
+        before = graph.graph_count
+        for _ in range(3):  # a profile now and then comes back empty
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                graph.predict(short)
+                torch.cuda.synchronize()
+            names = {}
+            for name, _ in device_events(prof):
+                name = name.split("::")[-1]
+                names[name] = names.get(name, 0) + 1
+            if names:
+                break
+        check(graph.graph_count == before, f"{label}: the profiled request "
+                                           f"captured a graph")
+        replays = expected_batches(short)
+        total = {k: sum(names.get(n, 0) for n in v)
+                 for k, v in CALL_KERNELS.items()}
+        got = {k: v / replays for k, v in total.items()}
+        attn = "fused_attention_ln" if kw.get("fuse_ln_attn") else \
+            "fused_attention"
+        want = dict.fromkeys(CALL_KERNELS, 0)
+        want.update({"fused_mp_edge": LAYERS, attn: 3 * T_LAYERS})
+        if task == "phdos":
+            want["batched_segment_sum"] = LAYERS
+        backward = sum(names.get(n, 0) for n in BACKWARD_KERNELS)
+        print(f"graph replays, {label}, 5 samples in {replays} batches: "
+              f"launches a replay {got} (torch.profiler kernel names), "
+              f"backward kernels {backward}; every device activity: "
+              f"{names}")
+        check(got == want, f"{label}: a replay launched {got}, expected "
+                           f"{want}")
+        check(backward == 0, f"{label}: a replay launched {backward} "
+                             f"backward kernels")
+        per_replay[label] = {k: v // replays for k, v in total.items()}
+    for task in ("edos", "phdos"):
+        p = predictors[task]
+        big = p["requests"]["96"]
+        for name in ("graph", "eager"):
+            unprofiled = len(big) / statistics.median(
+                readings[task]["rates"][name]) * 1e3
+            p[name].predict(big)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                p[name].predict(big)  # ends in a copy to the host
+                wall = (time.perf_counter() - t0) * 1e3
+            device = sum(ms for _, ms in device_events(prof))
+            ops = sum(1 for _ in device_events(prof))
+            check(device > 0, f"{task} {name}: the profile shows no device "
+                              f"time")
+            busy = readings[task].setdefault("busy", {})
+            busy[name] = device / wall
+            busy[f"{name}, over the unprofiled median wall"] = (
+                device / unprofiled)
+            print(f"{task} 96-sample request, {name}: wall {wall:.3f} ms and "
+                  f"device {device:.3f} ms over {ops} device activities of "
+                  f"the same profiled call, busy {100 * device / wall:.1f}%; "
+                  f"over phase 34's unprofiled median wall "
+                  f"{unprofiled:.3f} ms {100 * device / unprofiled:.1f}% on "
+                  f"{CARD}")
+    return per_replay
+
+
+# the forward kernels' torch.library ops on the training path and the
+# wrappers their CUDA implementations are: (module, op, wrapper)
+OP_WRAPPERS = (("fused_mp", "fused_mp_edge_op", "_fused_mp_edge_fwd"),
+               ("attention", "attention_fwd_op", "fused_attention_fwd"),
+               ("segment", "segment_sum_op", "_segment_sum_kernel"))
+
+
+def swap_ops(replace) -> list:
+    """Point the autograd Functions' op names at ``replace(module, op,
+    wrapper)``; returns what restores them."""
+    import importlib
+
+    saved = []
+    for mod, op, wrapper in OP_WRAPPERS:
+        m = importlib.import_module(f"dostransformer_tpu_torch.ops.{mod}")
+        saved.append((m, op, getattr(m, op)))
+        setattr(m, op, replace(m, op, wrapper))
+    return saved
+
+
+def restore_ops(saved) -> None:
+    for m, op, f in saved:
+        setattr(m, op, f)
+
+
+def phase_op_dispatch():
+    """34, a record: what the ops' torch.library dispatch costs the eager
+    train step, which no graph covers. Host microseconds a call of each op
+    against its wrapper called straight, on the arguments of the op's first
+    call in an eDOS / phDOS train step (200 calls a reading, five readings
+    each in turns; the host's issue time, the card not waited for); then
+    train samples/s (batch 8, batches on the card) with the autograd
+    Functions calling the ops against calling the wrappers straight, four
+    readings each in turns in one process."""
+    args = {}
+
+    def record(m, op, wrapper):
+        f = getattr(m, op)
+
+        def call(*a):
+            args.setdefault(op, (getattr(m, wrapper), f, a))
+            return f(*a)
+        return call
+
+    trainers, batches = {}, {}
+    for task in ("edos", "phdos"):
+        learnable = (synthetic_edos_learnable if task == "edos"
+                     else synthetic_phdos_learnable)
+        batches[task] = [b.to("cuda") for b in
+                         GraphLoader(learnable(80, seed=0), BATCH)]
+        trainers[task] = Trainer(build_model(
+            task, layers=LAYERS, t_layers=T_LAYERS, hidden=HIDDEN,
+            device="cuda", generator=torch.Generator().manual_seed(2)),
+            clamp_targets=task == "edos", eval_clamp=task == "edos")
+        saved = swap_ops(record)
+        try:
+            trainers[task].train_step(batches[task][0])
+        finally:
+            restore_ops(saved)
+    check(sorted(args) == sorted(op for _, op, _ in OP_WRAPPERS),
+          f"the train steps reached the ops {sorted(args)}")
+    out = {"host_us_a_call": {}, "train_rates": {}}
+    for op, (direct, via_op, a) in args.items():
+        us = {"op": [], "direct": []}
+        for name in ("op", "direct", "direct", "op") * 2 + ("op", "direct"):
+            fn = via_op if name == "op" else direct
+            torch.cuda.synchronize()
+            with torch.no_grad():  # as inside the autograd Functions
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    fn(*a)
+                us[name].append((time.perf_counter() - t0) / 200 * 1e6)
+            torch.cuda.synchronize()
+        out["host_us_a_call"][op] = us
+        print(f"{op}: host us a call, median (least-most) of 5 readings of "
+              f"200 calls in turns: through the op {spread(us['op'])}, the "
+              f"wrapper straight {spread(us['direct'])} on {CARD}")
+    for task, trainer in trainers.items():
+        rates = {"op": [], "direct": []}
+        for name in ("op", "direct", "direct", "op") * 2:
+            saved = swap_ops(lambda m, op, wrapper: getattr(m, wrapper)) \
+                if name == "direct" else []
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for b in batches[task]:
+                    trainer.train_step(b)
+                torch.cuda.synchronize()
+            finally:
+                restore_ops(saved)
+            rates[name].append(len(batches[task]) * BATCH
+                               / (time.perf_counter() - t0))
+        out["train_rates"][task] = rates
+        print(f"{task} training samples/s (hidden {HIDDEN}, batch {BATCH}, "
+              f"f32, batches on the card, {len(batches[task])} steps a "
+              f"reading, median (least-most) of 4 readings in turns): the "
+              f"Functions through the ops {spread(rates['op'])}, through "
+              f"the wrappers straight {spread(rates['direct'])} on {CARD}")
+    return out
+
+
+def exported_ops(path) -> dict:
+    """The ``dostpu`` ops of an exported program, by op name."""
+    counts = {}
+    program = torch.export.load(os.path.join(path, "forward.pt2"))
+    for node in program.graph.nodes:
+        name = str(node.target)
+        if node.op == "call_function" and name.startswith("dostpu."):
+            counts[name.split(".")[1]] = counts.get(name.split(".")[1], 0) + 1
+    return counts
+
+
+EXPORT_PROBE = """
+import json, sys
+import numpy as np
+from dostransformer_tpu_torch.cli import main_predict
+dos = main_predict.main(sys.argv[1:])
+print(json.dumps({"modules": sorted(
+    m for m in sys.modules
+    if m.startswith(("dostransformer_tpu_torch.models",
+                     "dostransformer_tpu_torch.train", "jax"))
+    or m == "dostransformer_tpu" or m.startswith("dostransformer_tpu."))}))
+"""
+
+
+def phase_export(edos_served, phdos_served, workdir):
+    """35: main_predict --export from a checkpoint (eDOS, phDOS), then
+    main_predict --from_exported in a fresh process: its predictions equal
+    the live Predictor's at the artifact's geometry, it imports no module of
+    models/ or train/, the program holds 3 fused-MP and 6 attention ops
+    (phDOS also 3 segment sums); the artifact served in this process eagerly
+    (exact launches a batch) and through its graph; an artifact exported on
+    the CPU served on the card (move_to_device_pass). Returns (launch counts
+    by path, the eDOS artifact's directory)."""
+    from dostransformer_tpu_torch.serve import ExportedPredictor
+    from dostransformer_tpu_torch.train.checkpoint import CheckpointManager
+
+    paths, artifacts = {}, {}
+    for task, s in (("edos", edos_served), ("phdos", phdos_served)):
+        model = build_model(task, layers=LAYERS, t_layers=T_LAYERS,
+                            hidden=HIDDEN)
+        model.load_state_dict(torch.load(s["weights"]))
+        ckpt = os.path.join(workdir, f"{task}_ckpt")
+        CheckpointManager(ckpt).save(1, model, wait=True)
+        art = os.path.join(workdir, f"{task}_artifact")
+        shape = ["--layers", str(LAYERS), "--transformer", str(T_LAYERS),
+                 "--hidden", str(HIDDEN), "--batch_size", str(BATCH)]
+        io = ["--input", s["request_path"], "--device", "cuda"]
+        t0 = time.perf_counter()
+        check(main_predict.main(["--task", task, "--checkpoint_dir", ckpt,
+                                 "--export", art, "--output",
+                                 os.path.join(workdir, "unused.npz"),
+                                 *shape, *io]) is None,
+              f"{task}: --export returned predictions")
+        seconds = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(art, f))
+                   for f in os.listdir(art))
+        ops = exported_ops(art)
+        want = {"fused_mp_edge_fwd": LAYERS, "attention_fwd": 3 * T_LAYERS}
+        if task == "phdos":
+            want["segment_sum"] = LAYERS
+        print(f"{task} artifact: {size / 2**20:.2f} MiB ({size} bytes; the "
+              f"weights {nbytes(*model.state_dict().values())} bytes) in "
+              f"{sorted(os.listdir(art))}, exported in {seconds:.1f} s, "
+              f"dostpu ops {ops}")
+        check(ops == want, f"{task} artifact holds dostpu ops {ops}, "
+                           f"expected {want}")
+        with open(os.path.join(art, "serving_meta.json")) as f:
+            meta = json.load(f)
+        check(meta["device"] == "cuda:0" and meta["dtype"] == "float32",
+              f"{task} artifact meta {meta}")
+
+        out = os.path.join(workdir, f"{task}_exported.npz")
+        env = {**os.environ, "PYTHONPATH": os.path.dirname(
+            os.path.abspath(__file__))}
+        proc = subprocess.run(
+            [sys.executable, "-c", EXPORT_PROBE, "--from_exported", art,
+             "--input", s["request_path"], "--output", out, "--device",
+             "cuda"],
+            capture_output=True, text=True, env=env, timeout=600)
+        check(proc.returncode == 0, f"{task} --from_exported failed:\n"
+                                    f"{proc.stdout}\n{proc.stderr}")
+        imported = json.loads(proc.stdout.strip().splitlines()[-1])["modules"]
+        print(f"{task} --from_exported in a fresh process: imported of "
+              f"models/, train/, jax and the JAX package: {imported}")
+        check(imported == [], f"{task} --from_exported imported {imported}")
+        samples = s["requests"]["96"]
+        live = Predictor.from_checkpoint(ckpt, device="cuda", **s["kw"])
+        want_dos = live.predict(samples, bucketed=False)
+        with np.load(out) as z:
+            how = same_or_close(f"{task} --from_exported vs the live "
+                                f"Predictor", z["dos"], want_dos)
+        print(f"{task} --from_exported against the live Predictor at the "
+              f"artifact's geometry: {how}")
+
+        # in this process: eagerly (exact launches), then through its graph
+        eager = ExportedPredictor(art, device="cuda", graphs=False)
+        reset_launches()
+        got = eager.predict(samples)
+        n = math.ceil(len(samples) / BATCH)
+        counts = read_launches()
+        want_l = launch_counts(fused_mp_edge=LAYERS * n,
+                               fused_attention=3 * T_LAYERS * n,
+                               batched_segment_sum=LAYERS * n
+                               if task == "phdos" else 0)
+        how = same_or_close(f"{task} exported eager", got, want_dos)
+        print(f"{task} artifact served eagerly: {n} batches, launches "
+              f"{counts}; {how}")
+        check(counts == want_l, f"{task} exported eager launches {counts}, "
+                                f"expected {want_l}")
+        reset_launches()
+        graphed = ExportedPredictor(art, device="cuda")
+        how = same_or_close(f"{task} exported graph",
+                            graphed.predict(samples), want_dos)
+        counts = paths[f"{task}_serving_exported"] = read_launches()
+        check(graphed.graph_count == 1, f"{task}: the artifact's one "
+                                        f"geometry took "
+                                        f"{graphed.graph_count} graphs")
+        want_l = serving_launches(task, 2)  # the warm-up and the capture
+        check(counts == want_l, f"{task} exported graph launches {counts}, "
+                                f"expected {want_l}")
+        print(f"{task} artifact served through its graph: {how}; launches "
+              f"{counts}")
+        artifacts[task] = art
+
+    # exported on the CPU, served on the card
+    s = edos_served
+    cpu = Predictor.from_torch(s["weights"], device="cpu", **s["kw"])
+    art = os.path.join(workdir, "edos_artifact_cpu")
+    short = s["requests"]["5 (short batch)"]
+    cpu.export(art, short)
+    moved = ExportedPredictor(art, device="cuda")
+    live = Predictor.from_torch(s["weights"], device="cuda", **s["kw"])
+    how = same_or_close("CPU-exported artifact on the card",
+                        moved.predict(short), live.predict(short,
+                                                           bucketed=False))
+    print(f"eDOS artifact exported on the CPU, served on the card "
+          f"(move_to_device_pass): {how}")
+    return paths, artifacts["edos"]
+
+
+def http_post(port, path, body, length=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    if length is None:
+        conn.request("POST", path, body=body,
+                     headers={"Content-Type": "application/octet-stream"})
+    else:  # a declared length and no body
+        conn.putrequest("POST", path)
+        conn.putheader("Content-Length", str(length))
+        conn.endheaders()
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, data
+
+
+def phase_http(edos_served, artifact, workdir):
+    """36: main_serve on 127.0.0.1:0 in a thread, from a checkpoint and
+    from the artifact, each at --coalesce_ms 0 and 2: /healthz; 8 client
+    threads x 10 requests of 1-12 samples, every response against a direct
+    predict of the same samples (1e-5 of the largest value) with its ids;
+    an empty body 400, an oversized one 413, an unknown path 404;
+    requests/s and p50/p99 latency. Returns (launch counts by path, the
+    readings)."""
+    import io
+    import threading
+
+    from dostransformer_tpu_torch.cli import main_serve
+    from dostransformer_tpu_torch.train.checkpoint import CheckpointManager
+
+    s = edos_served
+    model = build_model("edos", layers=LAYERS, t_layers=T_LAYERS,
+                        hidden=HIDDEN)
+    model.load_state_dict(torch.load(s["weights"]))
+    ckpt = os.path.join(workdir, "ckpt")
+    CheckpointManager(ckpt).save(1, model, wait=True)
+    pool = synthetic_edos_samples(64, seed=7)
+    rng = np.random.RandomState(7)
+    bodies = []
+    for _ in range(80):
+        picked = [pool[i] for i in rng.choice(len(pool), rng.randint(1, 13),
+                                              replace=False)]
+        buf = io.BytesIO()
+        save_samples(buf, picked)
+        bodies.append((picked, buf.getvalue()))
+    # where a request's host time goes, one request at a time: the body's
+    # decode, the predictor (graph-served, geometries captured), the
+    # response's encode (what the server's threads do around the lock)
+    from dostransformer_tpu_torch.data.io import load_samples
+
+    direct = Predictor.from_torch(s["weights"], device="cuda", **s["kw"])
+    for picked, _ in bodies:
+        direct.predict(picked)
+    split = {"decode": [], "predict": [], "encode": []}
+    for picked, body in bodies:
+        t0 = time.perf_counter()
+        got = load_samples(io.BytesIO(body))
+        t1 = time.perf_counter()
+        dos = direct.predict(got)
+        t2 = time.perf_counter()
+        np.savez_compressed(io.BytesIO(), dos=dos, sample_id=np.asarray(
+            [p.sample_id for p in got]), mp_id=np.asarray(
+            [p.mp_id for p in got]))
+        t3 = time.perf_counter()
+        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[key].append(1e3 * dt)
+    split = {k: statistics.median(v) for k, v in split.items()}
+    print(f"HTTP request parts, one at a time, median over the 80 bodies: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+          + f" on {CARD}")
+    sources = {"checkpoint": ["--task", "edos", "--checkpoint_dir", ckpt,
+                              "--example", s["request_path"], "--layers",
+                              str(LAYERS), "--transformer", str(T_LAYERS),
+                              "--hidden", str(HIDDEN)],
+               "artifact": ["--from_exported", artifact]}
+    reset_launches()
+    readings, graphs = {}, 0
+    for source, argv in sources.items():
+        for coalesce in ("0", "2"):
+            server = main_serve.build_server(
+                [*argv, "--port", "0", "--coalesce_ms", coalesce,
+                 "--batch_size", str(BATCH), "--device", "cuda"])
+            port = server.server_address[1]
+            thread = threading.Thread(target=server.serve_forever,
+                                      daemon=True)
+            thread.start()
+            try:
+                import http.client
+
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=60)
+                conn.request("GET", "/healthz")
+                resp = conn.getresponse()
+                health = json.loads(resp.read())
+                conn.close()
+                check(resp.status == 200 and health == {
+                    "status": "ok", "batch_size": BATCH},
+                    f"{source}: /healthz {resp.status} {health}")
+                results, latency = {}, []
+
+                def client(k):
+                    for j in range(10):
+                        i = 10 * k + j
+                        t0 = time.perf_counter()
+                        results[i] = http_post(port, "/predict", bodies[i][1])
+                        latency.append(time.perf_counter() - t0)
+
+                t0 = time.perf_counter()
+                clients = [threading.Thread(target=client, args=(k,))
+                           for k in range(8)]
+                for c in clients:
+                    c.start()
+                for c in clients:
+                    c.join()
+                wall = time.perf_counter() - t0
+                bad = {"empty": http_post(port, "/predict", b"")[0],
+                       "oversized": http_post(port, "/predict", None,
+                                              length=300 << 20)[0],
+                       "unknown path": http_post(port, "/nope", b"x")[0]}
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join(timeout=30)
+            check(bad == {"empty": 400, "oversized": 413,
+                          "unknown path": 404},
+                  f"{source} coalesce {coalesce}: statuses {bad}")
+            worst = 0.0
+            for i, (picked, _) in enumerate(bodies):
+                status, data = results[i]
+                check(status == 200, f"{source}: request {i} got {status} "
+                                     f"{data[:200]!r}")
+                with np.load(io.BytesIO(data)) as z:
+                    got, ids = z["dos"], list(z["sample_id"])
+                check(ids == [p.sample_id for p in picked],
+                      f"{source}: request {i} ids {ids}")
+                want = server.predictor.predict(picked)
+                err = float(np.abs(got - want).max())
+                limit = GRAPH_REL * max(1.0, float(np.abs(want).max()))
+                check(err <= limit, f"{source} coalesce {coalesce}: request "
+                                    f"{i} differs from a direct predict by "
+                                    f"{err:.3e}")
+                worst = max(worst, err)
+            graphs += server.predictor.graph_count
+            latency.sort()
+            key = f"{source}, coalesce_ms {coalesce}"
+            readings[key] = {"requests_per_s": len(bodies) / wall,
+                             "p50_ms": 1e3 * statistics.median(latency),
+                             "p99_ms": 1e3 * latency[int(0.99 * len(latency))]}
+            print(f"HTTP {key}: 8 clients x 10 requests of 1-12 samples, "
+                  f"{readings[key]['requests_per_s']:.1f} requests/s, p50 "
+                  f"{readings[key]['p50_ms']:.2f} ms, p99 "
+                  f"{readings[key]['p99_ms']:.2f} ms; max abs diff against "
+                  f"a direct predict {worst:.3e}; statuses {bad}; "
+                  f"{getattr(server.predictor, 'graph_count', None)} graphs "
+                  f"on {CARD}")
+    readings["request parts, ms"] = split
+    # the servers' predictors are graph-served: their wrappers count two
+    # forwards a graph (warm-up and capture) and none at a replay
+    launches, want = read_launches(), serving_launches("edos", 2 * graphs)
+    print(f"HTTP servers: {graphs} graphs captured in all, launches "
+          f"{launches}")
+    check(launches == want, f"HTTP servers' launches {launches}, expected "
+                            f"{want}")
+    return {"edos_serving_http": launches}, readings
+
+
 def kernel_resources(so, wanted) -> dict:
     """Registers a thread and stack bytes (a nonzero stack means spills or
     local arrays) of the compiled kernels whose mangled names contain one of
@@ -3529,6 +4233,9 @@ def kernel_resources(so, wanted) -> dict:
 
 
 START = time.perf_counter()
+# the card's name and power limit as nvidia-smi prints them, set by main()
+# for the phases that print their numbers beside it
+CARD = ""
 
 
 def stamp(what: str) -> None:
@@ -3551,6 +4258,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
+    global CARD
+    CARD = smi
     print(f"device: {kind} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}); name and power limit from nvidia-smi:")
     print(smi)
@@ -3735,6 +4444,20 @@ def main():
         paths.update(phase_bf16_cli(subdir("bf16_cli")))
         stamp("phases 31-32")
 
+        # 34-36: serving through CUDA graphs, exported programs and HTTP
+        got, graph_predictors, graph_readings = phase_graph_serving(
+            edos_served, phdos_served)
+        paths.update(got)
+        graph_readings["op dispatch"] = phase_op_dispatch()
+        stamp("phase 34")
+        got, artifact = phase_export(edos_served, phdos_served,
+                                     subdir("export"))
+        paths.update(got)
+        stamp("phase 35")
+        got, http_readings = phase_http(edos_served, artifact, subdir("http"))
+        paths.update(got)
+        stamp("phase 36")
+
         # 14: training with both levers on, against the unfused runs above
         trainings = (("edos", phase_training_path),
                      ("phdos", phase_phdos_training))
@@ -3784,6 +4507,11 @@ def main():
     phase_profile()
     phase_sub_kernels()
     stamp("phase 16")
+    # 34, profiled: kernels a replay, busy share
+    per_replay = phase_graph_replays(graph_predictors, graph_readings)
+    stamp("phase 34 (profiled)")
+    print(f"serving readings (phases 34, 36): {json.dumps(graph_readings)} "
+          f"{json.dumps(http_readings)} on {smi}")
 
     csrc, tpu = "dostransformer_tpu_torch/csrc", "dostransformer_tpu"
     sources = {
@@ -3803,10 +4531,11 @@ def main():
     # where each kernel must run, and nowhere else: every path its model,
     # mode and lever setting reach
     for path, counts in paths.items():
-        task, _, mode, variant = re.fullmatch(
+        task, _, mode, variant, _ = re.fullmatch(
             r"(edos|phdos)(\d*)_(serving|training)(_levers|_fused|_host|"
             r"_ckpt|_remat|_data|_graphnetwork|_mlp2|_bf16(?:_fused|_levers"
-            r"|_data|_ckpt|_steps)?)?", path).groups()
+            r"|_data|_ckpt|_steps)?)?(_graph(?:_cli)?|_exported|_http)?",
+            path).groups()
         if variant in ("_graphnetwork", "_mlp2"):
             want = baseline_step_launches(task, variant[1:])
         else:
@@ -3846,6 +4575,9 @@ def main():
               f"{name}: no bf16 path launched it")
         if name in ("fused_mp_edge", "fused_attention", "batched_segment_sum"):
             row["bf16_serving_max_rel_err"] = bf16_errs
+        if name in CALL_KERNELS:
+            row["launches_per_replay"] = {
+                label: counts[name] for label, counts in per_replay.items()}
         if name in ATTENTION_KERNELS:
             row["resources"] = {k: v for k, v in resources.items()
                                 if k.split("<")[0] in ATTENTION_KERNELS[name]}

@@ -35,11 +35,12 @@ import torch
 from dostransformer_tpu_torch.config import TrainConfig, exp_get_name
 from dostransformer_tpu_torch.data.datasets import GraphLoader
 from dostransformer_tpu_torch.data.graph import GraphSample
+from dostransformer_tpu_torch.device import cli_device, entry_device
 from dostransformer_tpu_torch.models.import_torch import (
     load_reference_state_dict,
     load_torch_state_dict,
 )
-from dostransformer_tpu_torch.models.registry import build_model, entry_device
+from dostransformer_tpu_torch.models.registry import build_model
 from dostransformer_tpu_torch.train.artifacts import EvalArtifacts
 from dostransformer_tpu_torch.train.checkpoint import (
     CheckpointManager,
@@ -193,16 +194,6 @@ def build_arg_parser(task: str) -> argparse.ArgumentParser:
                    help="torch device (default cuda; with no card visible "
                         "the run stops unless --device cpu is given)")
     return p
-
-
-def cli_device(parser: argparse.ArgumentParser, device: str) -> torch.device:
-    """``--device`` as a torch device; a CUDA device with no card visible
-    ends the run (``parser.error``) with a message naming ``--device cpu``:
-    a CLI never falls back to the CPU unasked."""
-    try:
-        return entry_device(device, how="--device cpu")
-    except RuntimeError as e:
-        parser.error(str(e))
 
 
 def parse_args(parser: argparse.ArgumentParser, argv=None):

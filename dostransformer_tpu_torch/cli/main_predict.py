@@ -6,13 +6,20 @@ from a training run's checkpoint directory (``--checkpoint_dir``: the
 best-validation model under ``best/`` by default, the newest cadence
 checkpoint with ``--checkpoint_state latest``) or from a
 ``torch.save(model.state_dict(), path)`` file, the port's or the
-reference's (``--torch_state_dict``); exactly one of the two:
+reference's (``--torch_state_dict``); exactly one of the two. ``--export
+DIR`` writes the loaded model's served forward as a ``torch.export``
+artifact and exits; ``--from_exported DIR`` serves such an artifact without
+the model code (no model-shape flags, no ``--task`` unless ``--metrics``):
 
     python -m dostransformer_tpu_torch.cli.main_predict --task edos \
         --checkpoint_dir ckpt/ --input data.npz --output preds.npz
     python -m dostransformer_tpu_torch.cli.main_predict --task edos \
         --torch_state_dict model.pt --input data.npz --output preds.npz \
         --device cuda
+    python -m dostransformer_tpu_torch.cli.main_predict --task edos \
+        --checkpoint_dir ckpt/ --input data.npz --output x --export art/
+    python -m dostransformer_tpu_torch.cli.main_predict --from_exported \
+        art/ --input data.npz --output preds.npz
 
 The output npz holds ``dos`` [N, bins], ``sample_id`` and ``mp_id``, as the
 JAX package's main_predict writes them. ``--metrics`` also evaluates the
@@ -32,8 +39,6 @@ import numpy as np
 # flags of the JAX package's main_predict that the port does not have yet,
 # and where the ROADMAP brings them
 _NOT_PORTED = {
-    "export": "queue 1 item 8 (serving: torch.export artifacts)",
-    "from_exported": "queue 1 item 8 (serving: torch.export artifacts)",
     "data_parallel": "queue 1 item 9 (parallelism)",
 }
 
@@ -60,9 +65,47 @@ def prediction_metrics(task: str, samples, dos) -> dict:
     }
 
 
+def check_sources(p: argparse.ArgumentParser, args) -> None:
+    """The weight-source rules of the serving CLIs (this one and
+    main_serve): at most one of a checkpoint, a state_dict and an artifact,
+    and ``--checkpoint_state`` only with a checkpoint."""
+    if args.from_exported and args.checkpoint_state:
+        p.error("--checkpoint_state picks which checkpoint to load; an "
+                "exported artifact has its weights in it")
+    if args.torch_state_dict and (args.from_exported or args.checkpoint_dir
+                                  or args.checkpoint_state):
+        p.error("--torch_state_dict replaces the checkpoint source; give "
+                "exactly one of --checkpoint_dir / --from_exported / "
+                "--torch_state_dict (and no --checkpoint_state)")
+
+
+def load_predictor(args, example, device):
+    """The predictor of the serving CLIs' weight source: an
+    ``ExportedPredictor`` for ``--from_exported`` (importing nothing of
+    models/ or train/), else a ``Predictor`` of ``--task`` and the
+    model-shape flags from ``--torch_state_dict`` or ``--checkpoint_dir``;
+    ``example`` (one featurized sample) gives the input widths."""
+    if args.from_exported:
+        from dostransformer_tpu_torch.serve_dispatch import ExportedPredictor
+
+        return ExportedPredictor(args.from_exported, device=device)
+    from dostransformer_tpu_torch.cli.common import ln_levers_from_env
+    from dostransformer_tpu_torch.serve import Predictor
+
+    shape = dict(task=args.task, example=example, embedder=args.embedder,
+                 layers=args.layers, t_layers=args.transformer,
+                 hidden=args.hidden, batch_size=args.batch_size,
+                 device=device, **ln_levers_from_env())
+    if args.torch_state_dict:
+        return Predictor.from_torch(args.torch_state_dict, **shape)
+    return Predictor.from_checkpoint(
+        args.checkpoint_dir, prefer=args.checkpoint_state or "best", **shape)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser("dostpu-torch-predict")
-    p.add_argument("--task", choices=["edos", "phdos"], required=True)
+    p.add_argument("--task", choices=["edos", "phdos"],
+                   help="required unless --from_exported")
     p.add_argument("--checkpoint_dir",
                    help="training checkpoint directory to serve "
                         "(--checkpoint_dir of main_edos / main_phdos)")
@@ -75,6 +118,14 @@ def main(argv=None):
                    help="torch.save'd state_dict (reference or port naming) "
                         "instead of a checkpoint; the model-shape flags must "
                         "match the weights")
+    p.add_argument("--export", metavar="DIR",
+                   help="after loading the weights, write the served forward "
+                        "as a torch.export artifact (weights in it, loadable "
+                        "with --from_exported without the model code) at "
+                        "the input's collation geometry, and exit")
+    p.add_argument("--from_exported", metavar="DIR",
+                   help="serve a --export artifact instead of a checkpoint "
+                        "(ignores the model-shape flags)")
     p.add_argument("--input", required=True, help="featurized samples .npz")
     p.add_argument("--output", required=True, help="predictions .npz")
     p.add_argument("--embedder", default="DOSTransformer")
@@ -100,33 +151,29 @@ def main(argv=None):
             p.error(f"--{flag} is not in the PyTorch port yet; see "
                     f"ROADMAP.md {item}")
 
-    if args.torch_state_dict and (args.checkpoint_dir
-                                  or args.checkpoint_state):
-        p.error("--torch_state_dict replaces the checkpoint source; give "
-                "exactly one of --checkpoint_dir / --torch_state_dict (and "
-                "no --checkpoint_state)")
-    if not (args.checkpoint_dir or args.torch_state_dict):
-        p.error("--checkpoint_dir (or --torch_state_dict) is required")
+    if args.from_exported and args.export:
+        p.error("--export requires a checkpoint (--checkpoint_dir); "
+                "it cannot re-export a --from_exported artifact")
+    check_sources(p, args)
+    if args.metrics and not args.task:
+        p.error("--metrics needs --task (it picks the reference eval "
+                "semantics: eDOS clamps targets at 0, phDOS does not)")
 
-    from dostransformer_tpu_torch.cli.common import (
-        cli_device,
-        ln_levers_from_env,
-    )
+    if not (args.from_exported or (args.task and (args.checkpoint_dir
+                                                  or args.torch_state_dict))):
+        p.error("--task and --checkpoint_dir (or --torch_state_dict) are "
+                "required unless --from_exported is given")
+
     from dostransformer_tpu_torch.data.io import load_samples
-    from dostransformer_tpu_torch.serve import Predictor
+    from dostransformer_tpu_torch.device import cli_device
 
     device = cli_device(p, args.device)
     samples = load_samples(args.input)
-    shape = dict(task=args.task, example=samples[0], embedder=args.embedder,
-                 layers=args.layers, t_layers=args.transformer,
-                 hidden=args.hidden, batch_size=args.batch_size,
-                 device=device, **ln_levers_from_env())
-    if args.torch_state_dict:
-        predictor = Predictor.from_torch(args.torch_state_dict, **shape)
-    else:
-        predictor = Predictor.from_checkpoint(
-            args.checkpoint_dir, prefer=args.checkpoint_state or "best",
-            **shape)
+    predictor = load_predictor(args, samples[0], device)
+    if args.export:
+        predictor.export(args.export, samples)
+        print(f"exported serving artifact -> {args.export}")
+        return None
     dos = predictor.predict(samples)
     extra = {}
     if args.metrics:

@@ -92,17 +92,3 @@ def system_dos(out) -> torch.Tensor:
     there is one, else the one DOS."""
     dos_global, _, dos_system = model_outputs(out)
     return dos_global if dos_system is None else dos_system
-
-
-def entry_device(device="cuda", how: str = 'device="cpu"') -> torch.device:
-    """The device an entry point (a CLI, ``Predictor.from_torch``,
-    ``run_training``) runs on: the card unless the caller names another. A
-    CUDA device with no card visible raises and names ``how`` to ask for the
-    CPU; an entry point never carries on on the CPU unasked."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"no CUDA device is visible (torch.cuda.is_available() is "
-            f"False) and the device asked for is {str(device)!r}; pass "
-            f"{how} to run on the CPU")
-    return device

@@ -70,11 +70,21 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           key_mask: torch.Tensor | None = None) -> torch.Tensor:
     """q [B, Lq, D], k/v [B, Lk, D], key_mask [B, Lk] (True = attend) or
     None -> [B, Lq, D] in q's dtype."""
+    return biased_attention_reference(
+        q, k, v, None if key_mask is None else key_bias(key_mask))
+
+
+def biased_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor,
+                               bias: torch.Tensor | None) -> torch.Tensor:
+    """:func:`dot_product_attention` with the key mask given as its additive
+    bias [B, Lk] (0 or NEG_INF; None for no mask), as the forward kernel
+    takes it."""
     acc = torch.promote_types(q.dtype, torch.float32)
     scale = q.shape[-1] ** -0.5
     scores = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
-    if key_mask is not None:
-        scores = scores + key_bias(key_mask)[:, None, :].to(acc)
+    if bias is not None:
+        scores = scores + bias[:, None, :].to(acc)
     weights = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
     return torch.matmul(weights.to(acc), v.to(acc)).to(q.dtype)
 
@@ -237,24 +247,56 @@ def _bias(q: torch.Tensor, lk: int, key_mask: torch.Tensor | None):
     return key_bias(key_mask)
 
 
+@torch.library.custom_op("dostpu::attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor, want_stats: bool
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one opaque op (``torch.ops.dostpu.attention_fwd``), so
+    that ``torch.export`` and CUDA graphs see one node a launch: CUDA tensors
+    launch the kernel (:func:`fused_attention_fwd`), CPU tensors run
+    :func:`biased_attention_reference`. Returns (out, stats): stats the
+    [2, B, Lq] row max and sum when ``want_stats``, else an empty tensor (an
+    op returns no None)."""
+    out, stats = fused_attention_fwd(q, k, v, bias, want_stats)
+    return out, (stats if want_stats else _no_stats(q))
+
+
+def _no_stats(q):
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+@attention_fwd_op.register_kernel("cpu")
+def _(q, k, v, bias, want_stats):
+    stats = (attention_stats_reference(q, k, bias) if want_stats
+             else _no_stats(q))
+    return biased_attention_reference(q, k, v, bias), stats
+
+
+@attention_fwd_op.register_fake
+def _(q, k, v, bias, want_stats):
+    b, lq, _ = q.shape
+    stats = (q.new_empty((2, b, lq), dtype=torch.float32) if want_stats
+             else _no_stats(q))
+    return torch.empty_like(q), stats
+
+
 class _FusedAttention(torch.autograd.Function):
-    """Forward and backward through the kernels (CUDA) or the plain
-    versions (CPU). Saves q, k, v, the key mask, the output o (the f32
-    backward kernel's delta is rowsum(g * o)) and, on the card when a
-    gradient is wanted, the forward kernel's row statistics. k and v may be
-    one tensor; autograd then sums dk and dv. bf16 operands give bf16
+    """Forward through :func:`attention_fwd_op` (the kernel on CUDA, the
+    plain version on the CPU); backward through the backward kernel (CUDA)
+    or its plain version (CPU). Saves q, k, v, the key mask, the output o
+    (the f32 backward kernel's delta is rowsum(g * o)) and, on the card when
+    a gradient is wanted, the forward kernel's row statistics. k and v may
+    be one tensor; autograd then sums dk and dv. bf16 operands give bf16
     gradients."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask):
-        stats = None
-        if q.is_cuda:
-            o, stats = fused_attention_fwd(
-                q, k, v, _bias(q, k.shape[1], key_mask),
-                want_stats=any(ctx.needs_input_grad[:3]))
-        else:
-            o = dot_product_attention(q, k, v, key_mask)
-        ctx.save_for_backward(q, k, v, key_mask, o, stats)
+        want_stats = q.is_cuda and any(ctx.needs_input_grad[:3])
+        o, stats = attention_fwd_op(q, k, v, _bias(q, k.shape[1], key_mask),
+                                    want_stats)
+        ctx.save_for_backward(q, k, v, key_mask, o,
+                              stats if want_stats else None)
         return o
 
     @staticmethod
@@ -343,6 +385,27 @@ def _fused_attention_ln_fwd(x, x_k, x_v, ln_scale, ln_bias, key_mask):
     return out
 
 
+@torch.library.custom_op("dostpu::attention_ln_fwd", mutates_args=(),
+                         device_types="cuda")
+def attention_ln_fwd_op(x: torch.Tensor, x_k: torch.Tensor, x_v: torch.Tensor,
+                        ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                        key_mask: torch.Tensor | None) -> torch.Tensor:
+    """The LN-fused forward as one opaque op
+    (``torch.ops.dostpu.attention_ln_fwd``): CUDA tensors launch the kernel,
+    CPU tensors run :func:`ln_attention_reference`."""
+    return _fused_attention_ln_fwd(x, x_k, x_v, ln_scale, ln_bias, key_mask)
+
+
+@attention_ln_fwd_op.register_kernel("cpu")
+def _(x, x_k, x_v, ln_scale, ln_bias, key_mask):
+    return ln_attention_reference(x, x_k, x_v, ln_scale, ln_bias, key_mask)
+
+
+@attention_ln_fwd_op.register_fake
+def _(x, x_k, x_v, ln_scale, ln_bias, key_mask):
+    return torch.empty_like(x)
+
+
 class _FusedAttentionLN(torch.autograd.Function):
     """Saves the raw inputs, the LayerNorm parameters, the key mask and the
     output o: no LayerNorm output is kept. The backward recomputes q, k, v
@@ -365,12 +428,7 @@ class _FusedAttentionLN(torch.autograd.Function):
         x_k = x if ctx.k_is_q else x_k.contiguous()
         x_v = (x_k if ctx.v_is_k else x if ctx.v_is_q
                else x_v.contiguous())
-        if x.is_cuda:
-            o = _fused_attention_ln_fwd(x, x_k, x_v, ln_scale, ln_bias,
-                                        key_mask)
-        else:
-            o = ln_attention_reference(x, x_k, x_v, ln_scale, ln_bias,
-                                       key_mask)
+        o = attention_ln_fwd_op(x, x_k, x_v, ln_scale, ln_bias, key_mask)
         ctx.save_for_backward(x, x_k, x_v, ln_scale, ln_bias, key_mask, o)
         return o
 

@@ -349,11 +349,45 @@ def fused_mp_edge_bwd(src_proj, dst_proj, edge_proj, senders, receivers,
 fused_mp_edge_bwd.launches = 0
 
 
+@torch.library.custom_op("dostpu::fused_mp_edge_fwd", mutates_args=(),
+                         device_types="cuda")
+def fused_mp_edge_op(src_proj: torch.Tensor, dst_proj: torch.Tensor,
+                     edge_proj: torch.Tensor, senders: torch.Tensor,
+                     receivers: torch.Tensor, edge_mask: torch.Tensor,
+                     ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                     alpha: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one opaque op (``torch.ops.dostpu.fused_mp_edge_fwd``),
+    so that ``torch.export`` and CUDA graphs see one node a launch: CUDA
+    tensors launch the kernel, CPU tensors run :func:`mp_edge_reference`."""
+    return _fused_mp_edge_fwd(src_proj, dst_proj, edge_proj, senders,
+                              receivers, edge_mask, ln_scale, ln_bias, alpha,
+                              w1, b1)
+
+
+@fused_mp_edge_op.register_kernel("cpu")
+def _(src_proj, dst_proj, edge_proj, senders, receivers, edge_mask, ln_scale,
+      ln_bias, alpha, w1, b1):
+    return mp_edge_reference(src_proj, dst_proj, edge_proj, senders,
+                             receivers, edge_mask, ln_scale, ln_bias, alpha,
+                             w1, b1)
+
+
+@fused_mp_edge_op.register_fake
+def _(src_proj, dst_proj, edge_proj, senders, receivers, edge_mask, ln_scale,
+      ln_bias, alpha, w1, b1):
+    b, a, _ = src_proj.shape
+    e, h = senders.shape[1], w1.shape[0]
+    return src_proj.new_empty((b, e, h)), src_proj.new_empty((b, a, h))
+
+
 class _FusedMPEdge(torch.autograd.Function):
-    """Forward and backward through the kernels (CUDA) or the plain
-    versions (CPU). The residuals are those the JAX VJP saves: the inputs
-    minus b1; the backward recomputes the intermediates and returns f32
-    gradients (for bf16 projections the engine casts those three to bf16)."""
+    """Forward through :func:`fused_mp_edge_op` (the kernel on CUDA, the
+    plain version on the CPU); backward through the backward kernel (CUDA)
+    or its plain version (CPU). The residuals are those the JAX VJP saves:
+    the inputs minus b1; the backward recomputes the intermediates and
+    returns f32 gradients (for bf16 projections the engine casts those
+    three to bf16)."""
 
     @staticmethod
     def forward(ctx, src_proj, dst_proj, edge_proj, senders, receivers,
@@ -361,9 +395,7 @@ class _FusedMPEdge(torch.autograd.Function):
         args = (src_proj, dst_proj, edge_proj, senders, receivers, edge_mask,
                 ln_scale, ln_bias, alpha, w1)
         ctx.save_for_backward(*args)
-        if src_proj.is_cuda:
-            return _fused_mp_edge_fwd(*args, b1)
-        return mp_edge_reference(*args, b1)
+        return fused_mp_edge_op(*args, b1)
 
     @staticmethod
     def backward(ctx, g_eout, g_agg):

@@ -111,18 +111,37 @@ def _segment_sum_kernel(data, segment_ids, num_segments):
     return out
 
 
+@torch.library.custom_op("dostpu::segment_sum", mutates_args=(),
+                         device_types="cuda")
+def segment_sum_op(data: torch.Tensor, segment_ids: torch.Tensor,
+                   num_segments: int) -> torch.Tensor:
+    """The forward as one opaque op (``torch.ops.dostpu.segment_sum``), so
+    that ``torch.export`` and CUDA graphs see one node a launch: CUDA tensors
+    launch the kernel, CPU tensors run :func:`segment_sum_reference`."""
+    return _segment_sum_kernel(data, segment_ids, num_segments)
+
+
+@segment_sum_op.register_kernel("cpu")
+def _(data, segment_ids, num_segments):
+    return segment_sum_reference(data, segment_ids, num_segments)
+
+
+@segment_sum_op.register_fake
+def _(data, segment_ids, num_segments):
+    b, _, f = data.shape
+    return data.new_empty((b, num_segments, f))
+
+
 class _SegmentSum(torch.autograd.Function):
-    """The kernel (CUDA) or the plain version (CPU) forward; the backward
-    gathers the upstream gradient at the ids (torch ``gather``, on either
-    device)."""
+    """Forward through :func:`segment_sum_op` (the kernel on CUDA, the plain
+    version on the CPU); the backward gathers the upstream gradient at the
+    ids (torch ``gather``, on either device)."""
 
     @staticmethod
     def forward(ctx, data, segment_ids, num_segments):
         ctx.save_for_backward(segment_ids)
         ctx.num_segments = num_segments
-        if data.is_cuda:
-            return _segment_sum_kernel(data, segment_ids, num_segments)
-        return segment_sum_reference(data, segment_ids, num_segments)
+        return segment_sum_op(data, segment_ids, num_segments)
 
     @staticmethod
     def backward(ctx, g):

@@ -1,18 +1,24 @@
 """Inference / serving path.
 
-Counterpart of dostransformer_tpu/serve.py `Predictor`: load weights (a
-training run's checkpoint, a ``torch.save``d state_dict in the reference's
-naming, or a model in memory),
+Counterpart of dostransformer_tpu/serve.py `Predictor` and
+`ExportedPredictor`: load weights (a training run's checkpoint, a
+``torch.save``d state_dict in the reference's naming, or a model in memory),
 and predict DOS spectra for featurized crystals in fixed-shape padded
 batches. Requests are grouped by atom padding bucket, so a mixed request of
 small and large crystals pads each group only to its own shape; results come
 back in input order with the dummy-graph rows of short batches dropped.
-Outputs stay on the device until the whole request is done and are copied
-to the host once per call. eDOS predictions are clamped at 0 (the
-reference's eval clamp); phDOS predictions are not. A model built with
-``dtype="bfloat16"`` (a keyword of :meth:`Predictor.from_torch` and
-:meth:`Predictor.from_checkpoint`, passed to the model as in the JAX
-package) serves in bf16 from the same f32 weights; its spectra are f32.
+eDOS predictions are clamped at 0 (the reference's eval clamp); phDOS
+predictions are not. A model built with ``dtype="bfloat16"`` (a keyword of
+:meth:`Predictor.from_torch` and :meth:`Predictor.from_checkpoint`, passed to
+the model as in the JAX package) serves in bf16 from the same f32 weights;
+its spectra are f32.
+
+On the card each input geometry is served through one CUDA graph with
+streamed uploads and one copy to the host a request (serve_dispatch.py);
+``graphs=False`` serves through the eager forward, as the CPU always does.
+:meth:`Predictor.export` writes the served forward as a ``torch.export``
+program with the weights in it; :class:`ExportedPredictor` (in
+serve_dispatch.py, imported here) serves it without the model code.
 
 Example:
     predictor = Predictor.from_torch("model.pt", task="edos",
@@ -20,31 +26,57 @@ Example:
     spectra = predictor.predict(samples)           # [N, bins] numpy
     best = Predictor.from_checkpoint("ckpt/", task="edos",
                                      example=samples[0])  # ckpt/best
+    predictor.export("artifact/", samples)
+    ExportedPredictor("artifact/").predict(samples)
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from dostransformer_tpu_torch.data.datasets import GraphLoader
 from dostransformer_tpu_torch.data.graph import (
+    GraphBatch,
     GraphSample,
     RequestError,
     bucket_size,
 )
+from dostransformer_tpu_torch.device import entry_device
 from dostransformer_tpu_torch.models.import_torch import (
     load_reference_state_dict,
     load_torch_state_dict,
 )
-from dostransformer_tpu_torch.models.registry import (
-    build_model,
-    entry_device,
-    system_dos,
+from dostransformer_tpu_torch.models.registry import build_model, system_dos
+from dostransformer_tpu_torch.serve_dispatch import (  # noqa: F401
+    META,
+    PROGRAM,
+    Dispatch,
+    ExportedPredictor,
+    batch_leaves,
 )
+
+
+class ServingForward(torch.nn.Module):
+    """A model's served spectrum over a batch's flat tensors (``names``
+    gives their fields): the system head, clamped at 0 when ``clamp``. What
+    a graph captures and what :meth:`Predictor.export` traces."""
+
+    def __init__(self, model: torch.nn.Module, names: Sequence[str],
+                 clamp: bool):
+        super().__init__()
+        self.model = model
+        self.names = tuple(names)
+        self.clamp = clamp
+
+    def forward(self, *leaves: torch.Tensor) -> torch.Tensor:
+        dos = system_dos(self.model(GraphBatch(**dict(zip(self.names,
+                                                           leaves)))))
+        return torch.clamp(dos, min=0.0) if self.clamp else dos
 
 
 def _build_for(example: GraphSample, task, embedder, layers, t_layers,
@@ -61,16 +93,22 @@ def _build_for(example: GraphSample, task, embedder, layers, t_layers,
                        **model_kwargs)
 
 
-class Predictor:
+class Predictor(Dispatch):
     """Batched DOS inference over fixed-shape buckets, on the device the
-    model's parameters lie on."""
+    model's parameters lie on: through one CUDA graph per input geometry on
+    a card (``graphs=False`` for the eager forward), eagerly on the CPU."""
 
     def __init__(self, model: torch.nn.Module, batch_size: int = 8,
-                 clamp: bool = False):
+                 clamp: bool = False, graphs: bool = True):
         self.model = model.eval()
-        self.batch_size = batch_size
         self.clamp = clamp  # eDOS eval clamps predictions at 0, phDOS not
-        self.device = next(model.parameters()).device
+        super().__init__(next(model.parameters()).device, batch_size, graphs)
+        self._fns: Dict[Tuple[str, ...], ServingForward] = {}
+
+    def _forward_fn(self, names):
+        if names not in self._fns:
+            self._fns[names] = ServingForward(self.model, names, self.clamp)
+        return self._fns[names]
 
     @classmethod
     def from_torch(
@@ -87,6 +125,7 @@ class Predictor:
         strict: bool = True,
         fuse_ln_attn: bool = False,
         ln_lp: bool = False,
+        graphs: bool = True,
         **model_kwargs,
     ) -> "Predictor":
         """Serve a ``torch.save``d state_dict in the reference's module
@@ -99,13 +138,15 @@ class Predictor:
         same either way. ``model_kwargs`` go to the model (``padding``,
         ``dtype="bfloat16"`` for bf16 compute on f32 weights). The model
         runs on ``device``, the card by default; with no card visible this
-        raises unless ``device="cpu"`` is given."""
+        raises unless ``device="cpu"`` is given. ``graphs`` is the
+        constructor's."""
         model = _build_for(example, task, embedder, layers, t_layers, hidden,
                            entry_device(device), fuse_ln_attn, ln_lp,
                            model_kwargs)
         load_reference_state_dict(model, load_torch_state_dict(state_dict_path),
                                   strict=strict)
-        return cls(model, batch_size=batch_size, clamp=(task == "edos"))
+        return cls(model, batch_size=batch_size, clamp=(task == "edos"),
+                   graphs=graphs)
 
     @classmethod
     def from_checkpoint(
@@ -122,6 +163,7 @@ class Predictor:
         prefer: str = "best",
         fuse_ln_attn: bool = False,
         ln_lp: bool = False,
+        graphs: bool = True,
         **model_kwargs,
     ) -> "Predictor":
         """Serve a training run's checkpoint (train/checkpoint.py layout).
@@ -148,22 +190,14 @@ class Predictor:
         for d in dirs:
             if os.path.isdir(d) and CheckpointManager(d).restore(model):
                 return cls(model, batch_size=batch_size,
-                           clamp=(task == "edos"))
+                           clamp=(task == "edos"), graphs=graphs)
         raise FileNotFoundError(f"no checkpoint found under {checkpoint_dir}")
 
-    @torch.inference_mode()
     def _forward(self, samples: List[GraphSample]) -> torch.Tensor:
         """[len(samples), bins] on the device, for samples of one padding
-        shape: one forward per batch of the loader."""
-        outs = []
-        for start, batch in zip(range(0, len(samples), self.batch_size),
-                                GraphLoader(samples, self.batch_size)):
-            dos = system_dos(self.model(batch.to(self.device)))
-            if self.clamp:
-                dos = torch.clamp(dos, min=0.0)
-            # collate puts the real samples first: drop the dummy rows
-            outs.append(dos[: min(self.batch_size, len(samples) - start)])
-        return torch.cat(outs, 0)
+        shape."""
+        return self._dispatch(GraphLoader(samples, self.batch_size),
+                              len(samples))
 
     def predict(self, samples: Sequence[GraphSample],
                 bucketed: bool = True) -> np.ndarray:
@@ -189,3 +223,38 @@ class Predictor:
             for idxs, sub in parts:
                 out[torch.as_tensor(idxs, device=out.device)] = sub
         return out.cpu().numpy()
+
+    def export(self, path: str, example: Sequence[GraphSample]) -> None:
+        """Write the served forward (the model with its weights, the system
+        head and the eDOS clamp) as a ``torch.export`` program to
+        ``path/forward.pt2``, traced under ``torch.no_grad`` on this
+        predictor's device at the collation geometry of ``example`` (its
+        atom and edge buckets at this batch size; a request beyond them is
+        refused by :class:`ExportedPredictor`), and the geometry to
+        ``path/serving_meta.json``: the JAX package's keys (batch_size,
+        atoms_per_graph, edges_per_graph, bins, n_leaves, clamp) and the
+        input fields, the device and the model's compute dtype. Each kernel
+        of the forward is one ``dostpu`` op of the program."""
+        loader = GraphLoader(list(example), self.batch_size)
+        names, leaves = batch_leaves(next(iter(loader)).to(self.device))
+        with torch.no_grad():
+            program = torch.export.export(
+                ServingForward(self.model, names, self.clamp), tuple(leaves))
+        out = next(n for n in program.graph.nodes if n.op == "output")
+        bins = int(out.args[0][0].meta["val"].shape[-1])
+        os.makedirs(path, exist_ok=True)
+        torch.export.save(program, os.path.join(path, PROGRAM))
+        dtype = getattr(self.model, "cdtype", torch.float32)
+        meta = {
+            "batch_size": self.batch_size,
+            "atoms_per_graph": loader.atoms_per_graph,
+            "edges_per_graph": loader.edges_per_graph,
+            "bins": bins,
+            "n_leaves": len(leaves),
+            "clamp": self.clamp,
+            "leaves": list(names),
+            "device": str(self.device),
+            "dtype": str(dtype).removeprefix("torch."),
+        }
+        with open(os.path.join(path, META), "w") as f:
+            json.dump(meta, f, indent=1)

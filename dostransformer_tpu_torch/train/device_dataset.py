@@ -29,7 +29,7 @@ from dostransformer_tpu_torch.data.graph import (
     bucket_size,
     collate,
 )
-from dostransformer_tpu_torch.models.registry import entry_device
+from dostransformer_tpu_torch.device import entry_device
 
 # the fields a bf16 storage narrows: the large per-node and per-edge features
 _FEATURES = ("nodes", "edges", "node_z")

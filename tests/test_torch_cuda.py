@@ -24,6 +24,7 @@ where the plain version rounds it: the JAX package's own bound)."""
 
 import ctypes
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -1215,3 +1216,84 @@ def test_bf16_model_on_the_card_matches_the_cpu(dev, task, fuse):
         g = g.cpu()
         assert (g - w).norm() <= 0.03 * w.norm(), float((g - w).norm()
                                                         / w.norm())
+
+
+# --- serving through CUDA graphs (serve_dispatch.py) ------------------------
+
+
+def _graph_predictors(task, dev, batch_size=4):
+    """A graph-served and an eager Predictor of one small model."""
+    from dostransformer_tpu_torch.serve import Predictor
+
+    model = _small_models(task, dev)
+    clamp = task == "edos"
+    return (Predictor(model, batch_size=batch_size, clamp=clamp),
+            Predictor(model, batch_size=batch_size, clamp=clamp, graphs=False))
+
+
+def _requests(task):
+    from dostransformer_tpu_torch.data import synthetic
+
+    make = (synthetic.synthetic_edos_samples if task == "edos"
+            else synthetic.synthetic_phdos_samples)
+    small = make(6, seed=5, max_atoms=6)
+    large = make(3, seed=6, min_atoms=17, max_atoms=20)
+    return {"mixed": [s for pair in zip(small, large) for s in pair]
+            + small[3:], "short": make(3, seed=7), "full": make(8, seed=8)}
+
+
+@pytest.mark.parametrize("task", ["edos", "phdos"])
+def test_graph_served_predictions_equal_eager_bit_for_bit(dev, task):
+    """One CUDA graph per geometry gives the eager forward's bits (the same
+    kernels and products on the same inputs); a second request of captured
+    geometries captures no graph."""
+    graph, eager = _graph_predictors(task, dev)
+    for name, samples in _requests(task).items():
+        got = graph.predict(samples)
+        assert np.array_equal(got, eager.predict(samples)), name
+    captured = graph.graph_count
+    assert captured >= 3  # the mixed request's two buckets, and more
+    for samples in _requests(task).values():
+        graph.predict(samples)
+    assert graph.graph_count == captured
+
+
+def test_graph_ring_is_not_overwritten_by_back_to_back_requests(dev):
+    """Requests of one geometry whose batches differ, sent back to back
+    (more batches than ring slots, so slots are refilled while the card
+    still runs): each gets its own rows, as the eager forward gives them."""
+    from dostransformer_tpu_torch.data import synthetic
+
+    graph, eager = _graph_predictors("edos", dev, batch_size=2)
+    # 13-16 nodes (the prompt node too) and 144-180 edges: one geometry
+    requests = [synthetic.synthetic_edos_samples(7, seed=s, min_atoms=12,
+                                                 max_atoms=15)
+                for s in range(10, 14)]
+    got = [graph.predict(r) for r in requests]
+    assert graph.graph_count == 1
+    for r, g in zip(requests, got):
+        assert np.array_equal(g, eager.predict(r))
+    assert not np.array_equal(got[0], got[1])
+
+
+def test_failing_capture_raises_without_falling_back(dev):
+    """A forward that synchronises (legal eagerly) cannot be captured: the
+    Predictor raises and never serves the eager result instead."""
+    from dostransformer_tpu_torch.data import synthetic
+    from dostransformer_tpu_torch.serve import Predictor
+
+    class Syncing(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.ones(3, device=dev))
+
+        def forward(self, g):
+            float(g.nodes.sum())  # a copy to the host: no capture allows it
+            return g.nodes.sum((1, 2))[:, None] * self.w
+
+    samples = synthetic.synthetic_edos_samples(3, seed=0)
+    want = Predictor(Syncing(), graphs=False).predict(samples)
+    assert want.shape == (3, 3)
+    with pytest.raises(RuntimeError, match="CUDA graph capture"):
+        Predictor(Syncing()).predict(samples)
+    torch.cuda.synchronize()

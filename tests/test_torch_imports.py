@@ -48,6 +48,10 @@ MODULES = [
     "dostransformer_tpu_torch.models.registry",
     "dostransformer_tpu_torch.models.import_torch",
     "dostransformer_tpu_torch.serve",
+    "dostransformer_tpu_torch.serve_dispatch",
+    "dostransformer_tpu_torch.serve_batch",
+    "dostransformer_tpu_torch.serve_http",
+    "dostransformer_tpu_torch.device",
     "dostransformer_tpu_torch.config",
     "dostransformer_tpu_torch.train.loss",
     "dostransformer_tpu_torch.train.metrics",
@@ -62,6 +66,7 @@ MODULES = [
     "dostransformer_tpu_torch.train.tensorboard",
     "dostransformer_tpu_torch.cli.common",
     "dostransformer_tpu_torch.cli.main_predict",
+    "dostransformer_tpu_torch.cli.main_serve",
     "dostransformer_tpu_torch.cli.main_edos",
     "dostransformer_tpu_torch.cli.main_phdos",
     "dostransformer_tpu_torch.bench_segment_sum",

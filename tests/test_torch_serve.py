@@ -84,8 +84,7 @@ def test_cli_writes_the_jax_output_keys(weights, tmp_path):
     np.testing.assert_allclose(dos, want, **TOL)
 
 
-@pytest.mark.parametrize("flag", [["--export", "d"], ["--from_exported", "d"],
-                                  ["--data_parallel"]])
+@pytest.mark.parametrize("flag", [["--data_parallel"]])
 def test_cli_rejects_unported_flags(flag, capsys):
     with pytest.raises(SystemExit):
         main_predict.main(["--task", "edos", "--torch_state_dict", "w.pt",
