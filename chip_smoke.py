@@ -349,6 +349,40 @@ name and power limit):
      each kernel's launches on these paths (``launches_parallel``: phase
      37 by run, 38 and the pod by rank).
 
+Attention dropout, multi-head attention and float64 (the JAX package runs
+no kernel under attention dropout or in float64; the port keeps both
+rules):
+
+  40. attention dropout at the eDOS flagship width: the card's generator
+     (dot_product_attention with a CUDA torch.Generator, 20 draws on the
+     self stack's shape through a v = I probe: the drop rate and the mean
+     within 4 standard errors, kept weights w / (1 - p) within 1e-6); 3
+     Trainer steps of a model with attn_drop 0.1 on the card against the
+     CPU on the same masks (drawn on the CPU and uploaded), at phase 7's
+     limits, each step exactly 3 #1 and 3 #2 and no attention kernel, an
+     eval batch 3 #1 and 6 #3; remat under dropout bit-equal to no remat;
+     main_edos --attn_drop 0.1 with checkpoints stopped after epoch 1 and
+     resumed, bit-equal to the uninterrupted run (exact launches a step and
+     eval batch); its best/ served through graphs (a model built with
+     attn_drop) bit-equal to eager and across replays, two forwards a graph
+     (with 34 after 16: 6 #3 a replay by torch.profiler name); train
+     samples/s with and without dropout in turns (a record);
+  41. #3 and #4 at 2, 4 and 8 heads of the flagship width (D = 128, 64, 32
+     on B*h rows) at the three stacks' shapes against their plain versions
+     (phase 3's limits), timed beside bound, plain version and SDPA; a
+     2-layer stack of 8 heads (weights from the phase's seed) on the card
+     against the CPU (atol 1e-3 + rtol 1e-3; 2 #3 and 2 #4), the CPU's
+     ReLU inputs that lie on the other side of 0 from the card's moved
+     onto the card's side first (each within the forward's limit; the
+     count printed);
+  42. the float64 phDOS flagship (hidden 256): forward on the card against
+     the CPU with the softmax in f64 (DOSTPU_SOFTMAX_WIDE=1, 1e-9 of the
+     largest output) and at f32 (1e-5); 3 Trainer steps (x64 AdamW) card
+     against CPU (first loss 1e-9, later 1e-8, first-step gradients 1e-6);
+     no launch of any kernel; main_phdos --x64 on the card against the same
+     run without it (epoch loss rtol 1e-6, exact launches); f64 against f32
+     train samples/s in turns (a record).
+
 The eDOS paths must launch no batched_segment_sum (eDOS sums its messages
 in the fused kernel). The line before the last is a JSON object with one row
 per kernel: error and times at the eDOS flagship shapes (the phDOS shapes'
@@ -387,6 +421,7 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -428,6 +463,10 @@ from dostransformer_tpu_torch.models.registry import (  # noqa: E402
     build_model,
     model_outputs,
 )
+from dostransformer_tpu_torch.nn import (  # noqa: E402
+    transformer as transformer_module,
+)
+from dostransformer_tpu_torch.nn.init import init_parameters_  # noqa: E402
 from dostransformer_tpu_torch.nn.layernorm import (  # noqa: E402
     layer_norm_bwd,
     ln_bwd_plan,
@@ -464,6 +503,7 @@ from dostransformer_tpu_torch.ops.segment import (  # noqa: E402
     segment_sum_reference,
 )
 from dostransformer_tpu_torch.serve import Predictor  # noqa: E402
+from dostransformer_tpu_torch.train.optim import make_adamw  # noqa: E402
 from dostransformer_tpu_torch.train.trainer import Trainer  # noqa: E402
 
 # flagship eDOS serving forward (cli/main_predict defaults) at batch 8
@@ -2083,13 +2123,15 @@ def phase_attention_widths(dev):
     return out
 
 
-def timed_attention_at(dev, d, shapes, g):
-    """Kernels #3, #4 and #5 (f32) at feature width d at the three stacks'
-    shapes (keys and values one tensor, pad atoms masked, the last graph
-    fully masked), each against its plain version, timed beside its bound
-    and its library call (SDPA, SDPA's backward, F.layer_norm + SDPA)."""
-    runs = {"fused_attention": {}, "fused_attention_bwd": {},
-            "fused_attention_ln": {}}
+def timed_attention_at(dev, d, shapes, g, ln=True):
+    """Kernels #3, #4 and (with ``ln``) #5 (f32) at feature width d at the
+    three stacks' shapes (keys and values one tensor, pad atoms masked, the
+    last graph fully masked), each against its plain version, timed beside
+    its bound and its library call (SDPA, SDPA's backward, F.layer_norm +
+    SDPA)."""
+    runs = {"fused_attention": {}, "fused_attention_bwd": {}}
+    if ln:
+        runs["fused_attention_ln"] = {}
     lns = (torch.rand(d, generator=g) + 0.5).to(dev)
     lnb = (torch.randn(d, generator=g) * 0.1).to(dev)
     for label, (bb, lq, lk) in shapes.items():
@@ -2118,8 +2160,10 @@ def timed_attention_at(dev, d, shapes, g):
             work=attention_work(bb, lq, lk, d, (q, k, bias, o, go), (q, k, k),
                                 True),
             library_fn=sdpa_backward(q, k, k, bias, go))
+        if not ln:
+            continue
         x, xk = q * 2 + 0.5, k * 2 + 0.5
-        ln = lambda t: F.layer_norm(t, (d,), lns, lnb, 1e-5)
+        ln_ = lambda t: F.layer_norm(t, (d,), lns, lnb, 1e-5)
         rows = bb * (lq + lk)
         runs["fused_attention_ln"][label] = compare(
             f"fused_attention_ln[D={d} {label}]",
@@ -2127,7 +2171,7 @@ def timed_attention_at(dev, d, shapes, g):
             lambda: ln_attention_reference(x, xk, xk, lns, lnb, km),
             work=(nbytes(x, xk, lns, lnb, bias) + nbytes(x),
                   4 * bb * lq * lk * d + 8 * rows * d),
-            library_fn=lambda: sdpa(ln(x), ln(xk), ln(xk), bias))
+            library_fn=lambda: sdpa(ln_(x), ln_(xk), ln_(xk), bias))
     return {name: per_forward(r) for name, r in runs.items()}
 
 
@@ -3768,7 +3812,7 @@ def phase_graph_replays(predictors, readings):
     """34, profiled (after 16): the kernels of each case's 5-sample request
     (a replay for each of its atom buckets) by name from torch.profiler,
     which must be exactly 3 #1 and 6 #3 (or #5), phDOS also 3 #6, a replay,
-    and no backward kernel;
+    and no backward kernel (also for phase 40's dropout checkpoint);
     then the device's busy share of the 96-sample request, graph-served and
     eager: device time over the wall time of the same profiled call (and,
     beside it, over phase 34's unprofiled median wall time).
@@ -3776,7 +3820,7 @@ def phase_graph_replays(predictors, readings):
     from torch.profiler import ProfilerActivity, profile
 
     per_replay = {}
-    for label, task, kw in GRAPH_CASES:
+    for label, task, kw in GRAPH_CASES + (("edos_dropout", "edos", {}),):
         graph = predictors[label]["graph"]
         short = predictors[label]["requests"]["5 (short batch)"]
         before = graph.graph_count
@@ -4704,6 +4748,455 @@ def phase_parallel_serving(edos_served, workdir):
     return launches, [r["launches"] for r in results]
 
 
+# --- phases 40-42: attention dropout, multi-head, float64 ------------------
+
+DROP = 0.1  # the attention dropout of phase 40 (--attn_drop 0.1)
+HEADS = (2, 4, 8)
+# float64 card against CPU: every operation in f64 (DOSTPU_SOFTMAX_WIDE=1)
+# leaves the two devices' summation orders, ~1e-16 a sum, 1e-9 relative
+# of the largest output covers them with room; with the softmax at exactly
+# f32 the two devices' f32 exp differ, 1e-5
+F64_WIDE_REL, F64_F32_SOFTMAX_REL = 1e-9, 1e-5
+# the loader's own f32 batches through the f64 model: the phDOS edge
+# geometry then runs in f32, where the two devices' f32 transcendentals
+# differ by an f32 ulp (~6e-8 relative); a probe of this script measured
+# 1.49e-8 of the largest output with the f64 softmax
+F64_F32_GEOMETRY_REL = 1e-7
+# after an AdamW step the f32 parameters of the two devices may differ by
+# an f32 ulp here and there (the card divides by a scalar as a product with
+# its reciprocal), which moves the next f64 loss by ~1e-9: later losses
+F64_LATER_LOSS_REL = 1e-8
+# main_phdos --x64 against the same run without it: only the rounding of
+# optax's step-count scalars differs (f64 bias corrections)
+X64_LOSS_REL = 1e-6
+
+
+class SharedMasks:
+    """Stands in for nn/transformer.py's ``draw_keep``: each mask drawn on
+    the CPU from one seeded generator, then moved to the device asked for,
+    so that a run on the card and one on the CPU drop the same weights."""
+
+    def __init__(self, seed: int):
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def __call__(self, shape, rate, generator, device):
+        return (torch.rand(tuple(shape), generator=self.gen)
+                < (1.0 - rate)).to(device)
+
+
+def dropout_step_launches(task: str) -> dict:
+    """A train step with attention dropout: the message-passing kernels
+    (and phDOS's edge counts) forward and backward, no attention kernel
+    (dropout runs in the plain attention, the JAX package's rule)."""
+    return launch_counts(fused_mp_edge=LAYERS, fused_mp_edge_bwd=LAYERS,
+                         batched_segment_sum=LAYERS if task == "phdos" else 0)
+
+
+def phase_dropout(workdir):
+    """40: attention dropout at the eDOS flagship width (hidden 256, batch
+    8). Returns (launches by path, the graph and eager predictors of the
+    dropout checkpoint for phase 34's profiled replays, the rate readings)."""
+    dev = torch.device("cuda")
+    paths = {}
+    # a. the card's generator: the rate, the 1/(1 - p) scaling and the
+    # mean, through a v = I probe on the self stack's shape (2B x 201 x 201)
+    g = torch.Generator().manual_seed(40)
+    b, n = 2 * BATCH, BINS
+    q, k = (torch.randn(b, n, HIDDEN, generator=g).to(dev) for _ in range(2))
+    eye = torch.eye(n, HIDDEN, device=dev).expand(b, n, HIDDEN)
+    w0 = dot_product_attention(q, k, eye)[..., :n]
+    check(bool((w0 > 0).all()), "40: a softmax weight is 0")
+    gen = torch.Generator(dev).manual_seed(0)
+    draws, zeros, total = 20, 0, torch.zeros_like(w0)
+    scale_err = 0.0
+    for _ in range(draws):
+        w = dot_product_attention(q, k, eye, dropout_rate=DROP,
+                                  generator=gen)[..., :n]
+        kept = w != 0
+        zeros += int((~kept).sum())
+        scale_err = max(scale_err, float(
+            ((w - w0 / (1 - DROP)).abs() * kept).max() / w0.max()))
+        total += w
+    frac, count = zeros / (draws * w0.numel()), draws * w0.numel()
+    se = math.sqrt(DROP * (1 - DROP) / count)
+    mean_rel = float(((total / draws - w0) / w0).mean())
+    mean_se = math.sqrt(DROP / (1 - DROP) / draws / w0.numel())
+    print(f"40: dropout on the card's generator, {draws} draws of "
+          f"{tuple(w0.shape)}: drop rate {frac:.6f} (p {DROP}, 4 se "
+          f"{4 * se:.2e}), kept weights w/(1-p) within {scale_err:.2e} of "
+          f"the largest, mean relative bias {mean_rel:.2e} (4 se "
+          f"{4 * mean_se:.2e})")
+    check(abs(frac - DROP) <= 4 * se, f"40: drop rate {frac}")
+    check(scale_err <= 1e-6, f"40: kept weights off w/(1-p) by {scale_err}")
+    check(abs(mean_rel) <= 4 * mean_se, f"40: biased mean {mean_rel}")
+
+    # b. 3 train steps card against CPU on the same masks (drawn on the
+    # CPU, uploaded); the launches of each card step and of an eval batch
+    cpu_model = build_model("edos", layers=LAYERS, t_layers=T_LAYERS,
+                            hidden=HIDDEN, attn_drop=DROP,
+                            generator=torch.Generator().manual_seed(1))
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    batches = list(GraphLoader(synthetic_edos_learnable(21, seed=5), BATCH))
+    original = transformer_module.draw_keep
+    runs = {}
+    reset_launches()
+    try:
+        for name, model in (("cpu", cpu_model), ("card", gpu_model)):
+            transformer_module.draw_keep = SharedMasks(7)
+            trainer = Trainer(model, seed=0)
+            losses, per_step = [], []
+            for batch in batches:
+                before = read_launches()
+                losses.append(trainer.train_step(batch)["loss"].item())
+                per_step.append({k: v - before[k]
+                                 for k, v in read_launches().items()})
+                if len(losses) == 1:
+                    grads = {n_: p.grad.detach().cpu().clone()
+                             for n_, p in model.named_parameters()}
+            before = read_launches()
+            trainer.eval_step(batches[0])
+            eval_launches = {k: v - before[k]
+                             for k, v in read_launches().items()}
+            runs[name] = (losses, grads, per_step, eval_launches)
+    finally:
+        transformer_module.draw_keep = original
+    paths["edos_training_dropout_steps"] = read_launches()
+    (lc, gc, _, _), (lg, gg, steps, eval_launches) = runs["cpu"], runs["card"]
+    for i, (a, b_) in enumerate(zip(lg, lc)):
+        print(f"  dropout step {i}: loss card {a:.7f}, CPU {b_:.7f}")
+        check(abs(a - b_) <= LOSS_RTOL * abs(b_),
+              f"40: dropout step {i} loss card {a} vs CPU {b_}")
+    worst = max((gg[n_] - gc[n_]).abs().max().item() for n_ in gc)
+    for n_ in gc:
+        check(torch.allclose(gg[n_], gc[n_], atol=GRAD_ATOL, rtol=GRAD_RTOL),
+              f"40: first-step gradient of {n_}")
+    want = dropout_step_launches("edos")
+    check(all(c == want for c in steps),
+          f"40: dropout train step launches {steps}, expected {want}")
+    want_eval = serving_launches("edos", 1)
+    check(eval_launches == want_eval, f"40: eval batch launches "
+                                      f"{eval_launches}, expected {want_eval}")
+    print(f"40: 3 dropout train steps card vs CPU on the same masks: losses "
+          f"within rtol {LOSS_RTOL}, first-step gradients max abs err "
+          f"{worst:.3e} (atol {GRAD_ATOL} + rtol {GRAD_RTOL}); launches a "
+          f"step {steps[0]}, an eval batch {eval_launches}")
+
+    # c. remat under dropout: one generator state, the same gradients
+    grads = []
+    for remat in (False, True):
+        model = build_model("edos", layers=LAYERS, t_layers=T_LAYERS,
+                            hidden=HIDDEN, attn_drop=DROP, remat=remat,
+                            device=dev,
+                            generator=torch.Generator().manual_seed(1))
+        gen = torch.Generator(dev).manual_seed(3)
+        dg, _, ds = model.train()(batches[0].to(dev), generator=gen)
+        (dg.square().sum() + ds.sum()).backward()
+        grads.append([p.grad for p in model.parameters()])
+    equal = all(torch.equal(a, b_) for a, b_ in zip(*grads))
+    diff = max((a - b_).abs().max().item() for a, b_ in zip(*grads))
+    how = "bit-equal" if equal else f"differ by {diff:.3e}"
+    print(f"40: remat under dropout: gradients {how} to the run without "
+          f"remat")
+    check(equal, f"40: remat changed the gradients under dropout by {diff}")
+
+    # d. main_edos --attn_drop 0.1 with checkpoints: stopped after epoch 1
+    # and resumed, bit-equal to the uninterrupted run
+    n_train = len(edos_random_split(range(48))[0])
+    steps_per_epoch = math.ceil(n_train / BATCH)
+    totals, results = launch_counts(), {}
+    for name, epochs, ck in (("whole", 2, "ck_whole"), ("first", 1, "ck_cut"),
+                             ("resumed", 2, "ck_cut")):
+        run_dir = os.path.join(workdir, name)
+        os.makedirs(run_dir)
+        argv = edos_run_argv(run_dir, epochs, extra=[
+            "--attn_drop", str(DROP), "--checkpoint_dir",
+            os.path.join(workdir, ck), "--checkpoint_every", "1"])
+        result, per_call, launches = run_counted(main_edos, argv)
+        done = 1 if name == "resumed" else 0
+        check_training_run(f"40: main_edos --attn_drop {DROP} ({name})",
+                           result, per_call, dropout_step_launches("edos"),
+                           (epochs - done) * steps_per_epoch,
+                           os.path.join(run_dir, "train.jsonl"), run_dir,
+                           epochs - done,
+                           want_eval=serving_launches("edos", 1))
+        for k_, v in launches.items():
+            totals[k_] += v
+        results[name] = (result, logged_losses(run_dir))
+    paths["edos_training_dropout"] = totals
+    cut = results["first"][1] + results["resumed"][1]
+    print(f"40: --attn_drop {DROP} epoch losses, uninterrupted "
+          f"{results['whole'][1]}; stopped after epoch 1 and resumed {cut}")
+    check(cut == results["whole"][1], "40: the resumed dropout run differs")
+    for k_ in ("best_epoch", "best_valid_rmse", "test"):
+        check(results["resumed"][0][k_] == results["whole"][0][k_],
+              f"40: resumed {k_} differs")
+
+    # e. the dropout checkpoint served through graphs (a model built with
+    # attn_drop serves in eval mode): bit-equal to eager, the graph path's
+    # launches two forwards a graph
+    requests = serve_requests()
+    requests = {k_: requests[k_] for k_ in ("5 (short batch)", "16 mixed")}
+    kw = dict(task="edos", example=requests["16 mixed"][0], layers=LAYERS,
+              t_layers=T_LAYERS, hidden=HIDDEN, batch_size=BATCH,
+              device="cuda", attn_drop=DROP)
+    ck = os.path.join(workdir, "ck_whole")
+    graph = Predictor.from_checkpoint(ck, **kw)
+    eager = Predictor.from_checkpoint(ck, graphs=False, **kw)
+    oracle = {k_: eager.predict(v) for k_, v in requests.items()}
+    reset_launches()
+    got = {k_: graph.predict(v) for k_, v in requests.items()}
+    paths["edos_serving_dropout_graph"] = read_launches()
+    want = serving_launches("edos", 2 * graph.graph_count)
+    check(paths["edos_serving_dropout_graph"] == want,
+          f"40: graph-served dropout checkpoint launches "
+          f"{paths['edos_serving_dropout_graph']}, expected {want}")
+    for k_ in requests:
+        check(np.array_equal(got[k_], oracle[k_]),
+              f"40: dropout checkpoint, request {k_}: graph differs from "
+              f"eager")
+        check(np.array_equal(got[k_], graph.predict(requests[k_])),
+              f"40: dropout checkpoint, request {k_}: a replay differs")
+    print(f"40: the --attn_drop checkpoint (best/) served through "
+          f"{graph.graph_count} graphs: bit-equal to eager and across "
+          f"replays; launches {paths['edos_serving_dropout_graph']}")
+
+    # f. train samples/s with and without dropout, in turns (a record)
+    rates = {"off": [], "dropout": []}
+    for which in ("off", "dropout", "dropout", "off"):
+        rates[which].append(phase_train_rate(
+            "edos", steps=10, attn_drop=DROP if which == "dropout" else 0.0))
+    print(f"40: eDOS training samples/s (batch {BATCH}, f32, 10 steps, host "
+          f"collation and upload included, two readings each in turns): "
+          f"attention dropout {DROP} {spread(rates['dropout'])}, without "
+          f"{spread(rates['off'])} on {CARD}")
+    predictors = {"graph": graph, "eager": eager, "requests": requests}
+    return paths, predictors, rates
+
+
+def stack_gradients(model, device, x, kv, km, go, branches=None):
+    """The stack's output, the gradients of sum(y * go) to x and to every
+    parameter, all on the CPU, from a run on ``device``. Without
+    ``branches``, also each layer's fc1 output (the ReLU inputs). With
+    ``branches`` (those of another run): a ReLU input that lies on the
+    other side of 0 there is moved onto that side, by its difference from
+    the other run, which must be within the forward's limit; the gradient
+    passes through unchanged. ReLU's gradient jumps at 0, so two runs whose
+    f32 roundings put one input on opposite sides of it differ by that
+    input's whole term in fc1's gradient (2.0 at hidden 256, whatever the
+    arithmetic: seen between f32 and f64 on the CPU). Returns (output,
+    x's gradient, the parameters' gradients, the fc1 outputs or, with
+    ``branches``, the number of inputs moved)."""
+    seen, moved, hooks = [], [], []
+
+    def hook(i):
+        def align(module, inputs, out):
+            if branches is None:
+                seen.append(out.detach().cpu())
+                return out
+            other = branches[i]
+            flip = (out > 0) != (other > 0)
+            moved.append(int(flip.sum()))
+            if not moved[-1]:
+                return out
+            check(torch.allclose(out.detach()[flip], other[flip],
+                                 atol=MODEL_ATOL, rtol=MODEL_RTOL),
+                  f"a ReLU input on the other side of 0 differs from the "
+                  f"other run's by more than the forward's limit")
+            return out + torch.where(flip, other - out.detach(), 0.0)
+        return align
+
+    model.zero_grad(set_to_none=True)
+    for i, layer in enumerate(model.layers):
+        hooks.append(layer.fc1.register_forward_hook(hook(i)))
+    try:
+        xi = x.to(device, copy=True).requires_grad_()
+        y = model(xi, kv.to(device), kv.to(device), km.to(device))
+        (y * go.to(device)).sum().backward()
+    finally:
+        for h in hooks:
+            h.remove()
+    return (y.detach().cpu(), xi.grad.cpu(),
+            [p.grad.cpu() for p in model.parameters()],
+            seen if branches is None else sum(moved))
+
+
+def phase_multihead(dev):
+    """41: #3 and #4 at h = 2, 4, 8 heads of the flagship width (D = 128,
+    64, 32 on B*h rows) at the three stacks' shapes against their plain
+    versions, timed beside bound, plain version and SDPA; a stack of 2
+    layers with 8 heads on the card against the CPU. Returns {kernel:
+    {"h2": ..., "h4": ..., "h8": ...}}."""
+    g = torch.Generator().manual_seed(41)
+    out = {"fused_attention": {}, "fused_attention_bwd": {}}
+    for h in HEADS:
+        shapes = {label: (bb * h, lq, lk)
+                  for label, (bb, lq, lk) in attention_shapes().items()}
+        for name, r in timed_attention_at(dev, HIDDEN // h, shapes, g,
+                                          ln=False).items():
+            out[name][f"h{h}"] = r
+    cpu = transformer_module.TransformerEncoder(HIDDEN, layers=T_LAYERS,
+                                                num_heads=8)
+    init_parameters_(cpu, g)
+    gpu = copy.deepcopy(cpu).to(dev)
+    x = torch.randn(BATCH, BINS, HIDDEN, generator=g)
+    kv = torch.randn(BATCH, 32, HIDDEN, generator=g)
+    km = torch.arange(32)[None] < torch.randint(4, 33, (BATCH, 1),
+                                                generator=g)
+    km[-1] = False
+    kv[-1] = 0.0
+    go = torch.randn(BATCH, BINS, HIDDEN, generator=g)
+    reset_launches()
+    yg, xg, pg, pre = stack_gradients(gpu, dev, x, kv, km, go)
+    launches = read_launches()
+    want = launch_counts(fused_attention=T_LAYERS,
+                         fused_attention_bwd=T_LAYERS)
+    check(launches == want, f"41: 8-head stack launches {launches}, "
+                            f"expected {want}")
+    yc, xc, pc, flips = stack_gradients(cpu, "cpu", x, kv, km, go,
+                                        branches=pre)
+    err = (yg - yc).abs().max().item()
+    check(torch.allclose(yg, yc, atol=MODEL_ATOL, rtol=MODEL_RTOL),
+          f"41: 8-head stack output differs by {err}")
+    gerr = max((a - b).abs().max().item()
+               for a, b in zip([xg, *pg], [xc, *pc]))
+    check(all(torch.allclose(a, b, atol=GRAD_ATOL, rtol=GRAD_RTOL)
+              for a, b in zip([xg, *pg], [xc, *pc])),
+          f"41: 8-head stack gradients differ by {gerr} ({flips} ReLU "
+          f"inputs on the card's side of 0)")
+    print(f"41: a {T_LAYERS}-layer stack of 8 heads (D {HIDDEN}, B {BATCH}, "
+          f"201 queries over 32 keys) card vs CPU: output max abs err "
+          f"{err:.3e}, gradients {gerr:.3e} (atol {MODEL_ATOL} + rtol "
+          f"{MODEL_RTOL}); {flips} of "
+          f"{T_LAYERS * BATCH * BINS * 4 * HIDDEN} ReLU inputs put on the "
+          f"card's side of 0; launches {launches}")
+    return out
+
+
+def phase_f64(workdir):
+    """42: the float64 phDOS flagship (hidden 256) on the card against the
+    CPU, its launches (none), main_phdos --x64 against the f32 run, and f64
+    train samples/s beside f32. Returns (launches by path, rates)."""
+    dev = torch.device("cuda")
+    paths = {}
+    # the loader's batches (f32 features, targets and edge vectors), and
+    # the same with every float field in f64 (as the JAX package's x64
+    # parity runs cast them): the edge geometry then runs in f64 too
+    loaded = list(GraphLoader(synthetic_phdos_learnable(21, seed=5), BATCH))
+    batches = [dataclasses.replace(b, **{
+        f.name: getattr(b, f.name).double() for f in dataclasses.fields(b)
+        if isinstance(getattr(b, f.name), torch.Tensor)
+        and getattr(b, f.name).is_floating_point()}) for b in loaded]
+    cpu_model = build_model("phdos", layers=LAYERS, t_layers=T_LAYERS,
+                            hidden=HIDDEN, dtype="float64",
+                            generator=torch.Generator().manual_seed(3))
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    reset_launches()
+    wide = {"DOSTPU_SOFTMAX_WIDE": "1"}
+    for label, batch, env, limit in (
+            ("f64", batches[0], wide, F64_WIDE_REL),
+            ("f64", batches[0], {}, F64_F32_SOFTMAX_REL),
+            ("the loader's f32", loaded[0], wide, F64_F32_GEOMETRY_REL),
+            ("the loader's f32", loaded[0], {}, F64_F32_SOFTMAX_REL)):
+        def forward(model, device):
+            with torch.no_grad():
+                return model.eval()(batch.to(device))
+        want = with_env(env, forward, cpu_model, "cpu")
+        got = with_env(env, forward, gpu_model, dev)
+        errs = [((a.cpu() - b).abs().max()
+                 / max(1.0, b.abs().max().item())).item()
+                for a, b in zip(got, want)]  # in f64
+        check(all(a.dtype == torch.float64 for a in got),
+              "42: an f64 output is not f64")
+        print(f"42: f64 phDOS forward card vs CPU, {label} batch, softmax "
+              f"{'f64 (DOSTPU_SOFTMAX_WIDE=1)' if env else 'f32'}: relative "
+              f"errors {[f'{e:.3e}' for e in errs]} (limit {limit})")
+        check(max(errs) <= limit, f"42: f64 forward rel err {max(errs)}")
+
+    def steps(model):
+        trainer = Trainer(model, make_adamw(model.parameters(), x64=True),
+                          clamp_targets=False, eval_clamp=False)
+        losses, grads = [], None
+        for batch in batches:
+            out = trainer.train_step(batch)
+            check(out["loss"].dtype == torch.float64, "42: f32 loss")
+            losses.append(out["loss"].item())
+            if grads is None:
+                grads = [p.grad.detach().cpu().clone()
+                         for p in model.parameters()]
+        return losses, grads
+
+    lc, gc = with_env({"DOSTPU_SOFTMAX_WIDE": "1"}, steps, cpu_model.train())
+    lg, gg = with_env({"DOSTPU_SOFTMAX_WIDE": "1"}, steps, gpu_model.train())
+    paths["phdos_training_f64"] = read_launches()
+    rel = [abs(a - b) / abs(b) for a, b in zip(lg, lc)]
+    gerr = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+               for a, b in zip(gg, gc))
+    print(f"42: 3 f64 train steps card vs CPU (x64 AdamW, f64 softmax): "
+          f"losses card {lg}, CPU {lc}, relative {[f'{r:.2e}' for r in rel]}"
+          f" (first {F64_WIDE_REL}, later {F64_LATER_LOSS_REL}); first-step"
+          f" f32 gradients max err {gerr:.2e} of max(1, the largest)")
+    check(rel[0] <= F64_WIDE_REL and max(rel) <= F64_LATER_LOSS_REL,
+          f"42: f64 losses {lg} vs {lc}")
+    check(gerr <= 1e-6, f"42: f64 first-step gradients differ by {gerr}")
+    check(all(v == 0 for v in paths["phdos_training_f64"].values()),
+          f"42: the f64 model launched {paths['phdos_training_f64']}")
+
+    # the f64 model served through CUDA graphs (the plain functions are
+    # capturable) against its eager forward
+    requests = {"5": synthetic_phdos_samples(5, seed=1),
+                "16 mixed": synthetic_phdos_samples(16, seed=2, min_atoms=2,
+                                                    max_atoms=30)}
+    graph = Predictor(gpu_model, batch_size=BATCH)
+    eager = Predictor(gpu_model, batch_size=BATCH, graphs=False)
+    oracle = {k: eager.predict(v) for k, v in requests.items()}
+    reset_launches()
+    got = {k: graph.predict(v) for k, v in requests.items()}
+    paths["phdos_serving_f64_graph"] = read_launches()
+    for k in requests:
+        check(got[k].dtype == np.float64,
+              f"42: f64 spectra are {got[k].dtype}")
+        how = same_or_close(f"42: f64 graph-served request {k}", got[k],
+                            oracle[k])
+        print(f"42: f64 phDOS request {k} through {graph.graph_count} "
+              f"graphs: {how} against eager")
+    check(all(v == 0 for v in paths["phdos_serving_f64_graph"].values()),
+          f"42: f64 serving launched {paths['phdos_serving_f64_graph']}")
+
+    # main_phdos --x64 on the card against the same run without it
+    losses = {}
+    for flag in ("", "--x64"):
+        run_dir = os.path.join(workdir, f"phdos{flag}")
+        os.makedirs(run_dir)
+        argv = ["--synthetic", "48", "--synthetic_learnable", "--epochs",
+                "1", "--eval", "1", "--layers", str(LAYERS), "--transformer",
+                str(T_LAYERS), "--hidden", str(HIDDEN), "--batch_size",
+                str(BATCH), "--device", "cuda", "--results_dir", run_dir,
+                "--log_jsonl", os.path.join(run_dir, "train.jsonl")]
+        result, per_call, launches = run_counted(main_phdos, argv + (
+            [flag] if flag else []))
+        n_train = len(edos_random_split(range(48))[0])
+        losses[flag] = check_training_run(
+            f"42: main_phdos {flag or '(f32 scalars)'}", result, per_call,
+            step_launches("phdos", False), math.ceil(n_train / BATCH),
+            os.path.join(run_dir, "train.jsonl"), run_dir, 1)
+        if flag:
+            paths["phdos_training_x64"] = launches
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["--x64"],
+                                                  losses[""]))
+    print(f"42: main_phdos --x64 epoch losses {losses['--x64']} vs "
+          f"{losses['']} without: relative {rel:.2e} (limit {X64_LOSS_REL})")
+    check(rel <= X64_LOSS_REL, f"42: --x64 moved the losses by {rel}")
+
+    rates = {"float32": [], "float64": []}
+    for dtype in ("float32", "float64", "float64", "float32"):
+        rates[dtype].append(phase_train_rate("phdos", steps=6, dtype=dtype))
+    print(f"42: phDOS training samples/s (batch {BATCH}, 6 steps, host "
+          f"collation and upload included, two readings each in turns): "
+          f"float64 {spread(rates['float64'])}, float32 "
+          f"{spread(rates['float32'])} on {CARD}")
+    return paths, rates
+
+
 def kernel_resources(so, wanted) -> dict:
     """Registers a thread and stack bytes (a nonzero stack means spills or
     local arrays) of the compiled kernels whose mangled names contain one of
@@ -4958,6 +5451,17 @@ def main():
             edos_served, subdir("parallel_serving"))
         stamp("phase 39")
 
+        # 40-42: attention dropout, multi-head, float64
+        got, graph_predictors["edos_dropout"], dropout_rates = phase_dropout(
+            subdir("dropout"))
+        paths.update(got)
+        stamp("phase 40")
+        heads = phase_multihead(dev)
+        stamp("phase 41")
+        got, f64_rates = phase_f64(subdir("f64"))
+        paths.update(got)
+        stamp("phase 42")
+
         # 14: training with both levers on, against the unfused runs above
         trainings = (("edos", phase_training_path),
                      ("phdos", phase_phdos_training))
@@ -5014,6 +5518,9 @@ def main():
           f"{json.dumps(http_readings)} on {smi}")
     print(f"parallel readings (phases 37, 38): {json.dumps(parallel)} on "
           f"{smi}")
+    readings = {"40 train samples/s": dropout_rates,
+                "42 train samples/s": f64_rates}
+    print(f"readings (phases 40, 42): {json.dumps(readings)} on {smi}")
 
     csrc, tpu = "dostransformer_tpu_torch/csrc", "dostransformer_tpu"
     sources = {
@@ -5036,13 +5543,19 @@ def main():
         task, _, mode, variant, _ = re.fullmatch(
             r"(edos|phdos)(\d*)_(serving|training)(_levers|_fused|_host|"
             r"_ckpt|_remat|_data|_graphnetwork|_mlp2|_bf16(?:_fused|_levers"
-            r"|_data|_ckpt|_steps)?)?(_graph(?:_cli)?|_exported|_http)?",
+            r"|_data|_ckpt|_steps)?|_dropout(?:_steps)?|_f64|_x64)?"
+            r"(_graph(?:_cli)?|_exported|_http)?",
             path).groups()
         if variant in ("_graphnetwork", "_mlp2"):
             want = baseline_step_launches(task, variant[1:])
+        elif variant == "_f64":  # the f64 rule: no kernel at all
+            want = launch_counts()
         else:
             want = step_launches(task, variant in (
                 "_levers", "_fused", "_bf16_fused", "_bf16_levers"))
+        if variant in ("_dropout", "_dropout_steps") and mode == "training":
+            # dropout steps run the plain attention; their evals the kernel
+            want["fused_attention_bwd"] = 0
         if mode == "serving":
             want.update(dict.fromkeys(BACKWARD, 0))
         for name in sources:
@@ -5108,6 +5621,15 @@ def main():
                                           *MP_EXTRAS) if k in w}
                 | {"bound_ms": max(w["bytes_ms"], w["ops_ms"])}
                 for label, w in wide_mp[name].items()}
+        if name in heads:  # 41: the multi-head widths
+            row["by_heads"] = {
+                label: {k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                          "err")}
+                | {"bound_ms": max(r["bytes_ms"], r["ops_ms"]),
+                   "d": HIDDEN // int(label[1:])}
+                for label, r in heads[name].items()}
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     *(r["err"] for r in heads[name].values()))
         if name in widths:
             for key, w in widths[name].items():
                 row[key] = w

@@ -16,8 +16,13 @@ learning-rate schedules (``--grad_clip``, ``--warmup_epochs``,
 ``--cosine_lr``) and recomputation in the backward (``--remat``). At the
 end the reference's ``experiments_{embedder}.txt`` block, byte for byte,
 plus an optional JSONL log. The flags are the JAX package's, plus
-``--device``. Flags whose feature is not in the port yet are rejected with
-the ROADMAP item that brings it.
+``--device``. The flags of the JAX package's internals that the port has
+no use for (ROADMAP.md's do-not-port list) are rejected, naming it.
+``--attn_drop`` trains with attention dropout (the Trainer's dropout
+stream, seeded from ``--seed``); ``--x64`` does what the JAX package's
+does: the model keeps ``--dtype``, and the host arithmetic that
+``jax_enable_x64`` widens in the JAX run, optax's step-count scalars (bias
+corrections, schedules), is widened (train/optim.py ``x64``).
 
 ``--data_parallel`` and ``--tensor_parallel N`` run over the processes of a
 launch (``torchrun --nproc_per_node P -m dostransformer_tpu_torch.cli.
@@ -81,16 +86,12 @@ from dostransformer_tpu_torch.train.preemption import GracefulShutdown
 from dostransformer_tpu_torch.train.tensorboard import SummaryWriter
 from dostransformer_tpu_torch.train.trainer import Trainer
 
-_Q1 = "ROADMAP.md queue 1"
-# flag -> (is it set?, where the ROADMAP brings it)
+# flag -> (is it set?, why the port has no use for it)
 _NOT_PORTED = {
-    "x64": (lambda a: a.x64, f"{_Q1} item 5, f64 phDOS (--x64)"),
     "compile_cache": (lambda a: a.compile_cache is not None,
                       "ROADMAP.md's do-not-port list (an XLA cache)"),
     "pad_bins": (lambda a: a.pad_bins != 0,
                  "ROADMAP.md's do-not-port list (TPU lane alignment)"),
-    "attn_drop": (lambda a: a.attn_drop > 0.0,
-                  f"{_Q1} item 2 (attention dropout)"),
     "use_pallas": (lambda a: a.use_pallas is not None,
                    "ROADMAP.md's do-not-port list (dispatch rules): a CUDA "
                    "tensor always takes the kernels"),
@@ -193,7 +194,10 @@ def build_arg_parser(task: str) -> argparse.ArgumentParser:
     p.add_argument("--remat", action="store_true",
                    help="recompute each processor and transformer layer in "
                         "the backward instead of keeping its activations")
-    p.add_argument("--x64", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--x64", action="store_true",
+                   help="the JAX package's --x64: optax's step-count scalars "
+                        "(bias corrections, schedules) in float64; the "
+                        "model keeps --dtype")
     p.add_argument("--compile_cache", type=str, default=None,
                    help=argparse.SUPPRESS)
     p.add_argument("--tensorboard", type=str, default=None, metavar="DIR",
@@ -218,14 +222,13 @@ def build_arg_parser(task: str) -> argparse.ArgumentParser:
 
 
 def parse_args(parser: argparse.ArgumentParser, argv=None):
-    """Parse, then reject the flags whose feature is not in the port
-    (SystemExit with the ROADMAP item) and a ``--device`` that is not there
-    (:func:`cli_device`); ``args.device`` becomes a ``torch.device``."""
+    """Parse, then reject the flags of the do-not-port list (SystemExit
+    naming it) and a ``--device`` that is not there (:func:`cli_device`);
+    ``args.device`` becomes a ``torch.device``."""
     args = parser.parse_args(argv)
     for flag, (given, item) in _NOT_PORTED.items():
         if given(args):
-            parser.error(f"--{flag} is not in the PyTorch port yet; see "
-                         f"{item}")
+            parser.error(f"--{flag} is not in the PyTorch port; see {item}")
     args.device = cli_device(parser, args.device)
     return args
 
@@ -251,7 +254,7 @@ def runtime_kwargs(args: argparse.Namespace) -> dict:
                 bucketed=args.bucketed, grad_clip=args.grad_clip,
                 warmup_epochs=args.warmup_epochs, cosine_lr=args.cosine_lr,
                 data_parallel=args.data_parallel,
-                tensor_parallel=args.tensor_parallel)
+                tensor_parallel=args.tensor_parallel, x64=args.x64)
 
 
 def maybe_init_multihost(args: argparse.Namespace) -> None:
@@ -310,7 +313,7 @@ def run_training(task: str, cfg: TrainConfig, train: Sequence[GraphSample],
                  bf16_data: bool = False, bucketed: bool = False,
                  grad_clip: float = 0.0, warmup_epochs: int = 0,
                  cosine_lr: bool = False, data_parallel: bool = False,
-                 tensor_parallel: int = 1) -> dict:
+                 tensor_parallel: int = 1, x64: bool = False) -> dict:
     """Train, evaluate and early-stop; returns the final best metrics.
     eDOS clamps its training targets and its eval predictions at 0; phDOS
     clamps neither (reference utils.py:76). ``fuse_ln_attn`` and ``ln_lp``
@@ -318,8 +321,10 @@ def run_training(task: str, cfg: TrainConfig, train: Sequence[GraphSample],
     keyword-only arguments are the training runtime's flags
     (:func:`runtime_kwargs`); ``data_parallel`` and ``tensor_parallel``
     train over the processes of a launch (:func:`build_mesh`; every rank
-    calls this). Runs on ``device``, the card by default; with no card
-    visible this raises unless ``device="cpu"`` is given.
+    calls this); ``x64`` is the JAX package's ``--x64``
+    (:func:`make_adamw`'s ``x64``). Runs on ``device``, the card by
+    default; with no card visible this raises unless ``device="cpu"`` is
+    given.
 
     SIGTERM is latched from set-up on (train/preemption.py): the loop saves
     a checkpoint at the next epoch boundary and returns with
@@ -332,7 +337,7 @@ def run_training(task: str, cfg: TrainConfig, train: Sequence[GraphSample],
             init_torch, debug_nans, fuse_ln_attn, ln_lp, export_preds,
             profile_dir, remat, host_loader, tensorboard, bf16_data,
             bucketed, grad_clip, warmup_epochs, cosine_lr, data_parallel,
-            tensor_parallel)
+            tensor_parallel, x64)
     finally:
         stop.restore()
 
@@ -341,7 +346,7 @@ def _run_training(stop, task, cfg, train, valid, test, device, results_dir,
                   init_torch, debug_nans, fuse_ln_attn, ln_lp, export_preds,
                   profile_dir, remat, host_loader, tensorboard, bf16_data,
                   bucketed, grad_clip, warmup_epochs, cosine_lr,
-                  data_parallel, tensor_parallel) -> dict:
+                  data_parallel, tensor_parallel, x64) -> dict:
     if bucketed and host_loader:
         raise ValueError("--bucketed requires the device-resident dataset "
                          "pipeline; drop --host_loader")
@@ -395,9 +400,9 @@ def _run_training(stop, task, cfg, train, valid, test, device, results_dir,
         model.parameters(), cfg.lr, cfg.weight_decay, grad_clip=grad_clip,
         warmup_steps=warmup_epochs * steps_per_epoch,
         cosine_decay_steps=(max(0, cfg.epochs - warmup_epochs)
-                            * steps_per_epoch if cosine_lr else 0))
+                            * steps_per_epoch if cosine_lr else 0), x64=x64)
     trainer = Trainer(model, optimizer, beta=cfg.beta, clamp_targets=is_edos,
-                      eval_clamp=is_edos, mesh=mesh)
+                      eval_clamp=is_edos, mesh=mesh, seed=cfg.seed)
 
     # eval batches at the training batch size (the metrics are per-sample,
     # so any size gives the reference's batch-1 means; under a mesh the
@@ -444,7 +449,7 @@ def _run_training(stop, task, cfg, train, valid, test, device, results_dir,
                                       max_to_keep=1)
         best_ordinal = best_ckpt.latest_epoch()
         best_ordinal = -1 if best_ordinal is None else best_ordinal
-        restored = ckpt.restore(model, optimizer)
+        restored = ckpt.restore(model, optimizer, rng=trainer.dropout_rng)
     start_epoch = 0
     if restored is not None:
         start_epoch, saved_tracker = restored
@@ -517,7 +522,8 @@ def _run_training(stop, task, cfg, train, valid, test, device, results_dir,
                 # (resume runs it), save now, exit cleanly
                 preempted = True
                 if ckpt is not None:
-                    ckpt.save(epoch, model, optimizer, tracker)
+                    ckpt.save(epoch, model, optimizer, tracker,
+                              rng=trainer.dropout_rng)
                     print(f"\n[preemption] checkpoint saved at epoch {epoch}")
                 break
 
@@ -540,12 +546,14 @@ def _run_training(stop, task, cfg, train, valid, test, device, results_dir,
                     if best_ckpt is not None:
                         best_ordinal += 1
                         best_ckpt.save(best_ordinal, model, optimizer,
-                                       tracker, epoch_meta=epoch)
+                                       tracker, epoch_meta=epoch,
+                                       rng=trainer.dropout_rng)
                 if tracker.step_and_should_stop():
                     stopped_early = True
                     break
             if ckpt is not None and epoch % cfg.checkpoint_every == 0:
-                ckpt.save(epoch, model, optimizer, tracker)
+                ckpt.save(epoch, model, optimizer, tracker,
+                          rng=trainer.dropout_rng)
         for manager in (ckpt, best_ckpt):
             if manager is not None:  # the saves in flight reach the disk
                 manager.wait_until_finished()

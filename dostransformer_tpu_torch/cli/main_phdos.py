@@ -15,8 +15,10 @@ Datasets:
                     used instead.
 
 The reference trains phDOS in float64 at batch size 1 (main_phDOS.py:14-16,
-52); the port trains float32 (``--x64`` is rejected with its ROADMAP item),
-and ``--batch_size`` defaults to 1.
+52); the port, as the JAX package, trains in ``--dtype`` (float32 by
+default; ``--x64`` widens optax's step-count scalars as the JAX package's
+``--x64`` does, see cli/common.py), and ``--batch_size`` defaults to 1. The
+float64 model is ``build_model("phdos", dtype="float64")`` from Python.
 """
 
 from __future__ import annotations

@@ -51,16 +51,29 @@ transformer layer in the backward instead of keeping their activations
 the same gradients for one more forward of each.
 
 ``dtype`` is the compute dtype, as in the JAX package: "float32" (the
-default) or "bfloat16". Parameters stay float32 either way (the same
-state_dict, loaded the same way); a bf16 model casts its inputs, energy
-tokens and prompt tokens to bf16, every layer casts its parameters to the
-operand's dtype at use, LayerNorm statistics and the softmax run in f32,
-and the three outputs come back as float32. On the card the bf16 forward
-runs the bf16 forms of the fused message-passing, attention (and, with
-``fuse_ln_attn``, LN-fused attention) and segment-sum kernels, and its
+default), "bfloat16" or "float64". Parameters stay float32 in every case
+(the same state_dict, loaded the same way); a bf16 model casts its inputs,
+energy tokens and prompt tokens to bf16, every layer casts its parameters
+to the operand's dtype at use, LayerNorm statistics and the softmax run in
+f32, and the three outputs come back as float32. On the card the bf16
+forward runs the bf16 forms of the fused message-passing, attention (and,
+with ``fuse_ln_attn``, LN-fused attention) and segment-sum kernels, and its
 backward the bf16 forms of the message-passing and attention backward
 kernels (with ``remat`` the recomputed forward runs the bf16 forward
-kernels again).
+kernels again). A float64 model (the JAX package's x64 parity mode) casts
+the same way to f64, runs its LayerNorm statistics in f64 and its softmax at
+exactly f32 (``DOSTPU_SOFTMAX_WIDE=1``: f64), and returns f64 outputs; by
+the f64 rule (ops/kernels.py ``takes_kernels``, which the layers apply to
+their f64 operands) it runs the plain functions (the unfused message
+passing, the plain segment sum, attention and LayerNorm; ``use_fused_mp``
+and the levers have no effect) and launches no kernel on either device. Its gradients reach the f32 parameters in f32.
+
+``attn_drop`` is the attention-weight dropout of the three stacks (one
+head, as in the JAX model). It is active in training mode when the forward
+is given a ``generator`` (the Trainer's dropout stream): a training step
+then runs the plain attention (forward and backward) and no attention
+kernel; eval, serving and a forward without a generator run the kernels
+as a model without dropout does.
 
 Parameters are created on the meta device and then materialised on
 ``device`` and drawn from ``generator`` (on the CPU, so a seed gives the same
@@ -90,10 +103,14 @@ from dostransformer_tpu_torch.nn.modules import (
 from dostransformer_tpu_torch.nn.transformer import TransformerEncoder
 from dostransformer_tpu_torch.ops.geometry import edge_geometry_phdos
 
-_LATER = "ROADMAP.md queue 1"
-# compute dtypes by name: those the port runs, and those it does not yet
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_UNPORTED_DTYPES = {"float64": "item 5, f64 phDOS"}
+# compute dtypes by name
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float64": torch.float64}
+
+
+def _out_dtype(t: torch.Tensor) -> torch.Tensor:
+    """Outputs widen bf16 back to f32; f32 and f64 stay as they are."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 class _DOSTransformerBase(nn.Module):
@@ -116,26 +133,20 @@ class _DOSTransformerBase(nn.Module):
         if padding not in ("mask", "ref"):
             raise ValueError(f"unknown padding {padding!r}; expected 'mask' "
                              f"or 'ref'")
-        if dtype not in DTYPES and dtype not in _UNPORTED_DTYPES:
+        if dtype not in DTYPES:
             raise ValueError(f"unknown dtype {dtype!r}; expected one of "
-                             f"{sorted([*DTYPES, *_UNPORTED_DTYPES])}")
-        unported = {f"dtype {dtype} ({_UNPORTED_DTYPES.get(dtype)})":
-                        dtype in _UNPORTED_DTYPES,
-                    "attn_drop > 0 (item 2, attention dropout)":
-                        attn_drop > 0.0,
-                    "bins_pad (TPU lane alignment; not ported)":
-                        bins_pad is not None}
-        for what, given in unported.items():
-            if given:
-                raise NotImplementedError(
-                    f"{type(self).__name__}: {what} is not in the port yet; "
-                    f"see {_LATER}")
+                             f"{sorted(DTYPES)}")
+        if bins_pad is not None:
+            raise NotImplementedError(
+                f"{type(self).__name__}: bins_pad (TPU lane alignment) is "
+                f"not ported; see ROADMAP.md's do-not-port list")
         self.n_bins = n_bins
         self.hidden = hidden
         self.padding = padding
         self.remat = remat
         self.tp_axis = tp_axis
         self.use_fused_mp = use_fused_mp
+        self.attn_drop = attn_drop
         self.cdtype = DTYPES[dtype]
         with torch.device("meta"):
             self.embeddings = nn.Embedding(n_bins, hidden)
@@ -147,10 +158,12 @@ class _DOSTransformerBase(nn.Module):
                 Processor(hidden, aggregation, use_fused_mp is not False)
                 for _ in range(layers))
             self.GN_decoder = decoder()
-            # the LayerNorm levers of nn/transformer.py, for all three stacks
+            # the LayerNorm levers of nn/transformer.py and the attention
+            # dropout, for all three stacks
             self.transformer, self.transformer_self, self.transformer_source = (
                 TransformerEncoder(hidden, t_layers, fuse_ln_attn, ln_lp,
-                                   remat=remat, tp_axis=tp_axis)
+                                   remat=remat, tp_axis=tp_axis,
+                                   num_heads=1, attn_dropout=attn_drop)
                 for _ in range(3))
             self.fc = TorchLinear(2 * hidden, hidden)
             self.fc_prompt = TorchLinear(2 * hidden + hidden // 2, hidden)
@@ -161,10 +174,10 @@ class _DOSTransformerBase(nn.Module):
         """Draw every parameter from ``generator`` in module order."""
         init_parameters_(self, generator)
 
-    def _run(self, g: GraphBatch, x, edge_attr, readout):
+    def _run(self, g: GraphBatch, x, edge_attr, readout, generator):
         """Everything after the encoders: message passing, the
         cross-attention stack, the readout ``readout(x) -> [B, h]`` and the
-        heads."""
+        heads; ``generator`` the dropout stream (None: no dropout)."""
         b = g.num_graphs
         x, _ = run_message_passing(self.stacked_processor, g, x, edge_attr,
                                    remat=self.remat)
@@ -176,15 +189,17 @@ class _DOSTransformerBase(nn.Module):
         # act as keys, as in the reference (which builds no key mask)
         key_mask = g.node_mask > 0.5 if self.padding == "mask" else None
         energies = self.embeddings.weight.to(self.cdtype).expand(b, -1, -1)
-        energies = self.transformer(energies, x_dense, x_dense, key_mask)
+        energies = self.transformer(energies, x_dense, x_dense, key_mask,
+                                    generator)
 
         graph = readout(x)[:, None, :].expand(b, self.n_bins, self.hidden)
         dos_global, dos_system = self._heads(g, energies, graph, x_dense,
-                                             key_mask)
+                                             key_mask, generator)
         # the node embeddings widen bf16 back to f32, as the outputs do
-        return dos_global, x.float(), dos_system
+        return dos_global, _out_dtype(x), dos_system
 
-    def _heads(self, g: GraphBatch, energies, graph, x_dense, key_mask):
+    def _heads(self, g: GraphBatch, energies, graph, x_dense, key_mask,
+               generator):
         """The global and system heads share transformer_self,
         transformer_source and out_layer; attention, LN and FFN act per
         batch element, so both heads run as ONE 2B-batch pass."""
@@ -200,10 +215,10 @@ class _DOSTransformerBase(nn.Module):
         both = torch.cat([dos_in_g, dos_in_s], 0)            # [2B, bins, h]
         kv = torch.cat([x_dense, x_dense], 0)
         km = torch.cat([key_mask, key_mask], 0) if key_mask is not None else None
-        both = self.transformer_self(both)
-        both = self.transformer_source(both, kv, kv, km)
+        both = self.transformer_self(both, generator=generator)
+        both = self.transformer_source(both, kv, kv, km, generator)
         # the outputs widen bf16 back to f32
-        both = self.out_layer(both)[..., 0].float()          # [2B, bins]
+        both = _out_dtype(self.out_layer(both)[..., 0])      # [2B, bins]
         return both[:b], both[b:]
 
 
@@ -218,20 +233,26 @@ class DOSTransformerEDOS(_DOSTransformerBase):
             lambda: GraphEncoderEDOS(node_in, edge_in, glob_in, hidden),
             lambda: GraphDecoderEDOS(hidden), **options)
 
-    def forward(self, g: GraphBatch):
+    def forward(self, g: GraphBatch,
+                generator: Optional[torch.Generator] = None):
+        """The three outputs; ``generator`` is the dropout stream of a
+        training step (used in training mode with ``attn_drop`` > 0)."""
         # the inputs in the compute dtype, as the JAX model casts them (also
         # features stored in bf16, a device dataset's bf16 storage)
         x, edge_attr, u = self.GN_encoder(
             *(t.to(self.cdtype) for t in (g.nodes, g.edges, g.glob)))
         return self._run(g, x, edge_attr,
-                         lambda x: self.GN_decoder(x, u, g.node_mask))
+                         lambda x: self.GN_decoder(x, u, g.node_mask),
+                         generator)
 
 
 class DOSTransformerPhDOS(_DOSTransformerBase):
     """phDOS flagship (51 bins, scatter-mean), serving and training. Node
     features are 118 atomic-mass rows; the 4 edge features are computed in
-    f32 from ``g.edge_vec`` with cutoff radius ``r_max``, then cast to the
-    compute dtype."""
+    f32 (f64 for f64 edge vectors, as the JAX model computes them under
+    x64) from ``g.edge_vec`` with cutoff radius ``r_max``, then cast to the
+    compute dtype. The scatter-mean's edge count is the segment-sum op (its
+    plain version in an f64 model: the f64 rule)."""
 
     _PROMPT = "prompt_token"
     EDGE_FEATURES = 4  # SH l<=1: 1x0e + 1x1o
@@ -245,9 +266,12 @@ class DOSTransformerPhDOS(_DOSTransformerBase):
             lambda: GraphDecoderPhDOS(hidden), **options)
         self.r_max = r_max
 
-    def forward(self, g: GraphBatch):
-        edge_attr = edge_geometry_phdos(g.edge_vec.float(), self.r_max)
+    def forward(self, g: GraphBatch,
+                generator: Optional[torch.Generator] = None):
+        """As :meth:`DOSTransformerEDOS.forward`."""
+        edge_attr = edge_geometry_phdos(_out_dtype(g.edge_vec), self.r_max)
         x, edge_attr = self.GN_encoder(g.nodes.to(self.cdtype),
                                        edge_attr.to(self.cdtype))
         return self._run(g, x, edge_attr,
-                         lambda x: self.GN_decoder(x, g.node_mask))
+                         lambda x: self.GN_decoder(x, g.node_mask),
+                         generator)

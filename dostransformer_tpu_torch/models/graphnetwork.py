@@ -20,6 +20,9 @@ reference's names (``GN_encoder``, ``stacked_processor.{i}``,
 ``GN_decoder.mlp.0``, ``out_layer.{0,2}``), so a reference state_dict loads.
 Parameters are created on the meta device, then placed on ``device`` and
 drawn from ``generator`` (nn/init.py).
+
+Each forward takes the Trainer's dropout ``generator`` and ignores it:
+these models have no dropout.
 """
 
 from __future__ import annotations
@@ -88,7 +91,8 @@ class GraphnetworkEDOS(_GraphnetworkBase):
             self.out_layer = readout_mlp(2 * hidden, hidden, 1)
         materialize_(self, device, generator)
 
-    def forward(self, g: GraphBatch):
+    def forward(self, g: GraphBatch,
+                generator: Optional[torch.Generator] = None):
         x, u = self._encode(g)
         graph = self.GN_decoder(x, u, g.node_mask)
         return energy_readout(self.embeddings, graph, self.out_layer), x
@@ -106,7 +110,8 @@ class Graphnetwork2EDOS(_GraphnetworkBase):
             self.out_layer = readout_mlp(2 * hidden, hidden, n_bins)
         materialize_(self, device, generator)
 
-    def forward(self, g: GraphBatch):
+    def forward(self, g: GraphBatch,
+                generator: Optional[torch.Generator] = None):
         x, u = self._encode(g)
         pooled = masked_node_pool(x, g.node_mask)
         return self.out_layer(torch.cat([pooled, u], -1)), x

@@ -14,6 +14,9 @@ Neither launches a kernel: they have no message passing, as in the JAX
 package. The edge encoder's parameters exist (the reference creates them)
 but its output is read by nothing, so it is not run; its gradient is
 zero in the JAX package and absent here, which AdamW treats alike.
+
+Each forward takes the Trainer's dropout ``generator`` and ignores it:
+these models have no dropout.
 """
 
 from __future__ import annotations
@@ -61,7 +64,8 @@ class MLPEDOS(_MLPBase):
             self.out_layer = readout_mlp(2 * hidden, hidden, 1)
         materialize_(self, device, generator)
 
-    def forward(self, g: GraphBatch):
+    def forward(self, g: GraphBatch,
+                generator: Optional[torch.Generator] = None):
         x, u = self._encode(g)
         graph = self.GN_decoder(x, u, g.node_mask)
         return energy_readout(self.embeddings, graph, self.out_layer)
@@ -78,7 +82,8 @@ class MLP2EDOS(_MLPBase):
             self.out_layer = readout_mlp(2 * hidden, hidden, n_bins)
         materialize_(self, device, generator)
 
-    def forward(self, g: GraphBatch):
+    def forward(self, g: GraphBatch,
+                generator: Optional[torch.Generator] = None):
         x, u = self._encode(g)
         pooled = masked_node_pool(x, g.node_mask)
         return self.out_layer(torch.cat([pooled, u], -1))

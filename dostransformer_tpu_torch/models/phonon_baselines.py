@@ -15,6 +15,9 @@ implements, noted in its docstring. Each returns dos [B, 51].
 
 Edge features from the edge vectors (SH l<=1 x smooth cutoff) are computed in
 f32 as the flagship computes them (ops/geometry.py).
+
+Each forward takes the Trainer's dropout ``generator`` and ignores it:
+these models have no dropout.
 """
 
 from __future__ import annotations
@@ -74,7 +77,8 @@ class GraphnetworkPhDOS(_GraphnetworkPhBase):
             self.out_layer = readout_mlp(2 * hidden, hidden, 1)
         materialize_(self, device, generator)
 
-    def forward(self, g: GraphBatch):
+    def forward(self, g: GraphBatch,
+                generator: Optional[torch.Generator] = None):
         graph = self.GN_decoder(self._encode(g), g.node_mask)
         return energy_readout(self.embeddings, graph, self.out_layer)
 
@@ -92,7 +96,8 @@ class Graphnetwork2PhDOS(_GraphnetworkPhBase):
             self.out_layer = readout_mlp(hidden, hidden // 2, n_bins)
         materialize_(self, device, generator)
 
-    def forward(self, g: GraphBatch):
+    def forward(self, g: GraphBatch,
+                generator: Optional[torch.Generator] = None):
         return self.out_layer(masked_node_pool(self._encode(g), g.node_mask))
 
 
@@ -129,7 +134,8 @@ class MLPPhDOS(nn.Module):
             self.out_layer = MLPBlock(2 * hidden, hidden, 1)
         materialize_(self, device, generator)
 
-    def forward(self, g: GraphBatch):
+    def forward(self, g: GraphBatch,
+                generator: Optional[torch.Generator] = None):
         encode = self.GN_encoder.node_encoder
         x = encode(g.nodes.float())
         z = encode(g.node_z.float())
@@ -154,6 +160,7 @@ class MLP2PhDOS(nn.Module):
             self.out_layer = readout_mlp(hidden, hidden, n_bins)
         materialize_(self, device, generator)
 
-    def forward(self, g: GraphBatch):
+    def forward(self, g: GraphBatch,
+                generator: Optional[torch.Generator] = None):
         x = self.GN_encoder.node_encoder(g.nodes.float())
         return self.out_layer(masked_node_pool(x, g.node_mask))

@@ -55,13 +55,14 @@ def build_model(task: str, embedder: str = "DOSTransformer", *,
     ``kwargs`` go to the model: padding, input widths, device, generator,
     the LayerNorm levers ``fuse_ln_attn`` and ``ln_lp``, and the flagships'
     fields of the JAX registry (the baselines take none of them): the
-    compute ``dtype`` ("float32" or "bfloat16"), ``use_fused_mp`` (None
-    auto, False the plain message-passing composition), ``tp_axis`` (the
-    mesh axis the transformer FFNs shard over), and the options that are
-    not ported yet (which raise). As in the JAX package, each
-    family is given only the arguments it takes: ``layers`` only where it
-    has processors, the transformer's only to the flagships, whose other
-    options raise where they are not ported."""
+    compute ``dtype`` ("float32", "bfloat16" or "float64"),
+    ``attn_drop`` (the attention dropout of the three stacks),
+    ``use_fused_mp`` (None auto, False the plain message-passing
+    composition), ``tp_axis`` (the mesh axis the transformer FFNs shard
+    over), and ``bins_pad``, which is not ported (it raises). As in the JAX
+    package, each family is given only the arguments it takes: ``layers``
+    only where it has processors, the transformer's only to the
+    flagships."""
     family = MODEL_REGISTRY.get(task.lower())
     if family is None:
         raise ValueError(f"unknown task {task!r}; choose from "

@@ -26,7 +26,9 @@ for CPU tensors the plain :func:`ln_bwd_reference`. Nothing else chooses the
 path. Both take a second operand form, the raw x with ``mean`` and rstd,
 for a caller that has no xhat in memory (the LayerNorm-fused attention's
 backward); :func:`layer_norm_lp`'s own backward keeps the saved xhat. f64
-operands stay f64 on the plain path; the kernel refuses them.
+operands stay f64 on the plain path; the kernel refuses them, and
+:class:`LayerNormLP` hands them to :func:`layer_norm` (the f64 rule,
+``ops/kernels.py takes_kernels``).
 """
 
 from __future__ import annotations
@@ -38,7 +40,6 @@ from torch import nn
 from dostransformer_tpu_torch.ops import kernels
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # constants of csrc/layernorm_bwd.cu: threads of a block, most blocks of a
 # cluster, most column blocks of a launch (while a slab is split)
 LN_BWD_THREADS, LN_BWD_CLUSTER, LN_BWD_COLUMN_BLOCKS = 256, 8, 132
@@ -142,7 +143,7 @@ def layer_norm_bwd(xhat: torch.Tensor, rstd: torch.Tensor,
     if not dy.is_cuda:
         raise ValueError("layer_norm_bwd: the kernel takes CUDA tensors; use "
                          "ln_bwd_reference on the CPU")
-    if dy.dtype not in _KERNEL_DTYPES:
+    if dy.dtype not in kernels.KERNEL_DTYPES:
         raise TypeError(f"layer_norm_bwd: dy is {dy.dtype}, the kernel takes "
                         f"float32 or bfloat16")
     d = dy.shape[-1]
@@ -219,7 +220,10 @@ def layer_norm_lp(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 class LayerNormLP(nn.LayerNorm):
     """:class:`LayerNorm`'s parameters and state_dict keys, normalising with
-    :func:`layer_norm_lp`."""
+    :func:`layer_norm_lp`; f64 operands with :func:`layer_norm` (the f64
+    rule, ops/kernels.py ``takes_kernels``: f64 statistics)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not kernels.takes_kernels(x.dtype):
+            return layer_norm(x, self.weight, self.bias, self.eps)
         return layer_norm_lp(x, self.weight, self.bias, self.eps)

@@ -14,8 +14,29 @@ Attention runs through :func:`~dostransformer_tpu_torch.ops.attention.
 fused_attention`: the CUDA kernels (forward and backward) on the card, their
 plain versions on the CPU. The shared LayerNorm of q, k and v is one module
 applied three times, so its parameter gradient sums the three uses; when k
-and v are one tensor, ln0 runs once for both. Attention dropout is not
-ported (ROADMAP.md queue 1 item 2); training runs without it.
+and v are one tensor, ln0 runs once for both.
+
+The JAX layer's other options, under its names (all off by default; none
+adds a parameter, so a state_dict loads into every setting):
+
+  * ``num_heads``: attention split into h heads as the JAX layer splits it,
+    ``[B, L, D] -> [B*h, L, D/h]`` with the heads inner and the key mask
+    repeated per head in that order, then merged back; each head is a call
+    of the attention kernels at D/h. One head is the reference's
+    projection-free attention.
+  * ``attn_dropout`` on the attention weights, ``res_dropout`` after the
+    attention (res_drop0) and after fc2 (res_drop1), ``relu_dropout`` after
+    the ReLU, and the stack's ``embed_dropout`` on its inputs (embed_drop on
+    the queries, embed_drop_k and embed_drop_v on the keys and values of a
+    cross-attention: two draws, so keys and values are then two tensors).
+    Dropout runs only in training mode and only with a generator handed to
+    the stack's forward: the masks are drawn from it (nn/dropout.py), each
+    layer's before the layer runs and handed in (:class:`LayerMasks`), so a
+    layer that ``remat`` recomputes in the backward sees its forward's
+    masks (``torch.utils.checkpoint`` would replay the draws from the
+    generator's later state). A call with attention dropout takes the plain
+    attention (:func:`~dostransformer_tpu_torch.ops.attention.
+    masked_attention`), as the JAX package does; without it the kernels.
 
 Two switches, both off by default, are the JAX package's LayerNorm levers
 (there read from ``DOSTPU_FUSE_LN_ATTN`` and ``DOSTPU_LN_LP`` /
@@ -24,7 +45,9 @@ the environment names, see ``cli/common.py``):
 
   * ``fuse_ln_attn``: layer_norms.0's weight and bias go into
     :func:`~dostransformer_tpu_torch.ops.attention.fused_attention_ln`, which
-    normalises q, k and v inside the attention forward kernel;
+    normalises q, k and v inside the attention forward kernel; taken, as in
+    the JAX layer, only with one head and no attention dropout in the call
+    (a dropout model's training steps run unfused, its eval fused);
   * ``ln_lp``: layer_norms.0, layer_norms.1 and the stack's final LayerNorm
     are :class:`~dostransformer_tpu_torch.nn.layernorm.LayerNormLP`, whose
     backward is the single-pass kernel on the card.
@@ -45,24 +68,32 @@ Unsharded, the layer computes the plain FFN.
 In a bf16 model the stack runs on bf16 activations: the FFN's weights are
 cast at use, the LayerNorms take f32 statistics and cast back, and the
 attention's scores and softmax are f32 (the bf16 forms of the attention
-forward kernels on the card).
+forward kernels on the card). f64 operands (an f64 model) take the plain
+attention and LayerNorm on every device, whatever the levers say (the f64
+rule, ops/kernels.py ``takes_kernels``, applied to the operands at each
+call): f64 LayerNorm statistics, the softmax at f32 unless
+``DOSTPU_SOFTMAX_WIDE=1``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from dostransformer_tpu_torch.nn.dropout import apply_keep, draw_keep, dropout
 from dostransformer_tpu_torch.nn.init import xavier_linear_
 from dostransformer_tpu_torch.nn.layernorm import LayerNorm, LayerNormLP
 from dostransformer_tpu_torch.nn.modules import linear
+from dostransformer_tpu_torch.ops.kernels import takes_kernels
 from dostransformer_tpu_torch.ops.attention import (
+    dot_product_attention,
     fused_attention,
     fused_attention_ln,
+    masked_attention,
 )
 from dostransformer_tpu_torch.parallel.megatron import (
     shard_parameter,
@@ -84,68 +115,167 @@ class XavierLinear(nn.Linear):
         return linear(x, self.weight, self.bias)
 
 
+class LayerMasks(NamedTuple):
+    """One layer's dropout keep masks for one call (None: no dropout
+    there): the attention weights [B*h, Lq, Lk], res_drop0 and res_drop1
+    [B, Lq, D], relu_drop [B, Lq, fc1's output features on this rank]."""
+
+    attn: Optional[torch.Tensor] = None
+    res0: Optional[torch.Tensor] = None
+    relu: Optional[torch.Tensor] = None
+    res1: Optional[torch.Tensor] = None
+
+
+def split_heads(t: torch.Tensor, h: int) -> torch.Tensor:
+    """[B, L, D] -> [B*h, L, D/h], heads inner (the JAX layer's split)."""
+    b, n, d = t.shape
+    return (t.reshape(b, n, h, d // h).transpose(1, 2)
+            .reshape(b * h, n, d // h))
+
+
+def merge_heads(t: torch.Tensor, h: int) -> torch.Tensor:
+    """The inverse of :func:`split_heads`: [B*h, L, D/h] -> [B, L, D]."""
+    bh, n, dh = t.shape
+    return (t.reshape(bh // h, h, n, dh).transpose(1, 2)
+            .reshape(bh // h, n, h * dh))
+
+
 class TransformerEncoderLayer(nn.Module):
     def __init__(self, embed_dim: int, fuse_ln_attn: bool = False,
-                 ln_lp: bool = False, tp_axis: Optional[str] = None):
+                 ln_lp: bool = False, tp_axis: Optional[str] = None, *,
+                 num_heads: int = 1, attn_dropout: float = 0.0,
+                 relu_dropout: float = 0.0, res_dropout: float = 0.0):
         super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
+                             f"num_heads {num_heads}")
         norm = LayerNormLP if ln_lp else LayerNorm
         self.fuse_ln_attn = fuse_ln_attn
+        self.num_heads = num_heads
+        self.attn_dropout = attn_dropout
+        self.relu_dropout = relu_dropout
+        self.res_dropout = res_dropout
         self.tp_axis = tp_axis
         self.tp_group = None  # set by shard_ffn_
         self.fc1 = XavierLinear(embed_dim, 4 * embed_dim)
         self.fc2 = XavierLinear(4 * embed_dim, embed_dim)
         self.layer_norms = nn.ModuleList([norm(embed_dim), norm(embed_dim)])
 
-    def forward(self, x, x_k, x_v, key_mask: Optional[torch.Tensor] = None):
+    def draw_masks(self, x: torch.Tensor, x_k: torch.Tensor,
+                   generator: torch.Generator) -> LayerMasks:
+        """This layer's keep masks for queries x [B, Lq, D] and keys x_k
+        [B, Lk, D], drawn from ``generator`` in a fixed order (attention,
+        res_drop0, relu_drop, res_drop1); None where the rate is 0."""
+        b, lq, d = x.shape
+        shapes = {"attn": (self.attn_dropout,
+                           (b * self.num_heads, lq, x_k.shape[1])),
+                  "res0": (self.res_dropout, (b, lq, d)),
+                  "relu": (self.relu_dropout,
+                           (b, lq, self.fc1.weight.shape[0])),
+                  "res1": (self.res_dropout, (b, lq, d))}
+        return LayerMasks(**{
+            name: draw_keep(shape, rate, generator, x.device)
+            for name, (rate, shape) in shapes.items() if rate > 0.0})
+
+    def _attend(self, q, k, v, key_mask, keep):
+        """Attention of q over (k, v), split into heads: the attention op,
+        or the plain attention for f64 operands (the f64 rule); with a keep
+        mask the plain attention with dropout (the masks are per head)."""
+        h = self.num_heads
+        if h > 1:
+            v = None if v is k else split_heads(v, h)
+            q, k = split_heads(q, h), split_heads(k, h)
+            v = k if v is None else v
+            if key_mask is not None:
+                key_mask = key_mask.repeat_interleave(h, dim=0)
+        if keep is None:
+            attention = (fused_attention if takes_kernels(q.dtype)
+                         else dot_product_attention)
+            a = attention(q, k, v, key_mask)
+        else:
+            a = masked_attention(q, k, v, key_mask, keep, self.attn_dropout)
+        return merge_heads(a, h) if h > 1 else a
+
+    def forward(self, x, x_k, x_v, key_mask: Optional[torch.Tensor] = None,
+                masks: Optional[LayerMasks] = None):
+        masks = masks or LayerMasks()
         ln0, ln1 = self.layer_norms
-        if self.fuse_ln_attn:
-            x = x + fused_attention_ln(x, x_k, x_v, ln0.weight, ln0.bias,
-                                       key_mask)
+        if (self.fuse_ln_attn and masks.attn is None
+                and self.num_heads == 1 and takes_kernels(x.dtype)):
+            # the JAX rule: LN-fused only without attention dropout in this
+            # call and with one head; never for f64 operands
+            a = fused_attention_ln(x, x_k, x_v, ln0.weight, ln0.bias,
+                                   key_mask)
         else:
             k = ln0(x_k)
             v = k if x_v is x_k else ln0(x_v)
-            x = x + fused_attention(ln0(x), k, v, key_mask)
+            a = self._attend(ln0(x), k, v, key_mask, masks.attn)
+        x = x + apply_keep(a, masks.res0, self.res_dropout)
         group = self.tp_group
         if group is None:
-            return x + self.fc2(F.relu(self.fc1(ln1(x))))
+            h = F.relu(self.fc1(ln1(x)))
+            h = self.fc2(apply_keep(h, masks.relu, self.relu_dropout))
+            return x + apply_keep(h, masks.res1, self.res_dropout)
         h = F.relu(self.fc1(tp_enter(ln1(x), group)))
+        h = apply_keep(h, masks.relu, self.relu_dropout)
         h = tp_exit(linear(h, self.fc2.weight, None), group)
-        return x + (h + self.fc2.bias.to(h.dtype))
+        h = h + self.fc2.bias.to(h.dtype)
+        return x + apply_keep(h, masks.res1, self.res_dropout)
 
 
 class TransformerEncoder(nn.Module):
     """Stack of TransformerEncoderLayers + final LayerNorm. k/v inputs are
     fixed across layers; with neither given the stack self-attends. With
     ``remat`` each layer is recomputed in the backward while gradients are
-    recorded."""
+    recorded. Dropout (the rates; see the module docstring) runs in
+    training mode when the forward is given a ``generator``."""
 
     def __init__(self, embed_dim: int, layers: int = 2,
                  fuse_ln_attn: bool = False, ln_lp: bool = False,
-                 remat: bool = False, tp_axis: Optional[str] = None):
+                 remat: bool = False, tp_axis: Optional[str] = None, *,
+                 num_heads: int = 1, attn_dropout: float = 0.0,
+                 relu_dropout: float = 0.0, res_dropout: float = 0.0,
+                 embed_dropout: float = 0.0):
         super().__init__()
         self.remat = remat
+        self.embed_dropout = embed_dropout
         self.layers = nn.ModuleList(
-            TransformerEncoderLayer(embed_dim, fuse_ln_attn, ln_lp, tp_axis)
+            TransformerEncoderLayer(
+                embed_dim, fuse_ln_attn, ln_lp, tp_axis, num_heads=num_heads,
+                attn_dropout=attn_dropout, relu_dropout=relu_dropout,
+                res_dropout=res_dropout)
             for _ in range(layers))
         self.layer_norm = (LayerNormLP if ln_lp else LayerNorm)(embed_dim)
 
     def forward(self, x_in, x_in_k=None, x_in_v=None,
-                key_mask: Optional[torch.Tensor] = None):
+                key_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         if (x_in_k is None) != (x_in_v is None):
             # one-sided k/v would silently degrade to full self-attention,
             # discarding the stream the caller DID supply
             raise ValueError("pass both x_in_k and x_in_v (cross-attention) "
                              "or neither (self-attention)")
-        x = x_in
-        x_k, x_v = (x, x) if x_in_k is None else (x_in_k, x_in_v)
+        if not self.training:
+            generator = None
+        rate = self.embed_dropout
+        x = dropout(x_in, rate, generator)  # embed_drop
+        if x_in_k is None:
+            x_k = x_v = x
+        else:  # embed_drop_k, embed_drop_v: two draws
+            x_k = dropout(x_in_k, rate, generator)
+            x_v = dropout(x_in_v, rate, generator)
         for layer in self.layers:
+            # drawn here, outside a recomputed call (see the module
+            # docstring)
+            masks = (None if generator is None
+                     else layer.draw_masks(x, x_k, generator))
             if self.remat and torch.is_grad_enabled():
                 # the layer keeps only its inputs and runs again in the
                 # backward (the JAX package's flax.linen.remat per layer)
-                x = checkpoint(layer, x, x_k, x_v, key_mask,
+                x = checkpoint(layer, x, x_k, x_v, key_mask, masks,
                                use_reentrant=False, preserve_rng_state=False)
             else:
-                x = layer(x, x_k, x_v, key_mask)
+                x = layer(x, x_k, x_v, key_mask, masks)
         return self.layer_norm(x)
 
 

@@ -44,12 +44,30 @@ The three attention kernels take every feature width D >= 1:
 :func:`attention_plan` is the Python mirror of how they split it (rows
 staged at ceil(D / 32) x 32 columns up to D = 512; above it blocks that each
 own a slice of 512 output columns).
+
+Dropout on the attention weights (the JAX package's ``dropout_rate`` and
+``dropout_rng``, here ``dropout_rate`` and an explicit ``torch.Generator``
+of :func:`dot_product_attention`) runs in the plain version only, as in the
+JAX package, whose ``fused_attention`` hands such a call to
+``dot_product_attention``: the kernels, their wrapper :func:`fused_attention`
+and the ``dostpu::`` ops take no mask. The keep mask ~ Bernoulli(1 - rate)
+over the [B, Lq, Lk] weights is drawn from the generator on the operands'
+device (nn/dropout.py) and applied after the softmax
+(:func:`masked_attention`, which takes the mask as an argument; the
+transformer layer draws its masks itself and calls it).
+
+The plain version reads ``DOSTPU_SOFTMAX_WIDE`` at each call, as the JAX
+package does: ``1`` runs the softmax at the scores' dtype (f64 for f64
+operands) instead of exactly f32. Only f64 operands see a difference.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
+from dostransformer_tpu_torch.nn.dropout import apply_keep, draw_keep
 from dostransformer_tpu_torch.nn.layernorm import ln_backward
 from dostransformer_tpu_torch.ops import kernels
 
@@ -67,11 +85,53 @@ def key_bias(key_mask: torch.Tensor) -> torch.Tensor:
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          key_mask: torch.Tensor | None = None) -> torch.Tensor:
+                          key_mask: torch.Tensor | None = None, *,
+                          dropout_rate: float = 0.0,
+                          generator: torch.Generator | None = None
+                          ) -> torch.Tensor:
     """q [B, Lq, D], k/v [B, Lk, D], key_mask [B, Lk] (True = attend) or
-    None -> [B, Lq, D] in q's dtype."""
+    None -> [B, Lq, D] in q's dtype. With ``dropout_rate`` > 0 and a
+    ``generator`` the weights are dropped out (:func:`masked_attention`
+    with a mask drawn from the generator)."""
+    if dropout_rate > 0.0 and generator is not None:
+        keep = draw_keep((q.shape[0], q.shape[1], k.shape[1]), dropout_rate,
+                         generator, q.device)
+        return masked_attention(q, k, v, key_mask, keep, dropout_rate)
     return biased_attention_reference(
         q, k, v, None if key_mask is None else key_bias(key_mask))
+
+
+def _softmax_dtype(acc: torch.dtype) -> torch.dtype:
+    """Exactly f32, or with ``DOSTPU_SOFTMAX_WIDE=1`` the scores' dtype
+    (read at each call)."""
+    return (acc if os.environ.get("DOSTPU_SOFTMAX_WIDE") == "1"
+            else torch.float32)
+
+
+def attention_weights(q: torch.Tensor, k: torch.Tensor,
+                      bias: torch.Tensor | None,
+                      key_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The softmax weights [B, Lq, Lk] in q's dtype: scores accumulated in
+    at least f32, plus the additive key bias [B, Lk] (None for no mask, as
+    the kernels take it), or with ``key_mask`` [B, Lk] the masked scores
+    replaced by NEG_INF (as the JAX package's plain version masks them: the
+    forward is the same, and no gradient reaches a masked key even in a row
+    whose keys are all masked); softmax at exactly f32 (see
+    :func:`_softmax_dtype`)."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    scale = q.shape[-1] ** -0.5
+    scores = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
+    if bias is not None:
+        scores = scores + bias[:, None, :].to(acc)
+    if key_mask is not None:
+        scores = torch.where(key_mask[:, None, :], scores, NEG_INF)
+    return torch.softmax(scores.to(_softmax_dtype(acc)), dim=-1).to(q.dtype)
+
+
+def _weighted_values(weights: torch.Tensor, v: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    acc = torch.promote_types(dtype, torch.float32)
+    return torch.matmul(weights.to(acc), v.to(acc)).to(dtype)
 
 
 def biased_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -80,13 +140,19 @@ def biased_attention_reference(q: torch.Tensor, k: torch.Tensor,
     """:func:`dot_product_attention` with the key mask given as its additive
     bias [B, Lk] (0 or NEG_INF; None for no mask), as the forward kernel
     takes it."""
-    acc = torch.promote_types(q.dtype, torch.float32)
-    scale = q.shape[-1] ** -0.5
-    scores = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
-    if bias is not None:
-        scores = scores + bias[:, None, :].to(acc)
-    weights = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
-    return torch.matmul(weights.to(acc), v.to(acc)).to(q.dtype)
+    return _weighted_values(attention_weights(q, k, bias), v, q.dtype)
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     key_mask: torch.Tensor | None, keep: torch.Tensor,
+                     rate: float) -> torch.Tensor:
+    """The plain attention with dropout on its weights, given the keep mask
+    ``keep`` [B, Lq, Lk] (bool): ``where(keep, w / (1 - rate), 0)`` on the
+    weights w in q's dtype, then the weighted sum of v, as the JAX
+    package's ``dot_product_attention`` computes it for a mask it drew.
+    Differentiable in q, k and v (plain PyTorch on either device)."""
+    weights = attention_weights(q, k, None, key_mask)
+    return _weighted_values(apply_keep(weights, keep, rate), v, q.dtype)
 
 
 def attention_stats_reference(q: torch.Tensor, k: torch.Tensor,
@@ -312,8 +378,8 @@ class _FusedAttention(torch.autograd.Function):
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Same contract as :func:`dot_product_attention`, differentiable in q,
-    k and v.
+    """Same contract as :func:`dot_product_attention` without dropout,
+    differentiable in q, k and v.
 
     CUDA tensors go through the kernels (float32, or the forward's bf16
     form for bf16 operands; contiguous, any D >= 1; anything else raises),
@@ -353,7 +419,7 @@ def _fused_attention_ln_fwd(x, x_k, x_v, ln_scale, ln_bias, key_mask):
     b, lq, d = x.shape
     lk = x_k.shape[1]
     attention_plan(d)
-    if x.dtype not in (torch.float32, torch.bfloat16):
+    if x.dtype not in kernels.KERNEL_DTYPES:
         raise TypeError(f"fused_attention_ln: x is {x.dtype}, the kernel "
                         f"takes float32 or bfloat16")
     operands = {"x": (x, x.dtype, (b, lq, d)), "x_k": (x_k, x.dtype,

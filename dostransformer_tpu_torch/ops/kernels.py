@@ -27,6 +27,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("runtime.cu", "fused_mp.cu", "fused_mp_bwd.cu", "attention.cu",
@@ -163,6 +165,21 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+# the operand dtypes the kernels take: f32 and bf16, no f64
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def takes_kernels(dtype: torch.dtype) -> bool:
+    """The f64 rule, in one place: operands of ``dtype`` go to the kernel
+    ops (f32, bf16: the kernels on the card, their plain versions on the
+    CPU) or, for any other dtype (f64, the JAX package's ``use_pallas=False``
+    parity mode), to the plain functions on every device. The layers apply
+    it to their operands at each call (nn/modules.py, nn/transformer.py,
+    nn/layernorm.py); the ops' public entries keep refusing f64 on the
+    card."""
+    return dtype in KERNEL_DTYPES
 
 
 def require(kernel: str, arg: str, t, *, device, dtype, shape) -> None:

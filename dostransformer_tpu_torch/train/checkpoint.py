@@ -3,9 +3,11 @@
 Counterpart of dostransformer_tpu/train/checkpoint.py (orbax there, torch
 files here). The reference never saves its model; a training run of the
 port leaves checkpoints that carry the model's ``state_dict``, AdamW's
-moments (``mu`` bf16, ``nu`` f32) and step count, the epoch and the
-:class:`BestTracker`, so a run that stops (a crash, a preemption) resumes
-where it stopped, and a server loads what it trained.
+moments (``mu`` bf16, ``nu`` f32) and step count, the epoch, the
+:class:`BestTracker` and the state of the Trainer's dropout stream (a CPU
+``torch.Generator``, the JAX package's ``TrainState.rng``), so a run that
+stops (a crash, a preemption) resumes where it stopped, and a server loads
+what it trained.
 
 A directory holds ``checkpoint_<step>.pt`` files, the newest
 ``max_to_keep`` of them. The best-validation model is kept apart under
@@ -96,9 +98,11 @@ class CheckpointManager:
 
     def save(self, epoch: int, model: torch.nn.Module, optimizer=None,
              tracker: Optional[BestTracker] = None, wait: bool = False,
-             epoch_meta: Optional[int] = None) -> bool:
-        """Checkpoint the model, the optimizer (an ``AdamW``) and the
-        tracker at step ``epoch``.
+             epoch_meta: Optional[int] = None,
+             rng: Optional[torch.Generator] = None) -> bool:
+        """Checkpoint the model, the optimizer (an ``AdamW``), the tracker
+        and the state of ``rng`` (a CPU generator, the same on every rank:
+        the Trainer's ``dropout_rng``) at step ``epoch``.
 
         The tensors are copied to the host here, at the epoch boundary, so
         training may go on at once; the file is written on a background
@@ -124,6 +128,7 @@ class CheckpointManager:
                       for k, v in model.state_dict().items()},
             "optimizer": None,
             "tracker": tracker.to_dict() if tracker is not None else None,
+            "rng": rng.get_state() if rng is not None else None,
         }
         if optimizer is not None:
             opt = optimizer.state_dict()
@@ -172,12 +177,15 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, model: torch.nn.Module, optimizer=None,
-                epoch: Optional[int] = None):
+                epoch: Optional[int] = None,
+                rng: Optional[torch.Generator] = None):
         """Load the checkpoint at step ``epoch`` (default: the latest) into
         ``model`` and ``optimizer`` in place, onto the devices their tensors
-        lie on. Returns (epoch, tracker), the epoch being the saved
-        ``epoch_meta`` where one was given and the tracker None where none
-        was saved; None when the directory holds no checkpoint."""
+        lie on, and the saved generator state into ``rng`` (left as it is
+        where the checkpoint holds none). Returns (epoch, tracker), the
+        epoch being the saved ``epoch_meta`` where one was given and the
+        tracker None where none was saved; None when the directory holds no
+        checkpoint."""
         self.wait_until_finished()
         if epoch is None:
             epoch = self.latest_epoch()
@@ -201,6 +209,8 @@ class CheckpointManager:
                     for m, p in zip(opt[name].split(sizes),
                                     optimizer.params)])
             optimizer.load_state_dict(opt)
+        if rng is not None and state.get("rng") is not None:
+            rng.set_state(state["rng"])
         tracker = (BestTracker.from_dict(state["tracker"])
                    if state["tracker"] is not None else None)
         return state["epoch"], tracker

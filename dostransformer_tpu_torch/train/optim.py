@@ -35,6 +35,14 @@ model's norm and the replicated parameters stay equal across ranks); ``warmup_st
 ``scale_by_learning_rate`` reads its own count. The schedule depends on the
 count alone, which :meth:`AdamW.state_dict` saves with the moments, so a
 resumed run continues it.
+
+``x64`` is what the JAX package's ``--x64`` (``jax_enable_x64``) does to
+optax: the scalars that optax derives from the int32 step count where JAX
+then promotes to its default float, the bias corrections ``1 - b^t`` and
+the cosine decay, are computed in float64 and rounded to f32 where they
+meet the f32 moments (the linear warmup divides int32 by an int, which
+stays f32 under x64 too); without it they are f32 throughout. The moments,
+parameters and gradients stay f32 either way.
 """
 
 from __future__ import annotations
@@ -51,33 +59,41 @@ B1, B2, EPS = 0.9, 0.999, 1e-8  # torch's and optax's AdamW defaults
 
 
 def learning_rate(count: int, lr: float, warmup_steps: int = 0,
-                  cosine_decay_steps: int = 0) -> float:
+                  cosine_decay_steps: int = 0, x64: bool = False) -> float:
     """The learning rate of the step taken at optimizer count ``count``
     (0 for the first step), computed in float32 as the JAX package's optax
-    schedules compute it: with ``cosine_decay_steps`` optax's
+    schedules compute it (the cosine decay in float64 and then rounded to
+    f32 with ``x64``): with ``cosine_decay_steps`` optax's
     ``warmup_cosine_decay_schedule(0 or lr, lr, warmup_steps, warmup_steps
     + cosine_decay_steps, end_value=0)``; with ``warmup_steps`` alone
     ``join_schedules([linear_schedule(0, lr, warmup_steps),
     constant_schedule(lr)], [warmup_steps])``; else ``lr``."""
     f32 = np.float32
-    c = f32(count)
-    if cosine_decay_steps:
-        if warmup_steps and count < warmup_steps:
-            return float(f32(-lr) * (f32(1) - c / f32(warmup_steps))
-                         + f32(lr))
-        t = np.minimum(c - f32(warmup_steps), f32(cosine_decay_steps))
-        cosine = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * t
-                                             / f32(cosine_decay_steps)))
-        return float(f32(lr) * cosine)
     if warmup_steps and count < warmup_steps:
-        return float(f32(-lr) * (f32(1) - c / f32(warmup_steps)) + f32(lr))
+        return float(f32(-lr) * (f32(1) - f32(count) / f32(warmup_steps))
+                     + f32(lr))
+    if cosine_decay_steps:
+        f = np.float64 if x64 else f32
+        t = np.minimum(f(count) - f(warmup_steps), f(cosine_decay_steps))
+        cosine = f(0.5) * (f(1) + np.cos(f(np.pi) * t
+                                         / f(cosine_decay_steps)))
+        return float(f32(f(lr) * cosine))
     return lr
+
+
+def bias_correction(decay: float, count: int, x64: bool = False) -> float:
+    """optax's ``1 - decay**count`` as the f32 that divides the moment: in
+    f32, or with ``x64`` in f64 and then rounded to f32."""
+    if x64:
+        return float(np.float32(1.0 - decay ** count))
+    return float(np.float32(1) - np.float32(decay) ** np.int32(count))
 
 
 class AdamW:
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float = 1e-4,
                  weight_decay: float = 1e-2, *, grad_clip: float = 0.0,
-                 warmup_steps: int = 0, cosine_decay_steps: int = 0):
+                 warmup_steps: int = 0, cosine_decay_steps: int = 0,
+                 x64: bool = False):
         self.params = [p for p in params if p.requires_grad]
         if not self.params:
             raise ValueError("AdamW needs at least one parameter")
@@ -92,6 +108,7 @@ class AdamW:
         self.grad_clip = grad_clip
         self.warmup_steps, self.cosine_decay_steps = (warmup_steps,
                                                       cosine_decay_steps)
+        self.x64 = x64
         # the decay as optax applies it to a bf16 moment (see above)
         self._b1_mu = float(torch.tensor(B1, dtype=torch.bfloat16))
         self.step_count = 0  # optax's integer count
@@ -175,12 +192,11 @@ class AdamW:
             g = torch.where(norm < self.grad_clip, g,
                             g / norm * self.grad_clip)
         lr = learning_rate(self.step_count, self.lr, self.warmup_steps,
-                           self.cosine_decay_steps)
+                           self.cosine_decay_steps, self.x64)
         self.step_count += 1
         t = self.step_count
-        # bias corrections in f32, as optax computes 1 - decay**count
-        bc1 = float(np.float32(1) - np.float32(B1) ** np.int32(t))
-        bc2 = float(np.float32(1) - np.float32(B2) ** np.int32(t))
+        bc1 = bias_correction(B1, t, self.x64)
+        bc2 = bias_correction(B2, t, self.x64)
         mu = (1 - B1) * g + self._b1_mu * self.mu.float()
         nu = (1 - B2) * (g * g) + B2 * self.nu
         u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
@@ -194,12 +210,15 @@ class AdamW:
 
 def make_adamw(params: Iterable[torch.nn.Parameter], lr: float = 1e-4,
                weight_decay: float = 1e-2, *, grad_clip: float = 0.0,
-               warmup_steps: int = 0, cosine_decay_steps: int = 0) -> AdamW:
+               warmup_steps: int = 0, cosine_decay_steps: int = 0,
+               x64: bool = False) -> AdamW:
     """The JAX package's `make_adamw`, bound to ``params``: its defaults
     and its fine-tuning extensions (``grad_clip`` > 0 clips to that global
     norm first; ``warmup_steps`` > 0 warms the rate up linearly from 0;
     ``cosine_decay_steps`` > 0 decays it to 0 over the steps after the
-    warmup). Horizons are optimizer steps; a negative value raises."""
+    warmup). Horizons are optimizer steps; a negative value raises.
+    ``x64`` computes the step-count scalars as optax does under
+    ``jax_enable_x64`` (see the module docstring)."""
     return AdamW(params, lr=lr, weight_decay=weight_decay,
                  grad_clip=grad_clip, warmup_steps=warmup_steps,
-                 cosine_decay_steps=cosine_decay_steps)
+                 cosine_decay_steps=cosine_decay_steps, x64=x64)

@@ -41,6 +41,23 @@ its parameters, their gradients and the optimizer state stay f32, the
 activations are bf16, and on the card its backward runs the bf16 forms of
 the message-passing and attention backward kernels (the plain versions on
 the CPU). A step recomputes nothing in f32 that the forward ran in bf16.
+An f64 model (``dtype="float64"``) runs its forward, its loss and its
+backward in f64 (f64 outputs against f32 targets, as the JAX package's x64
+runs do) through the plain functions; the gradients reach the f32
+parameters in f32.
+
+The dropout stream (the JAX package's ``TrainState.rng``): the Trainer
+keeps one CPU generator seeded from ``seed``, the same on every rank. Each
+train step draws one seed per 'data' rank from it, reseeds a generator on
+the model's device with this rank's and hands it to the model's forward,
+which draws its masks from it (a model with dropout, in training mode
+only; eval and serving stay deterministic; a model without dropout takes
+it and ignores it). So each 'data' rank
+draws its own masks, as the JAX step folds in ``axis_index("data")``, and
+the 'model' ranks of one data rank draw the same masks (their activations
+are replicated; different masks would let the replicated parameters drift
+apart). The CPU generator's state (:attr:`Trainer.dropout_rng`) goes into
+checkpoints, so a resumed run draws what the uninterrupted one drew.
 """
 
 from __future__ import annotations
@@ -72,7 +89,7 @@ class Trainer:
     def __init__(self, model: torch.nn.Module,
                  optimizer: Optional[AdamW] = None, beta: float = 1.0,
                  clamp_targets: bool = True, eval_clamp: bool = True,
-                 mesh=None):
+                 mesh=None, seed: int = 0):
         self.mesh = mesh
         self.data_group, self.n_data, self.data_index = axis_info(mesh,
                                                                   "data")
@@ -99,6 +116,16 @@ class Trainer:
         self.clamp_targets = clamp_targets  # eDOS clamps train targets
         self.eval_clamp = eval_clamp        # eDOS `test` clamps, phDOS not
         self.device = next(model.parameters()).device
+        # the dropout stream (see the module docstring)
+        self.dropout_rng = torch.Generator().manual_seed(seed)
+        self._step_rng = torch.Generator(self.device)
+
+    def _dropout_generator(self) -> torch.Generator:
+        """This step's dropout generator on the model's device, reseeded
+        from the stream."""
+        seeds = torch.randint(0, 2 ** 62, (self.n_data,),
+                              generator=self.dropout_rng)
+        return self._step_rng.manual_seed(int(seeds[self.data_index]))
 
     def _check_batch(self, batch_size: int) -> None:
         """A global batch must split evenly over the 'data' ranks."""
@@ -137,7 +164,8 @@ class Trainer:
         if self.data_group is not None:
             count = batch.graph_mask.to(torch.float32).sum()
             dist.all_reduce(count, group=self.data_group)
-        dos_global, _, dos_system = model_outputs(self.model(batch))
+        dos_global, _, dos_system = model_outputs(
+            self.model(batch, generator=self._dropout_generator()))
         loss, parts = dos_loss(dos_global, dos_system, batch.y,
                                batch.graph_mask, self.beta,
                                self.clamp_targets, count=count)

@@ -264,15 +264,20 @@ def test_bf16_model_keeps_f32_parameters():
                    for p in ports["bfloat16"].parameters())
 
 
-@pytest.mark.parametrize("dtype,error", [("float64", NotImplementedError),
+@pytest.mark.parametrize("dtype,error", [("float64", None),
                                          ("bf16", ValueError),
                                          ("float16", ValueError)])
 def test_dtypes_the_model_refuses(dtype, error):
-    """float64 is still to be ported (ROADMAP queue 1 item 5); an unknown
-    name raises as the JAX model does."""
-    match = "item 5" if error is NotImplementedError else "unknown dtype"
+    """float64 (ported) builds, with f32 parameters, and computes in f64;
+    an unknown name raises as the JAX model does."""
     for task in TASKS:
-        with pytest.raises(error, match=match):
+        if error is None:
+            model = build_model(task, hidden=H, layers=1, t_layers=1,
+                                dtype=dtype)
+            assert model.cdtype == torch.float64
+            assert all(p.dtype == torch.float32 for p in model.parameters())
+            continue
+        with pytest.raises(error, match="unknown dtype"):
             build_model(task, hidden=H, layers=1, t_layers=1, dtype=dtype)
 
 

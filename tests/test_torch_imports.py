@@ -33,6 +33,7 @@ MODULES = [
     "dostransformer_tpu_torch.native",
     "dostransformer_tpu_torch.native.build",
     "dostransformer_tpu_torch.nn.init",
+    "dostransformer_tpu_torch.nn.dropout",
     "dostransformer_tpu_torch.nn.layernorm",
     "dostransformer_tpu_torch.nn.modules",
     "dostransformer_tpu_torch.nn.transformer",

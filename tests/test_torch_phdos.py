@@ -419,15 +419,21 @@ def test_phdos_state_dicts(jax_model, tmp_path):
 
 def test_registry_builds_phdos_and_unported_options_raise():
     """Both names build; tp_axis (ported) builds the whole model; f64
-    phDOS (not ported) raises with its ROADMAP item."""
+    phDOS (ported) builds and returns f64 from the f32 weights; bins_pad
+    (the do-not-port list) raises."""
     for name in ("DOSTransformer", "dostransformer_phonon"):
         m = build_model("phdos", name, layers=1, t_layers=1, hidden=H)
         assert isinstance(m, DOSTransformerPhDOS) and m.n_bins == 51
     m = build_model("phdos", hidden=H, layers=1, t_layers=1, tp_axis="model")
     assert m.tp_axis == "model"
     assert m.transformer.layers[0].fc1.weight.shape == (4 * H, H)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        build_model("phdos", hidden=H, layers=1, t_layers=1, dtype="float64")
+    m64 = build_model("phdos", hidden=H, layers=1, t_layers=1,
+                      dtype="float64")
+    _, tb = _batches()
+    with torch.inference_mode():
+        assert all(t.dtype == torch.float64 for t in m64(tb))
+    with pytest.raises(NotImplementedError, match="do-not-port"):
+        build_model("phdos", hidden=H, layers=1, t_layers=1, bins_pad=64)
 
 
 # --- host data ----------------------------------------------------------
@@ -596,10 +602,12 @@ def test_main_phdos_trains_from_a_csv(tmp_path):
                                    str(tmp_path / "missing")))
 
 
-def test_main_phdos_rejects_x64_with_its_roadmap_entry(capsys):
-    with pytest.raises(SystemExit):
-        main_phdos.main(["--synthetic", "8", "--x64"])
-    assert "f64 phDOS" in capsys.readouterr().err
+def test_main_phdos_rejects_x64_with_its_roadmap_entry(tmp_path):
+    """--x64 is ported: main_phdos --x64 trains (finite losses and test
+    metrics; tests/test_torch_f64.py holds it against the JAX CLI)."""
+    result = main_phdos.main(_small_run(tmp_path, "--synthetic", "12",
+                                        "--x64"))
+    assert all(np.isfinite(v) for v in result["test"].values())
 
 
 _BLOCKED_RUN = """
