@@ -7,13 +7,16 @@ The eDOS flagship:
 
   1. the device: torch's name for it and nvidia-smi's name and power limit;
   2. build the CUDA kernels from dostransformer_tpu_torch/csrc with nvcc
-     (one nvcc per source, all at once), and print the registers a thread
-     and the stack bytes of the attention kernels at the flagship width and
-     of every message-passing kernel (cuobjdump -res-usage on the built
-     library), and of the two LayerNorm-lever kernels, whose stack must be
-     0, and of the sliced attention kernels (D > 512); the port's copy of
-     the attention kernels' plan by width (attention_plan) is held equal to
-     the library's;
+     (one nvcc per source, all at once; the seconds printed), and print the
+     registers a thread and the stack bytes of the attention kernels by
+     form (online at the flagship width, rows, sliced) and of every
+     message-passing kernel (cuobjdump -res-usage on the built library),
+     and of the two LayerNorm-lever kernels, whose stack must be 0; the
+     port's copy of the attention kernels' plan (attention_plan: the form
+     and the staging by D, Lk and dtype) is held equal to the library's at
+     the rule's boundaries (D 512 / 513, Lk 32 / 33, 95 / 96 and 256 / 257,
+     both dtypes); each attention comparison below prints the form its call
+     takes;
   3. each forward kernel against its plain PyTorch version on the card at
      the shapes the flagship eDOS forward gives it (f32, TF32 off),
      including a short batch whose dummy graph has every key masked; max
@@ -299,10 +302,10 @@ geometry, the warm-up and the capture):
      (device time over the wall time of the same profiled call);
   35. main_predict --export from a checkpoint (eDOS and phDOS): the
      program's dostpu ops (3 fused_mp_edge_fwd, 6 attention_fwd, phDOS also
-     3 segment_sum) and the artifact's size; main_predict --from_exported in
-     a fresh process, which must import no module of models/ or train/ (nor
-     jax) and write the live Predictor's predictions at the artifact's
-     geometry; the artifact served in this process eagerly (exact launches a
+     3 segment_sum) and the artifact's size; main_predict --from_exported of
+     both artifacts in one fresh process, which must import no module of
+     models/ or train/ (nor jax) and write the live Predictor's predictions
+     at each artifact's geometry; the artifact served in this process eagerly (exact launches a
      batch) and through its one graph (exactly two forwards: warm-up and
      capture); an artifact exported on the CPU served on the card
      (move_to_device_pass);
@@ -314,20 +317,22 @@ geometry, the warm-up and the capture):
      and p50 / p99 latency; the servers' launches exactly two forwards for
      each graph their predictors captured.
 
-Data and tensor parallelism (parallel/; each run a process of its own,
+Data and tensor parallelism (parallel/; the ranks processes of their own,
 started through torchrun --standalone; every reading beside the card's
-name and power limit):
+name and power limit; the seconds of phases 35-38 printed at the end):
 
   37. main_edos at the flagship width (48 learnable samples, 2 epochs, batch
-     8) through the real NCCL process group on one card: torchrun
-     --nproc_per_node 1 with --data_parallel, then with --data_parallel
-     --tensor_parallel 1, against the same run without the flags: epoch
-     losses bit-equal, the same launches; wall ms a train step (evals
-     included) of each; DP x 2 on NCCL, one card a rank, where a second
-     card is visible (skipped, and said so, on one);
+     8) through the real NCCL process group on one card: one torchrun
+     --nproc_per_node 1 world whose rank runs it first without the flags
+     (outside the process group), then with --data_parallel, then with
+     --data_parallel --tensor_parallel 1: epoch losses bit-equal, the same
+     launches; wall ms a train step (evals included) of each; DP x 2 on
+     NCCL, one card a rank, where a second card is visible (skipped, and
+     said so, on one);
   38. several ranks sharing the one card, joined with gloo
-     (initialize_multihost(backend="gloo")): DP x 2, TP x 2 and dp x tp
-     2 x 2 (4 processes) each take 3 Trainer steps at full width on the
+     (initialize_multihost(backend="gloo")): DP x 2 and TP x 2 (one world
+     of 2 processes, one after the other) and dp x tp 2 x 2 (4 processes)
+     each take 3 Trainer steps at full width on the
      global batches of one process (21 learnable samples at batch 8, the
      last batch 5 real graphs); every rank launches exactly the single
      process's kernels #1-#4; losses within rtol 1e-5, the first step's
@@ -474,6 +479,7 @@ from dostransformer_tpu_torch.nn.layernorm import (  # noqa: E402
 )
 from dostransformer_tpu_torch.ops import kernels  # noqa: E402
 from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
+    FORMS as ATTENTION_FORMS,
     attention_bwd_reference,
     attention_plan,
     attention_stats_reference,
@@ -533,14 +539,27 @@ PH_BINS = 51
 KERNELS = (fused_mp_edge, fused_attention, fused_mp_edge_bwd,
            fused_attention_bwd, batched_segment_sum, fused_attention_ln,
            layer_norm_bwd)
-# the __global__ functions behind the two attention wrappers, by width
-ATTENTION_KERNELS = {"fused_attention": ("attn_fwd_kernel",
-                                         "attn_fwd_sliced_kernel"),
-                     "fused_attention_bwd": ("stats_kernel", "dq_kernel",
-                                             "dkv_kernel",
-                                             "stats_sliced_kernel",
-                                             "dq_sliced_kernel",
-                                             "dkv_sliced_kernel")}
+# the __global__ functions behind the two attention wrappers, by form
+# (ops/attention.py attention_plan: online f32 up to D = 512, rows bf16 and
+# f32 above D = 512 up to 256 keys, sliced past them)
+FORM_KERNELS = {
+    "fused_attention": {"online": ("attn_fwd_kernel",),
+                        "rows": ("attn_fwd_rows_kernel",),
+                        "sliced": ("attn_fwd_sliced_kernel",)},
+    "fused_attention_bwd": {"online": ("stats_kernel", "dq_kernel",
+                                       "dkv_kernel"),
+                            "rows": ("dq_rows_kernel", "dkv_rows_kernel"),
+                            "sliced": ("stats_sliced_kernel",
+                                       "dq_sliced_kernel",
+                                       "dkv_sliced_kernel")}}
+ATTENTION_KERNELS = {name: tuple(k for ks in forms.values() for k in ks)
+                     for name, forms in FORM_KERNELS.items()}
+# the rows form's kernels, one instantiation an operand type
+ROWS_KERNELS = {f"{k}<{label}>": f"{k}I{mangled}E"
+                for k in FORM_KERNELS["fused_attention"]["rows"]
+                + FORM_KERNELS["fused_attention_bwd"]["rows"]
+                for label, mangled in (("float", "f"),
+                                       ("bf16", "13__nv_bfloat16"))}
 # the sliced forms (D > 512), instantiated at 16 column groups
 SLICED_KERNELS = {
     "attn_fwd_sliced_kernel": "attn_fwd_sliced_kernelIfLi16E",
@@ -680,14 +699,17 @@ def nbytes(*tensors) -> int:
 
 
 def compare(name, kernel_fn, plain_fn, rtols=None, repeat=False, work=None,
-            library_fn=None, floor=1.0, flops_per_s=F32_FLOPS_PER_S):
+            library_fn=None, floor=1.0, flops_per_s=F32_FLOPS_PER_S,
+            form=None):
     """Run kernel and plain version on the same inputs; each output must be
     within its rtol (default KERNEL_RTOL) x max(floor, max|plain|); with
     ``repeat`` a second kernel run must give the same bits. ``work`` is
     (bytes moved, operations) for these inputs, the operations at
     ``flops_per_s`` (f32 outside the tensor cores unless given); ``library_fn`` the one
-    PyTorch call that computes the same function. Returns a dict: err, rel,
-    ms, plain_ms, bytes_ms, ops_ms (the two lower bounds), library_ms."""
+    PyTorch call that computes the same function; ``form`` the attention
+    kernels' form the call takes (attention_plan), recorded. Returns a
+    dict: err, rel, ms, plain_ms, bytes_ms, ops_ms (the two lower bounds),
+    library_ms (and form)."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -716,6 +738,8 @@ def compare(name, kernel_fn, plain_fn, rtols=None, repeat=False, work=None,
     out = {"err": abs_err, "rel": rel_err, "ms": median_ms(kernel_fn),
            "plain_ms": median_ms(plain_fn), "bytes_ms": 0.0, "ops_ms": 0.0,
            "library_ms": None}
+    if form is not None:
+        out["form"] = form
     if work is not None:
         out["bytes_ms"] = work[0] / HBM_BYTES_PER_S * 1e3
         out["ops_ms"] = work[1] / flops_per_s * 1e3
@@ -726,7 +750,8 @@ def compare(name, kernel_fn, plain_fn, rtols=None, repeat=False, work=None,
     bound = ("" if work is None else
              f"; bound {max(out['bytes_ms'], out['ops_ms']):.4f} ms "
              f"({work[0] / 1e6:.2f} MB, {work[1] / 1e9:.3f} GFLOP)")
-    print(f"  {name}: max abs err {abs_err:.3e}, rel {rel_err:.3e} "
+    print(f"  {name}{f' ({form} form)' if form else ''}: max abs err "
+          f"{abs_err:.3e}, rel {rel_err:.3e} "
           f"(tol {'/'.join(map(str, sorted(set(rtols))))} rel)"
           f"{', repeats bit-identically' if repeat else ''}; kernel "
           f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms{lib} (median "
@@ -761,7 +786,7 @@ def per_forward(per_shape):
             out[k] = statistics.mean(r[k] for r in runs)
     out["by_shape"] = {label: {k: r[k] for k in (
         "ms", "plain_ms", "library_ms", "ms_two_tensors", "ms_op",
-        "ms_no_stats", *MP_EXTRAS) if k in r}
+        "ms_no_stats", "form", *MP_EXTRAS) if k in r}
         | {"bound_ms": max(r["bytes_ms"], r["ops_ms"]), "max_abs_err": r["err"]}
         for label, r in per_shape.items()}
     return out
@@ -1029,7 +1054,8 @@ def phase_kernels(dev):
             lambda: fused_attention_fwd(q, k, v, bias)[0],
             lambda: dot_product_attention(q, k, v, km),
             work=attention_work(bb, lq, lk, HIDDEN, (q, k, v, bias), (q,)),
-            library_fn=lambda: sdpa(q, k, v, bias))
+            library_fn=lambda: sdpa(q, k, v, bias),
+            form=attention_plan(HIDDEN, lk).form)
         check_attention_forward(f"fused_attention[{label}]", q, k, km, bias,
                                 per_shape[label])
     out["fused_attention"] = per_forward(per_shape)
@@ -1078,7 +1104,8 @@ def phase_backward_kernels(dev):
             lambda: attention_bwd_reference(q, k, v, bias, go), repeat=True,
             work=attention_work(bb, lq, lk, HIDDEN, (q, k, v, bias, o, go),
                                 (q, k, v), True),
-            library_fn=sdpa_backward(q, k, v, bias, go))
+            library_fn=sdpa_backward(q, k, v, bias, go),
+            form=attention_plan(HIDDEN, lk).form)
         check_attention_backward(
             f"fused_attention_bwd[{label}]", q, k, bias, o, go, stats,
             fused_attention_bwd(q, k, v, bias, o, go, stats),
@@ -1720,7 +1747,24 @@ def phase_attention_ln_kernel(dev):
         if timed:
             out["ms_bf16"] = median_ms(
                 lambda: fused_attention_ln(xb, xkb, xvb, lns, lnb, km))
-            line += f", {out['ms_bf16']:.4f} ms"
+            # the bf16 bound (bf16 bytes; operations at the bf16 tensor-core
+            # peak) and the library call on the same bf16 inputs
+            bytes_b = nbytes(xb, xkb, xvb, lns, lnb, bias) + nbytes(xb)
+            out["bound_ms_bf16"] = 1e3 * max(bytes_b / HBM_BYTES_PER_S,
+                                             work[1] / BF16_FLOPS_PER_S)
+            lns_b, lnb_b = lns.bfloat16(), lnb.bfloat16()
+            ln_b = lambda t: F.layer_norm(t, (HIDDEN,), lns_b, lnb_b, 1e-5)
+
+            def norms_b():
+                q = ln_b(xb)
+                k = q if xkb is xb else ln_b(xkb)
+                return q, k, (k if xvb is xkb else ln_b(xvb))
+
+            out["library_ms_bf16"] = median_ms(
+                lambda: sdpa(*norms_b(), bias.bfloat16()))
+            line += (f", {out['ms_bf16']:.4f} ms; bf16 bound "
+                     f"{out['bound_ms_bf16']:.5f} ms, F.layer_norm + SDPA "
+                     f"in bf16 {out['library_ms_bf16']:.4f} ms")
         print(line)
         return out
 
@@ -1738,11 +1782,14 @@ def phase_attention_ln_kernel(dev):
              for label, shape in attention_shapes().items()]
     out, out_ph = per_forward(edos), per_forward(phdos)
     for agg, runs in ((out, edos), (out_ph, phdos)):
-        for key in ("unfused_ms", "ms_bf16"):
+        for key in ("unfused_ms", "ms_bf16", "bound_ms_bf16",
+                    "library_ms_bf16"):
             agg[key] = statistics.mean(r[key] for r in runs.values())
         for label, r in runs.items():
-            agg["by_shape"][label].update(unfused_ms=r["unfused_ms"],
-                                          ms_bf16=r["ms_bf16"])
+            agg["by_shape"][label].update(
+                unfused_ms=r["unfused_ms"], ms_bf16=r["ms_bf16"],
+                bound_ms_bf16=r["bound_ms_bf16"],
+                library_ms_bf16=r["library_ms_bf16"])
             check(r["ms"] < r["unfused_ms"],
                   f"fused_attention_ln[{label}] {r['ms']:.4f} ms is not under "
                   f"the unfused layer's {r['unfused_ms']:.4f} ms")
@@ -2151,7 +2198,8 @@ def timed_attention_at(dev, d, shapes, g, ln=True):
             lambda: fused_attention_fwd(q, k, k, bias)[0],
             lambda: dot_product_attention(q, k, k, km),
             work=attention_work(bb, lq, lk, d, (q, k, bias), (q,)),
-            library_fn=lambda: sdpa(q, k, k, bias))
+            library_fn=lambda: sdpa(q, k, k, bias),
+            form=attention_plan(d, lk).form)
         o, stats = fused_attention_fwd(q, k, k, bias, want_stats=True)
         runs["fused_attention_bwd"][label] = compare(
             f"fused_attention_bwd[D={d} {label}]",
@@ -2159,7 +2207,8 @@ def timed_attention_at(dev, d, shapes, g, ln=True):
             lambda: attention_bwd_reference(q, k, k, bias, go), repeat=True,
             work=attention_work(bb, lq, lk, d, (q, k, bias, o, go), (q, k, k),
                                 True),
-            library_fn=sdpa_backward(q, k, k, bias, go))
+            library_fn=sdpa_backward(q, k, k, bias, go),
+            form=attention_plan(d, lk).form)
         if not ln:
             continue
         x, xk = q * 2 + 0.5, k * 2 + 0.5
@@ -2994,7 +3043,8 @@ def bf16_mp_args(g, dev, b, a, e, m, h):
 
 def bf16_row(run, f32_ms):
     """A bf16 comparison's numbers under the keys of the kernels line."""
-    return {"ms_bf16": run["ms"], "ms_f32": f32_ms,
+    return {**({"form_bf16": run["form"]} if "form" in run else {}),
+            "ms_bf16": run["ms"], "ms_f32": f32_ms,
             "plain_ms_bf16": run["plain_ms"],
             "bound_ms_bf16": max(run["bytes_ms"], run["ops_ms"]),
             "bound_by_bf16": ("bytes" if run["bytes_ms"] >= run["ops_ms"]
@@ -3079,7 +3129,8 @@ def phase_bf16_kernels(dev):
                       lambda: dot_product_attention(q, k, k, km),
                       rtols=(BF16_KERNEL_RTOL,), repeat=True, work=work,
                       flops_per_s=BF16_FLOPS_PER_S,
-                      library_fn=lambda: sdpa(q, k, k, bias.bfloat16()))
+                      library_fn=lambda: sdpa(q, k, k, bias.bfloat16()),
+                      form=attention_plan(d, lk, torch.bfloat16).form)
         # the row statistics the next PR's bf16 backward will read: f32,
         # from scores that are exact products of bf16 values
         _, stats = fused_attention_fwd(q, k, k, bias, want_stats=True)
@@ -3436,7 +3487,8 @@ def phase_bf16_backward_kernels(dev):
                       lambda: attention_bwd_reference(q, k, k, bias, go),
                       rtols=(BF16_KERNEL_RTOL,) * 3, repeat=True, work=work,
                       flops_per_s=BF16_FLOPS_PER_S,
-                      library_fn=sdpa_backward(q, k, k, bias.bfloat16(), go))
+                      library_fn=sdpa_backward(q, k, k, bias.bfloat16(), go),
+                      form=attention_plan(d, lk, torch.bfloat16).form)
         check_attention_backward(name, q, k, bias, o, go, stats, got, run)
         row = bf16_row(run, median_ms(
             lambda: fused_attention_bwd(q32, k32, k32, bias, o32, go32,
@@ -3668,15 +3720,14 @@ GRAPH_REL = 1e-5
 # launches inside a replayed graph, where the wrappers' counters do not run
 CALL_KERNELS = {
     "fused_mp_edge": ("agg_kernel",),
-    "fused_attention": ("attn_fwd_kernel", "attn_fwd_sliced_kernel"),
+    "fused_attention": ATTENTION_KERNELS["fused_attention"],
     "fused_attention_ln": ("attn_ln_fwd_kernel", "attn_ln_fwd_sliced_kernel"),
     "batched_segment_sum": ("segment_count_kernel", "segment_sum_kernel")}
 # the __global__ functions of the three backward sources (but attention_bwd.cu's
 # reduce_kernel, whose name PyTorch's reductions share)
 BACKWARD_KERNELS = (
     "edge_bwd_kernel", "edge_bwd_tc_kernel", "gw1_kernel", "gw1_tc_kernel",
-    "tail_kernel", "stats_kernel", "stats_sliced_kernel", "dq_kernel",
-    "dq_sliced_kernel", "dkv_kernel", "dkv_sliced_kernel", "ln_bwd_kernel")
+    "tail_kernel", *ATTENTION_KERNELS["fused_attention_bwd"], "ln_bwd_kernel")
 # the four serving cases of phase 34: (label, task, Predictor keywords)
 GRAPH_CASES = (("edos", "edos", {}), ("phdos", "phdos", {}),
                ("edos_bf16", "edos", {"dtype": "bfloat16"}),
@@ -3999,9 +4050,9 @@ def exported_ops(path) -> dict:
 
 EXPORT_PROBE = """
 import json, sys
-import numpy as np
 from dostransformer_tpu_torch.cli import main_predict
-dos = main_predict.main(sys.argv[1:])
+for argv in json.loads(sys.argv[1]):
+    main_predict.main(argv)
 print(json.dumps({"modules": sorted(
     m for m in sys.modules
     if m.startswith(("dostransformer_tpu_torch.models",
@@ -4012,18 +4063,19 @@ print(json.dumps({"modules": sorted(
 
 def phase_export(edos_served, phdos_served, workdir):
     """35: main_predict --export from a checkpoint (eDOS, phDOS), then
-    main_predict --from_exported in a fresh process: its predictions equal
-    the live Predictor's at the artifact's geometry, it imports no module of
-    models/ or train/, the program holds 3 fused-MP and 6 attention ops
-    (phDOS also 3 segment sums); the artifact served in this process eagerly
-    (exact launches a batch) and through its graph; an artifact exported on
-    the CPU served on the card (move_to_device_pass). Returns (launch counts
-    by path, the eDOS artifact's directory)."""
+    main_predict --from_exported of both artifacts in one fresh process:
+    its predictions equal the live Predictor's at the artifact's geometry,
+    it imports no module of models/ or train/, the program holds 3 fused-MP
+    and 6 attention ops (phDOS also 3 segment sums); the artifact served in
+    this process eagerly (exact launches a batch) and through its graph; an
+    artifact exported on the CPU served on the card (move_to_device_pass).
+    Returns (launch counts by path, the eDOS artifact's directory)."""
     from dostransformer_tpu_torch.serve import ExportedPredictor
     from dostransformer_tpu_torch.train.checkpoint import CheckpointManager
 
-    paths, artifacts = {}, {}
-    for task, s in (("edos", edos_served), ("phdos", phdos_served)):
+    paths, artifacts, ckpts, probe = {}, {}, {}, []
+    tasks = (("edos", edos_served), ("phdos", phdos_served))
+    for task, s in tasks:
         model = build_model(task, layers=LAYERS, t_layers=T_LAYERS,
                             hidden=HIDDEN)
         model.load_state_dict(torch.load(s["weights"]))
@@ -4056,21 +4108,28 @@ def phase_export(edos_served, phdos_served, workdir):
             meta = json.load(f)
         check(meta["device"] == "cuda:0" and meta["dtype"] == "float32",
               f"{task} artifact meta {meta}")
+        artifacts[task], ckpts[task] = art, ckpt
+        probe.append(["--from_exported", art, "--input", s["request_path"],
+                      "--output", os.path.join(workdir,
+                                               f"{task}_exported.npz"),
+                      "--device", "cuda"])
 
+    # both artifacts in one fresh process, without the model code
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(
+        os.path.abspath(__file__))}
+    proc = subprocess.run([sys.executable, "-c", EXPORT_PROBE,
+                           json.dumps(probe)], capture_output=True, text=True,
+                          env=env, timeout=600)
+    check(proc.returncode == 0, f"--from_exported failed:\n{proc.stdout}\n"
+                                f"{proc.stderr}")
+    imported = json.loads(proc.stdout.strip().splitlines()[-1])["modules"]
+    print(f"--from_exported of both artifacts in one fresh process: imported "
+          f"of models/, train/, jax and the JAX package: {imported}")
+    check(imported == [], f"--from_exported imported {imported}")
+
+    for task, s in tasks:
+        art, ckpt = artifacts[task], ckpts[task]
         out = os.path.join(workdir, f"{task}_exported.npz")
-        env = {**os.environ, "PYTHONPATH": os.path.dirname(
-            os.path.abspath(__file__))}
-        proc = subprocess.run(
-            [sys.executable, "-c", EXPORT_PROBE, "--from_exported", art,
-             "--input", s["request_path"], "--output", out, "--device",
-             "cuda"],
-            capture_output=True, text=True, env=env, timeout=600)
-        check(proc.returncode == 0, f"{task} --from_exported failed:\n"
-                                    f"{proc.stdout}\n{proc.stderr}")
-        imported = json.loads(proc.stdout.strip().splitlines()[-1])["modules"]
-        print(f"{task} --from_exported in a fresh process: imported of "
-              f"models/, train/, jax and the JAX package: {imported}")
-        check(imported == [], f"{task} --from_exported imported {imported}")
         samples = s["requests"]["96"]
         live = Predictor.from_checkpoint(ckpt, device="cuda", **s["kw"])
         want_dos = live.predict(samples, bucketed=False)
@@ -4108,7 +4167,6 @@ def phase_export(edos_served, phdos_served, workdir):
                                 f"expected {want_l}")
         print(f"{task} artifact served through its graph: {how}; launches "
               f"{counts}")
-        artifacts[task] = art
 
     # exported on the CPU, served on the card
     s = edos_served
@@ -4392,6 +4450,9 @@ def rank_main(argv):
     out = {}
     reset_launches()
     if mode == "cli":
+        # main_edos runs one after another in this process ([label, argv]
+        # pairs as JSON): a run without the parallel flags stays out of the
+        # process group, the first with them joins it, the next reuse it;
         # each train step's wall time, synchronised at both ends
         step, times = Trainer.local_step, []
 
@@ -4405,39 +4466,45 @@ def rank_main(argv):
 
         Trainer.local_step = timed
         try:
-            result = main_edos.main(rest)
+            for label, run in json.loads(rest[0]):
+                reset_launches()
+                times.clear()
+                result = main_edos.main(run)
+                out[label] = {"step_ms": list(times), "test": result["test"],
+                              "launches": read_launches()}
         finally:
             Trainer.local_step = step
-        out.update(step_ms=times, test=result["test"])
     elif mode == "train":
-        dp, tp, path = int(rest[0]), int(rest[1]), rest[2]
-        mesh = pmesh.make_mesh((dp, tp), ("data", "model"))
-        model = flagship(tp_axis="model" if tp > 1 else None)
-        trainer = Trainer(model, mesh=mesh)
-        reset_launches()
-        losses, times, grads = [], [], None
-        for b in parallel_batches():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            losses.append(trainer.train_step(b)["loss"].item())
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-            if grads is None:
-                grads = summed_grads(model, mesh)
-        out.update(losses=losses, ms_per_step=statistics.median(times),
-                   step_ms=times)
-        launches = read_launches()
-        params = whole_params(model)
-        if dist.get_rank() == 0:
-            torch.save({"params": params, "grads": grads}, path)
-        if len(rest) > 3:  # a checkpoint: collective, rank 0 writes
-            from dostransformer_tpu_torch.train.checkpoint import (
-                CheckpointManager,
-            )
+        # one or more (dp, tp) meshes over this launch's ranks, one after
+        # another ([dp, tp, results path, checkpoint dir or null] as JSON)
+        from dostransformer_tpu_torch.train.checkpoint import (
+            CheckpointManager,
+        )
 
-            CheckpointManager(rest[3]).save(PARALLEL_STEPS, model,
-                                            trainer.optimizer, wait=True)
-        out["launches"] = launches
+        for dp, tp, path, ckpt in json.loads(rest[0]):
+            mesh = pmesh.make_mesh((dp, tp), ("data", "model"))
+            model = flagship(tp_axis="model" if tp > 1 else None)
+            trainer = Trainer(model, mesh=mesh)
+            reset_launches()
+            losses, times, grads = [], [], None
+            for b in parallel_batches():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(trainer.train_step(b)["loss"].item())
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+                if grads is None:
+                    grads = summed_grads(model, mesh)
+            launches = read_launches()
+            params = whole_params(model)
+            if dist.get_rank() == 0:
+                torch.save({"params": params, "grads": grads}, path)
+            if ckpt is not None:  # a checkpoint: collective, rank 0 writes
+                CheckpointManager(ckpt).save(PARALLEL_STEPS, model,
+                                             trainer.optimizer, wait=True)
+            out[path] = {"losses": losses,
+                         "ms_per_step": statistics.median(times),
+                         "step_ms": times, "launches": launches}
     elif mode == "predict":
         from dostransformer_tpu_torch.data.io import load_samples
 
@@ -4497,28 +4564,34 @@ def log_losses(path) -> list:
 
 
 def phase_nccl_one_card(workdir):
-    """37: main_edos through the real NCCL process group on one card:
-    torchrun --nproc_per_node 1 with --data_parallel, and with
+    """37: main_edos through the real NCCL process group on one card: one
+    torchrun --nproc_per_node 1 world whose rank runs main_edos three times,
+    first without the flags (outside the process group: the plain run),
+    then with --data_parallel (joining the group), then with
     --data_parallel --tensor_parallel 1 (both a 1 x 1 ('data', 'model')
-    mesh), against the same run without the flags in a process of its own:
-    epoch losses bit-equal, the same kernels a step; the median wall ms
-    of a train step (synchronised at both ends) beside the plain run's. DP x 2 on NCCL where a second
-    card is visible."""
+    mesh): epoch losses bit-equal, the same kernels a step; the median wall
+    ms of a train step (synchronised at both ends) beside the plain run's.
+    DP x 2 on NCCL where a second card is visible."""
     argv = ["--synthetic", "48", "--synthetic_learnable", "--epochs", "2",
             "--eval", "1", "--layers", str(LAYERS), "--transformer",
             str(T_LAYERS), "--hidden", str(HIDDEN), "--batch_size",
             str(BATCH), "--device", "cuda"]
-    runs = {}
-    for label, nproc, flags in (
-            ("plain", 0, []), ("dp", 1, ["--data_parallel"]),
-            ("dp_tp1", 1, ["--data_parallel", "--tensor_parallel", "1"])):
+    # the three runs in one process of one torchrun world: the plain run
+    # first, outside the process group
+    logs, plan = {}, []
+    for label, flags in (
+            ("plain", []), ("dp", ["--data_parallel"]),
+            ("dp_tp1", ["--data_parallel", "--tensor_parallel", "1"])):
         d = os.path.join(workdir, label)
-        log = os.path.join(d, "train.jsonl")
-        (r,) = launch(workdir, "cli", "nccl", [
-            *argv, *flags, "--results_dir", d, "--log_jsonl", log], nproc)
-        r["losses"] = log_losses(log)
+        logs[label] = os.path.join(d, "train.jsonl")
+        plan.append([label, [*argv, *flags, "--results_dir", d,
+                             "--log_jsonl", logs[label]]])
+    (ranked,) = launch(workdir, "cli", "nccl", [json.dumps(plan)], 1)
+    runs = {}
+    for label, _ in plan:
+        r = runs[label] = ranked[label]
+        r["losses"] = log_losses(logs[label])
         r["ms_per_step"] = statistics.median(r["step_ms"])
-        runs[label] = r
         print(f"37 {label}: epoch losses {r['losses']}, launches "
               f"{r['launches']}, {r['ms_per_step']:.2f} ms a train step "
               f"(median of {len(r['step_ms'])}, wall, synchronised; "
@@ -4535,11 +4608,11 @@ def phase_nccl_one_card(workdir):
     if torch.cuda.device_count() >= 2:
         d = os.path.join(workdir, "dp2")
         log = os.path.join(d, "train.jsonl")
-        results = launch(workdir, "cli", "nccl", [
-            *argv, "--data_parallel", "--results_dir", d, "--log_jsonl", log],
-            2)
+        results = launch(workdir, "cli", "nccl", [json.dumps([[
+            "dp2", [*argv, "--data_parallel", "--results_dir", d,
+                    "--log_jsonl", log]]])], 2)
         runs["dp2_nccl"] = {"losses": log_losses(log), "launches": [
-            r["launches"] for r in results]}
+            r["dp2"]["launches"] for r in results]}
         check(all(math.isfinite(x) for x in runs["dp2_nccl"]["losses"]),
               "37 DP x 2 on NCCL: losses")
         print(f"37 DP x 2 on NCCL, one card a rank: losses "
@@ -4552,9 +4625,10 @@ def phase_nccl_one_card(workdir):
 
 def phase_shared_card(workdir):
     """38: several gloo ranks sharing the one card
-    (initialize_multihost(backend="gloo")): DP x 2, TP x 2 and dp x tp
-    2 x 2 run 3 Trainer steps at full width over the global batches of one
-    process; every rank launches kernels #1-#4 (exact counts a step);
+    (initialize_multihost(backend="gloo")): DP x 2 and TP x 2 (one after
+    the other in one world of 2 ranks) and dp x tp 2 x 2 (a world of 4) run
+    3 Trainer steps at full width over the global batches of one process;
+    every rank launches kernels #1-#4 (exact counts a step);
     losses and final parameters (FFN shards gathered) against the single
     process on the card; the TP x 2 run's checkpoint (written by rank 0)
     served and resumed in this process."""
@@ -4592,11 +4666,23 @@ def phase_shared_card(workdir):
     print(f"38 single process: losses {want}, {single_ms:.1f} ms a step "
           f"on {CARD}")
     readings, ckpt = {}, os.path.join(workdir, "tp2_ckpt")
-    for label, (dp, tp) in (("dp2", (2, 1)), ("tp2", (1, 2)),
-                            ("dp2xtp2", (2, 2))):
-        path = os.path.join(workdir, f"{label}.pt")
-        args = [dp, tp, path] + ([ckpt] if label == "tp2" else [])
-        results = launch(workdir, "train", "gloo", args, dp * tp)
+    # DP x 2 and TP x 2 one after the other in one world of 2 ranks, then
+    # dp x tp 2 x 2 in a world of 4
+    meshes = (("dp2", (2, 1)), ("tp2", (1, 2)), ("dp2xtp2", (2, 2)))
+    path_of = {label: os.path.join(workdir, f"{label}.pt")
+               for label, _ in meshes}
+    per_rank = {}
+    for world in (2, 4):
+        plan = [[dp, tp, path_of[label], ckpt if label == "tp2" else None]
+                for label, (dp, tp) in meshes if dp * tp == world]
+        ranked = launch(workdir, "train", "gloo", [json.dumps(plan)], world)
+        for label, (dp, tp) in meshes:
+            if dp * tp == world:
+                per_rank[label] = [r[path_of[label]] | {"rank": r["rank"]}
+                                   for r in ranked]
+    for label, (dp, tp) in meshes:
+        path = path_of[label]
+        results = per_rank[label]
         saved = torch.load(path, weights_only=True)
         params = saved["params"]
         loss_err = max(abs(a - b) / abs(b) for r in results
@@ -5253,17 +5339,20 @@ def main():
     stamp("build")
     print(f"built {len(kernels.SOURCES)} CUDA sources for sm_90a in "
           f"{seconds:.1f} s")
-    # the attention kernels at the flagship width (D = 256 = 32 x 8), each
-    # a template over the operand type
-    bf16_mangled = "I13__nv_bfloat16"
+    # the attention kernels' online form at the flagship width (D = 256 =
+    # 32 x 8), each a template over the operand type, and the rows form
+    # (one kernel an operand type)
     resources = kernel_resources(kernels.library_path(), {
-        k: f"{k}IfLi{HIDDEN // 32}ELb1E"
-        for names in ATTENTION_KERNELS.values() for k in names
-        if "sliced" not in k} | {
-        f"{k}<bf16>": f"{k}{bf16_mangled}Li{HIDDEN // 32}ELb1E"
-        for k in ("attn_fwd_kernel", "dq_kernel", "dkv_kernel")})
-    print(f"attention kernels at D={HIDDEN}, registers a thread and stack "
-          f"bytes (cuobjdump -res-usage): {json.dumps(resources)}")
+        f"{k}<{label}>": f"{k}I{mangled}Li{HIDDEN // 32}ELb1E"
+        for forms in FORM_KERNELS.values() for k in forms["online"]
+        for label, mangled in (("float", "f"), ("bf16", "13__nv_bfloat16"))})
+    print(f"attention kernels, online form at D={HIDDEN}, registers a "
+          f"thread and stack bytes (cuobjdump -res-usage): "
+          f"{json.dumps(resources)}")
+    rows_resources = kernel_resources(kernels.library_path(), ROWS_KERNELS)
+    print(f"attention kernels, rows form, registers a thread and stack "
+          f"bytes: {json.dumps(rows_resources)}")
+    resources.update(rows_resources)
     mp_resources = kernel_resources(kernels.library_path(), MP_KERNELS)
     print(f"message-passing kernels, registers a thread and stack bytes: "
           f"{json.dumps(mp_resources)}")
@@ -5273,12 +5362,21 @@ def main():
     for name, res in ln_resources.items():
         check(res["stack_bytes"] == 0,
               f"{name} has a stack of {res['stack_bytes']} bytes")
-    for d in (1, 31, 33, 50, 512, 513, 544, 1000, 1024, 2049):
-        nc, slices = ctypes.c_int(), ctypes.c_int()
-        kernels.library().dostpu_attention_plan(d, nc, slices)
-        check((nc.value, slices.value) == attention_plan(d),
-              f"ops.attention.attention_plan({d}) is {attention_plan(d)}, "
-              f"the library's ({nc.value}, {slices.value})")
+    # the plan's boundaries: D at 512 / 513; Lk at 32 / 33 (bf16 online),
+    # 95 / 96 (f32 rows) and 256 / 257 (rows); both dtypes
+    for d in (1, 31, 33, 50, 256, 512, 513, 544, 1000, 1024, 2049):
+        for lk in (1, 16, 32, 33, 51, 95, 96, 201, 256, 257, 1000):
+            for dtype in (torch.float32, torch.bfloat16):
+                form, nc, slices = (ctypes.c_int() for _ in range(3))
+                kernels.library().dostpu_attention_plan(
+                    d, lk, int(dtype == torch.bfloat16), form, nc, slices)
+                got = (nc.value, slices.value, ATTENTION_FORMS[form.value])
+                want = attention_plan(d, lk, dtype)
+                check(got == tuple(want),
+                      f"ops.attention.attention_plan({d}, {lk}, {dtype}) is "
+                      f"{want}, the library's {got}")
+    print("attention_plan equals the library's dostpu_attention_plan at "
+          "every D, Lk and dtype of the boundaries")
     sliced = kernel_resources(kernels.library_path(), SLICED_KERNELS)
     print(f"attention kernels above D=512 (16 column groups a slice), "
           f"registers a thread and stack bytes: {json.dumps(sliced)}")
@@ -5434,6 +5532,7 @@ def main():
         paths.update(got)
         graph_readings["op dispatch"] = phase_op_dispatch()
         stamp("phase 34")
+        t35 = time.perf_counter()
         got, artifact = phase_export(edos_served, phdos_served,
                                      subdir("export"))
         paths.update(got)
@@ -5447,6 +5546,7 @@ def main():
         stamp("phase 37")
         parallel["38"] = phase_shared_card(subdir("shared_card"))
         stamp("phase 38")
+        trimmed_seconds = time.perf_counter() - t35
         mesh_launches, pod_launches = phase_parallel_serving(
             edos_served, subdir("parallel_serving"))
         stamp("phase 39")
@@ -5606,6 +5706,10 @@ def main():
         if name in ATTENTION_KERNELS:
             row["resources"] = {k: v for k, v in resources.items()
                                 if k.split("<")[0] in ATTENTION_KERNELS[name]}
+            row["resources_by_form"] = {
+                form: {k: v for k, v in resources.items()
+                       if k.split("<")[0] in names}
+                for form, names in FORM_KERNELS[name].items()}
         if name in ("fused_attention_ln", "layer_norm_bwd"):
             row["resources"] = {
                 k: v for k, v in ln_resources.items()
@@ -5655,6 +5759,9 @@ def main():
                     row[f"{key}_phdos"] = ph[key]
         rows.append(row)
     check(len(rows) == len(KERNELS), f"{len(rows)} kernel rows")
+    print(f"chip_smoke: {time.perf_counter() - START:.1f} s in all, the "
+          f"build {seconds:.1f} s of it; phases 35-38 "
+          f"{trimmed_seconds:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -21,71 +21,58 @@
 // keys stream through shared memory in tiles of 32 with an online softmax,
 // and the contract is f32.
 //
-// Design (building blocks in attention_core.cuh):
-//   * both products run on the tensor cores as 3xTF32 mma.sync (f32
-//     accuracy), not on the FP32 pipes: an FMA inner loop over shared
-//     memory is bound by shared-memory instructions, one per 2-3 FMAs;
-//   * one block per (16 query rows, batch element), 4 warps. For q k^T the
-//     warps split the staged width four ways, each reusing its Q fragment
-//     over the tile's four n8 key sub-tiles, and leave partial score tiles
-//     in shared memory; for the softmax each warp takes 4 rows (lane = key)
-//     and adds the partials in a fixed order; for p v each warp owns a
-//     quarter of the output columns (32 accumulator registers a lane at
-//     D = 256);
-//   * D <= 512 (attn_fwd_kernel): rows are staged at NC = ceil(D / 32)
-//     times 32 columns, zeros past D (they add nothing to q k^T, and the
-//     columns of p v past D are not stored); rows whose width is a multiple
-//     of 4 arrive as 16-byte copies, others as 4-byte ones. K/V tiles
-//     arrive by cp.async, double-buffered while two blocks still fit an SM,
-//     and are staged once when v is the same tensor as k (the transformer
-//     layer always passes it so): one staged tile serves both products
-//     without bank conflicts (the permuted contraction order of
-//     prob_times_rows);
-//   * D > 512 (attn_fwd_sliced_kernel): one block per (16 query rows, batch
-//     element, slice of 512 output columns). For each key tile the block
-//     streams the chunks of q and k through one staged tile each and adds
-//     the partial score tiles chunk by chunk, its own slice last (the k
-//     chunk staged for it is then v's slice where v is k); p v takes the
-//     slice only. The score product is repeated once per slice (2x at
-//     D = 1,024): the price of a grid that splits the columns, with no
-//     atomics and a block that fits 227 KB;
-//   * the half of a key tile that lies wholly past Lk is skipped, not
-//     computed and masked (201 keys = 6 tiles and 9 keys: half a tile);
-//   * a row whose keys are all masked sees every score at exactly -1e30
-//     (the bias is added in f32 after the product) and averages V uniformly,
-//     as the plain version does; it never produces NaN. m and l are kept
-//     apart, not as one log-sum-exp: -1e30 + log(Lk) rounds back to -1e30.
-//   * bf16 form (q, k, v and out bf16; bias and the statistics f32; every
-//     D, both kernels are templates over the operand type): rows are
-//     staged raw, the bf16 bytes at the front of each f32 row
-//     (stage_raw_async, 16-byte copies where a row's bytes allow), and
-//     widened in place once the tile has landed (widen_rows: one pass and
-//     one barrier a tile more). A bf16 value is a TF32 value, so each
-//     product is ONE exact mma pass (the *_exact shapes of
-//     attention_core.cuh, as attention_ln.cu takes them for bf16) instead
-//     of three. Scores and softmax are f32 as in the f32 form, and the row
-//     max and sum written for the backward are the same f32 statistics.
-//     The probabilities are rounded where the TPU kernel rounds them: it
-//     normalises p, rounds it to bf16 and then multiplies by v. An online
-//     softmax holds p unnormalised, so the bf16 form takes two passes over
-//     the key tiles: the first forms the scores for the rows' max and sum
-//     only, the second forms them again and multiplies v by
-//     bf16(exp(s - m) / l) (normalised_bf16_probs). That is one score
-//     product more than the f32 form takes, in exchange for the plain
-//     version's rounding points: the two agree within a bf16 ulp of the
-//     largest value. (A first design rounded the unnormalised p to TF32 and
-//     divided at the end: a bf16 model on the card then stood as far from
-//     the same model on the CPU as bf16 stands from f32.)
+// Three forms, chosen by the shape rule of attention_rows.cuh (form_of,
+// mirrored by dostpu_attention_plan below and ops/attention.py
+// attention_plan), each block 4 warps owning 16 query rows; every product
+// on the tensor cores; a row whose keys are all masked sees every score at
+// exactly -1e30 (the bias is added in f32 after the product) and averages V
+// uniformly, as the plain version does, never NaN (m and l are kept apart,
+// not as one log-sum-exp: -1e30 + log(Lk) rounds back to -1e30):
+//   * online (D <= 512: f32, and bf16 over at most 32 keys;
+//     attn_fwd_kernel): keys stream
+//     through shared memory in tiles of 32 with an online softmax; both
+//     products 3xTF32 mma.sync (f32 accuracy). bf16 tiles are staged raw and
+//     widened to f32 in place, each product one exact TF32 pass, and the
+//     keys walked twice (the first pass for the rows' max and sum, so that
+//     p is normalised before its rounding to bf16). For q k^T the warps split the
+//     staged width four ways, each reusing its Q fragment over the tile's
+//     four n8 key sub-tiles, and leave partial score tiles in shared memory;
+//     for the softmax each warp takes 4 rows (lane = key) and adds the
+//     partials in a fixed order; for p v each warp owns a quarter of the
+//     output columns. Rows are staged at NC = ceil(D / 32) times 32 columns,
+//     zeros past D; K/V tiles arrive by cp.async, double-buffered while two
+//     blocks still fit an SM, and are staged once when v is k (the
+//     transformer layer always passes it so). The half of a key tile wholly
+//     past Lk is skipped.
+//   * rows (Lk <= 256: bf16 at every D but the online form's calls, f32
+//     above D = 512 from 96 keys; attn_fwd_rows_kernel on
+//     attention_rows.cuh): a block of one or two 16-row groups forms its
+//     rows' scores ONCE over the full D (q and k chunks streamed in column
+//     order, the scores held in registers), takes the exact row max and
+//     sum, keeps p in shared memory (bf16: normalised and rounded to bf16
+//     where the TPU kernel rounds it, so one pass over the keys suffices)
+//     and walks v slice by slice of output columns (from the staged k rows
+//     themselves where one chunk held the whole row and v is k). bf16
+//     operands run on the bf16 tensor cores (mma.m16n8k16, f32
+//     accumulators) from tiles staged raw; f32 ones 3xTF32. (The sliced
+//     form forms the scores once per 512-column slice: twice at D =
+//     1,024.)
+//   * sliced (D > 512 with keys the rows form does not take;
+//     attn_fwd_sliced_kernel): one block per (16 query rows, batch element,
+//     slice of 512 output columns); for each key tile the block streams the
+//     chunks of q and k through one staged tile each, its own slice last,
+//     with an online softmax (bf16: two passes over the keys, tiles widened
+//     in place, single-pass exact TF32 products). Every shape has a form.
 
-#include "attention_core.cuh"
+#include "attention_rows.cuh"
 
 namespace {
 
 using namespace attn;
 
-// Rows staged at W = 32 * NC >= D columns; kFull: D == W, known at compile
-// time (the runtime width cost the full widths time). Shared memory: q_s
-// [16][W+4],
+// The online form (D <= 512). Rows staged at W = 32 * NC >= D columns;
+// kFull: D == W, known at compile time (the runtime width cost the full
+// widths time). Shared memory: q_s [16][W+4],
 // n_buf tiles of 32 keys [32][W+4] (K, then V when it is another tensor),
 // the partial score tiles, the permuted p tile, and 16 rescale factors /
 // row sums. T: float (3xTF32 products) or bf16 (staged raw, widened in
@@ -209,6 +196,131 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int n = 0; n < NC; ++n)
       store_pair_t(at, c0 + 8 * n + 2 * t, D, D, o[n][2 * half] * inv,
                    o[n][2 * half + 1] * inv);
+  }
+}
+
+// The rows form (attention_rows.cuh): grid (query tiles of 16 G, B), G =
+// `groups` 16-row groups of 4 warps. Shared memory: each group's held p
+// [16][Lk] (bf16: normalised and rounded; f32: exp(s - m), divided by l at
+// the store), each group's reduction scratch and rows' max and sum, the
+// bias row, then nbuf ring buffers of buf_bytes: q's chunk of every group's
+// rows and k's of every key, `cols` columns wide, in phase 1; a tile of v's
+// rows in phase 3.
+template <typename T>
+__global__ void __launch_bounds__(rows::kMaxThreads, 1)
+attn_fwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ bias,
+                     T* __restrict__ out, float* __restrict__ stats, int B,
+                     int Lq, int Lk, int D, int nc, int cols, int groups,
+                     int tr, float scale, int nbuf, int buf_bytes) {
+  using namespace rows;
+  const int TR = tr;  // rows of a phase-3 tile
+  constexpr bool kF32 = sizeof(T) == 4;
+  extern __shared__ __align__(16) float smem_f[];  // one type a file
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  const int grp = threadIdx.x / kThreads;  // the thread's 16-row group
+  const int warp = threadIdx.x % kThreads / 32;  // within the group
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  T* held = reinterpret_cast<T*>(smem + grp * held_bytes<T>(Lk));
+  float* red = reinterpret_cast<float*>(smem + groups * held_bytes<T>(Lk));
+  float* m_s = red + kMaxGroups * kWarps * kTileM;  // [groups][16]
+  float* l_s = m_s + kMaxGroups * kTileM;           // [groups][16]
+  float* bias_s = l_s + kMaxGroups * kTileM;        // [kMaxL]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(bias_s + kMaxL);
+  red += grp * kWarps * kTileM;
+  m_s += grp * kTileM;
+  l_s += grp * kTileM;
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * kTileM * groups;  // the block's first row
+  const int q0 = r0 + kTileM * grp;              // the group's
+  const T* qb = q + (size_t)b * Lq * D;
+  const T* kb = k + (size_t)b * Lk * D;
+  const T* vb = v + (size_t)b * Lk * D;
+  const int ls = held_stride(Lk);
+  const int nt = tiles8(Lk);
+  const int cs = cols + Op<T>::kPad;  // a staged chunk row
+  const int us = tile_stride<T>(nc);
+  const int W = 32 * nc;
+  const int n1 = (D + cols - 1) / cols;    // score chunks
+  const int tiles = (Lk + TR - 1) / TR;    // v tiles a slice
+  const int n_slices = (D + W - 1) / W;
+  // one chunk of the whole row, v = k: p v reads the staged k rows
+  const bool reuse = reuses_chunk(D, cols, nc) && v == k;
+  const int n_iter = n1 + (reuse ? 0 : n_slices * tiles);
+  const int rows_a = kTileM * groups;
+
+  // iteration it stages score chunk it, then the v tiles slice by slice
+  auto stage = [&](int it, int buf) {
+    T* dst = reinterpret_cast<T*>(ring + (size_t)buf * buf_bytes);
+    if (it < n1) {
+      const int c0 = it * cols, w = min(cols, D - c0);
+      stage_zero(dst, cs, qb, r0, rows_a, Lq, D, c0, w, cols);
+      stage_zero(dst + rows_a * cs, cs, kb, 0, staged_rows(Lk), Lk, D, c0, w,
+                 cols);
+    } else {
+      const int r = it - n1, s0 = (r / tiles) * W, kt = r % tiles;
+      stage_zero(dst, us, vb, kt * TR, TR, Lk, D, s0, min(W, D - s0), W);
+    }
+  };
+  ring_start(n_iter, nbuf, stage);
+  for (int i = threadIdx.x; i < Lk; i += blockDim.x)
+    bias_s[i] = bias[(size_t)b * Lk + i];
+
+  // 1: the scores, once over the full D
+  float s[kNT][4];
+  zero(s);
+  for (int it = 0; it < n1; ++it) {
+    const int buf = ring_next(it, n_iter, nbuf, stage);
+    const T* a_s = reinterpret_cast<const T*>(ring + (size_t)buf * buf_bytes);
+    const int subs = (min(cols, D - it * cols) + Op<T>::kChunk - 1)
+                     / Op<T>::kChunk;
+    scores_chunk(a_s + kTileM * grp * cs, a_s + rows_a * cs, cs, subs, nt,
+                 warp, lane, s);
+  }
+
+  // 2: the exact softmax of the held rows, p into shared memory
+  bias_scores(s, nt, Lk, bias_s, scale, warp, lane);
+  softmax_rows(s, nt, warp, lane, red, m_s, l_s);
+#pragma unroll
+  for (int i = 0; i < kNT; ++i) {
+    const int j = warp + 4 * i;
+    if (j < nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = g + 8 * (e >> 1);
+        // bf16: normalised, then rounded, where the TPU kernel rounds
+        put_held(held, ls, row, 8 * j + 2 * t + (e & 1),
+                 kF32 ? s[i][e] : s[i][e] / l_s[row]);
+      }
+  }
+  zero_held_tail(held, ls, Lk, nt, warp, lane);
+  const int lt = threadIdx.x % kThreads;
+  if (stats != nullptr && lt < kTileM && q0 + lt < Lq) {
+    stats[(size_t)b * Lq + q0 + lt] = m_s[lt];
+    stats[(size_t)(B + b) * Lq + q0 + lt] = l_s[lt];
+  }
+
+  // 3: p v, slice by slice
+  const int c0 = warp * 8 * nc;
+  const float rs[2] = {kF32 ? 1.f / l_s[g] : 1.f,
+                       kF32 ? 1.f / l_s[g + 8] : 1.f};
+  if (reuse) __syncthreads();  // the held p (no ring barrier comes)
+  for (int sl = 0; sl < n_slices; ++sl) {
+    float o[kMaxNC][4];
+    zero(o);
+    for (int kt = 0; kt < tiles; ++kt) {
+      const T* u = reinterpret_cast<const T*>(ring) + rows_a * cs
+                   + kt * TR * cs + sl * W;  // the slice's columns
+      if (!reuse)
+        u = reinterpret_cast<const T*>(
+            ring + (size_t)ring_next(n1 + sl * tiles + kt, n_iter, nbuf,
+                                     stage) * buf_bytes);
+      product_tile(held, ls, kt * TR, min(TR, Lk - kt * TR), u,
+                   reuse ? cs : us, c0, nc, lane, o);
+    }
+    store_slice(out + (size_t)b * Lq * D, q0, Lq, D, sl * W,
+                min(W, D - sl * W), c0, nc, rs, lane, o);
   }
 }
 
@@ -375,6 +487,27 @@ cudaError_t launch(const T* q, const T* k, const T* v, const float* bias,
                                 scale, st);
 }
 
+// the online form: D <= 512 (f32; bf16 with few keys)
+template <typename T>
+cudaError_t launch_online(const T* q, const T* k, const T* v,
+                          const float* bias, T* out, float* stats, int B,
+                          int Lq, int Lk, int D, float scale,
+                          cudaStream_t st) {
+  switch ((D + 31) / 32) {
+#define DOSTPU_CASE(n)                                                    \
+  case n:                                                                 \
+    return launch<T, n>(q, k, v, bias, out, stats, B, Lq, Lk, D, scale,  \
+                        st);
+    DOSTPU_CASE(1) DOSTPU_CASE(2) DOSTPU_CASE(3) DOSTPU_CASE(4)
+    DOSTPU_CASE(5) DOSTPU_CASE(6) DOSTPU_CASE(7) DOSTPU_CASE(8)
+    DOSTPU_CASE(9) DOSTPU_CASE(10) DOSTPU_CASE(11) DOSTPU_CASE(12)
+    DOSTPU_CASE(13) DOSTPU_CASE(14) DOSTPU_CASE(15) DOSTPU_CASE(16)
+#undef DOSTPU_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t launch_sliced(const T* q, const T* k, const T* v,
                           const float* bias, T* out, float* stats, int B,
@@ -398,39 +531,81 @@ cudaError_t launch_sliced(const T* q, const T* k, const T* v,
   return cudaGetLastError();
 }
 
+// the rows form: Lk <= kMaxL. f32 slices are always 512 columns (the 3xTF32
+// product of phase 3 is unrolled at 16 groups a warp); `groups` 16-row
+// groups a block, 0 for the rule's (row_groups)
+template <typename T>
+cudaError_t launch_rows(const T* q, const T* k, const T* v,
+                        const float* bias, T* out, float* stats, int B,
+                        int Lq, int Lk, int D, float scale, int groups,
+                        cudaStream_t st) {
+  using namespace rows;
+  if (Lk > kMaxL) return cudaErrorInvalidValue;
+  if (groups == 0) groups = row_groups(B, Lq, Lk, 64);
+  if (groups < 1 || groups > kMaxGroups) return cudaErrorInvalidValue;
+  const int nc = sizeof(T) == 4 ? kMaxNC : slice_groups(D);
+  const int rows_a = kTileM * groups;
+  const dim3 grid((Lq + rows_a - 1) / rows_a, B);
+  const int staged = kTileM * groups + staged_rows(Lk);
+  const int cols = chunk_cols<T>(D, staged, chunk_budget<T>(grid));
+  const int tr = tile_rows<T>(grid);
+  const bool reuse = reuses_chunk(D, cols, nc) && v == k;
+  const size_t buf = reuse ? chunk_bytes<T>(staged, cols)
+                           : std::max(chunk_bytes<T>(staged, cols),
+                                      tile_bytes<T>(nc, tr));
+  const size_t fixed = groups * held_bytes<T>(Lk)
+                       + (kMaxGroups * (kWarps + 2) * kTileM + kMaxL)
+                         * sizeof(float);
+  const int nbuf = reuse ? (fixed + buf <= kSmemMax)
+                         : ring_buffers(fixed, buf, resident(grid));
+  if (nbuf == 0) return cudaErrorInvalidValue;
+  const size_t smem = fixed + nbuf * buf;
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  attn_fwd_rows_kernel<T><<<grid, kThreads * groups, smem, st>>>(
+      q, k, v, bias, out, stats, B, Lq, Lk, D, nc, cols, groups, tr, scale,
+      nbuf, (int)buf);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch(const void* q_, const void* k_, const void* v_,
                      const float* bias, void* out_, float* stats, int B,
-                     int Lq, int Lk, int D, float scale, cudaStream_t st) {
+                     int Lq, int Lk, int D, float scale, int form,
+                     cudaStream_t st) {
   const T* q = static_cast<const T*>(q_);
   const T* k = static_cast<const T*>(k_);
   const T* v = static_cast<const T*>(v_);
   T* out = static_cast<T*>(out_);
-  if (D > 32 * kSliceMaxNC)
+  if (form < 0) form = rows::form_of(D, Lk, sizeof(T) == 2);
+  if (form >= kFormRows)  // kFormRows + g: g row groups forced
+    return launch_rows<T>(q, k, v, bias, out, stats, B, Lq, Lk, D, scale,
+                          form - kFormRows, st);
+  if (form == kFormSliced)
     return launch_sliced<T>(q, k, v, bias, out, stats, B, Lq, Lk, D, scale,
                             st);
-  switch ((D + 31) / 32) {
-#define DOSTPU_CASE(n)                                                    \
-  case n:                                                                 \
-    return launch<T, n>(q, k, v, bias, out, stats, B, Lq, Lk, D, scale, st);
-    DOSTPU_CASE(1) DOSTPU_CASE(2) DOSTPU_CASE(3) DOSTPU_CASE(4)
-    DOSTPU_CASE(5) DOSTPU_CASE(6) DOSTPU_CASE(7) DOSTPU_CASE(8)
-    DOSTPU_CASE(9) DOSTPU_CASE(10) DOSTPU_CASE(11) DOSTPU_CASE(12)
-    DOSTPU_CASE(13) DOSTPU_CASE(14) DOSTPU_CASE(15) DOSTPU_CASE(16)
-#undef DOSTPU_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (form == kFormOnline)
+    return launch_online<T>(q, k, v, bias, out, stats, B, Lq, Lk, D, scale,
+                            st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// How the attention kernels (this file, attention_bwd.cu, attention_ln.cu)
-// take feature width D >= 1: *nc 32-column groups a staged row holds and
-// *slices blocks that share a row's output columns: (ceil(D / 32), 1) up to
-// D = 512, else (16, ceil(D / 512)), the sliced kernels.
-extern "C" void dostpu_attention_plan(int D, int* nc, int* slices) {
+// The form of the attention kernels (this file, attention_bwd.cu) for
+// feature width D, Lk keys and operand type (bf16 non-zero: bfloat16, else
+// float32), the rule of attention_rows.cuh form_of: *form 0 (online), 1
+// (sliced) or 2 (rows); *nc 32-column groups a staged row (online) or an
+// output slice (sliced, rows) holds and *slices the slices of a row's
+// output columns: (ceil(D / 32), 1) up to D = 512, else (16, ceil(D /
+// 512)), for every form. attention_ln.cu stages rows by the same nc and
+// slices in its own online form.
+extern "C" void dostpu_attention_plan(int D, int Lk, int bf16, int* form,
+                                      int* nc, int* slices) {
   constexpr int W = 32 * attn::kSliceMaxNC;
+  *form = attn::rows::form_of(D, Lk, bf16 != 0);
   *nc = D <= W ? (D + 31) / 32 : attn::kSliceMaxNC;
   *slices = D <= W ? 1 : (D + W - 1) / W;
 }
@@ -439,17 +614,24 @@ extern "C" void dostpu_attention_plan(int D, int* nc, int* slices) {
 // tensors: q [B, Lq, D], k/v [B, Lk, D] (v may be k itself) and out
 // [B, Lq, D] float32, or bfloat16 when `bf16` is non-zero; bias [B, Lk] and
 // stats (null or [2, B, Lq]: row max, then row sum) float32 in both forms.
-// Any D >= 1. Returns the CUDA error code of the launch (0 on success).
+// Any D >= 1. `form` is -1 for the plan's form (what the wrapper passes), or
+// a form forced, to time one form against another on the same call: 0-2
+// (the rows form with the rule's row groups), or 2 + g (the rows form with
+// g 16-row groups a block); one that does not take the shape returns
+// cudaErrorInvalidValue. Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int dostpu_attention_fwd(const void* q, const void* k,
                                     const void* v, const float* bias,
                                     void* out, float* stats, int B, int Lq,
                                     int Lk, int D, float scale, int bf16,
-                                    void* stream) {
-  if (B <= 0 || Lq <= 0 || Lk <= 0 || B > 65535 || D <= 0)
+                                    int form, void* stream) {
+  if (B <= 0 || Lq <= 0 || Lk <= 0 || B > 65535 || D <= 0
+      || form > attn::kFormRows + attn::rows::kMaxGroups)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return dispatch<__nv_bfloat16>(q, k, v, bias, out, stats, B, Lq, Lk, D,
-                                   scale, st);
-  return dispatch<float>(q, k, v, bias, out, stats, B, Lq, Lk, D, scale, st);
+                                   scale, form, st);
+  return dispatch<float>(q, k, v, bias, out, stats, B, Lq, Lk, D, scale, form,
+                         st);
 }

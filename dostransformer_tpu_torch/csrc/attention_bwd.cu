@@ -19,59 +19,53 @@
 // from one grid step; a reduction over blocks here would need atomics, so
 // the work is split by output instead.
 //
-// Design (building blocks in attention_core.cuh; every product is 3xTF32
-// mma.sync at f32 accuracy, tiles arrive by cp.async), no atomics anywhere,
-// so the gradients are bit-identical from run to run:
-//   * the row statistics m and l come from the forward kernel (stats_in).
-//     When the caller has none (the LayerNorm-fused forward keeps none),
-//     stats_kernel recomputes them with the forward's own score and softmax
-//     code, so both routes give the same bits;
-//   * dq_kernel: one block per (16 query rows, batch element), keys
-//     streamed in tiles of 32. delta = rowsum(g * o) (= rowsum(dp * p)) goes
-//     to scratch for the second kernel. Per tile: scores and dp as partial
-//     tiles (the warps split D), p = exp(s - m) * (1 / l), ds, dq += ds k;
-//   * dkv_kernel: one block per (16 keys, chunk of queries, batch element),
-//     queries streamed in tiles of 32: the transposed score and dp tiles,
-//     p^T and ds^T, dv += p^T g, dk += ds^T q. At 32 or 16 keys the query
-//     range is cut into chunks so that the grid fills the card
-//     (query_chunks); each chunk writes partial dk/dv to scratch and
-//     reduce_kernel adds the chunks in order. With one chunk (the flagship
-//     self-attention) the block writes dk/dv itself.
-//   The scores are recomputed in both kernels: on tensor cores that is
-//   cheaper than writing and re-reading per-tile partial dq.
-//   * k and v staged once where they are one tensor, as in the forward.
-//   * any D >= 1: up to D = 512 rows are staged at ceil(D / 32) x 32
-//     columns, zeros past D, as in the forward; above it the sliced forms
-//     (stats_sliced_kernel, dq_sliced_kernel, dkv_sliced_kernel) split the
-//     output columns into slices of 512 and stream the chunks of every
-//     operand through the same staged tiles for the scores and dp, the
-//     block's own slice last, in the forward's chunk order (so the scores
-//     repeat the forward's bits for slice 0, whose statistics it wrote).
-//   * bf16 form (q, k, v, g and dq, dk, dv bf16; bias, the row statistics,
-//     delta and every sum f32; every D; the kernels are templates over the
-//     operand type, as the forward's are). It rounds where the TPU kernel
-//     `_attn_bwd_kernel` rounds: s and dp accumulate in f32 from the bf16
-//     values; p32 = exp(s - m) / l in f32 (divided, as the forward's bf16
-//     form and the TPU kernel divide), from the forward's f32 statistics
-//     when given; dv = bf16(p32)^T g, ds = p32 (dp - rowsum(dp p32)) in f32
-//     then rounded to bf16, dq = bf16((bf16(ds) k) scale) and
-//     dk = bf16((bf16(ds)^T q) scale), each output rounded once after the
-//     scale; the query chunks' partial dk and dv are added in f32 in chunk
-//     order and rounded once. Rows are staged raw and widened in place
-//     (stage_raw_async, widen_rows), and every product has bf16 operands
-//     (the probabilities and ds are rounded before they are staged), so
-//     each is ONE exact TF32 pass (the *_exact shapes) instead of three.
-//     delta: the f32 form takes rowsum(g o) from the forward output, equal
-//     to rowsum(dp p) in exact arithmetic; a bf16 o has been rounded twice
-//     (bf16(p) v, then the store), which would shift every ds of a row by
-//     ~2^-8 relative. So the bf16 dq kernels walk the key tiles twice: the
-//     first pass forms s, p32 and dp for delta = rowsum(dp p32) only (in
-//     f32, lane by lane, then across the warp), the second forms them again
-//     for ds and dq (two score and two dp products more than one pass: four
-//     single-pass products where the f32 form takes nine TF32 passes). o is
-//     not read. The dkv kernels take delta from the dq kernel, as in f32.
+// The forms of the forward (attention.cu), chosen by the same rule
+// (attention_rows.cuh form_of); no atomics anywhere, so the gradients are
+// bit-identical from run to run, and with or without the forward's row
+// statistics m and l (a caller without them, the LayerNorm-fused layer,
+// gets them recomputed by the forward's own score and softmax code):
+//   * online (D <= 512: f32, and bf16 over at most 32 keys; 3xTF32
+//     mma.sync, tiles by cp.async; the bf16 form's tiles widened
+//     in place, single-pass exact TF32 products, and the dq kernel's keys
+//     walked twice, the first pass for delta = rowsum(dp p32)):
+//     stats_kernel (only without the forward's statistics);
+//     dq_kernel, one block per (16 query rows, batch element), keys streamed
+//     in tiles of 32, delta = rowsum(g * o) (= rowsum(dp * p)) to scratch,
+//     per tile the scores and dp as partial tiles (the warps split D), p =
+//     exp(s - m) * (1 / l), ds, dq += ds k; dkv_kernel, one block per (16
+//     keys, chunk of queries, batch element), queries streamed in tiles of
+//     32: the transposed score and dp tiles, p^T and ds^T, dv += p^T g, dk
+//     += ds^T q. Where keys are few the query range is cut into chunks so
+//     that the grid fills the card (query_chunks); each chunk writes
+//     partial dk/dv to scratch and reduce_kernel adds the chunks in order.
+//     k and v are staged once where they are one tensor.
+//   * rows (the forward's rows calls; attention_rows.cuh):
+//     dq_rows_kernel holds its rows' s and dp over every key, formed once
+//     over the full D; p32 = exp(s - m) / l (m and l recomputed there, by the
+//     forward's code, when the caller has none), delta = rowsum(dp p32)
+//     from the held rows in the same pass, ds held, dq = (ds k) scale slice
+//     by slice. dkv_rows_kernel holds the transposed tile of its 16 keys
+//     over a chunk of at most 256 queries (s^T and dp^T once over D), then
+//     dv = p^T g and dk = (ds^T q) scale slice by slice; query chunks as in
+//     the online form. bf16 products on the bf16 tensor cores (f32 sums),
+//     f32 ones 3xTF32; one or two 16-row groups a block, as in the forward.
+//   * sliced (the forward's sliced calls): stats_sliced_kernel,
+//     dq_sliced_kernel, dkv_sliced_kernel split the output columns into
+//     slices of 512 and stream the chunks of every operand through the same
+//     staged tiles for the scores and dp, the block's own slice last, in the
+//     forward's chunk order; bf16 tiles widened in place, single-pass exact
+//     TF32 products, and the dq kernel's keys walked twice (the first pass
+//     for delta = rowsum(dp p32): a bf16 o has been rounded twice).
+// The bf16 forms round where the TPU kernel `_attn_bwd_kernel` rounds: s
+// and dp accumulate in f32 from the bf16 values; p32 = exp(s - m) / l in
+// f32 from the forward's f32 statistics when given; dv = bf16(p32)^T g, ds
+// = p32 (dp - rowsum(dp p32)) in f32 then rounded to bf16, dq =
+// bf16((bf16(ds) k) scale) and dk = bf16((bf16(ds)^T q) scale), each output
+// rounded once after the scale; the query chunks' partial dk and dv are
+// added in f32 in chunk order and rounded once. o is not read in bf16, nor
+// in the rows form.
 
-#include "attention_core.cuh"
+#include "attention_rows.cuh"
 
 namespace {
 
@@ -855,6 +849,351 @@ dkv_sliced_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ----- the rows form (attention_rows.cuh): Lk <= 256 -----
+
+// the rows' sums of x * y (the order of row_sum) -> out_s[16]
+__device__ __forceinline__ void row_dot(const float (&x)[rows::kNT][4],
+                                        const float (&y)[rows::kNT][4],
+                                        int nt, int warp, int lane,
+                                        float* red, float* out_s) {
+  float xy[rows::kNT][4];
+#pragma unroll
+  for (int i = 0; i < rows::kNT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) xy[i][e] = x[i][e] * y[i][e];
+  rows::row_sum(xy, nt, warp, lane, red, out_s);
+}
+
+// dq and the rows' delta (and, without the forward's statistics, m and l):
+// grid (query tiles of 16 G, B), G = `groups` 16-row groups of 4 warps.
+// Phase 1 forms s = q k^T and dp = g v^T over the full D (q, g chunks of
+// every group's rows, k, v chunks of every key, `cols` columns wide; k
+// staged once where v is k); phase 2 takes m and l (the forward's, or
+// recomputed by the forward's own code: softmax_rows), p32 = exp(s - m) /
+// l, delta = rowsum(dp p32) from the held rows, ds = p32 (dp - delta) held
+// (bf16: rounded); phase 3 dq = (ds k) scale slice by slice. m, l (when
+// recomputed) and delta go to the scratch for dkv_rows_kernel.
+template <typename T>
+__global__ void __launch_bounds__(rows::kMaxThreads, 1)
+dq_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const float* __restrict__ bias,
+               const T* __restrict__ g, const float* __restrict__ m_in,
+               const float* __restrict__ l_in, T* __restrict__ dq,
+               float* __restrict__ m_out, float* __restrict__ l_out,
+               float* __restrict__ delta_out, int Lq, int Lk, int D, int nc,
+               int cols, int groups, int tr, float scale, int nbuf,
+               int buf_bytes) {
+  using namespace rows;
+  const int TR = tr;  // rows of a phase-3 tile
+  extern __shared__ __align__(16) float smem_f[];  // one type a file
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  const int grp = threadIdx.x / kThreads;
+  const int warp = threadIdx.x % kThreads / 32;
+  const int lane = threadIdx.x % 32;
+  const int gq = lane >> 2, t = lane & 3;
+  T* held = reinterpret_cast<T*>(smem + grp * held_bytes<T>(Lk));  // ds
+  float* red = reinterpret_cast<float*>(smem + groups * held_bytes<T>(Lk));
+  float* m_s = red + kMaxGroups * kWarps * kTileM;  // [groups][16] row max
+  float* l_s = m_s + kMaxGroups * kTileM;           // [groups][16] row sum
+  float* dl_s = l_s + kMaxGroups * kTileM;          // [groups][16] delta
+  float* bias_s = dl_s + kMaxGroups * kTileM;       // [kMaxL]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(bias_s + kMaxL);
+  red += grp * kWarps * kTileM;
+  m_s += grp * kTileM;
+  l_s += grp * kTileM;
+  dl_s += grp * kTileM;
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * kTileM * groups;
+  const int q0 = r0 + kTileM * grp;
+  const int lt = threadIdx.x % kThreads;
+  const bool v_is_k = v == k;
+  const T* qb = q + (size_t)b * Lq * D;
+  const T* gb = g + (size_t)b * Lq * D;
+  const T* kb = k + (size_t)b * Lk * D;
+  const T* vb = v + (size_t)b * Lk * D;
+  const int ls = held_stride(Lk);
+  const int nt = tiles8(Lk);
+  const int cs = cols + Op<T>::kPad;
+  const int us = tile_stride<T>(nc);
+  const int W = 32 * nc;
+  const int n1 = (D + cols - 1) / cols;
+  const int tiles = (Lk + TR - 1) / TR;
+  const int n_slices = (D + W - 1) / W;
+  const bool reuse = reuses_chunk(D, cols, nc);  // ds k from the chunk's k
+  const int n_iter = n1 + (reuse ? 0 : n_slices * tiles);
+  const int rows_a = kTileM * groups;
+  const int rows_t = staged_rows(Lk);
+  // a chunk: q, g [16 G], k, v (where distinct) [rows_t]
+  const size_t at_g = (size_t)rows_a * cs;
+  const size_t at_k = 2 * at_g;
+  const size_t at_v = at_k + (v_is_k ? 0 : (size_t)rows_t * cs);
+
+  // the chunks, then k's tiles
+  auto stage = [&](int it, int buf) {
+    T* dst = reinterpret_cast<T*>(ring + (size_t)buf * buf_bytes);
+    if (it < n1) {
+      const int c0 = it * cols, w = min(cols, D - c0);
+      stage_zero(dst, cs, qb, r0, rows_a, Lq, D, c0, w, cols);
+      stage_zero(dst + at_g, cs, gb, r0, rows_a, Lq, D, c0, w, cols);
+      stage_zero(dst + at_k, cs, kb, 0, rows_t, Lk, D, c0, w, cols);
+      if (!v_is_k)
+        stage_zero(dst + at_v, cs, vb, 0, rows_t, Lk, D, c0, w, cols);
+    } else {
+      const int r = it - n1, s0 = (r / tiles) * W, kt = r % tiles;
+      stage_zero(dst, us, kb, kt * TR, TR, Lk, D, s0, min(W, D - s0), W);
+    }
+  };
+  ring_start(n_iter, nbuf, stage);
+  for (int i = threadIdx.x; i < Lk; i += blockDim.x)
+    bias_s[i] = bias[(size_t)b * Lk + i];
+  const bool recompute = m_in == nullptr;
+  if (!recompute && lt < kTileM) {
+    const int i = q0 + lt;
+    m_s[lt] = i < Lq ? m_in[(size_t)b * Lq + i] : 0.f;
+    l_s[lt] = i < Lq ? l_in[(size_t)b * Lq + i] : 1.f;
+  }
+
+  // 1: the scores and dp
+  float s[kNT][4], dp[kNT][4];
+  zero(s);
+  zero(dp);
+  for (int it = 0; it < n1; ++it) {
+    const int buf = ring_next(it, n_iter, nbuf, stage);
+    const T* a_s = reinterpret_cast<const T*>(ring + (size_t)buf * buf_bytes);
+    const int subs = (min(cols, D - it * cols) + Op<T>::kChunk - 1)
+                     / Op<T>::kChunk;
+    const size_t mine = (size_t)kTileM * grp * cs;
+    scores_chunk(a_s + mine, a_s + at_k, cs, subs, nt, warp, lane, s);
+    scores_chunk(a_s + at_g + mine, a_s + at_v, cs, subs, nt, warp, lane, dp);
+  }
+
+  // 2: p32, delta from the held rows, ds
+  bias_scores(s, nt, Lk, bias_s, scale, warp, lane);
+  if (recompute) {
+    softmax_rows(s, nt, warp, lane, red, m_s, l_s);  // the forward's bits
+  } else {
+    const float m[2] = {m_s[gq], m_s[gq + 8]};
+#pragma unroll
+    for (int i = 0; i < kNT; ++i)
+      if (warp + 4 * i < nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] = expf(s[i][e] - m[e >> 1]);
+  }
+  const float l[2] = {l_s[gq], l_s[gq + 8]};
+#pragma unroll
+  for (int i = 0; i < kNT; ++i)
+    if (warp + 4 * i < nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = s[i][e] / l[e >> 1];  // p32
+  row_dot(s, dp, nt, warp, lane, red, dl_s);
+#pragma unroll
+  for (int i = 0; i < kNT; ++i) {
+    const int j = warp + 4 * i;
+    if (j < nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = gq + 8 * (e >> 1);
+        put_held(held, ls, row, 8 * j + 2 * t + (e & 1),
+                 s[i][e] * (dp[i][e] - dl_s[row]));
+      }
+  }
+  zero_held_tail(held, ls, Lk, nt, warp, lane);
+  if (lt < kTileM && q0 + lt < Lq) {
+    const size_t at = (size_t)b * Lq + q0 + lt;
+    delta_out[at] = dl_s[lt];
+    if (recompute) {
+      m_out[at] = m_s[lt];
+      l_out[at] = l_s[lt];
+    }
+  }
+
+  // 3: dq = (ds k) scale, slice by slice
+  const int c0 = warp * 8 * nc;
+  const float rs[2] = {scale, scale};
+  if (reuse) __syncthreads();  // the held ds (no ring barrier comes)
+  for (int sl = 0; sl < n_slices; ++sl) {
+    float acc[kMaxNC][4];
+    zero(acc);
+    for (int kt = 0; kt < tiles; ++kt) {
+      const T* u = reinterpret_cast<const T*>(ring) + at_k + kt * TR * cs
+                   + sl * W;  // the slice's columns
+      if (!reuse)
+        u = reinterpret_cast<const T*>(
+            ring + (size_t)ring_next(n1 + sl * tiles + kt, n_iter, nbuf,
+                                     stage) * buf_bytes);
+      product_tile(held, ls, kt * TR, min(TR, Lk - kt * TR), u,
+                   reuse ? cs : us, c0, nc, lane, acc);
+    }
+    store_slice(dq + (size_t)b * Lq * D, q0, Lq, D, sl * W,
+                min(W, D - sl * W), c0, nc, rs, lane, acc);
+  }
+}
+
+// dk and dv: grid (key tiles of 16 G, query chunks, B), G = `groups`
+// 16-key groups of 4 warps; chunk_len <= 256 is a multiple of 32. Phase 1
+// forms s^T = k q^T and dp^T = v g^T over the full D for the block's keys
+// against the chunk's queries (chunks `cols` columns wide); phase 2 holds
+// p^T = exp(s^T - m) / l and ds^T = p^T (dp^T - delta) (bf16: rounded),
+// from the rows' m, l and delta; phase 3 dv = p^T g, then dk = (ds^T q)
+// scale, slice by slice. With one chunk the block writes dk and dv (dk_part
+// and dv_part null); with several, dk_part / dv_part are [chunks][B][Lk][D]
+// f32 partials.
+template <typename T>
+__global__ void __launch_bounds__(rows::kMaxThreads, 1)
+dkv_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const float* __restrict__ bias,
+                const T* __restrict__ g, const float* __restrict__ m_in,
+                const float* __restrict__ l_in,
+                const float* __restrict__ delta_in, T* __restrict__ dk,
+                T* __restrict__ dv, float* __restrict__ dk_part,
+                float* __restrict__ dv_part, int B, int Lq, int Lk, int D,
+                int nc, int cols, int groups, int chunk_len, int tr,
+                float scale, int nbuf, int buf_bytes) {
+  using namespace rows;
+  const int TR = tr;  // rows of a phase-3 tile
+  extern __shared__ __align__(16) float smem_f[];  // one type a file
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  const int grp = threadIdx.x / kThreads;
+  const int warp = threadIdx.x % kThreads / 32;
+  const int lane = threadIdx.x % 32;
+  const int gk = lane >> 2, t = lane & 3;
+  const size_t hb = held_bytes<T>(chunk_len);
+  T* pt = reinterpret_cast<T*>(smem + grp * hb);              // p^T
+  T* dst = reinterpret_cast<T*>(smem + (groups + grp) * hb);  // ds^T
+  // m, l and delta of the chunk's queries [kMaxL] each
+  float* m_s = reinterpret_cast<float*>(smem + 2 * groups * hb);
+  float* l_s = m_s + kMaxL;
+  float* dl_s = l_s + kMaxL;
+  float* kbias_s = dl_s + kMaxL;  // [groups][16] of the block's keys
+  unsigned char* ring =
+      reinterpret_cast<unsigned char*>(kbias_s + kMaxGroups * kTileM);
+  const int b = blockIdx.z;
+  const int r0 = blockIdx.x * kTileM * groups;  // the block's first key
+  const int j0 = r0 + kTileM * grp;              // the group's
+  const int i_begin = blockIdx.y * chunk_len;
+  const int i_end = min(Lq, i_begin + chunk_len);
+  const int L = i_end - i_begin;
+  const bool v_is_k = v == k;
+  const T* qb = q + (size_t)b * Lq * D;
+  const T* gb = g + (size_t)b * Lq * D;
+  const T* kb = k + (size_t)b * Lk * D;
+  const T* vb = v + (size_t)b * Lk * D;
+  const int ls = held_stride(chunk_len);
+  const int nt = tiles8(L);
+  const int cs = cols + Op<T>::kPad;
+  const int us = tile_stride<T>(nc);
+  const int W = 32 * nc;
+  const int n1 = (D + cols - 1) / cols;
+  const int tiles = (L + TR - 1) / TR;
+  const int n_slices = (D + W - 1) / W;
+  const int n_out = n_slices * tiles;  // phase-3 tiles of one output
+  const bool reuse = reuses_chunk(D, cols, nc);  // from the chunk's q, g
+  const int n_iter = n1 + (reuse ? 0 : 2 * n_out);
+  const int rows_a = kTileM * groups;
+  const int rows_t = staged_rows(chunk_len);
+  // a chunk: k [16 G], v [16 G] where distinct, q, g [rows_t]
+  const size_t at_v = v_is_k ? 0 : (size_t)rows_a * cs;
+  const size_t at_q = at_v + (size_t)rows_a * cs;
+  const size_t at_g = at_q + (size_t)rows_t * cs;
+
+  // the chunks; then g's tiles (dv), then q's (dk)
+  auto stage = [&](int it, int buf) {
+    T* to = reinterpret_cast<T*>(ring + (size_t)buf * buf_bytes);
+    if (it < n1) {
+      const int c0 = it * cols, w = min(cols, D - c0);
+      stage_zero(to, cs, kb, r0, rows_a, Lk, D, c0, w, cols);
+      if (!v_is_k)
+        stage_zero(to + at_v, cs, vb, r0, rows_a, Lk, D, c0, w, cols);
+      stage_zero(to + at_q, cs, qb, i_begin, rows_t, i_end, D, c0, w, cols);
+      stage_zero(to + at_g, cs, gb, i_begin, rows_t, i_end, D, c0, w, cols);
+    } else {
+      const int r = it - n1, which = r / n_out, rr = r % n_out;
+      const int s0 = (rr / tiles) * W, kt = rr % tiles;
+      stage_zero(to, us, which == 0 ? gb : qb, i_begin + kt * TR, TR, i_end,
+                 D, s0, min(W, D - s0), W);
+    }
+  };
+  ring_start(n_iter, nbuf, stage);
+  for (int i = threadIdx.x; i < 8 * nt; i += blockDim.x) {
+    const bool ok = i < L;
+    const size_t at = (size_t)b * Lq + i_begin + i;
+    m_s[i] = ok ? m_in[at] : 0.f;
+    l_s[i] = ok ? l_in[at] : 1.f;
+    dl_s[i] = ok ? delta_in[at] : 0.f;
+  }
+  if (threadIdx.x < rows_a)
+    kbias_s[threadIdx.x] = r0 + threadIdx.x < Lk
+                               ? bias[(size_t)b * Lk + r0 + threadIdx.x] : 0.f;
+
+  // 1: s^T and dp^T
+  float st[kNT][4], dpt[kNT][4];
+  zero(st);
+  zero(dpt);
+  for (int it = 0; it < n1; ++it) {
+    const int buf = ring_next(it, n_iter, nbuf, stage);
+    const T* a_s = reinterpret_cast<const T*>(ring + (size_t)buf * buf_bytes);
+    const int subs = (min(cols, D - it * cols) + Op<T>::kChunk - 1)
+                     / Op<T>::kChunk;
+    const size_t mine = (size_t)kTileM * grp * cs;
+    scores_chunk(a_s + mine, a_s + at_q, cs, subs, nt, warp, lane, st);
+    scores_chunk(a_s + at_v + mine, a_s + at_g, cs, subs, nt, warp, lane,
+                 dpt);
+  }
+
+  // 2: p^T and ds^T (rows = the group's keys, columns = the chunk's
+  // queries)
+  const float* kbias = kbias_s + kTileM * grp;
+#pragma unroll
+  for (int i = 0; i < kNT; ++i) {
+    const int j = warp + 4 * i;
+    if (j < nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = gk + 8 * (e >> 1);
+        const int col = 8 * j + 2 * t + (e & 1);
+        const bool valid = j0 + row < Lk && col < L;
+        const float p =
+            valid ? expf(fmaf(st[i][e], scale, kbias[row]) - m_s[col])
+                        / l_s[col]
+                  : 0.f;
+        put_held(pt, ls, row, col, p);
+        put_held(dst, ls, row, col, valid ? p * (dpt[i][e] - dl_s[col]) : 0.f);
+      }
+  }
+  zero_held_tail(pt, ls, L, nt, warp, lane);
+  zero_held_tail(dst, ls, L, nt, warp, lane);
+
+  // 3: dv = p^T g, then dk = (ds^T q) scale, slice by slice
+  const int c0 = warp * 8 * nc;
+  const size_t part_off = (size_t)blockIdx.y * B * Lk * D;
+  if (reuse) __syncthreads();  // the held p^T, ds^T (no ring barrier comes)
+  for (int which = 0; which < 2; ++which) {
+    const float rs[2] = {which ? scale : 1.f, which ? scale : 1.f};
+    const T* held = which ? dst : pt;
+    for (int sl = 0; sl < n_slices; ++sl) {
+      float acc[kMaxNC][4];
+      zero(acc);
+      for (int kt = 0; kt < tiles; ++kt) {
+        const T* u = reinterpret_cast<const T*>(ring) + (which ? at_q : at_g)
+                     + kt * TR * cs + sl * W;  // the slice's columns
+        if (!reuse)
+          u = reinterpret_cast<const T*>(
+              ring + (size_t)ring_next(n1 + which * n_out + sl * tiles + kt,
+                                       n_iter, nbuf, stage) * buf_bytes);
+        product_tile(held, ls, kt * TR, min(TR, L - kt * TR), u,
+                     reuse ? cs : us, c0, nc, lane, acc);
+      }
+      const int s0 = sl * W, w = min(W, D - s0);
+      if (dk_part != nullptr)
+        store_slice((which ? dk_part : dv_part) + part_off + (size_t)b * Lk * D,
+                    j0, Lk, D, s0, w, c0, nc, rs, lane, acc);
+      else
+        store_slice((which ? dk : dv) + (size_t)b * Lk * D, j0, Lk, D, s0, w,
+                    c0, nc, rs, lane, acc);
+    }
+  }
+}
+
 __device__ __forceinline__ void add_to(float& a, float b) { a += b; }
 __device__ __forceinline__ void add_to(float4& a, float4 b) {
   a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
@@ -895,15 +1234,17 @@ struct Chunks {
 // must be added up, reduce_kernel's launch and its reads. A function of the
 // shape alone, so the order of every sum is too. (At the flagship
 // self-attention one chunk wins: 208 blocks of 7 tiles are one wave, and two
-// chunks of 4 tiles would be two.) Above 512 columns every key tile is
-// `slices` blocks.
-Chunks query_chunks(int B, int Lq, int Lk, int slices) {
+// chunks of 4 tiles would be two.) In the sliced form every key tile is
+// `slices` blocks; the rows form holds at most max_tiles query tiles a
+// chunk.
+Chunks query_chunks(int B, int Lq, int Lk, int slices, int max_tiles) {
   const int q_tiles = (Lq + kTileN - 1) / kTileN;
   const long key_blocks = (long)((Lk + kTileM - 1) / kTileM) * B * slices;
-  Chunks best = {1, q_tiles * kTileN};
+  Chunks best = {0, 0};
   long best_cost = -1;
   for (int want = 1; want <= q_tiles; ++want) {
     const int per_chunk = (q_tiles + want - 1) / want;
+    if (per_chunk > max_tiles) continue;
     const int count = (q_tiles + per_chunk - 1) / per_chunk;
     const long waves =
         (key_blocks * count + kResidentBlocks - 1) / kResidentBlocks;
@@ -923,12 +1264,21 @@ int slices_of(int D) {
   return D <= W ? 1 : (D + W - 1) / W;
 }
 
+// the dkv kernels' query chunks in a form: the rows form holds a chunk's
+// every query (at most 256)
+Chunks form_chunks(int form, int B, int Lq, int Lk, int D) {
+  if (form >= kFormRows)
+    return query_chunks(B, Lq, Lk, 1, rows::kMaxL / kTileN);
+  return query_chunks(B, Lq, Lk, form == kFormSliced ? slices_of(D) : 1,
+                      1 << 30);
+}
+
 // m, l and delta of every query row, rounded up so that what follows them
 // in the scratch stays 16-byte aligned
 size_t stat_floats(size_t rows) { return (3 * rows + 3) / 4 * 4; }
 
-size_t scratch_floats(int B, int Lq, int Lk, int D) {
-  const Chunks c = query_chunks(B, Lq, Lk, slices_of(D));
+size_t scratch_floats(int form, int B, int Lq, int Lk, int D) {
+  const Chunks c = form_chunks(form, B, Lq, Lk, D);
   const size_t partials =
       c.count > 1 ? (size_t)2 * c.count * B * Lk * D : 0;
   return stat_floats((size_t)B * Lq) + partials;
@@ -1015,7 +1365,7 @@ cudaError_t launch_t(const T* q, const T* k, const T* v, const float* bias,
         q, k, v, bias, o, g, m, l, dq, delta, Lq, Lk, D, scale, nbuf);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  const Chunks chunks = query_chunks(B, Lq, Lk, 1);
+  const Chunks chunks = form_chunks(kFormOnline, B, Lq, Lk, D);
   if (chunks.count > 65535) return cudaErrorInvalidValue;
   const size_t fixed = (kv * kTileM * S + 2 * kPartFloats + 2 * kProbFloats
                         + 3 * kTileN + kTileM) * F;
@@ -1048,7 +1398,31 @@ cudaError_t launch(const T* q, const T* k, const T* v, const float* bias,
                                 scratch, B, Lq, Lk, D, scale, st);
 }
 
-// the sliced kernels: D > 512
+// the online form: D <= 512 (f32; bf16 with few keys)
+template <typename T>
+cudaError_t launch_online(const T* q, const T* k, const T* v,
+                          const float* bias, const float* o, const T* g,
+                          T* dq, T* dk, T* dv, const float* stats_in,
+                          float* scratch, int B, int Lq, int Lk, int D,
+                          float scale, cudaStream_t st) {
+  // f32: delta = rowsum(g o)
+  if (sizeof(T) == 4 && o == nullptr) return cudaErrorInvalidValue;
+  switch ((D + 31) / 32) {
+#define DOSTPU_CASE(nc)                                                       \
+  case nc:                                                                    \
+    return launch<T, nc>(q, k, v, bias, o, g, dq, dk, dv, stats_in, scratch, \
+                         B, Lq, Lk, D, scale, st);
+    DOSTPU_CASE(1) DOSTPU_CASE(2) DOSTPU_CASE(3) DOSTPU_CASE(4)
+    DOSTPU_CASE(5) DOSTPU_CASE(6) DOSTPU_CASE(7) DOSTPU_CASE(8)
+    DOSTPU_CASE(9) DOSTPU_CASE(10) DOSTPU_CASE(11) DOSTPU_CASE(12)
+    DOSTPU_CASE(13) DOSTPU_CASE(14) DOSTPU_CASE(15) DOSTPU_CASE(16)
+#undef DOSTPU_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// the sliced kernels: any D, past the rows form's keys
 template <typename T>
 cudaError_t launch_sliced(const T* q, const T* k, const T* v,
                           const float* bias, const float* o, const T* g,
@@ -1062,6 +1436,7 @@ cudaError_t launch_sliced(const T* q, const T* k, const T* v,
   const int kv = v == k ? 1 : 2;
   const int slices = slices_of(D);
   if (slices > 65535) return cudaErrorInvalidValue;
+  if (sizeof(T) == 4 && o == nullptr) return cudaErrorInvalidValue;
   cudaError_t err;
 
   float* delta = scratch + 2 * rows;
@@ -1090,7 +1465,7 @@ cudaError_t launch_sliced(const T* q, const T* k, const T* v,
             q, k, v, bias, o, g, m, l, dq, delta, Lq, Lk, D, scale);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  const Chunks chunks = query_chunks(B, Lq, Lk, slices);
+  const Chunks chunks = form_chunks(kFormSliced, B, Lq, Lk, D);
   if (chunks.count > 65535) return cudaErrorInvalidValue;
   const size_t smem = ((kv * kTileM + 2 * kTileN) * S + 2 * kPartFloats
                        + 2 * kProbFloats + 3 * kTileN + kTileM) * F;
@@ -1110,11 +1485,93 @@ cudaError_t launch_sliced(const T* q, const T* k, const T* v,
   return reduce_chunks(chunks, partials, dk, dv, n, st);
 }
 
+// the rows form: Lk <= 256 (f32 slices always 512 columns, as the
+// forward's); `groups` 16-row groups a block, 0 for the rule's
+template <typename T>
+cudaError_t launch_rows(const T* q, const T* k, const T* v,
+                        const float* bias, const T* g, T* dq, T* dk, T* dv,
+                        const float* stats_in, float* scratch, int B, int Lq,
+                        int Lk, int D, float scale, int groups,
+                        cudaStream_t st) {
+  using namespace rows;
+  constexpr size_t F = sizeof(float);
+  if (Lk > kMaxL || groups < 0 || groups > kMaxGroups)
+    return cudaErrorInvalidValue;
+  const size_t n_rows = (size_t)B * Lq;
+  const int kv = v == k ? 1 : 2;
+  const int nc = sizeof(T) == 4 ? kMaxNC : slice_groups(D);
+  cudaError_t err;
+
+  // scratch: m, l (written by dq_rows_kernel when the caller brings none),
+  // delta, dk/dv partials
+  float* m = scratch;
+  float* l = scratch + n_rows;
+  float* delta = scratch + 2 * n_rows;
+  float* partials = scratch + stat_floats(n_rows);
+  {
+    const int gr = groups ? groups : row_groups(B, Lq, Lk, 128);
+    const int rows_a = kTileM * gr;
+    const dim3 grid((Lq + rows_a - 1) / rows_a, B);
+    const int staged = 2 * kTileM * gr + kv * staged_rows(Lk);
+    const int cols = chunk_cols<T>(D, staged, chunk_budget<T>(grid));
+    const int tr = tile_rows<T>(grid);
+    const bool reuse = reuses_chunk(D, cols, nc);
+    const size_t buf = reuse ? chunk_bytes<T>(staged, cols)
+                             : std::max(chunk_bytes<T>(staged, cols),
+                                        tile_bytes<T>(nc, tr));
+    const size_t fixed = gr * held_bytes<T>(Lk)
+                         + (kMaxGroups * (kWarps + 3) * kTileM + kMaxL) * F;
+    const int nbuf = reuse ? (fixed + buf <= kSmemMax)
+                           : ring_buffers(fixed, buf, resident(grid));
+    if (nbuf == 0) return cudaErrorInvalidValue;
+    const size_t smem = fixed + nbuf * buf;
+    if ((err = allow_smem(dq_rows_kernel<T>, smem)) != cudaSuccess)
+      return err;
+    dq_rows_kernel<T><<<grid, kThreads * gr, smem, st>>>(
+            q, k, v, bias, g, stats_in,
+            stats_in == nullptr ? nullptr : stats_in + n_rows, dq, m, l,
+            delta, Lq, Lk, D, nc, cols, gr, tr, scale, nbuf, (int)buf);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const float* m_use = stats_in == nullptr ? m : stats_in;
+  const float* l_use = stats_in == nullptr ? l : stats_in + n_rows;
+  const Chunks chunks = form_chunks(kFormRows, B, Lq, Lk, D);
+  if (chunks.count > 65535) return cudaErrorInvalidValue;
+  const int L = chunks.len;
+  const int gr = groups ? groups : row_groups(B, Lk, L, 128);
+  const int rows_a = kTileM * gr;
+  const dim3 grid((Lk + rows_a - 1) / rows_a, chunks.count, B);
+  const int staged = kv * kTileM * gr + 2 * staged_rows(L);
+  const int cols = chunk_cols<T>(D, staged, chunk_budget<T>(grid));
+  const int tr = tile_rows<T>(grid);
+  const bool reuse = reuses_chunk(D, cols, nc);
+  const size_t buf = reuse ? chunk_bytes<T>(staged, cols)
+                           : std::max(chunk_bytes<T>(staged, cols),
+                                      tile_bytes<T>(nc, tr));
+  const size_t fixed = 2 * gr * held_bytes<T>(L)
+                       + (3 * kMaxL + kMaxGroups * kTileM) * F;
+  const int nbuf = reuse ? (fixed + buf <= kSmemMax)
+                         : ring_buffers(fixed, buf, resident(grid));
+  if (nbuf == 0) return cudaErrorInvalidValue;
+  const size_t smem = fixed + nbuf * buf;
+  if ((err = allow_smem(dkv_rows_kernel<T>, smem)) != cudaSuccess) return err;
+  const bool direct = chunks.count == 1;
+  const size_t n = (size_t)B * Lk * D;
+  dkv_rows_kernel<T><<<grid, kThreads * gr, smem, st>>>(
+      q, k, v, bias, g, m_use, l_use, delta, dk, dv,
+      direct ? nullptr : partials,
+      direct ? nullptr : partials + chunks.count * n, B, Lq, Lk, D, nc, cols,
+      gr, L, tr, scale, nbuf, (int)buf);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return reduce_chunks(chunks, partials, dk, dv, n, st);
+}
+
 template <typename T>
 int dispatch(const void* q_, const void* k_, const void* v_,
              const float* bias, const float* o, const void* g_, void* dq_,
              void* dk_, void* dv_, const float* stats_in, float* scratch,
-             int B, int Lq, int Lk, int D, float scale, cudaStream_t st) {
+             int B, int Lq, int Lk, int D, float scale, int form,
+             cudaStream_t st) {
   const T* q = static_cast<const T*>(q_);
   const T* k = static_cast<const T*>(k_);
   const T* v = static_cast<const T*>(v_);
@@ -1122,55 +1579,60 @@ int dispatch(const void* q_, const void* k_, const void* v_,
   T* dq = static_cast<T*>(dq_);
   T* dk = static_cast<T*>(dk_);
   T* dv = static_cast<T*>(dv_);
-  if (slices_of(D) > 1)
+  if (form >= kFormRows)  // kFormRows + g: g row groups forced
+    return launch_rows<T>(q, k, v, bias, g, dq, dk, dv, stats_in, scratch, B,
+                          Lq, Lk, D, scale, form - kFormRows, st);
+  if (form == kFormSliced)
     return launch_sliced<T>(q, k, v, bias, o, g, dq, dk, dv, stats_in,
                             scratch, B, Lq, Lk, D, scale, st);
-  switch ((D + 31) / 32) {
-#define DOSTPU_CASE(nc)                                                       \
-  case nc:                                                                    \
-    return launch<T, nc>(q, k, v, bias, o, g, dq, dk, dv, stats_in, scratch, \
-                         B, Lq, Lk, D, scale, st);
-    DOSTPU_CASE(1) DOSTPU_CASE(2) DOSTPU_CASE(3) DOSTPU_CASE(4)
-    DOSTPU_CASE(5) DOSTPU_CASE(6) DOSTPU_CASE(7) DOSTPU_CASE(8)
-    DOSTPU_CASE(9) DOSTPU_CASE(10) DOSTPU_CASE(11) DOSTPU_CASE(12)
-    DOSTPU_CASE(13) DOSTPU_CASE(14) DOSTPU_CASE(15) DOSTPU_CASE(16)
-#undef DOSTPU_CASE
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (form == kFormOnline)
+    return launch_online<T>(q, k, v, bias, o, g, dq, dk, dv, stats_in,
+                            scratch, B, Lq, Lk, D, scale, st);
+  return cudaErrorInvalidValue;
+}
+
+// the form of a call (-1: the plan's); the rows form's row-group codes
+// (kFormRows + g) take its scratch
+int form_or_plan(int form, int D, int Lk, int bf16) {
+  return form < 0 ? rows::form_of(D, Lk, bf16 != 0) : form;
 }
 
 }  // namespace
 
-// floats of scratch dostpu_attention_bwd needs at this shape
+// floats of scratch dostpu_attention_bwd needs at this shape, operand type
+// (bf16 non-zero: bfloat16) and form (-1: the plan's)
 extern "C" size_t dostpu_attention_bwd_scratch_floats(int B, int Lq, int Lk,
-                                                      int D) {
+                                                      int D, int bf16,
+                                                      int form) {
   if (B <= 0 || Lq <= 0 || Lk <= 0 || D <= 0) return 0;
-  return scratch_floats(B, Lq, Lk, D);
+  return scratch_floats(form_or_plan(form, D, Lk, bf16), B, Lq, Lk, D);
 }
 
 // All pointers are device pointers into contiguous, 16-byte aligned
 // tensors: q/o/g [B, Lq, D], k/v [B, Lk, D] (v may be k itself) and the
 // outputs dq [B, Lq, D], dk/dv [B, Lk, D]: q, k, v, g, dq, dk and dv float32,
-// or bfloat16 when `bf16` is non-zero; o (read by the f32 form only, may be
-// null for bf16), bias [B, Lk], stats_in (the forward's [2, B, Lq]: row max,
-// then row sum, or null) and scratch (dostpu_attention_bwd_scratch_floats(B,
-// Lq, Lk, D) floats) float32 in both forms. Any D >= 1. Returns the CUDA
-// error code of the launches.
+// or bfloat16 when `bf16` is non-zero; o (read by the f32 online and sliced
+// forms only, may be null otherwise), bias [B, Lk], stats_in (the forward's
+// [2, B, Lq]: row max, then row sum, or null) and scratch
+// (dostpu_attention_bwd_scratch_floats(B, Lq, Lk, D, bf16, form) floats)
+// float32 in both forms. Any D >= 1. `form` as dostpu_attention_fwd's (-1:
+// the plan's; 2 + g: the rows form with g 16-row groups a block). Returns
+// the CUDA error code of the launches.
 extern "C" int dostpu_attention_bwd(const void* q, const void* k,
                                     const void* v, const float* bias,
                                     const float* o, const void* g, void* dq,
                                     void* dk, void* dv,
                                     const float* stats_in, float* scratch,
                                     int B, int Lq, int Lk, int D, float scale,
-                                    int bf16, void* stream) {
-  if (B <= 0 || Lq <= 0 || Lk <= 0 || B > 65535 || D <= 0)
+                                    int bf16, int form, void* stream) {
+  if (B <= 0 || Lq <= 0 || Lk <= 0 || B > 65535 || D <= 0
+      || form > attn::kFormRows + attn::rows::kMaxGroups)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  form = form_or_plan(form, D, Lk, bf16);
   if (bf16)
     return dispatch<__nv_bfloat16>(q, k, v, bias, o, g, dq, dk, dv, stats_in,
-                                   scratch, B, Lq, Lk, D, scale, st);
-  if (o == nullptr) return cudaErrorInvalidValue;
+                                   scratch, B, Lq, Lk, D, scale, form, st);
   return dispatch<float>(q, k, v, bias, o, g, dq, dk, dv, stats_in, scratch,
-                         B, Lq, Lk, D, scale, st);
+                         B, Lq, Lk, D, scale, form, st);
 }

@@ -11,9 +11,10 @@ producing NaN.
 :func:`fused_attention` is differentiable in q, k and v (a
 ``torch.autograd.Function``; the key mask gets no gradient): for CUDA
 tensors its forward is the kernel in ``csrc/attention.cu`` and its backward
-the kernel in ``csrc/attention_bwd.cu`` (both 3xTF32 tensor-core products
-at f32 accuracy; the forward hands its row max and sum to the backward), at
-every shape; for CPU tensors
+the kernel in ``csrc/attention_bwd.cu`` (tensor-core products, 3xTF32 at
+f32 accuracy for f32 operands, bf16 products summed in f32 for bf16 ones;
+the forward hands its row max and sum to the backward), at every shape; for
+CPU tensors
 they are :func:`dot_product_attention` and :func:`attention_bwd_reference`.
 Nothing else chooses the path. Layout is batch-first ``[B, L, D]`` as in the
 JAX package.
@@ -33,17 +34,23 @@ both are the plain composition :func:`ln_attention_reference`.
 bf16 operands (a bf16 model): the forward kernel has a bf16 form (q, k, v
 and the output bf16; scores, softmax and the row statistics f32) that
 rounds where the TPU kernel and :func:`dot_product_attention` round: the
-normalised softmax weights to bf16, then the output (two passes over the
-keys, see ``csrc/attention.cu``). So has the backward kernel (q, k, v, g
-and dq, dk, dv bf16), which rounds where the TPU kernel ``_attn_bwd_kernel``
-and :func:`attention_bwd_reference` round: p and ds to bf16 before their
-products, each output once after its scale; it forms delta from dp and the
-f32 softmax, not from the rounded output (see ``csrc/attention_bwd.cu``).
+normalised softmax weights to bf16, then the output. So has the backward
+kernel (q, k, v, g and dq, dk, dv bf16), which rounds where the TPU kernel
+``_attn_bwd_kernel`` and :func:`attention_bwd_reference` round: p and ds
+to bf16 before their products, each output once after its scale; it forms
+delta from dp and the f32 softmax, not from the rounded output (see
+``csrc/attention_bwd.cu``).
 
-The three attention kernels take every feature width D >= 1:
-:func:`attention_plan` is the Python mirror of how they split it (rows
-staged at ceil(D / 32) x 32 columns up to D = 512; above it blocks that each
-own a slice of 512 output columns).
+The attention kernels take every feature width D >= 1, in one of three
+forms (``FORMS``) that :func:`attention_plan` picks from D, the key count Lk
+and the operand dtype, the mirror of ``dostpu_attention_plan`` in
+``csrc/attention.cu``: a rule measured on the H100, which nothing else
+(no flag, variable or argument) overrides. ``rows`` (up to 256 keys: bf16
+at every D but D <= 512 with at most 32 keys, f32 above D = 512 from 96
+keys) holds a block's whole rows of scores and forms them once;
+``online`` (up to D = 512: f32, and bf16 with at most 32 keys) streams the
+keys with an online softmax; ``sliced`` (the rest) gives each block a slice
+of 512 output columns.
 
 Dropout on the attention weights (the JAX package's ``dropout_rate`` and
 ``dropout_rng``, here ``dropout_rate`` and an explicit ``torch.Generator``
@@ -64,6 +71,7 @@ operands) instead of exactly f32. Only f64 operands see a difference.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -75,6 +83,13 @@ NEG_INF = -1e30
 # the widest row the attention kernels stage whole: 16 groups of 32 columns
 # (``attn::kSliceMaxNC`` of csrc/attention_core.cuh)
 SLICE_COLUMNS = 512
+# the most keys the rows form holds in a row (``attn::rows::kMaxL`` of
+# csrc/attention_rows.cuh), the fewest it takes for f32 operands
+# (``kRowsMinKeysF32``), and the most the online form keeps for bf16 ones
+# (``kOnlineMaxKeysBF16``)
+ROWS_MAX_KEYS, ROWS_MIN_KEYS_F32, ONLINE_MAX_KEYS_BF16 = 256, 96, 32
+# the kernels' forms, in the order of their codes in csrc/attention_rows.cuh
+FORM_ONLINE, FORM_SLICED, FORM_ROWS = FORMS = ("online", "sliced", "rows")
 LN_EPS_ATTN = 1e-5  # the transformer's LayerNorm eps (nn.LayerNorm default)
 
 
@@ -205,17 +220,40 @@ def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv
 
 
-def attention_plan(d: int) -> tuple[int, int]:
-    """(32-column groups a staged row holds, blocks that share a row's
-    output columns) of the attention kernels at feature width d: the mirror
-    of ``dostpu_attention_plan`` in csrc/attention.cu, which the card run
-    holds equal. (ceil(d / 32), 1) up to d = 512, else (16, ceil(d / 512)):
-    the sliced kernels."""
+class AttentionPlan(NamedTuple):
+    """How the attention kernels take a call: ``nc`` 32-column groups a
+    staged row (online) or an output slice (sliced, rows) holds, ``slices``
+    the slices of a row's output columns, ``form`` one of ``FORMS``."""
+    nc: int
+    slices: int
+    form: str
+
+
+def attention_plan(d: int, lk: int = 1,
+                   dtype: torch.dtype = torch.float32) -> AttentionPlan:
+    """The attention kernels' plan at feature width d, lk keys and operand
+    ``dtype``: the mirror of ``dostpu_attention_plan`` in csrc/attention.cu,
+    which the card run holds equal. (nc, slices) is (ceil(d / 32), 1) up to
+    d = 512, else (16, ceil(d / 512)), in every form. The form, measured on
+    the H100: ``online`` up to d = 512 for f32 operands and for bf16 ones
+    with at most ``ONLINE_MAX_KEYS_BF16`` keys, where it measured faster
+    than ``rows`` on the same calls; else ``rows`` up to ``ROWS_MAX_KEYS``
+    keys (the rows of scores a block holds), for f32 from
+    ``ROWS_MIN_KEYS_F32`` keys; ``sliced`` for the rest."""
     if d < 1:
         raise ValueError(f"attention: feature width {d} must be at least 1")
+    if lk < 1:
+        raise ValueError(f"attention: {lk} keys; at least 1 is needed")
+    bf16 = dtype == torch.bfloat16
+    if d <= SLICE_COLUMNS and (not bf16 or lk <= ONLINE_MAX_KEYS_BF16):
+        form = FORM_ONLINE
+    elif lk <= ROWS_MAX_KEYS and (bf16 or lk >= ROWS_MIN_KEYS_F32):
+        form = FORM_ROWS
+    else:
+        form = FORM_SLICED
     if d <= SLICE_COLUMNS:
-        return -(-d // 32), 1
-    return SLICE_COLUMNS // 32, -(-d // SLICE_COLUMNS)
+        return AttentionPlan(-(-d // 32), 1, form)
+    return AttentionPlan(SLICE_COLUMNS // 32, -(-d // SLICE_COLUMNS), form)
 
 
 def fused_attention_fwd(q, k, v, bias, want_stats=False):
@@ -231,7 +269,7 @@ def fused_attention_fwd(q, k, v, bias, want_stats=False):
                          "use dot_product_attention on the CPU")
     b, lq, d = q.shape
     lk = k.shape[1]
-    attention_plan(d)
+    attention_plan(d, lk)
     kernels.require("fused_attention", "q", q, device=q.device,
                     dtype={torch.float32, torch.bfloat16}, shape=(b, lq, d))
     operands = {"k": (k, q.dtype, (b, lk, d)), "v": (v, q.dtype, (b, lk, d)),
@@ -247,7 +285,7 @@ def fused_attention_fwd(q, k, v, bias, want_stats=False):
         code = kernels.library().dostpu_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             out.data_ptr(), stats.data_ptr() if want_stats else None, b, lq,
-            lk, d, d ** -0.5, int(q.dtype == torch.bfloat16), stream)
+            lk, d, d ** -0.5, int(q.dtype == torch.bfloat16), -1, stream)
     kernels.check(code, "fused_attention")
     fused_attention.launches += 1
     return out, stats
@@ -261,15 +299,15 @@ def fused_attention_bwd(q, k, v, bias, o, g, stats=None):
     Same result as :func:`attention_bwd_reference`. CUDA tensors only: q,
     k, v and g of one dtype, float32 or bfloat16 (the bf16 form, which
     returns bf16 gradients and reads no o: pass it or None), o float32 for
-    the f32 form, bias and stats float32; contiguous, any D >= 1; anything
-    else raises. ``fused_attention_bwd.launches`` counts calls that
+    the f32 online and sliced forms, bias and stats float32; contiguous,
+    any D >= 1; anything else raises. ``fused_attention_bwd.launches`` counts calls that
     launched the kernels (one per call, however many kernels it takes)."""
     if not q.is_cuda:
         raise ValueError("fused_attention_bwd: the kernel takes CUDA tensors; "
                          "use attention_bwd_reference on the CPU")
     b, lq, d = q.shape
     lk = k.shape[1]
-    attention_plan(d)
+    attention_plan(d, lk)
     g = g.contiguous()
     kernels.require("fused_attention_bwd", "q", q, device=q.device,
                     dtype={torch.float32, torch.bfloat16}, shape=(b, lq, d))
@@ -288,7 +326,8 @@ def fused_attention_bwd(q, k, v, bias, o, g, stats=None):
     lib = kernels.library()
     # row statistics and delta, and the query chunks' partial dk and dv
     scratch = torch.empty(
-        (lib.dostpu_attention_bwd_scratch_floats(b, lq, lk, d),),
+        (lib.dostpu_attention_bwd_scratch_floats(b, lq, lk, d, int(bf16),
+                                                 -1),),
         device=q.device, dtype=torch.float32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -297,7 +336,7 @@ def fused_attention_bwd(q, k, v, bias, o, g, stats=None):
             None if bf16 else o.data_ptr(), g.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(),
             None if stats is None else stats.data_ptr(), scratch.data_ptr(),
-            b, lq, lk, d, d ** -0.5, int(bf16), stream)
+            b, lq, lk, d, d ** -0.5, int(bf16), -1, stream)
     kernels.check(code, "fused_attention_bwd")
     fused_attention_bwd.launches += 1
     return dq, dk, dv

@@ -63,17 +63,18 @@ _SIGNATURES = {
     # g_ln_scale g_ln_bias g_alpha g_w1 g_b1 scratch | B A E M H form bf16
     # stream
     "dostpu_fused_mp_edge_bwd": ([_P] * 21 + [_I] * 7 + [_P], _I),
-    # D -> nc slices
-    "dostpu_attention_plan": ([_I, _IP, _IP], None),
-    # q k v bias out stats|null B Lq Lk D scale bf16 stream
-    "dostpu_attention_fwd": ([_P] * 6 + [_I] * 4 + [ctypes.c_float, _I, _P],
-                             _I),
-    # B Lq Lk D
-    "dostpu_attention_bwd_scratch_floats": ([_I] * 4, ctypes.c_size_t),
+    # D Lk bf16 -> form nc slices
+    "dostpu_attention_plan": ([_I] * 3 + [_IP] * 3, None),
+    # q k v bias out stats|null B Lq Lk D scale bf16 form stream (form -1:
+    # the plan's, what the wrappers pass)
+    "dostpu_attention_fwd": ([_P] * 6 + [_I] * 4
+                             + [ctypes.c_float, _I, _I, _P], _I),
+    # B Lq Lk D bf16 form
+    "dostpu_attention_bwd_scratch_floats": ([_I] * 6, ctypes.c_size_t),
     # q k v bias o|null g dq dk dv stats_in|null scratch B Lq Lk D scale
-    # bf16 stream
-    "dostpu_attention_bwd": ([_P] * 11 + [_I] * 4 + [ctypes.c_float, _I, _P],
-                             _I),
+    # bf16 form stream
+    "dostpu_attention_bwd": ([_P] * 11 + [_I] * 4
+                             + [ctypes.c_float, _I, _I, _P], _I),
     # data ids out B E F N stream (float32; the same for bfloat16)
     "dostpu_segment_sum": ([_P] * 3 + [_I] * 4 + [_P], _I),
     "dostpu_segment_sum_bf16": ([_P] * 3 + [_I] * 4 + [_P], _I),

@@ -37,6 +37,7 @@ from dostransformer_tpu_torch.nn.layernorm import (  # noqa: E402
     ln_bwd_reference,
 )
 from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
+    FORMS,
     attention_plan,
     fused_attention_fwd,
     attention_bwd_reference,
@@ -469,9 +470,13 @@ def test_attention_plan_matches_the_library(dev):
     lib = kernels.library()
     for d in (1, 31, 32, 33, 48, 50, 200, 512, 513, 544, 1000, 1024, 1536,
               2049):
-        nc, slices = ctypes.c_int(), ctypes.c_int()
-        lib.dostpu_attention_plan(d, nc, slices)
-        assert (nc.value, slices.value) == attention_plan(d)
+        for lk in (1, 32, 33, 95, 96, 201, 256, 257, 1000):
+            for dtype in (torch.float32, torch.bfloat16):
+                form, nc, slices = (ctypes.c_int() for _ in range(3))
+                lib.dostpu_attention_plan(d, lk, int(dtype == torch.bfloat16),
+                                          form, nc, slices)
+                assert (nc.value, slices.value, FORMS[form.value]) == \
+                    attention_plan(d, lk, dtype)
 
 
 def test_attention_kernels_reject_what_they_do_not_take(dev):
@@ -1148,6 +1153,45 @@ def test_fused_attention_bwd_bf16_matches_plain(dev, shape):
                                               go, stats),
                           fused_attention_bwd(q, k, vv, bias, o, go, stats)):
                 assert all(torch.equal(x, y) for x, y in zip(other, got))
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 256),
+                                     (torch.float32, 1024),
+                                     (torch.bfloat16, 1024)],
+                         ids=["bf16-d256", "f32-d1024", "bf16-d1024"])
+def test_attention_rows_form_at_the_self_shape(dev, dtype, d):
+    """The rows form (attention_plan) at the flagship's self-attention
+    shape, 16 x 201 x 201, the last graph fully masked: the forward and
+    the backward against the plain versions (f32 1e-5, bf16 BF16_REL of the
+    largest value), the row statistics within 1e-5; reruns, the backward
+    without the forward's statistics and with two copies of the keys
+    bit-identical."""
+    b, lq, lk = 16, 201, 201
+    assert attention_plan(d, lk, dtype).form == "rows"
+    rel = 1e-5 if dtype == torch.float32 else BF16_REL
+    g = torch.Generator().manual_seed(16)
+    q, k, go = (torch.randn(b, n, d, generator=g).to(dev, dtype)
+                for n in (lq, lk, lq))
+    km = torch.ones(b, lk, dtype=torch.bool)
+    km[-1] = False
+    bias = key_bias(km.to(dev))
+    o, stats = fused_attention_fwd(q, k, k, bias, want_stats=True)
+    _close_scaled(o.float(), dot_product_attention(
+        q, k, k, km.to(dev)).float(), rel)
+    want = attention_stats_reference(q, k, bias)
+    _close_scaled(stats[0][:-1], want[0][:-1], 1e-5)
+    assert (stats[0][-1] == -1e30).all() and (stats[1][-1] == lk).all()
+    assert torch.equal(fused_attention_fwd(q, k, k, bias)[0], o)
+    assert torch.equal(fused_attention_fwd(q, k, k.clone(), bias)[0], o)
+    of = o.float()
+    got = fused_attention_bwd(q, k, k, bias, of, go, stats)
+    for x, w in zip(got, attention_bwd_reference(q, k, k, bias, go)):
+        assert x.dtype == dtype
+        _close_scaled(x.float(), w.float(), rel)
+    for other in (fused_attention_bwd(q, k, k, bias, of, go, stats),
+                  fused_attention_bwd(q, k, k, bias, of, go),
+                  fused_attention_bwd(q, k, k.clone(), bias, of, go, stats)):
+        assert all(torch.equal(x, y) for x, y in zip(other, got))
 
 
 @pytest.mark.parametrize("levers", [False, True])

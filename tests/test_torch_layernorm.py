@@ -529,7 +529,7 @@ def test_the_attention_kernels_take_every_width(d):
     staged whole at ceil(D / 32) x 32 columns up to 512, slices of 512
     output columns above it; the staged columns cover the row with less
     than one group (or slice) to spare."""
-    nc, slices = attention_plan(d)
+    nc, slices, _ = attention_plan(d)
     assert 1 <= nc <= 16 and slices >= 1
     if d <= 512:
         assert slices == 1 and 32 * (nc - 1) < d <= 32 * nc
