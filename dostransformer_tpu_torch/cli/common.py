@@ -11,7 +11,8 @@ improvement) and the plateau early stop; checkpoints with resume and the
 best model under ``best/`` (``--checkpoint_dir``, ``--checkpoint_every``);
 SIGTERM saves and exits at the next epoch boundary; optional eval artifacts
 (``--export_preds``), TensorBoard scalars (``--tensorboard``) and a
-``torch.profiler`` trace (``--profile_dir``); gradient clipping and
+``torch.profiler`` trace with the training loop's spans and counters
+(``--profile_dir``, tracing.py); gradient clipping and
 learning-rate schedules (``--grad_clip``, ``--warmup_epochs``,
 ``--cosine_lr``) and recomputation in the backward (``--remat``). At the
 end the reference's ``experiments_{embedder}.txt`` block, byte for byte,
@@ -49,6 +50,7 @@ from typing import Mapping, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from dostransformer_tpu_torch import tracing
 from dostransformer_tpu_torch.config import TrainConfig, exp_get_name
 from dostransformer_tpu_torch.data.datasets import GraphLoader
 from dostransformer_tpu_torch.data.graph import GraphSample
@@ -167,8 +169,9 @@ def build_arg_parser(task: str) -> argparse.ArgumentParser:
                    help="write test-set predictions/targets/embeddings "
                         "(the reference's preds_y structure, utils.py:93-109)")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="write a torch.profiler trace of the run "
-                        "(trace.json, Chrome trace format) to this directory")
+                   help="write a torch.profiler trace of the run, with "
+                        "the training loop's spans and counters (trace.json, "
+                        "Chrome trace format) to this directory")
     p.add_argument("--debug_nans", action="store_true",
                    help="torch.autograd anomaly detection: a NaN produced "
                         "in the backward raises where it appeared")
@@ -503,7 +506,7 @@ def _run_training(stop, task, cfg, train, valid, test, device, results_dir,
                 losses = epochs_fn(device_data, cfg.seed,
                                    range(epoch, bound))
             else:
-                losses = trainer.train_epoch(loader)[None]
+                losses = trainer.train_epoch(loader, epoch)[None]
             n_steps += losses.numel()
             epoch_losses = losses.mean(1).tolist()  # one copy to the host
             for i, mean_loss in enumerate(epoch_losses, epoch + 1):
@@ -565,6 +568,7 @@ def _run_training(stop, task, cfg, train, valid, test, device, results_dir,
     if profiler is not None and is_main:
         os.makedirs(profile_dir, exist_ok=True)
         profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        tracing.write_chrome_trace(os.path.join(profile_dir, "trace.json"))
         print(f"\nwrote a torch.profiler trace -> {profile_dir}/trace.json")
     if export_preds and not preempted:  # the grace window is short
         art = EvalArtifacts()

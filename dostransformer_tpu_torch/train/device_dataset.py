@@ -74,10 +74,12 @@ def epoch_perm(num_samples: int, batch_size: int, seed: int, epoch: int,
 class DeviceDataset:
     """Every sample (under ``shard=(d, n)`` this rank's block of them) as
     one GraphBatch of N graphs on the device; ``batch_size`` is the global
-    batch, ``local_batch`` a rank's share of it."""
+    batch, ``local_batch`` a rank's share of it. ``real`` counts, on the
+    host, the block's real graphs and the node rows of their atoms (the
+    dummy graphs and the padding left out)."""
 
     def __init__(self, data: GraphBatch, batch_size: int,
-                 shard: Tuple[int, int] = (0, 1)):
+                 real: Tuple[int, int], shard: Tuple[int, int] = (0, 1)):
         index, count = shard
         if batch_size % count:
             raise ValueError(f"batch size {batch_size} does not split over "
@@ -89,6 +91,7 @@ class DeviceDataset:
         self.data = data  # [N, ...]: every field sample-leading
         self.batch_size = batch_size
         self.shard_index, self.shard_count = index, count
+        self.real_graphs, self.real_atoms = real
 
     @classmethod
     def from_samples(cls, samples: Sequence[GraphSample], batch_size: int,
@@ -109,9 +112,10 @@ class DeviceDataset:
         the card by default (with no card visible this raises unless
         ``device="cpu"`` is given)."""
         device = entry_device(device)
+        samples = list(samples)
         n = len(samples)
         n_pad = -(-n // batch_size) * batch_size
-        data = collate(list(samples), atoms_per_graph=atoms_per_graph,
+        data = collate(samples, atoms_per_graph=atoms_per_graph,
                        edges_per_graph=edges_per_graph, num_graphs=n_pad)
         if storage_dtype is not None:
             data = dataclasses.replace(data, **{
@@ -120,7 +124,9 @@ class DeviceDataset:
         index, count = shard
         block = n_pad // count
         data = data.rows(index * block, (index + 1) * block)
-        return cls(data.to(device), batch_size, shard)
+        mine = samples[index * block:(index + 1) * block]
+        return cls(data.to(device), batch_size,
+                   (len(mine), sum(s.n_nodes for s in mine)), shard)
 
     @property
     def num_samples(self) -> int:
@@ -135,6 +141,17 @@ class DeviceDataset:
     @property
     def device(self) -> torch.device:
         return self.data.nodes.device
+
+    def epoch_counts(self) -> dict:
+        """The counters of one epoch over this dataset (host integers):
+        steps, real graphs and graph slots, real atom rows and atom slots
+        (``atoms_per_graph`` rows a slot, the dummies' included)."""
+        return {"train.steps": self.steps_per_epoch,
+                "train.graphs": self.real_graphs,
+                "train.graph_slots": self.num_samples,
+                "train.atom_rows": self.real_atoms,
+                "train.atom_slots": (self.num_samples
+                                     * self.data.atoms_per_graph)}
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()

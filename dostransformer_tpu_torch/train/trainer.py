@@ -18,6 +18,16 @@ index tensor [S, B], uploaded once an epoch; every step goes through
 for the caller to fetch once per chunk of epochs. :meth:`Trainer.eval_epoch`
 scores a list of batches and stacks their metrics.
 
+Under a profiler the epochs record their spans (tracing.py): ``train.epoch``
+around an epoch, ``train.step`` around each step (its atom bucket an
+attribute), and the step's phases ``step.input`` (the gather on the device,
+or the host batch's upload), ``step.forward`` (``zero_grad``, the forward
+and the loss), ``step.backward`` and ``step.optimizer`` (AdamW, with its
+all-reduce under a mesh, to the step's end). Every epoch adds its counters:
+``train.steps``, ``train.graphs`` and ``train.graph_slots`` (real graphs,
+and every slot the dummies' included), ``train.atom_rows`` and
+``train.atom_slots`` (the real graphs' node rows, and every slot's rows).
+
 Data and tensor parallelism (``mesh``, a ``DeviceMesh`` from
 parallel/mesh.py ``make_mesh`` over axes ("data",) or ("data", "model")),
 the JAX package's shard_map step: every rank runs the kernels on its own
@@ -62,11 +72,13 @@ checkpoints, so a resumed run draws what the uninterrupted one drew.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Iterable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
+from dostransformer_tpu_torch import tracing
 from dostransformer_tpu_torch.data.graph import GraphBatch
 from dostransformer_tpu_torch.models.registry import model_outputs, system_dos
 from dostransformer_tpu_torch.nn.transformer import (
@@ -157,6 +169,7 @@ class Trainer:
         """One optimizer step on this rank's rows ``batch`` (the whole
         batch without a mesh); what :meth:`train_step` and the device
         dataset's epochs run."""
+        tracing.phase("step.forward")
         batch = batch.to(self.device)
         self.model.train()
         self.optimizer.zero_grad()
@@ -169,7 +182,9 @@ class Trainer:
         loss, parts = dos_loss(dos_global, dos_system, batch.y,
                                batch.graph_mask, self.beta,
                                self.clamp_targets, count=count)
+        tracing.phase("step.backward")
         loss.backward()
+        tracing.phase("step.optimizer")
         self.optimizer.step(grad_group=self.data_group)
         out = {"loss": loss.detach(),
                **{k: v.detach() for k, v in parts.items()}}
@@ -197,16 +212,37 @@ class Trainer:
         m["preds_global"] = dos_global
         return m
 
-    def train_epoch(self, loader: Iterable[GraphBatch]) -> torch.Tensor:
-        """One pass over a host loader; the per-step losses [S] come back to
-        the host once, at the end."""
-        losses = [self.train_step(batch)["loss"] for batch in loader]
+    def train_epoch(self, loader: Iterable[GraphBatch],
+                    epoch: int = 0) -> torch.Tensor:
+        """One pass over a host loader (of batches on the host), epoch
+        ``epoch`` of the run; the per-step losses [S] come back to the host
+        once, at the end."""
+        losses, counts = [], Counter()
+        with tracing.span("train.epoch", device=self.device, epoch=epoch):
+            for i, batch in enumerate(loader):
+                rows = self._local_rows(batch)
+                counts.update({
+                    "train.steps": 1,
+                    "train.graphs": int(rows.graph_mask.sum()),
+                    "train.graph_slots": rows.num_graphs,
+                    "train.atom_rows": int(rows.node_mask.sum()),
+                    "train.atom_slots": (rows.num_graphs
+                                         * rows.atoms_per_graph)})
+                with tracing.span("train.step", step=(epoch, i),
+                                  bucket=rows.atoms_per_graph):
+                    tracing.phase("step.input")
+                    rows = rows.to(self.device)
+                    losses.append(self.local_step(rows)["loss"])
+            for name, n in counts.items():
+                tracing.count(name, n)
         return torch.stack(losses).cpu()
 
-    def _device_epoch(self, dataset, perm) -> list:
+    def _device_epoch(self, dataset, perm, epoch: int, first: int = 0
+                      ) -> list:
         """Train steps over ``dataset`` (a DeviceDataset: under a mesh this
         rank's block) in the order ``perm`` [S, local B] (indices into the
-        block; any device; uploaded once); the step losses."""
+        block; any device; uploaded once), the steps ``first`` on of epoch
+        ``epoch``; the step losses."""
         self._check_batch(dataset.batch_size)
         perm = torch.as_tensor(perm)
         want = (dataset.steps_per_epoch, dataset.local_batch)
@@ -214,7 +250,16 @@ class Trainer:
             raise ValueError(f"perm is {tuple(perm.shape)}, this dataset "
                              f"takes {want}")
         perm = perm.to(dataset.device, torch.int64)
-        return [self.local_step(dataset.batch(idx))["loss"] for idx in perm]
+        for name, n in dataset.epoch_counts().items():
+            tracing.count(name, n)
+        bucket = dataset.data.atoms_per_graph
+        losses = []
+        for i, idx in enumerate(perm, first):
+            with tracing.span("train.step", step=(epoch, i), bucket=bucket):
+                tracing.phase("step.input")
+                batch = dataset.batch(idx)
+                losses.append(self.local_step(batch)["loss"])
+        return losses
 
     def train_epoch_device(self, dataset, seed: int = 0, epoch: int = 0,
                            perm=None) -> torch.Tensor:
@@ -223,7 +268,8 @@ class Trainer:
         Returns the step losses [S] on the device."""
         if perm is None:
             perm = dataset.perm(seed, epoch)
-        return torch.stack(self._device_epoch(dataset, perm))
+        with tracing.span("train.epoch", device=self.device, epoch=epoch):
+            return torch.stack(self._device_epoch(dataset, perm, epoch))
 
     def train_epochs_device(self, dataset, seed: int, epochs: Sequence[int],
                             perms=None) -> torch.Tensor:
@@ -244,10 +290,11 @@ class Trainer:
         ``perms[i]``. Returns the step losses [S] on the device, in bucket
         order."""
         losses = []
-        for i, (_, dds) in enumerate(bucketed.buckets):
-            perm = dds.perm(seed, epoch, i) if perms is None else perms[i]
-            losses += self._device_epoch(dds, perm)
-        return torch.stack(losses)
+        with tracing.span("train.epoch", device=self.device, epoch=epoch):
+            for i, (_, dds) in enumerate(bucketed.buckets):
+                perm = dds.perm(seed, epoch, i) if perms is None else perms[i]
+                losses += self._device_epoch(dds, perm, epoch, len(losses))
+            return torch.stack(losses)
 
     def train_epochs_buckets(self, bucketed, seed: int, epochs: Sequence[int],
                              perms=None) -> torch.Tensor:
