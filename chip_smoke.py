@@ -503,6 +503,14 @@ from dostransformer_tpu_torch.ops.fused_mp import (  # noqa: E402
     mp_edge_bwd_reference,
     mp_edge_reference,
 )
+from dostransformer_tpu_torch.ops.ffn import (  # noqa: E402
+    MIN_ROWS as FFN_MIN_ROWS,
+    ffn,
+    ffn_bwd_kernel,
+    ffn_bwd_reference,
+    ffn_fwd_kernel,
+    ffn_reference,
+)
 from dostransformer_tpu_torch.ops.segment import (  # noqa: E402
     batched_segment_sum,
     segment_sum_plan,
@@ -628,6 +636,13 @@ LN_KERNELS = {
 # bytes/s and f32 FLOP/s outside the tensor cores; every kernel here is f32
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# #8 runs on the TF32 tensor cores (3xTF32): its bound is at their peak
+TF32_FLOPS_PER_S = 495e12
+# #8 (csrc/ffn.cu) is no port of a Pallas kernel and stays out of KERNELS
+# (whose rows check the ported kernels' paths); its comparisons at the
+# benchmark cell's FFN calls, filled by phases 3 and 3b, and its launches
+# a train step (phase 6) give it a row of its own in the kernels line
+FFN_RESULTS: dict = {}
 # the JAX package's lever names, as a user sets them
 FUSE_ENV = {"DOSTPU_FUSE_LN_ATTN": "1"}
 LEVERS_ENV = {"DOSTPU_FUSE_LN_ATTN": "1", "DOSTPU_LN_PALLAS": "1"}
@@ -1013,6 +1028,59 @@ def generic_width_args(g, dev, backward=False):
     return args + (rand(h) * 0.1,)
 
 
+def ffn_work(m: int, d: int, backward: bool):
+    """(bytes, operations) of #8 at m rows of width d: the products (the
+    backward twice the forward's) and each input read and output written
+    once (the forward: x, the weights and biases in, h and y out; the
+    backward: x, h, dY and the weights in, dX and the parameter gradients
+    out)."""
+    ops = 16 * m * d * d * (2 if backward else 1)
+    params = 8 * d * d + 5 * d
+    floats = (m * d + 4 * m * d + params + m * d if not backward
+              else 3 * m * d + 4 * m * d + 2 * params)
+    return 4 * floats, ops
+
+
+def compare_ffn(dev, backward: bool) -> dict:
+    """#8 against its plain version at the benchmark cell's FFN calls (eDOS
+    at batch 64: the cross stack's 12,864 rows, the heads' 25,728), beside
+    its bound at the TF32 peak and the old path (F.linear, F.relu, F.linear
+    by cuBLAS in f32, and its autograd backward). The backward's plain
+    version reads ReLU's mask from the kernel's forward (each side of 0 is
+    the f32 products' rounding)."""
+    g = torch.Generator().manual_seed(8)
+    d = HIDDEN
+    w1 = (torch.randn(4 * d, d, generator=g) * d ** -0.5).to(dev)
+    b1 = (torch.randn(4 * d, generator=g) * 0.1).to(dev)
+    w2 = (torch.randn(d, 4 * d, generator=g) * (0.5 * d ** -0.5)).to(dev)
+    b2 = (torch.randn(d, generator=g) * 0.1).to(dev)
+    per = {}
+    for label, m in (("cross", BINS * 64), ("heads", 2 * BINS * 64)):
+        x = torch.randn(m, d, generator=g).to(dev)
+        name = f"ffn{'_bwd' if backward else ''}[{label} {m} rows]"
+        if not backward:
+            per[label] = compare(
+                name, lambda: ffn_fwd_kernel(x, w1, b1, w2, b2)[0],
+                lambda: ffn_reference(x, w1, b1, w2, b2), repeat=True,
+                work=ffn_work(m, d, False),
+                library_fn=lambda: ffn_reference(x, w1, b1, w2, b2),
+                flops_per_s=TF32_FLOPS_PER_S)
+            continue
+        gy = torch.randn(m, d, generator=g).to(dev)
+        _, h = ffn_fwd_kernel(x, w1, b1, w2, b2)
+        leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+        old = ffn_reference(*leaves)
+        per[label] = compare(
+            name, lambda: ffn_bwd_kernel(x, h, w1, w2, gy),
+            lambda: ffn_bwd_reference(x, h, w1, w2, gy), repeat=True,
+            work=ffn_work(m, d, True),
+            library_fn=lambda: torch.autograd.grad(old, leaves, gy,
+                                                   retain_graph=True),
+            flops_per_s=TF32_FLOPS_PER_S)
+    FFN_RESULTS["backward" if backward else "forward"] = per
+    return per
+
+
 def phase_kernels(dev):
     g = torch.Generator().manual_seed(0)
     rand = lambda *s: torch.randn(*s, generator=g).to(dev)
@@ -1059,6 +1127,7 @@ def phase_kernels(dev):
         check_attention_forward(f"fused_attention[{label}]", q, k, km, bias,
                                 per_shape[label])
     out["fused_attention"] = per_forward(per_shape)
+    compare_ffn(dev, False)  # C: #8 at the benchmark cell's FFN calls
     return out
 
 
@@ -1111,6 +1180,7 @@ def phase_backward_kernels(dev):
             fused_attention_bwd(q, k, v, bias, o, go, stats),
             per_shape[label])
     out["fused_attention_bwd"] = per_forward(per_shape)
+    compare_ffn(dev, True)  # C: #8's backward at the cell's FFN calls
     return out
 
 
@@ -4066,7 +4136,8 @@ def phase_export(edos_served, phdos_served, workdir):
     main_predict --from_exported of both artifacts in one fresh process:
     its predictions equal the live Predictor's at the artifact's geometry,
     it imports no module of models/ or train/, the program holds 3 fused-MP
-    and 6 attention ops (phDOS also 3 segment sums); the artifact served in
+    and 6 attention ops (phDOS also 3 segment sums; eDOS the FFN op where
+    ffn_plan takes #8 at batch 8); the artifact served in
     this process eagerly (exact launches a batch) and through its graph; an
     artifact exported on the CPU served on the card (move_to_device_pass).
     Returns (launch counts by path, the eDOS artifact's directory)."""
@@ -4098,6 +4169,13 @@ def phase_export(edos_served, phdos_served, workdir):
         want = {"fused_mp_edge_fwd": LAYERS, "attention_fwd": 3 * T_LAYERS}
         if task == "phdos":
             want["segment_sum"] = LAYERS
+        # #8 where ops/ffn.py ffn_plan takes it at the artifact's batch: the
+        # cross stack over B bins rows, the two heads' stacks over 2B bins
+        bins = BINS if task == "edos" else PH_BINS
+        ffns = T_LAYERS * ((bins * BATCH >= FFN_MIN_ROWS)
+                           + 2 * (2 * bins * BATCH >= FFN_MIN_ROWS))
+        if ffns:
+            want["ffn_fwd"] = ffns
         print(f"{task} artifact: {size / 2**20:.2f} MiB ({size} bytes; the "
               f"weights {nbytes(*model.state_dict().values())} bytes) in "
               f"{sorted(os.listdir(art))}, exported in {seconds:.1f} s, "
@@ -5422,7 +5500,16 @@ def main():
         paths["edos_training_host"] = phase_host_loader(
             subdir("edos_training_host"))
         print("card vs CPU, 3 eDOS train steps:")
+        before = ffn.launches, ffn_bwd_kernel.launches
         phase_card_vs_cpu("edos")
+        # the steps' FFN calls at batch 8: the heads' 3,216 rows, and the
+        # cross stack's 1,608 where the plan's threshold lets them
+        calls = (1 if BINS * BATCH >= FFN_MIN_ROWS else 0) + 2
+        want = 3 * T_LAYERS * calls
+        got = (ffn.launches - before[0], ffn_bwd_kernel.launches - before[1])
+        check(got == (want, want), f"ffn launches over 3 eDOS steps {got}, "
+                                   f"expected {want} each way")
+        FFN_RESULTS["launches_step"] = T_LAYERS * calls
         rate = phase_train_rate("edos")
         print(f"{rate:.1f} samples/s training (eDOS flagship, batch {BATCH}, "
               f"f32, 20 steps, host collation and upload included) on {smi}")
@@ -5759,6 +5846,20 @@ def main():
                     row[f"{key}_phdos"] = ph[key]
         rows.append(row)
     check(len(rows) == len(KERNELS), f"{len(rows)} kernel rows")
+    ffn_row = {"name": "ffn", "route": "cuda", "source": f"{csrc}/ffn.cu",
+               "replaces": None, "launches": FFN_RESULTS["launches_step"],
+               "launches_path": "edos_training (3 card-vs-CPU steps, batch "
+                                f"{BATCH}), forward and backward each"}
+    for way, per in (("", FFN_RESULTS["forward"]),
+                     ("_bwd", FFN_RESULTS["backward"])):
+        for label, r in per.items():
+            ffn_row[f"{label}{way}"] = {
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "library_ms": r["library_ms"], "err": r["err"],
+                "bound_ms": max(r["bytes_ms"], r["ops_ms"]),
+                "bound_by": ("bytes" if r["bytes_ms"] >= r["ops_ms"]
+                             else "operations")}
+    rows.append(ffn_row)
     print(f"chip_smoke: {time.perf_counter() - START:.1f} s in all, the "
           f"build {seconds:.1f} s of it; phases 35-38 "
           f"{trimmed_seconds:.1f} s")

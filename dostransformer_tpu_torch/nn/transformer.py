@@ -65,6 +65,15 @@ input enters through ``tp_enter``, and ``tp_exit`` completes fc2's product
 BEFORE the bias is added (adding it on every rank would count it tp times).
 Unsharded, the layer computes the plain FFN.
 
+The FFN (unsharded, with no ReLU dropout mask in the call) goes through
+:func:`~dostransformer_tpu_torch.ops.ffn.ffn` where
+:func:`~dostransformer_tpu_torch.ops.ffn.ffn_plan` says so (f32 operands,
+widths a multiple of 32, enough rows): kernel #8 on the card, the plain
+composition itself on the CPU. Every other case (bf16, f64, the
+tensor-parallel FFN, a ReLU dropout mask, other widths, few rows) runs the
+composition as before. ``tracing`` counts every call's rows
+(``ffn.rows``) and the rows that took #8 (``ffn.kernel_rows``).
+
 In a bf16 model the stack runs on bf16 activations: the FFN's weights are
 cast at use, the LayerNorms take f32 statistics and cast back, and the
 attention's scores and softmax are f32 (the bf16 forms of the attention
@@ -87,7 +96,9 @@ from torch.utils.checkpoint import checkpoint
 from dostransformer_tpu_torch.nn.dropout import apply_keep, draw_keep, dropout
 from dostransformer_tpu_torch.nn.init import xavier_linear_
 from dostransformer_tpu_torch.nn.layernorm import LayerNorm, LayerNormLP
+from dostransformer_tpu_torch import tracing
 from dostransformer_tpu_torch.nn.modules import linear
+from dostransformer_tpu_torch.ops.ffn import ffn, ffn_plan
 from dostransformer_tpu_torch.ops.kernels import takes_kernels
 from dostransformer_tpu_torch.ops.attention import (
     dot_product_attention,
@@ -212,9 +223,18 @@ class TransformerEncoderLayer(nn.Module):
             a = self._attend(ln0(x), k, v, key_mask, masks.attn)
         x = x + apply_keep(a, masks.res0, self.res_dropout)
         group = self.tp_group
+        rows = x.numel() // x.shape[-1]
+        tracing.count("ffn.rows", rows)
         if group is None:
-            h = F.relu(self.fc1(ln1(x)))
-            h = self.fc2(apply_keep(h, masks.relu, self.relu_dropout))
+            y = ln1(x)
+            if masks.relu is None and ffn_plan(rows, y.shape[-1], y.dtype):
+                if y.is_cuda:
+                    tracing.count("ffn.kernel_rows", rows)
+                h = ffn(y, self.fc1.weight, self.fc1.bias, self.fc2.weight,
+                        self.fc2.bias)
+            else:
+                h = F.relu(self.fc1(y))
+                h = self.fc2(apply_keep(h, masks.relu, self.relu_dropout))
             return x + apply_keep(h, masks.res1, self.res_dropout)
         h = F.relu(self.fc1(tp_enter(ln1(x), group)))
         h = apply_keep(h, masks.relu, self.relu_dropout)

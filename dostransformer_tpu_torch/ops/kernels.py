@@ -10,7 +10,8 @@ the library and skips the build. Nothing here runs at import: the CPU
 tests import every module on machines without ``nvcc``.
 
 The wrappers in ``ops/fused_mp.py``, ``ops/attention.py`` (forward and
-backward kernels alike), ``ops/segment.py`` and ``nn/layernorm.py`` pass
+backward kernels alike), ``ops/segment.py``, ``ops/ffn.py`` and
+``nn/layernorm.py`` pass
 every pointer, and
 PyTorch's current CUDA stream, as ``c_void_p``; each entry point returns the
 CUDA error code of its launches, and :func:`check` raises on a non-zero code.
@@ -33,7 +34,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("runtime.cu", "fused_mp.cu", "fused_mp_bwd.cu", "attention.cu",
            "attention_bwd.cu", "segment_sum.cu", "attention_ln.cu",
-           "layernorm_bwd.cu")
+           "layernorm_bwd.cu", "ffn.cu")
 # -split-compile 0 (nvcc >= 12.1): the kernels of one source are optimised on
 # every core; the attention sources instantiate 16 widths, and the whole
 # build waits for the slowest (51 s without the flag, 26 s with it, 8 cores)
@@ -88,6 +89,12 @@ _SIGNATURES = {
     "dostpu_layer_norm_bwd_plan": ([_I] * 3 + [_IP] * 5, None),
     # xhat|x mean|null rstd dy scale dx dscale dbias rows D bf16 stream
     "dostpu_layer_norm_bwd": ([_P] * 8 + [_I] * 3 + [_P], _I),
+    # M D backward -> floats
+    "dostpu_ffn_scratch_floats": ([_I] * 3, ctypes.c_size_t),
+    # x w1 b1 w2 b2 h y scratch M D stream
+    "dostpu_ffn_fwd": ([_P] * 8 + [_I] * 2 + [_P], _I),
+    # x h w1 w2 gy gx gw1 gb1 gw2 gb2 scratch M D stream
+    "dostpu_ffn_bwd": ([_P] * 11 + [_I] * 2 + [_P], _I),
 }
 
 

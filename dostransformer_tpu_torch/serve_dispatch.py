@@ -187,6 +187,7 @@ def _register_ops() -> None:
     program calls (and nothing of the model code)."""
     from dostransformer_tpu_torch.ops import (  # noqa: F401
         attention,
+        ffn,
         fused_mp,
         segment,
     )

@@ -20,7 +20,11 @@ of the largest plain value for the attention (the kernel keeps the softmax
 weights at TF32's 10 bits where the plain version rounds them to bf16), and
 within 3%
 of it for the LayerNorm backward (the kernel keeps g = dy * scale in f32
-where the plain version rounds it: the JAX package's own bound)."""
+where the plain version rounds it: the JAX package's own bound).
+
+#8, the FFN GEMM (3xTF32 on the tensor cores), is held to f64 beside
+cuBLAS's f32 path: each output's norm-wise error within 2x cuBLAS's and 20x
+under the same path's in 1xTF32, each path on its own side of ReLU's 0."""
 
 import ctypes
 
@@ -1384,3 +1388,204 @@ def test_failing_capture_raises_without_falling_back(dev):
     with pytest.raises(RuntimeError, match="CUDA graph capture"):
         Predictor(Syncing()).predict(samples)
     torch.cuda.synchronize()
+
+
+# --- #8, the FFN GEMM (csrc/ffn.cu) ---------------------------------------
+# the cell's FFN calls (cross stack, the heads' 2B pass), phDOS at hidden
+# 256 (51 bins x 64), and hidden 1,024
+FFN_SHAPES = [(12864, 256), (25728, 256), (3264, 256), (12864, 1024)]
+
+
+def _ffn_case(m, d, seed=0):
+    """f64 inputs on the CPU: x [M, D], W1, b1, W2, b2 at the layer's init
+    scale, and an upstream gradient."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, d, generator=g, dtype=torch.float64)
+    gy = torch.randn(m, d, generator=g, dtype=torch.float64)
+    w1 = torch.randn(4 * d, d, generator=g, dtype=torch.float64) * d ** -0.5
+    b1 = torch.randn(4 * d, generator=g, dtype=torch.float64) * 0.1
+    w2 = torch.randn(d, 4 * d, generator=g, dtype=torch.float64) * (
+        0.5 * d ** -0.5)
+    b2 = torch.randn(d, generator=g, dtype=torch.float64) * 0.1
+    return x, (w1, b1, w2, b2), gy
+
+
+def _ffn_f64(x, p, gy, h):
+    """The FFN's outputs and gradients in f64 on the side of ReLU's 0 that
+    ``h`` (an f32 path's hidden activations) took: where the f32 products
+    put a pre-activation on the other side of 0, fc1's gradients differ by
+    that input's whole term (chip_smoke.py phase 41), so each path is held
+    to the f64 result of its own mask."""
+    w1, b1, w2, b2 = p
+    keep = (h > 0).double()
+    h64 = (x @ w1.T + b1) * keep
+    gh = (gy @ w2) * keep
+    return dict(y=h64 @ w2.T + b2, h=h64, gx=gh @ w1, gw1=gh.T @ x,
+                gb1=gh.sum(0), gw2=gy.T @ h64, gb2=gy.sum(0))
+
+
+def _ffn_autograd(x, p, gy):
+    """The path before #8: F.linear, F.relu, F.linear and their autograd
+    backward, under the current TF32 setting."""
+    import torch.nn.functional as F
+
+    xs = x.clone().requires_grad_(True)
+    ps = [t.clone().requires_grad_(True) for t in p]
+    h = F.relu(F.linear(xs, ps[0], ps[1]))
+    y = F.linear(h, ps[2], ps[3])
+    y.backward(gy)
+    return dict(y=y.detach(), h=h.detach(), gx=xs.grad, gw1=ps[0].grad,
+                gb1=ps[1].grad, gw2=ps[2].grad, gb2=ps[3].grad)
+
+
+def _rel(a, b):
+    return ((a.double() - b).norm() / b.norm()).item()
+
+
+@pytest.mark.parametrize("shape", FFN_SHAPES)
+def test_ffn_kernel_has_f32_accuracy_and_repeats_its_bits(dev, shape):
+    """Forward (y, h), dX, dW1, db1, dW2 and db2 of #8 against f64: no
+    further off than 2x cuBLAS's f32 path against the same f64 (each on its
+    own side of ReLU's 0), and at least 20x closer than the same path in
+    1xTF32 for every output made by a product (db2 sums dY alone, so TF32
+    does not touch it). A second run repeats every bit; one launch a call
+    each way."""
+    from dostransformer_tpu_torch.ops.ffn import (
+        ffn, ffn_bwd_kernel, ffn_fwd_kernel)
+
+    m, d = shape
+    x, p, gy = _ffn_case(m, d)
+    x32, gy32 = x.float().to(dev), gy.float().to(dev)
+    p32 = [t.float().to(dev) for t in p]
+    before = ffn.launches, ffn_bwd_kernel.launches
+    y, h = ffn_fwd_kernel(x32, *p32)
+    grads = ffn_bwd_kernel(x32, h, p32[0], p32[2], gy32)
+    assert (ffn.launches, ffn_bwd_kernel.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    got = dict(zip(("y", "h", "gx", "gw1", "gb1", "gw2", "gb2"),
+                   (y, h, *grads)))
+    lib = _ffn_autograd(x32, p32, gy32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = _ffn_autograd(x32, p32, gy32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    x64, gy64 = x.to(dev), gy.to(dev)
+    p64 = [t.to(dev) for t in p]
+    for name, want in _ffn_f64(x64, p64, gy64, h).items():
+        err = _rel(got[name], want)
+        lib_err = _rel(lib[name], _ffn_f64(x64, p64, gy64, lib["h"])[name])
+        assert err <= 2 * lib_err, (name, err, lib_err)
+        if name != "gb2":
+            tf32_err = _rel(tf32[name],
+                            _ffn_f64(x64, p64, gy64, tf32["h"])[name])
+            assert 20 * err <= tf32_err, (name, err, tf32_err)
+    y2, h2 = ffn_fwd_kernel(x32, *p32)
+    again = ffn_bwd_kernel(x32, h2, p32[0], p32[2], gy32)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_ffn_kernel_replays_in_a_captured_graph_bit_for_bit(dev):
+    """Forward and backward captured in one CUDA graph (the kernels
+    allocate nothing and launch on the capturing stream) replay to the eager
+    bits."""
+    from dostransformer_tpu_torch.ops.ffn import ffn_bwd_kernel, ffn_fwd_kernel
+
+    x, p, gy = _ffn_case(3264, 256, seed=1)
+    x, gy = x.float().to(dev), gy.float().to(dev)
+    p = [t.float().to(dev) for t in p]
+
+    def run():
+        y, h = ffn_fwd_kernel(x, *p)
+        return (y, h, *ffn_bwd_kernel(x, h, p[0], p[2], gy))
+
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
+
+
+def test_ffn_kernel_rejects_what_it_does_not_take(dev):
+    from dostransformer_tpu_torch.ops.ffn import ffn_fwd_kernel
+
+    x, p, _ = _ffn_case(64, 48)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ffn_fwd_kernel(x.float().to(dev), *(t.float().to(dev) for t in p))
+    x, p, _ = _ffn_case(64, 32)
+    with pytest.raises(TypeError, match="float32"):
+        ffn_fwd_kernel(x.to(dev), *(t.to(dev) for t in p))
+
+
+def test_cell_model_step_runs_every_ffn_on_the_kernel(dev):
+    """The benchmark cell's model (eDOS, hidden 256, 2 transformer layers a
+    stack, 201 bins) at batch 64: a train step's 6 FFN calls (the cross
+    stack at 12,864 rows, the self and source stacks at 25,728) all take #8,
+    one forward and one backward launch each, and the counters agree:
+    ffn.rows == ffn.kernel_rows == 128,640."""
+    from dostransformer_tpu_torch import tracing
+    from dostransformer_tpu_torch.data.graph import collate
+    from dostransformer_tpu_torch.data.synthetic import synthetic_edos_samples
+    from dostransformer_tpu_torch.models.registry import build_model
+    from dostransformer_tpu_torch.ops.ffn import ffn, ffn_bwd_kernel
+
+    model = build_model("edos", layers=3, t_layers=2, hidden=256, device=dev,
+                        generator=torch.Generator().manual_seed(4))
+    batch = collate(synthetic_edos_samples(64, seed=3), num_graphs=64).to(dev)
+    counters = tracing.record().counters
+    rows0 = (counters.get("ffn.rows", 0), counters.get("ffn.kernel_rows", 0))
+    before = ffn.launches, ffn_bwd_kernel.launches
+    dg, _, ds = model(batch)
+    (dg.square().sum() + ds.sum()).backward()
+    torch.cuda.synchronize()
+    assert ffn.launches - before[0] == 6
+    assert ffn_bwd_kernel.launches - before[1] == 6
+    assert counters["ffn.rows"] - rows0[0] == 128640
+    assert counters["ffn.kernel_rows"] - rows0[1] == 128640
+
+
+@pytest.mark.parametrize("case", ["bf16", "relu_dropout", "f64", "few_rows"])
+def test_ffn_layer_keeps_todays_path_where_the_plan_says(dev, case,
+                                                        monkeypatch):
+    """On the card, a bf16 layer, a call with a ReLU dropout mask, an f64
+    layer and one of fewer rows than the plan's threshold never reach #8
+    and compute the composition as before, bit for bit."""
+    import torch.nn.functional as F
+
+    from dostransformer_tpu_torch.nn import transformer
+    from dostransformer_tpu_torch.nn.dropout import apply_keep
+    from dostransformer_tpu_torch.ops.ffn import MIN_ROWS
+
+    def refuse(*args):
+        raise AssertionError("the FFN kernel was called")
+
+    monkeypatch.setattr(transformer, "ffn", refuse)
+    layer = transformer.TransformerEncoderLayer(
+        32, relu_dropout=0.5 if case == "relu_dropout" else 0.0).to(dev)
+    dtype = {"bf16": torch.bfloat16, "f64": torch.float64}.get(
+        case, torch.float32)
+    layer = layer.to(torch.float64) if case == "f64" else layer
+    rows = 8 if case == "few_rows" else -(-MIN_ROWS // 64)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(rows, 64, 32, generator=g).to(dev, dtype)
+    masks = transformer.LayerMasks()
+    if case == "relu_dropout":
+        masks = transformer.LayerMasks(
+            relu=torch.rand(rows, 64, 128, generator=g).to(dev) > 0.5)
+    got = layer(x, x, x, None, masks)
+    ln0, ln1 = layer.layer_norms
+    attend = (transformer.dot_product_attention if case == "f64"
+              else transformer.fused_attention)
+    k = ln0(x)
+    x1 = x + attend(ln0(x), k, k, None)
+    hid = F.relu(layer.fc1(ln1(x1)))
+    want = x1 + layer.fc2(apply_keep(hid, masks.relu, layer.relu_dropout))
+    assert torch.equal(got, want)

@@ -1,7 +1,8 @@
 """The port's tracing (tracing.py) in the training loop: spans recorded only
 while a profiler records, the spans of one epoch with their parents, steps
 and atom buckets, the host clock shared with the profiler's events, the
-epoch's counters against the samples and ``bucket_size``, the same losses
+epoch's counters against the samples and ``bucket_size`` (and the
+transformer layers' FFN rows), the same losses
 with tracing on and off, nothing recorded, kept or synchronised with it
 off, and the CLI's trace with the spans in it. On the card (marker
 ``cuda``): every span's device interval present and positive, the phases
@@ -196,6 +197,10 @@ def test_counters_are_the_counts_of_the_samples(kind):
         want["train.graph_slots"] += steps * BATCH
         want["train.atom_rows"] += sum(s.n_nodes for s in group)
         want["train.atom_slots"] += steps * BATCH * bucket
+    # the layers' FFN rows: a graph slot's bins rows through the cross
+    # stack and, twice, through each head's stack (one layer a stack); on
+    # the CPU none takes kernel #8, so ffn.kernel_rows stays unset
+    want["ffn.rows"] = want["train.graph_slots"] * BINS * 5
     assert tracing.record().counters == want
     assert want["train.atom_rows"] < want["train.atom_slots"]
 
