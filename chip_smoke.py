@@ -386,7 +386,21 @@ rules):
      against CPU (first loss 1e-9, later 1e-8, first-step gradients 1e-6);
      no launch of any kernel; main_phdos --x64 on the card against the same
      run without it (epoch loss rtol 1e-6, exact launches); f64 against f32
-     train samples/s in turns (a record).
+     train samples/s in turns (a record);
+  43. the replayed train step (CUDA graphs a batch geometry, the default on
+     the card): main_edos (batch 8) and main_phdos (its default batch 1)
+     at the flagship width, flat and --bucketed, as they come against
+     every step eager (epoch losses, best and test metrics bit-equal;
+     every step a replay, at least one capture), and a replayed
+     --bucketed eDOS run stopped after epoch 1 and resumed equal to the
+     uninterrupted one. The other CLI phases run the CLIs as they come
+     too, and count each capture's launches (twice a step's: the warm-up's
+     and the captured step's) and each eager step's (the host loader's);
+     a replay ticks no wrapper, so after 16 (profiled, 43b) an eDOS and a
+     phDOS epoch of atom buckets 8-64, replayed, launch each of the
+     port's kernels by name as often as the same epoch eager, whose
+     wrapper counts are its steps times a step's, with the same losses
+     and parameters bit for bit.
 
 The eDOS paths must launch no batched_segment_sum (eDOS sums its messages
 in the fused kernel). The line before the last is a JSON object with one row
@@ -424,9 +438,11 @@ replaces, it is the count on the phDOS training path with the levers off
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -448,6 +464,7 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from dostransformer_tpu_torch.cli import (  # noqa: E402
+    common as cli_common,
     main_edos,
     main_phdos,
     main_predict,
@@ -1330,49 +1347,89 @@ def with_env(env, fn, *args):
                 os.environ[k] = v
 
 
+@contextlib.contextmanager
+def eager_cli_steps():
+    """The CLIs' Trainers built with ``graphs=False`` (the replays'
+    oracle): every train step eager."""
+    built = cli_common.Trainer
+    cli_common.Trainer = functools.partial(built, graphs=False)
+    try:
+        yield
+    finally:
+        cli_common.Trainer = built
+
+
 def run_counted(cli, argv, env=None):
-    """Run a training entry point (with ``env`` in its environment) with the
-    kernel launches of every train step (Trainer.local_step, which
-    Trainer.train_step and the device dataset's epochs run) and
-    Trainer.eval_step counted, the counts set to 0 just before; returns
-    (result, per-call launches, the run's launches)."""
-    per_call = {"train": [], "eval": []}
-    originals = (Trainer.local_step, Trainer.eval_step)
+    """Run a training entry point as it comes (with ``env`` in its
+    environment), the counts set to 0 just before, counting the kernel
+    launches of every eager train step (Trainer.local_step: the host
+    loader's, Trainer.train_step's), of every capture of a replayed step
+    (Trainer._capture: its warm-up forward and backward, then the step the
+    wrappers launch into the graphs) and of every Trainer.eval_step, and
+    the steps replayed (Trainer._replayed_epoch). A replay ticks no wrapper:
+    phase 43's profile counts its kernels by name. Returns (result,
+    per-call launches and the replayed steps, the run's launches)."""
+    per_call = {"train": [], "capture": [], "eval": [], "replayed": 0}
+    originals = (Trainer.local_step, Trainer.eval_step, Trainer._capture,
+                 Trainer._replayed_epoch)
 
     def counted(kind, fn):
-        def wrapper(self, batch):
+        def wrapper(self, *args):
             before = read_launches()
-            out = fn(self, batch)
+            out = fn(self, *args)
             per_call[kind].append({k: v - before[k]
                                    for k, v in read_launches().items()})
             return out
         return wrapper
 
+    def replayed(self, dataset, perm, *args):
+        per_call["replayed"] += perm.shape[0]
+        return originals[3](self, dataset, perm, *args)
+
     Trainer.local_step = counted("train", originals[0])
     Trainer.eval_step = counted("eval", originals[1])
+    Trainer._capture = counted("capture", originals[2])
+    Trainer._replayed_epoch = replayed
     reset_launches()
     try:
         result = with_env(env or {}, cli.main, argv)
     finally:
-        Trainer.local_step, Trainer.eval_step = originals
+        (Trainer.local_step, Trainer.eval_step, Trainer._capture,
+         Trainer._replayed_epoch) = originals
     return result, per_call, read_launches()
 
 
 def check_training_run(label, result, per_call, want_train, n_steps, log,
                        workdir, epochs, hidden=HIDDEN, want_eval=None,
-                       embedder="DOSTransformer"):
-    """Launches per train step (want_train) and per eval batch (want_eval;
-    by default the train step's forward, no backward), the step count,
-    finite epoch losses, test metrics and the experiments block
-    (experiments_{embedder}.txt). Returns the epoch losses."""
-    print(f"\n{label}: {len(per_call['train'])} train steps, "
-          f"{len(per_call['eval'])} eval batches")
+                       embedder="DOSTransformer", eager=False):
+    """The step count: every step a replay of a captured step, at least one
+    capture and at most one a step of an epoch (``eager``: every step
+    eager, no capture); launches per eager train step (want_train), per
+    capture (twice that: the warm-up's forward and backward, then the
+    captured step's) and per eval batch (want_eval; by default the train
+    step's forward, no backward); finite epoch losses, test metrics and
+    the experiments block (experiments_{embedder}.txt). Returns the epoch
+    losses."""
+    train, captures = per_call["train"], per_call["capture"]
+    replayed = per_call["replayed"]
+    print(f"\n{label}: {len(train)} eager and {replayed} replayed train "
+          f"steps, {len(captures)} captures, {len(per_call['eval'])} eval "
+          f"batches")
     if want_eval is None:
         want_eval = dict(want_train, **dict.fromkeys(BACKWARD, 0))
-    check(len(per_call["train"]) == n_steps,
-          f"{label}: {len(per_call['train'])} train steps, expected "
-          f"{n_steps}")
-    for kind, want in (("train", want_train), ("eval", want_eval)):
+    if eager:
+        check(len(train) == n_steps and not replayed and not captures,
+              f"{label}: {len(train)} eager and {replayed} replayed steps, "
+              f"{len(captures)} captures, expected {n_steps} eager steps")
+    else:
+        check(replayed == n_steps and not train
+              and 1 <= len(captures) <= n_steps // epochs,
+              f"{label}: {replayed} replayed and {len(train)} eager steps, "
+              f"{len(captures)} captures, expected {n_steps} replayed "
+              f"steps and a capture a batch geometry")
+    twice = {k: 2 * v for k, v in want_train.items()}
+    for kind, want in (("train", want_train), ("capture", twice),
+                       ("eval", want_eval)):
         bad = [c for c in per_call[kind] if c != want]
         check(not bad, f"{label}: {kind} step launches {bad[:1]}, expected "
                        f"{want}")
@@ -2554,7 +2611,8 @@ def phase_host_loader(workdir):
     check_training_run("eDOS training path (--host_loader)", result, per_call,
                        step_launches("edos", False),
                        math.ceil(n_train / BATCH),
-                       os.path.join(workdir, "train.jsonl"), workdir, 1)
+                       os.path.join(workdir, "train.jsonl"), workdir, 1,
+                       eager=True)
     return launches
 
 
@@ -2631,6 +2689,171 @@ def phase_checkpoint_resume(workdir):
     check(np.allclose(dos, cpu, atol=MODEL_ATOL, rtol=MODEL_RTOL),
           f"best/ served on the card differs from the CPU by {err:.3e}")
     return totals, serving
+
+
+def phase_replayed_cli(workdir):
+    """43: the CLIs' device-dataset steps replay CUDA graphs by default.
+    cli.main_edos at the flagship width (batch 8) and cli.main_phdos at its
+    default batch (1), each flat and --bucketed, each run as it comes
+    (replayed) and with every step eager (eager_cli_steps): the epoch
+    losses, best and test metrics bit-equal, every train step a replay
+    (``train.steps_replayed``) and at least one capture
+    (``train.captures``); a replayed --bucketed eDOS run stopped after
+    epoch 1 and resumed from its checkpoint equals the uninterrupted one.
+    Returns {run: (captures, steps replayed)}."""
+    from dostransformer_tpu_torch import tracing
+
+    def counts():
+        c = tracing.record().counters
+        return (c.get("train.captures", 0), c.get("train.steps_replayed", 0))
+
+    def phdos_argv(run_dir, epochs, extra=()):
+        return ["--synthetic", "24", "--synthetic_learnable", "--epochs",
+                str(epochs), "--eval", "1", "--layers", str(LAYERS),
+                "--transformer", str(T_LAYERS), "--hidden", str(HIDDEN),
+                "--device", "cuda", "--results_dir", run_dir, "--log_jsonl",
+                os.path.join(run_dir, "train.jsonl"), *extra]
+
+    out = {}
+    for cli, argv, epochs in ((main_edos, edos_run_argv, 3),
+                              (main_phdos, phdos_argv, 2)):
+        task = cli.__name__.rsplit(".", 1)[-1]
+        for flags in ([], ["--bucketed"]):
+            label = f"{task}{' --bucketed' if flags else ''}"
+            runs = {}
+            for mode in ("replayed", "eager"):
+                name = f"{task}_{mode}{'_bucketed' if flags else ''}"
+                run_dir = os.path.join(workdir, name)
+                os.makedirs(run_dir)
+                before = counts()
+                with (eager_cli_steps() if mode == "eager"
+                      else contextlib.nullcontext()):
+                    result = cli.main(argv(run_dir, epochs, extra=flags))
+                runs[mode] = (result, logged_losses(run_dir),
+                              tuple(a - b for a, b in zip(counts(), before)))
+                out[name] = runs[mode][2]
+            (rep, rep_losses, rep_n), (eag, eag_losses, eag_n) = (
+                runs["replayed"], runs["eager"])
+            print(f"{label}: replayed epoch losses {rep_losses}, eager "
+                  f"{eag_losses}; captures and replayed steps {rep_n} "
+                  f"(eager {eag_n})")
+            check(rep_losses == eag_losses and len(rep_losses) == epochs,
+                  f"{label}: replayed losses {rep_losses} differ from the "
+                  f"eager {eag_losses}")
+            for k in ("best_epoch", "best_valid_rmse", "test"):
+                check(rep[k] == eag[k], f"{label}: replayed {k} {rep[k]} "
+                                        f"differs from the eager {eag[k]}")
+            check(rep_n[0] >= 1 and rep_n[1] > 0 and eag_n == (0, 0),
+                  f"{label}: captures and replayed steps {rep_n} (eager "
+                  f"{eag_n})")
+    cut = []
+    for name, epochs in (("first", 1), ("resumed", 3)):
+        run_dir = os.path.join(workdir, f"cut_{name}")
+        os.makedirs(run_dir)
+        main_edos.main(edos_run_argv(run_dir, epochs, extra=[
+            "--bucketed", "--checkpoint_dir", os.path.join(workdir, "ck"),
+            "--checkpoint_every", "1"]))
+        cut += logged_losses(run_dir)
+    whole = logged_losses(os.path.join(workdir, "main_edos_replayed_bucketed"))
+    print(f"replayed --bucketed run stopped after epoch 1 and resumed: "
+          f"{cut}, uninterrupted {whole}")
+    check(cut == whole, f"resumed replayed losses {cut} differ from the "
+                        f"uninterrupted {whole}")
+    return out
+
+
+def port_kernel_names() -> set:
+    """The names of the port's own __global__ functions (ops/kernels.py
+    SOURCES)."""
+    names = set()
+    for src in kernels.SOURCES:
+        with open(kernels.CSRC / src) as f:
+            names |= set(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                r"(\w+)\s*\(", f.read()))
+    return names
+
+
+def phase_replayed_kernels():
+    """43b, profiled (after 16): the kernels a replayed step runs, by name.
+    For eDOS and phDOS at the flagship width, batch 8, bucketed (atom
+    buckets 8-64, the last batch of each padded): two Trainers from one seed,
+    one eager (graphs=False), one replaying, each through a first epoch
+    (builds, warms, captures), then a second epoch under torch.profiler.
+    The eager epoch's wrapper counts are its steps times one step's
+    launches; the replayed epoch launches each of the port's kernels by
+    name (ops/kernels.py SOURCES) as often as the eager epoch, none is
+    missing or stands in for another, and its losses and parameters equal
+    the eager epoch's bit for bit. Returns {task: {kernel: launches a
+    step}}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dostransformer_tpu_torch.train.device_dataset import (
+        BucketedDeviceDataset,
+    )
+
+    port = port_kernel_names()
+    out = {}
+    for task, learnable in (("edos", synthetic_edos_learnable),
+                            ("phdos", synthetic_phdos_learnable)):
+        data = BucketedDeviceDataset.from_samples(
+            learnable(36, seed=11, max_atoms=40), BATCH, device="cuda")
+        steps = sum(d.steps_per_epoch for _, d in data.buckets)
+        got = {}
+        for graphs in (False, True):
+            model = build_model(task, layers=LAYERS, t_layers=T_LAYERS,
+                                hidden=HIDDEN, device="cuda",
+                                generator=torch.Generator().manual_seed(3))
+            trainer = Trainer(model, clamp_targets=task == "edos",
+                              graphs=graphs)
+            check(trainer.replays is graphs, f"{task}: replays "
+                                             f"{trainer.replays}")
+            trainer.train_epochs_buckets(data, 0, [0])
+            torch.cuda.synchronize()
+            # a profile now and then comes back empty: then the next epoch
+            # (the same steps and shapes in another order) is profiled; the
+            # first one's losses, launches and parameters are compared
+            for attempt in range(3):
+                reset_launches()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    losses = trainer.train_epochs_buckets(data, 0,
+                                                          [1 + attempt])
+                    torch.cuda.synchronize()
+                if not attempt:
+                    first = (losses, read_launches(),
+                             [p.detach().clone() for p in model.parameters()])
+                names = {}
+                for name, _ in device_events(prof):
+                    short = name.split("::")[-1]
+                    if short in port and not name.startswith("at::"):
+                        names[short] = names.get(short, 0) + 1
+                if names:
+                    break
+            got[graphs] = (names, *first)
+        (eager, eager_losses, wrapped, eager_params), \
+            (replay, replay_losses, ticked, replay_params) = (got[False],
+                                                              got[True])
+        want = {k: steps * v for k, v in step_launches(task, False).items()}
+        per_step = {k: v / steps for k, v in sorted(replay.items())}
+        print(f"43b: {task}, {steps} steps an epoch over "
+              f"{len(data.buckets)} atom buckets: the port's kernels a "
+              f"replayed step {per_step} (torch.profiler names); eager "
+              f"epoch {dict(sorted(eager.items()))}, its wrappers "
+              f"{wrapped}")
+        check(wrapped == want, f"{task}: the eager epoch launched "
+                               f"{wrapped}, expected {want}")
+        check(ticked == launch_counts(), f"{task}: the replayed epoch "
+                                         f"captured again: {ticked}")
+        check(eager and replay == eager,
+              f"{task}: a replayed epoch ran {replay}, the eager epoch "
+              f"{eager}")
+        check(torch.equal(replay_losses, eager_losses)
+              and all(torch.equal(a, b) for a, b in zip(replay_params,
+                                                        eager_params)),
+              f"{task}: the replayed epoch's losses or parameters differ "
+              f"from the eager epoch's")
+        out[task] = per_step
+    return out
 
 
 def remat_step_launches(task: str) -> dict:
@@ -3613,8 +3836,9 @@ def phase_bf16_card_vs_cpu(task, hidden=HIDDEN, samples=21, batch=BATCH,
                                       f"{counts}, expected {want}")
                 for name, v in counts.items():
                     totals[name] += v
-            if step == 0:
-                grads[k] = {n: p.grad.detach().float().cpu()
+            if step == 0:  # copies: the next step reuses the optimizer's
+                # gradient buffer, which on the CPU .cpu() would not copy
+                grads[k] = {n: p.grad.detach().float().cpu().clone()
                             for n, p in models[k].named_parameters()}
     names = list(grads["cpu bf16"])
     cat = lambda d: torch.cat([d[n].flatten() for n in names])
@@ -4531,7 +4755,9 @@ def rank_main(argv):
         # main_edos runs one after another in this process ([label, argv]
         # pairs as JSON): a run without the parallel flags stays out of the
         # process group, the first with them joins it, the next reuse it;
-        # each train step's wall time, synchronised at both ends
+        # each train step's wall time, synchronised at both ends; every step
+        # eager, as a mesh's are (eager_cli_steps: the plain run's replays
+        # would launch nothing the wrappers count)
         step, times = Trainer.local_step, []
 
         def timed(self, batch):
@@ -4544,12 +4770,14 @@ def rank_main(argv):
 
         Trainer.local_step = timed
         try:
-            for label, run in json.loads(rest[0]):
-                reset_launches()
-                times.clear()
-                result = main_edos.main(run)
-                out[label] = {"step_ms": list(times), "test": result["test"],
-                              "launches": read_launches()}
+            with eager_cli_steps():
+                for label, run in json.loads(rest[0]):
+                    reset_launches()
+                    times.clear()
+                    result = main_edos.main(run)
+                    out[label] = {"step_ms": list(times),
+                                  "test": result["test"],
+                                  "launches": read_launches()}
         finally:
             Trainer.local_step = step
     elif mode == "train":
@@ -5648,6 +5876,8 @@ def main():
         got, f64_rates = phase_f64(subdir("f64"))
         paths.update(got)
         stamp("phase 42")
+        phase_replayed_cli(subdir("replayed_cli"))
+        stamp("phase 43")
 
         # 14: training with both levers on, against the unfused runs above
         trainings = (("edos", phase_training_path),
@@ -5701,6 +5931,8 @@ def main():
     # 34, profiled: kernels a replay, busy share
     per_replay = phase_graph_replays(graph_predictors, graph_readings)
     stamp("phase 34 (profiled)")
+    phase_replayed_kernels()
+    stamp("phase 43b (profiled)")
     print(f"serving readings (phases 34, 36): {json.dumps(graph_readings)} "
           f"{json.dumps(http_readings)} on {smi}")
     print(f"parallel readings (phases 37, 38): {json.dumps(parallel)} on "

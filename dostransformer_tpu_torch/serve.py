@@ -318,9 +318,12 @@ class Predictor(Dispatch):
         of the forward is one ``dostpu`` op of the program."""
         loader = GraphLoader(list(example), self.batch_size)
         names, leaves = batch_leaves(next(iter(loader)).to(self.device))
+        # weights of their own: a trained model's parameters are views of
+        # its optimizer's flat buffer (train/optim.py)
+        model = copy.deepcopy(self.model)
         with torch.no_grad():
             program = torch.export.export(
-                ServingForward(self.model, names, self.clamp), tuple(leaves))
+                ServingForward(model, names, self.clamp), tuple(leaves))
         out = next(n for n in program.graph.nodes if n.op == "output")
         bins = int(out.args[0][0].meta["val"].shape[-1])
         os.makedirs(path, exist_ok=True)

@@ -19,10 +19,28 @@ follows the jitted step, so the two agree bit for bit in the stored moment.
 ``torch.optim.AdamW`` keeps both moments in the parameter dtype, so it is
 not this optimizer. Under data parallelism :meth:`AdamW.step` sums the flat
 gradient over the data ranks first (``grad_group``); a sharded parameter's
-moments are those of its shard. The moments live in two flat buffers; a step gathers the
-gradients and parameters into flat tensors, updates them with a handful of
-elementwise ops and copies the parameters back with one ``_foreach_copy_``,
-so the launch count does not grow with the number of parameters.
+moments are those of its shard.
+
+Everything lives in flat buffers, in parameter order: the parameters are
+views of one f32 buffer (:attr:`AdamW.flat`), their gradients views of one
+f32 gradient buffer (:attr:`AdamW.grad`), the moments two more. Each
+parameter's slot starts at a multiple of :data:`ALIGN` floats (256 bytes,
+as ``cudaMalloc`` aligns: the kernels take aligned pointers); the gaps hold
+zeros that every step leaves at zero, and the state dict and the clipping
+norm read the parameters' lanes alone, packed in parameter order. A step
+updates them in place with a handful of elementwise ops, so the launch count
+does not grow with the number of parameters and nothing is gathered or
+copied back. :meth:`AdamW.zero_grad` zeroes the gradient buffer (autograd
+then accumulates into those fixed addresses); a ``.grad`` that someone else
+set or cleared is copied into the buffer at the next step. So a ``.grad``
+read after a step is the buffer the next step overwrites: clone what is
+kept. A parameter rebound after the optimizer is built (``p.data = ...``,
+``model.to``, a second optimizer on the same model) would no longer be
+trained: every step first checks that each parameter still is its view,
+and raises if one is not. That is what lets a
+train step be captured as CUDA graphs (train/trainer.py): the step's
+varying scalars, the rate and the bias corrections, reach a captured update
+as a per-step table on the device (:meth:`AdamW.scalar_table`).
 
 The fine-tuning extensions of the JAX ``make_adamw`` (all off by default)
 follow optax too: ``grad_clip`` clips the gradients to that global norm
@@ -56,6 +74,7 @@ import torch.distributed as dist
 from dostransformer_tpu_torch.parallel.megatron import shard_dim
 
 B1, B2, EPS = 0.9, 0.999, 1e-8  # torch's and optax's AdamW defaults
+ALIGN = 64  # floats: where each parameter's slot of the flat buffers starts
 
 
 def learning_rate(count: int, lr: float, warmup_steps: int = 0,
@@ -113,44 +132,98 @@ class AdamW:
         self._b1_mu = float(torch.tensor(B1, dtype=torch.bfloat16))
         self.step_count = 0  # optax's integer count
         self._sizes = [p.numel() for p in self.params]
+        # offsets packed (the state dict's layout) and of the aligned slots
         self._offsets = np.cumsum([0] + self._sizes[:-1]).tolist()
-        n = sum(self._sizes)
+        self._slots, n = [], 0
+        for size in self._sizes:
+            self._slots.append(n)
+            n += -(-size // ALIGN) * ALIGN
         dev = self.params[0].device
         self.mu = torch.zeros(n, dtype=torch.bfloat16, device=dev)
         self.nu = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.flat = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.grad = torch.zeros(n, dtype=torch.float32, device=dev)
+        self._grads = []
+        with torch.no_grad():
+            for p, view, grad in zip(self.params, self._lanes(self.flat),
+                                     self._lanes(self.grad)):
+                view.copy_(p)
+                p.data = view
+                p.grad = grad
+                self._grads.append(grad)
+        self._ptrs = [p.data_ptr() for p in self.params]
+
+    def _lanes(self, buf: torch.Tensor) -> list:
+        """Each parameter's view of the flat buffer ``buf``, shaped like
+        it."""
+        return [buf[off:off + n].view_as(p) for p, off, n in
+                zip(self.params, self._slots, self._sizes)]
+
+    def _packed(self, buf: torch.Tensor) -> torch.Tensor:
+        """The parameters' lanes of ``buf`` in parameter order, without
+        the gaps."""
+        return torch.cat([x.reshape(-1) for x in self._lanes(buf)])
 
     def zero_grad(self):
-        for p in self.params:
-            p.grad = None
+        """Zero the flat gradient buffer, with every ``.grad`` its view."""
+        self._attach_grads()
+        self.grad.zero_()
+
+    def check_views(self) -> None:
+        """Raise unless every parameter still is its view of :attr:`flat`
+        (host pointers only: nothing waits for the card)."""
+        for i, (p, ptr) in enumerate(zip(self.params, self._ptrs)):
+            if p.data_ptr() != ptr:
+                raise RuntimeError(
+                    f"AdamW: parameter {i} {tuple(p.shape)} was rebound "
+                    f"after the optimizer was built, so its steps would no "
+                    f"longer reach it; build the optimizer after moving or "
+                    f"loading the model")
+
+    @torch.no_grad()
+    def _attach_grads(self) -> None:
+        """Check the parameters' views (:meth:`check_views`), then make
+        each ``.grad`` its view of the flat buffer again, copying in a
+        gradient set in its place (zeros for one cleared)."""
+        self.check_views()
+        for p, view in zip(self.params, self._grads):
+            if p.grad is not view:
+                if p.grad is None:
+                    view.zero_()
+                else:
+                    view.copy_(p.grad)
+                p.grad = view
 
     def moments(self, param: torch.nn.Parameter):
         """(mu, nu) of one parameter, shaped like it (views of the flat
         buffers)."""
-        off = 0
-        for p, n in zip(self.params, self._sizes):
+        for p, off, n in zip(self.params, self._slots, self._sizes):
             if p is param:
                 return (self.mu[off:off + n].view_as(p),
                         self.nu[off:off + n].view_as(p))
-            off += n
         raise KeyError("not a parameter of this optimizer")
 
     def state_dict(self) -> dict:
         """The optimizer's state: the flat moments (``mu`` bf16, ``nu``
-        f32, in parameter order) and the step count, which alone sets the
-        schedule."""
-        return {"mu": self.mu, "nu": self.nu, "step_count": self.step_count}
+        f32, packed in parameter order) and the step count, which alone
+        sets the schedule."""
+        return {"mu": self._packed(self.mu), "nu": self._packed(self.nu),
+                "step_count": self.step_count}
 
+    @torch.no_grad()
     def load_state_dict(self, state: dict):
         """Copy a :meth:`state_dict` into this optimizer's buffers (on
         their device); the moments must have this optimizer's size."""
+        n = sum(self._sizes)
         for name in ("mu", "nu"):
             src, dst = state[name], getattr(self, name)
-            if src.shape != dst.shape or src.dtype != dst.dtype:
+            if src.shape != (n,) or src.dtype != dst.dtype:
                 raise ValueError(
                     f"AdamW.load_state_dict: {name} is {tuple(src.shape)} "
-                    f"{src.dtype}, this optimizer's is {tuple(dst.shape)} "
-                    f"{dst.dtype}")
-            dst.copy_(src)
+                    f"{src.dtype}, this optimizer's is ({n},) {dst.dtype}")
+            torch._foreach_copy_(
+                [x.reshape(-1) for x in self._lanes(dst)],
+                list(src.to(dst.device).split(self._sizes)))
         self.step_count = int(state["step_count"])
 
     def _global_norm(self, g: torch.Tensor) -> torch.Tensor:
@@ -175,37 +248,82 @@ class AdamW:
             sq = sq + part
         return torch.sqrt(sq)
 
+    def _scalars(self) -> tuple:
+        """(rate, bc1, bc2) of the next step, as Python floats; the count
+        advances."""
+        lr = learning_rate(self.step_count, self.lr, self.warmup_steps,
+                           self.cosine_decay_steps, self.x64)
+        self.step_count += 1
+        t = self.step_count
+        return (lr, bias_correction(B1, t, self.x64),
+                bias_correction(B2, t, self.x64))
+
+    def scalar_table(self, steps: int) -> torch.Tensor:
+        """The next ``steps`` steps' scalars [steps, 3] f32 on the host, as
+        a captured update reads them: the rate, 1 / bc1 and 1 / bc2, each
+        rounded to f32 as the card's eager ops round them (a multiply by a
+        host float takes it in f32; a division by one multiplies by its
+        reciprocal, formed in f64 and rounded to f32: on the H100 with
+        torch 2.11, ``1 / f32(bc)`` in f32 differs in the last bit at some
+        counts). The count is left as it is."""
+        f32 = np.float32
+        rows = []
+        for c in range(self.step_count, self.step_count + steps):
+            lr = learning_rate(c, self.lr, self.warmup_steps,
+                               self.cosine_decay_steps, self.x64)
+            rows.append([f32(lr)] + [
+                f32(1.0 / bias_correction(b, c + 1, self.x64))
+                for b in (B1, B2)])
+        return torch.from_numpy(np.array(rows, dtype=np.float32)
+                                .reshape(steps, 3))
+
+    def _update(self, g: torch.Tensor, lr, bc1, bc2) -> None:
+        """AdamW in place on the flat buffers from the flat gradient ``g``
+        (clipped first with ``grad_clip``). The scalars are Python floats,
+        or 0-d f32 tensors on the card holding the rate, 1 / bc1 and
+        1 / bc2 (a row of :meth:`scalar_table`): the card's ``x / float``
+        is ``x`` times the float's reciprocal in f32, which the tensors
+        reproduce bit for bit."""
+        if self.grad_clip > 0:  # optax.clip_by_global_norm, on the device
+            norm = self._global_norm(self._packed(g))
+            g = torch.where(norm < self.grad_clip, g,
+                            g / norm * self.grad_clip)
+        mu = (1 - B1) * g + self._b1_mu * self.mu.float()
+        nu = (1 - B2) * (g * g) + B2 * self.nu
+        if isinstance(bc1, torch.Tensor):
+            u = (mu * bc1) / (torch.sqrt(nu * bc2) + EPS)
+        else:
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
+        self.flat.add_((u + self.weight_decay * self.flat) * (-lr))
+        self.mu.copy_(mu)
+        self.nu.copy_(nu)
+
     @torch.no_grad()
     def step(self, grad_group=None):
         """One AdamW step from the parameters' ``.grad``. With
         ``grad_group`` (a process group: the data-parallel ranks) the flat
         gradient is first summed over its ranks (each rank's gradient being
-        its share of the global batch mean)."""
-        g = torch.cat([(p.grad if p.grad is not None
-                        else torch.zeros_like(p)).reshape(-1)
-                       for p in self.params])
+        its share of the global batch mean), in a copy: ``.grad`` keeps this
+        rank's share."""
+        self._attach_grads()
+        g = self.grad
         if grad_group is not None:
+            g = g.clone()
             dist.all_reduce(g, group=grad_group)
-        p = torch.cat([p.reshape(-1) for p in self.params])
-        if self.grad_clip > 0:  # optax.clip_by_global_norm, on the device
-            norm = self._global_norm(g)
-            g = torch.where(norm < self.grad_clip, g,
-                            g / norm * self.grad_clip)
-        lr = learning_rate(self.step_count, self.lr, self.warmup_steps,
-                           self.cosine_decay_steps, self.x64)
+        self._update(g, *self._scalars())
+
+    @torch.no_grad()
+    def captured_step(self, scalars: torch.Tensor) -> None:
+        """The step a CUDA graph captures: the update from the flat
+        gradient buffer with the scalars read from ``scalars`` [3] on the
+        device (the rate, 1 / bc1, 1 / bc2), whose row the caller writes
+        before each replay and whose count it advances
+        (:meth:`advance`)."""
+        self._update(self.grad, scalars[0], scalars[1], scalars[2])
+
+    def advance(self) -> None:
+        """Count one step taken by a replay of :meth:`captured_step`."""
         self.step_count += 1
-        t = self.step_count
-        bc1 = bias_correction(B1, t, self.x64)
-        bc2 = bias_correction(B2, t, self.x64)
-        mu = (1 - B1) * g + self._b1_mu * self.mu.float()
-        nu = (1 - B2) * (g * g) + B2 * self.nu
-        u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
-        p = p + (u + self.weight_decay * p) * (-lr)
-        self.mu.copy_(mu)
-        self.nu.copy_(nu)
-        torch._foreach_copy_(self.params,
-                             [x.view_as(q) for x, q in
-                              zip(p.split(self._sizes), self.params)])
 
 
 def make_adamw(params: Iterable[torch.nn.Parameter], lr: float = 1e-4,

@@ -6,27 +6,50 @@ the AdamW step (:mod:`train.optim`); one eval step scores the system head
 with :func:`eval_metrics`. On the card the forward and backward run through
 the fused message-passing and attention kernels, forward and backward.
 
-PyTorch runs eagerly, so there is no jit, scan or buffer donation; a step
-returns 0-d device tensors and never waits for the card. The epoch methods
-take their batches from a host loader (:meth:`Trainer.train_epoch`) or from
-a dataset resident on the device (train/device_dataset.py:
+A step returns 0-d device tensors and never waits for the card. The epoch
+methods take their batches from a host loader (:meth:`Trainer.train_epoch`)
+or from a dataset resident on the device (train/device_dataset.py:
 :meth:`Trainer.train_epoch_device`, :meth:`Trainer.train_epochs_device`,
 :meth:`Trainer.train_epoch_buckets`, :meth:`Trainer.train_epochs_buckets`),
 where each step gathers its batch on the device by a row of the epoch's
-index tensor [S, B], uploaded once an epoch; every step goes through
-:meth:`Trainer.local_step` (as :meth:`Trainer.train_step` does). They return the per-step losses on the device,
-for the caller to fetch once per chunk of epochs. :meth:`Trainer.eval_epoch`
-scores a list of batches and stacks their metrics.
+index tensor [S, B], uploaded once an epoch without a host wait. They
+return the per-step losses on the device, for the caller to fetch once per
+chunk of epochs. :meth:`Trainer.eval_epoch` scores a list of batches and
+stacks their metrics.
+
+The device dataset's steps replay CUDA graphs where :attr:`Trainer.replays`
+holds (one card, no mesh, a model that does not compute in f64, this
+package's AdamW, and ``graphs`` left on): each batch geometry (atom bucket,
+edges, batch) gets three graphs, captured at its first step after one eager
+forward and backward on a side stream whose gradients are dropped (no
+optimizer step; the dropout stream untouched): the forward with
+``zero_grad`` and the loss, the backward into the flat gradient buffer, and
+AdamW on the flat buffers (train/optim.py), the three of a geometry in one
+memory pool. Every step of that geometry, its first included, gathers its
+rows into the graphs' static inputs (``index_select`` into them), copies
+its row of the epoch's AdamW scalars (:meth:`AdamW.scalar_table`, uploaded
+with the order) into a static scalar, reseeds the step's dropout generator
+from the stream (the generator is registered with the forward's graph, so a
+replay draws the eager step's masks) and replays the three; its loss is
+copied out before the next replay. A capture that fails raises: nothing
+falls back to the eager step. Every other step (the host loader's, a mesh's,
+the CPU's, an f64 model's, or with ``graphs=False``, the replays' oracle)
+runs :meth:`Trainer.local_step` eagerly; replayed and eager steps give the
+same bits on the card.
 
 Under a profiler the epochs record their spans (tracing.py): ``train.epoch``
 around an epoch, ``train.step`` around each step (its atom bucket an
 attribute), and the step's phases ``step.input`` (the gather on the device,
-or the host batch's upload), ``step.forward`` (``zero_grad``, the forward
-and the loss), ``step.backward`` and ``step.optimizer`` (AdamW, with its
-all-reduce under a mesh, to the step's end). Every epoch adds its counters:
+or the host batch's upload; under replay also the scalars' row, and a
+geometry's capture at its first step), ``step.forward`` (``zero_grad``, the
+forward and the loss), ``step.backward`` and ``step.optimizer`` (AdamW,
+with its all-reduce under a mesh, to the step's end); under replay each of
+the last three is its graph's replay. Every epoch adds its counters:
 ``train.steps``, ``train.graphs`` and ``train.graph_slots`` (real graphs,
 and every slot the dummies' included), ``train.atom_rows`` and
-``train.atom_slots`` (the real graphs' node rows, and every slot's rows).
+``train.atom_slots`` (the real graphs' node rows, and every slot's rows),
+``train.steps_replayed`` (the steps that replayed graphs, 0 in an epoch of
+eager steps); each capture adds one to ``train.captures``.
 
 Data and tensor parallelism (``mesh``, a ``DeviceMesh`` from
 parallel/mesh.py ``make_mesh`` over axes ("data",) or ("data", "model")),
@@ -72,8 +95,9 @@ checkpoints, so a resumed run draws what the uninterrupted one drew.
 
 from __future__ import annotations
 
+import dataclasses
 from collections import Counter
-from typing import Iterable, Optional, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -91,17 +115,58 @@ from dostransformer_tpu_torch.train.metrics import eval_metrics
 from dostransformer_tpu_torch.train.optim import AdamW, make_adamw
 
 
+def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``; a host tensor bound for the card goes through
+    pinned memory, copied on the stream without a host wait."""
+    if t.device.type == "cpu" and device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+class _StepGraphs:
+    """One batch geometry's captured train step: the static inputs the
+    step's rows are gathered into, its three CUDA graphs (forward with the
+    loss, backward, AdamW) in one memory pool, and the static loss (None
+    until captured)."""
+
+    def __init__(self, data: GraphBatch, batch: int):
+        self.inputs = _static_inputs(data, batch)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs = [torch.cuda.CUDAGraph() for _ in range(3)]
+        self.loss = None
+
+
+def _static_inputs(data: GraphBatch, batch: int) -> GraphBatch:
+    """Uninitialised tensors of ``batch`` graphs of ``data``'s fields, on
+    its device in its dtypes."""
+    return dataclasses.replace(data, **{
+        f.name: t.new_empty((batch,) + tuple(t.shape[1:]))
+        for f in dataclasses.fields(data)
+        if (t := getattr(data, f.name)) is not None})
+
+
+def _geometry(dataset) -> tuple:
+    """A DeviceDataset's batch geometry: local batch, then each field's
+    name, per-graph shape and dtype."""
+    data = dataset.data
+    return (dataset.local_batch,) + tuple(
+        (f.name, tuple(t.shape[1:]), t.dtype)
+        for f in dataclasses.fields(data)
+        if (t := getattr(data, f.name)) is not None)
+
+
 class Trainer:
     """Owns one model and its optimizer; batches move to the model's
     device. ``mesh`` (optional) spreads the steps over processes (see the
     module docstring); a TP model whose FFNs are whole is sharded here, and
     then takes the default AdamW, built on the shards (an ``optimizer`` of
-    a TP model is built after ``shard_ffn_``)."""
+    a TP model is built after ``shard_ffn_``). ``graphs=False`` keeps every
+    step eager (:attr:`replays`)."""
 
     def __init__(self, model: torch.nn.Module,
                  optimizer: Optional[AdamW] = None, beta: float = 1.0,
                  clamp_targets: bool = True, eval_clamp: bool = True,
-                 mesh=None, seed: int = 0):
+                 mesh=None, seed: int = 0, graphs: bool = True):
         self.mesh = mesh
         self.data_group, self.n_data, self.data_index = axis_info(mesh,
                                                                   "data")
@@ -131,6 +196,20 @@ class Trainer:
         # the dropout stream (see the module docstring)
         self.dropout_rng = torch.Generator().manual_seed(seed)
         self._step_rng = torch.Generator(self.device)
+        self.graphs = graphs
+        self._captured: Dict[tuple, _StepGraphs] = {}
+        self._scalars = None  # the replayed AdamW's scalars, on the card
+        self._side = None     # the warm-ups' stream
+
+    @property
+    def replays(self) -> bool:
+        """Whether the device dataset's steps replay CUDA graphs: on a
+        card without a mesh, for a model that does not compute in f64, with
+        this package's AdamW, unless ``graphs`` is off."""
+        return (self.graphs and self.mesh is None
+                and self.device.type == "cuda"
+                and getattr(self.model, "cdtype", None) != torch.float64
+                and type(self.optimizer) is AdamW)
 
     def _dropout_generator(self) -> torch.Generator:
         """This step's dropout generator on the model's device, reseeded
@@ -177,11 +256,7 @@ class Trainer:
         if self.data_group is not None:
             count = batch.graph_mask.to(torch.float32).sum()
             dist.all_reduce(count, group=self.data_group)
-        dos_global, _, dos_system = model_outputs(
-            self.model(batch, generator=self._dropout_generator()))
-        loss, parts = dos_loss(dos_global, dos_system, batch.y,
-                               batch.graph_mask, self.beta,
-                               self.clamp_targets, count=count)
+        loss, parts = self._loss(batch, self._dropout_generator(), count)
         tracing.phase("step.backward")
         loss.backward()
         tracing.phase("step.optimizer")
@@ -192,6 +267,93 @@ class Trainer:
             total = torch.stack(list(out.values()))
             dist.all_reduce(total, group=self.data_group)
             out = dict(zip(out, total.unbind()))
+        return out
+
+    def _loss(self, batch: GraphBatch, generator: torch.Generator,
+              count=None):
+        """The forward and :func:`dos_loss` of one batch: (loss, parts)."""
+        dos_global, _, dos_system = model_outputs(
+            self.model(batch, generator=generator))
+        return dos_loss(dos_global, dos_system, batch.y, batch.graph_mask,
+                        self.beta, self.clamp_targets, count=count)
+
+    def _capture(self, entry: _StepGraphs) -> None:
+        """Capture a geometry's step from its static inputs, which hold
+        the step's rows: first a forward and backward on a side stream
+        whose gradients the captured ``zero_grad`` drops (no optimizer
+        step, the dropout stream untouched), then the three graphs."""
+        opt, batch = self.optimizer, entry.inputs
+        stream = torch.cuda.current_stream(self.device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+            self._scalars = torch.zeros(3, device=self.device)
+        self._side.wait_stream(stream)
+        with torch.cuda.stream(self._side):
+            opt.zero_grad()
+            self._loss(batch, self._step_rng.manual_seed(0))[0].backward()
+        stream.wait_stream(self._side)
+        forward, backward, update = entry.graphs
+        forward.register_generator_state(self._step_rng)
+        try:
+            with torch.cuda.graph(forward, pool=entry.pool,
+                                  capture_error_mode="thread_local"):
+                opt.zero_grad()
+                loss = self._loss(batch, self._step_rng)[0]
+            with torch.cuda.graph(backward, pool=entry.pool,
+                                  capture_error_mode="thread_local"):
+                loss.backward()
+            with torch.cuda.graph(update, pool=entry.pool,
+                                  capture_error_mode="thread_local"):
+                opt.captured_step(self._scalars)
+        except Exception as e:
+            shapes = {f.name: tuple(t.shape) for f in dataclasses.fields(batch)
+                      if (t := getattr(batch, f.name)) is not None}
+            raise RuntimeError(f"CUDA graph capture of the train step failed "
+                               f"at inputs {shapes}: {e}") from e
+        entry.loss = loss.detach()  # the autograd graph goes with ``loss``
+        tracing.count("train.captures", 1)
+
+    def _replayed_epoch(self, dataset, perm: torch.Tensor, epoch: int,
+                        first: int) -> torch.Tensor:
+        """The steps of :meth:`_device_epoch` as replays of the dataset's
+        geometry's graphs (see the module docstring); the step losses."""
+        steps = perm.shape[0]
+        self.optimizer.check_views()
+        table = _to_device(self.optimizer.scalar_table(steps),
+                           dataset.device)
+        key = _geometry(dataset)
+        entry = self._captured.get(key)
+        if entry is None:
+            entry = _StepGraphs(dataset.data, dataset.local_batch)
+        fields = [(t, getattr(entry.inputs, f.name))
+                  for f in dataclasses.fields(dataset.data)
+                  if (t := getattr(dataset.data, f.name)) is not None]
+        forward, backward, update = entry.graphs
+        self.model.train()
+        out = None
+        bucket = dataset.data.atoms_per_graph
+        for i in range(steps):
+            with tracing.span("train.step", step=(epoch, first + i),
+                              bucket=bucket):
+                tracing.phase("step.input")
+                for src, dst in fields:
+                    torch.index_select(src, 0, perm[i], out=dst)
+                if entry.loss is None:
+                    self._capture(entry)
+                    self._captured[key] = entry
+                if out is None:
+                    out = torch.empty(steps, dtype=entry.loss.dtype,
+                                      device=dataset.device)
+                self._scalars.copy_(table[i])
+                self._dropout_generator()
+                tracing.phase("step.forward")
+                forward.replay()
+                tracing.phase("step.backward")
+                backward.replay()
+                tracing.phase("step.optimizer")
+                update.replay()
+                self.optimizer.advance()
+                out[i].copy_(entry.loss)
         return out
 
     @torch.no_grad()
@@ -233,25 +395,31 @@ class Trainer:
                     tracing.phase("step.input")
                     rows = rows.to(self.device)
                     losses.append(self.local_step(rows)["loss"])
+            counts["train.steps_replayed"] = 0
             for name, n in counts.items():
                 tracing.count(name, n)
         return torch.stack(losses).cpu()
 
     def _device_epoch(self, dataset, perm, epoch: int, first: int = 0
-                      ) -> list:
+                      ) -> torch.Tensor:
         """Train steps over ``dataset`` (a DeviceDataset: under a mesh this
         rank's block) in the order ``perm`` [S, local B] (indices into the
         block; any device; uploaded once), the steps ``first`` on of epoch
-        ``epoch``; the step losses."""
+        ``epoch``, replayed where :attr:`replays` holds; the step losses
+        [S]."""
         self._check_batch(dataset.batch_size)
         perm = torch.as_tensor(perm)
         want = (dataset.steps_per_epoch, dataset.local_batch)
         if tuple(perm.shape) != want:
             raise ValueError(f"perm is {tuple(perm.shape)}, this dataset "
                              f"takes {want}")
-        perm = perm.to(dataset.device, torch.int64)
+        perm = _to_device(perm.to(torch.int64), dataset.device)
         for name, n in dataset.epoch_counts().items():
             tracing.count(name, n)
+        replays = self.replays
+        tracing.count("train.steps_replayed", len(perm) if replays else 0)
+        if replays:
+            return self._replayed_epoch(dataset, perm, epoch, first)
         bucket = dataset.data.atoms_per_graph
         losses = []
         for i, idx in enumerate(perm, first):
@@ -259,7 +427,7 @@ class Trainer:
                 tracing.phase("step.input")
                 batch = dataset.batch(idx)
                 losses.append(self.local_step(batch)["loss"])
-        return losses
+        return torch.stack(losses)
 
     def train_epoch_device(self, dataset, seed: int = 0, epoch: int = 0,
                            perm=None) -> torch.Tensor:
@@ -269,7 +437,7 @@ class Trainer:
         if perm is None:
             perm = dataset.perm(seed, epoch)
         with tracing.span("train.epoch", device=self.device, epoch=epoch):
-            return torch.stack(self._device_epoch(dataset, perm, epoch))
+            return self._device_epoch(dataset, perm, epoch)
 
     def train_epochs_device(self, dataset, seed: int, epochs: Sequence[int],
                             perms=None) -> torch.Tensor:
@@ -289,12 +457,13 @@ class Trainer:
         (ascending), each in its own (seed, epoch, bucket) order or in
         ``perms[i]``. Returns the step losses [S] on the device, in bucket
         order."""
-        losses = []
+        losses, done = [], 0
         with tracing.span("train.epoch", device=self.device, epoch=epoch):
             for i, (_, dds) in enumerate(bucketed.buckets):
                 perm = dds.perm(seed, epoch, i) if perms is None else perms[i]
-                losses += self._device_epoch(dds, perm, epoch, len(losses))
-            return torch.stack(losses)
+                losses.append(self._device_epoch(dds, perm, epoch, done))
+                done += dds.steps_per_epoch
+            return torch.cat(losses)
 
     def train_epochs_buckets(self, bucketed, seed: int, epochs: Sequence[int],
                              perms=None) -> torch.Tensor:

@@ -1589,3 +1589,191 @@ def test_ffn_layer_keeps_todays_path_where_the_plan_says(dev, case,
     hid = F.relu(layer.fc1(ln1(x1)))
     want = x1 + layer.fc2(apply_keep(hid, masks.relu, layer.relu_dropout))
     assert torch.equal(got, want)
+
+
+# --- the train step through CUDA graphs (train/trainer.py) ------------------
+# Each batch geometry's step is captured once (forward with the loss,
+# backward, AdamW) and replayed; the eager step (Trainer(graphs=False)) is
+# the oracle. Every kernel of these steps repeats its bits on the same
+# inputs (fixed summation orders, no atomics; see the kernels' tests above),
+# and a replay runs the eager step's kernels on the same inputs, so the
+# comparisons are bit for bit.
+
+
+def _cell_corpus(per_bucket=160):
+    """eDOS crystals at the cell's sizes, ``per_bucket`` in each atom bucket
+    8-256 (4-230 atoms): 3 steps a bucket at batch 64, the last padded with
+    dummy graphs."""
+    from dostransformer_tpu_torch.data.synthetic import (
+        synthetic_edos_learnable,
+    )
+
+    ranges = [(4, 7), (8, 15), (16, 31), (32, 63), (64, 127), (128, 230)]
+    return [s for i, (lo, hi) in enumerate(ranges)
+            for s in synthetic_edos_learnable(per_bucket, seed=20 + i,
+                                              min_atoms=lo, max_atoms=hi)]
+
+
+def _step_trainer(dev, graphs, hidden=32, layers=2, t_layers=1,
+                  task="edos", **kw):
+    from dostransformer_tpu_torch.models.registry import build_model
+    from dostransformer_tpu_torch.train.trainer import Trainer
+
+    model = build_model(task, layers=layers, t_layers=t_layers,
+                        hidden=hidden, device=dev,
+                        generator=torch.Generator().manual_seed(5), **kw)
+    return Trainer(model, seed=3, graphs=graphs,
+                   clamp_targets=task == "edos")
+
+
+def _same_training_state(a, b):
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), name
+    oa, ob = a.optimizer, b.optimizer
+    assert torch.equal(oa.grad, ob.grad)
+    assert torch.equal(oa.mu, ob.mu) and torch.equal(oa.nu, ob.nu)
+    assert oa.step_count == ob.step_count
+
+
+def _counters():
+    from dostransformer_tpu_torch import tracing
+
+    c = tracing.record().counters
+    return c.get("train.steps_replayed", 0), c.get("train.captures", 0)
+
+
+def test_replayed_steps_equal_the_eager_steps_on_every_bucket_of_the_cell(
+        dev):
+    """The cell's model (eDOS at hidden 256, 3 processors, 2 layers a stack,
+    201 bins) at batch 64 on every atom bucket 8-256, 3 steps each, two
+    epochs: the replayed steps' losses, parameters, gradients, moments and
+    count equal the eager steps' bit for bit; six geometries captured in
+    the first epoch, none in the second, every step a replay."""
+    from dostransformer_tpu_torch.train.device_dataset import (
+        BucketedDeviceDataset,
+    )
+
+    data = BucketedDeviceDataset.from_samples(_cell_corpus(), 64, device=dev)
+    assert [a for a, _ in data.buckets] == [8, 16, 32, 64, 128, 256]
+    assert [d.steps_per_epoch for _, d in data.buckets] == [3] * 6
+    cell = dict(hidden=256, layers=3, t_layers=2)
+    eager = _step_trainer(dev, False, **cell)
+    replayed = _step_trainer(dev, True, **cell)
+    assert replayed.replays and not eager.replays
+    for epoch, captures in ((0, 6), (1, 0)):
+        before = _counters()
+        want = eager.train_epochs_buckets(data, 0, [epoch])
+        got = replayed.train_epochs_buckets(data, 0, [epoch])
+        after = _counters()
+        assert (after[0] - before[0], after[1] - before[1]) == (18, captures)
+        assert torch.equal(got, want), (got - want).abs().max()
+        _same_training_state(eager, replayed)
+    del eager, replayed
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("kw", [{"attn_drop": 0.1}, {"remat": True},
+                                {"dtype": "bfloat16"},
+                                {"task": "phdos", "batch": 1},
+                                {"task": "phdos", "batch": 8}],
+                         ids=["attn_drop", "remat", "bf16", "phdos_batch1",
+                              "phdos_batch8"])
+def test_replayed_steps_equal_the_eager_steps_with_dropout_remat_bf16(
+        dev, kw):
+    """Attention dropout (the step's generator registered with the forward's
+    graph and reseeded from the stream before each replay: the eager
+    step's masks), remat (the layers recomputed inside the backward's
+    graph), a bf16 model and the phDOS model (its segment sums captured
+    forward and backward; at main_phdos's default batch 1, and at 8) replay
+    the eager steps bit for bit over two epochs of two buckets, flat and
+    bucketed."""
+    from dostransformer_tpu_torch.data.synthetic import (
+        synthetic_edos_learnable,
+        synthetic_phdos_learnable,
+    )
+    from dostransformer_tpu_torch.train.device_dataset import (
+        BucketedDeviceDataset,
+        DeviceDataset,
+    )
+
+    kw = dict(kw)
+    batch = kw.pop("batch", 8)
+    learnable = (synthetic_phdos_learnable if kw.get("task") == "phdos"
+                 else synthetic_edos_learnable)
+    samples = learnable(20, seed=6, max_atoms=20)
+    eager, replayed = (_step_trainer(dev, g, **kw) for g in (False, True))
+    assert replayed.replays
+    bucketed = BucketedDeviceDataset.from_samples(samples, batch, device=dev)
+    flat = DeviceDataset.from_samples(samples, batch, device=dev)
+    for epoch in range(2):
+        for run in (lambda t: t.train_epochs_buckets(bucketed, 1, [epoch]),
+                    lambda t: t.train_epochs_device(flat, 1, [epoch])):
+            want, got = run(eager), run(replayed)
+            assert torch.equal(got, want), (got - want).abs().max()
+            _same_training_state(eager, replayed)
+    assert torch.equal(eager.dropout_rng.get_state(),
+                       replayed.dropout_rng.get_state())
+
+
+def test_replayed_run_resumes_from_a_checkpoint_to_the_uninterrupted_run(
+        dev, tmp_path):
+    """Three replayed epochs (with dropout, so the stream is checkpointed
+    too) against one epoch, a checkpoint, and a fresh Trainer restored from
+    it for the other two: the same losses and the same final state, bit for
+    bit."""
+    from dostransformer_tpu_torch.data.synthetic import (
+        synthetic_edos_learnable,
+    )
+    from dostransformer_tpu_torch.train.checkpoint import CheckpointManager
+    from dostransformer_tpu_torch.train.device_dataset import (
+        BucketedDeviceDataset,
+    )
+
+    data = BucketedDeviceDataset.from_samples(
+        synthetic_edos_learnable(20, seed=6, max_atoms=20), 8, device=dev)
+    whole = _step_trainer(dev, True, attn_drop=0.1)
+    want = whole.train_epochs_buckets(data, 2, [0, 1, 2])
+    first = _step_trainer(dev, True, attn_drop=0.1)
+    got = [first.train_epochs_buckets(data, 2, [0])]
+    manager = CheckpointManager(str(tmp_path))
+    manager.save(1, first.model, first.optimizer, wait=True,
+                 rng=first.dropout_rng)
+    resumed = _step_trainer(dev, True, attn_drop=0.1)
+    with torch.no_grad():  # other weights: the restore sets them
+        for p in resumed.model.parameters():
+            p.add_(1.0)
+    manager.restore(resumed.model, resumed.optimizer,
+                    rng=resumed.dropout_rng)
+    got.append(resumed.train_epochs_buckets(data, 2, [1, 2]))
+    assert torch.equal(torch.cat(got), want)
+    _same_training_state(whole, resumed)
+
+
+def test_failing_step_capture_raises_without_falling_back(dev, monkeypatch):
+    """A loss that synchronises (legal eagerly) cannot be captured: the
+    epoch raises, and no step was taken eagerly instead (the count and the
+    parameters are as before; the warm-up took no optimizer step)."""
+    from dostransformer_tpu_torch.data.synthetic import (
+        synthetic_edos_learnable,
+    )
+    from dostransformer_tpu_torch.train.device_dataset import DeviceDataset
+    from dostransformer_tpu_torch.train.trainer import Trainer
+
+    original = Trainer._loss
+
+    def syncing(self, *args, **kwargs):
+        out = original(self, *args, **kwargs)
+        float(out[0])  # a copy to the host: no capture allows it
+        return out
+
+    monkeypatch.setattr(Trainer, "_loss", syncing)
+    trainer = _step_trainer(dev, True)
+    before = [p.detach().clone() for p in trainer.model.parameters()]
+    data = DeviceDataset.from_samples(
+        synthetic_edos_learnable(8, seed=1, max_atoms=10), 4, device=dev)
+    with pytest.raises(RuntimeError, match="CUDA graph capture of the train"):
+        trainer.train_epoch_device(data, 0, 0)
+    torch.cuda.synchronize()
+    assert trainer.optimizer.step_count == 0
+    assert all(torch.equal(p, q) for p, q in
+               zip(trainer.model.parameters(), before))

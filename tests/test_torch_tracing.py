@@ -201,8 +201,31 @@ def test_counters_are_the_counts_of_the_samples(kind):
     # stack and, twice, through each head's stack (one layer a stack); on
     # the CPU none takes kernel #8, so ffn.kernel_rows stays unset
     want["ffn.rows"] = want["train.graph_slots"] * BINS * 5
+    want["train.steps_replayed"] = 0  # the CPU replays no step
     assert tracing.record().counters == want
     assert want["train.atom_rows"] < want["train.atom_slots"]
+
+
+@pytest.mark.parametrize("kind", ["buckets", "device", "host"])
+def test_replayed_share_reads_zero_for_eager_epochs(kind):
+    """The benchmark's reader of the replayed steps' share over a traced
+    epoch of eager steps (the CPU's) reads 0, not nothing: a program that
+    falls back to the eager step shows there. Without the counter (a
+    program that keeps none) it reads nothing."""
+    import importlib.util
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parents[1] / "perfbench"
+            / "metrics" / "replayed_steps_pct.train.py")
+    spec = importlib.util.spec_from_file_location("replayed_steps_pct",
+                                                  path)
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    trainer, samples = _trainer(), _samples()
+    _profiled(lambda: _epoch(trainer, kind, samples, 0))
+    assert reader.read(None) == 0.0
+    del tracing.record().counters["train.steps_replayed"]
+    assert reader.read(None) is None
 
 
 def test_losses_and_weights_are_bit_equal_with_tracing_on_and_off():
@@ -307,11 +330,15 @@ def card():
 @pytest.mark.cuda
 def test_device_times_are_present_positive_and_tile_the_epoch(card,
                                                               monkeypatch):
-    """A traced epoch on the card: no synchronise and no event read inside
-    it; afterwards every span's device interval, and the phases and the
-    loop's idle tile the steps."""
+    """A traced epoch of replayed steps on the card: no synchronise (of the
+    card, a stream or an event: ATen's sync check set to raise) and no
+    event read inside it, every step a replay and no capture; afterwards
+    every span's device interval, and the phases and the loop's idle tile
+    the steps."""
     trainer, samples = _trainer(card), _samples()
-    _epoch(trainer, "buckets", samples, 0, card)  # builds and warms
+    assert trainer.replays
+    data = BucketedDeviceDataset.from_samples(samples, BATCH, device=card)
+    trainer.train_epoch_buckets(data, 0, 0)  # builds, warms and captures
 
     def refused(*args, **kwargs):
         raise AssertionError("tracing waited for the card")
@@ -321,11 +348,17 @@ def test_device_times_are_present_positive_and_tile_the_epoch(card,
             m.setattr(torch.cuda, "synchronize", refused)
             for name in ("synchronize", "query", "elapsed_time"):
                 m.setattr(torch.cuda.Event, name, refused)
-            return _epoch(trainer, "buckets", samples, 1, card)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return trainer.train_epoch_buckets(data, 0, 1)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
 
     _profiled(epoch, (ProfilerActivity.CPU, ProfilerActivity.CUDA))
     torch.cuda.synchronize()
     rec = tracing.record()
+    assert rec.counters["train.steps_replayed"] == rec.counters["train.steps"]
+    assert "train.captures" not in rec.counters
     intervals = [rec.device_interval(s) for s in rec.spans]
     assert all(i is not None and i[1] > i[0] for i in intervals)
     assert all(s.start.event is not None for s in rec.spans)
