@@ -29,7 +29,11 @@ The eDOS flagship:
      widths take (tensor-core at M = 512, H = 256) bit-identical on a second
      run, beside the generic (FMA) form on the same inputs, with the tile
      taken and the shared memory a block takes, and at a width that keeps
-     the generic form (M = 600, H = 300);
+     the generic form (M = 600, H = 300); #8 (the FFN GEMM) at the cell's
+     FFN calls and #9 (the linear GEMM) at the cell's linear sites (a
+     strided weight slice where the site has one, K = 200 and 640), each
+     beside its bound at the TF32 peak (#9's row adds its 3xTF32
+     ceiling, 495 / 3 TFLOP/s) and F.linear by cuBLAS;
   3b. each backward kernel against its plain backward at the training
      shapes (a dummy graph, random nonzero upstream gradients, a fully
      masked attention row), run twice and required to repeat bit for bit,
@@ -37,7 +41,8 @@ The eDOS flagship:
      (keys and values one tensor, the forward's row statistics), and also
      without the statistics and with two copies of the keys, bit-equal; the
      message-passing backward as its forward in 3 (both forms, the tile
-     and cluster shape taken);
+     and cluster shape taken); #8's and #9's backwards as their forwards in
+     3;
   4. the serving path through the entry points a user calls: a flagship
      DOSTransformerEDOS (hidden 256, 3 processors, 2 transformer layers per
      stack, 201 bins; random weights from a seeded torch.Generator) is saved
@@ -335,12 +340,15 @@ name and power limit; the seconds of phases 35-38 printed at the end):
      each take 3 Trainer steps at full width on the
      global batches of one process (21 learnable samples at batch 8, the
      last batch 5 real graphs); every rank launches exactly the single
-     process's kernels #1-#4; losses within rtol 1e-5, the first step's
-     gradients (summed over 'data', shards gathered) within 1e-4 x max(1,
-     max|g|) a tensor, and final parameters (FFN shards gathered) within
-     what AdamW makes of that gradient error (PARALLEL_RTOL's comment:
-     1e-5 x max(1, |p|) where the gradient is large, up to two steps where
-     its direction is noise) of the single process on the card; ms a step per rank (ranks share the card: no
+     process's kernels #1-#4; the single process on the card and each
+     mesh against the same steps in f64 on the CPU: losses within rtol
+     4e-5, the first step's gradients (summed over 'data', shards
+     gathered) within 4e-4 x max(1, max|g|) a tensor, and final parameters
+     (FFN shards gathered) within what AdamW makes of that gradient error
+     (F64_LOSS_RTOL's comment: 1e-5 x max(1, |p|) where the gradient is
+     large, up to two steps where its direction is noise); the single
+     process with its linears in 1xTF32, and with the model in bf16, must
+     fail each of these limits; ms a step per rank (ranks share the card: no
      measure of scaling); the TP x 2 run's checkpoint served in this
      process (against the single-process model, the card-vs-CPU limits) and
      resumed by main_edos;
@@ -526,7 +534,14 @@ from dostransformer_tpu_torch.ops.ffn import (  # noqa: E402
     ffn_bwd_kernel,
     ffn_bwd_reference,
     ffn_fwd_kernel,
+    ffn_plan,
     ffn_reference,
+)
+from dostransformer_tpu_torch.ops.linear import (  # noqa: E402
+    linear_bwd_kernel,
+    linear_fwd_kernel,
+    linear_op,
+    linear_plan,
 )
 from dostransformer_tpu_torch.ops.segment import (  # noqa: E402
     batched_segment_sum,
@@ -660,6 +675,27 @@ TF32_FLOPS_PER_S = 495e12
 # benchmark cell's FFN calls, filled by phases 3 and 3b, and its launches
 # a train step (phase 6) give it a row of its own in the kernels line
 FFN_RESULTS: dict = {}
+# #9 (csrc/linear.cu), likewise: its comparisons at the cell's linear sites
+# (phases 3 and 3b; its bound at the TF32 peak, as #8's, and beside it the
+# 3xTF32 ceiling, 495 / 3 TFLOP/s, bound_3xtf32_ms) and its launches each
+# train step (phase 6)
+LINEAR_RESULTS: dict = {}
+# (rows, K, N, the weight's columns, the slice's first column, bias) of the
+# eDOS cell's f32 linears at batch 64: the processors' edge projection
+# (w0[:, 2h:] and b0) at the smallest and largest buckets' edge slots,
+# dst_proj (w0[:, h:2h]) at bucket 256's node rows, node_mlp_2's second
+# linear, the edge encoder's second layer, the heads' fc and fc_prompt,
+# the node encoder's K = 200
+LINEAR_SITES = {
+    "edge_proj_8192": (8192, 256, 512, 768, 512, True),
+    "edge_proj_180224": (180224, 256, 512, 768, 512, True),
+    "dst_proj_16384": (16384, 256, 512, 768, 256, False),
+    "node_mlp_2_lin1": (16384, 512, 256, 512, 0, True),
+    "edge_encoder_2": (180224, 256, 256, 256, 0, True),
+    "heads_fc": (12864, 512, 256, 512, 0, True),
+    "heads_fc_prompt": (12864, 640, 256, 640, 0, True),
+    "node_encoder_1": (16384, 200, 256, 200, 0, True),
+}
 # the JAX package's lever names, as a user sets them
 FUSE_ENV = {"DOSTPU_FUSE_LN_ATTN": "1"}
 LEVERS_ENV = {"DOSTPU_FUSE_LN_ATTN": "1", "DOSTPU_LN_PALLAS": "1"}
@@ -1098,6 +1134,94 @@ def compare_ffn(dev, backward: bool) -> dict:
     return per
 
 
+def linear_work(m: int, k: int, n: int, backward: bool):
+    """(bytes, operations) of #9 at m rows, k inputs and n outputs: the
+    products (dX and dW twice the forward's) and each input read and output
+    written once (forward: x, the weight and bias in, y out; backward: x,
+    dY and the weight in, dX, dW and db out)."""
+    ops = 2 * m * k * n * (2 if backward else 1)
+    floats = (m * k + k * n + n + m * n if not backward
+              else 2 * m * k + m * n + 2 * k * n + n)
+    return 4 * floats, ops
+
+
+def compare_linear(dev, backward: bool) -> dict:
+    """#9 against its plain version (F.linear by cuBLAS in f32; the
+    backward's dY W, dY^T x and the column sums of dY) at the cell's linear
+    sites, the weight a strided slice where the site has one, beside its
+    bound at the TF32 peak (the row adds the 3xTF32 ceiling, a third of it)
+    and F.linear with autograd's backward."""
+    g = torch.Generator().manual_seed(9)
+    per = {}
+    for label, (m, k, n, cols, lo, has_b) in LINEAR_SITES.items():
+        x = torch.randn(m, k, generator=g).to(dev)
+        w = (torch.randn(n, cols, generator=g) * k ** -0.5).to(dev)[
+            :, lo:lo + k]
+        b = (torch.randn(n, generator=g) * 0.1).to(dev) if has_b else None
+        name = f"linear{'_bwd' if backward else ''}[{label}]"
+        if not backward:
+            per[label] = compare(
+                name, lambda: linear_fwd_kernel(x, w, b),
+                lambda: F.linear(x, w, b), repeat=True,
+                work=linear_work(m, k, n, False),
+                library_fn=lambda: F.linear(x, w, b),
+                flops_per_s=TF32_FLOPS_PER_S)
+            continue
+        gy = torch.randn(m, n, generator=g).to(dev)
+        leaves = [t.clone().requires_grad_(True) for t in (x, w)]
+        old = F.linear(*leaves, b)
+
+        def plain():
+            out = (gy @ w, gy.T @ x)
+            return out + ((gy.sum(0),) if has_b else ())
+
+        def kernel():
+            gx, gw, gb = linear_bwd_kernel(x, w, gy, need_b=has_b)
+            return (gx, gw) + ((gb,) if has_b else ())
+
+        per[label] = compare(
+            name, kernel, plain, repeat=True,
+            work=linear_work(m, k, n, True),
+            library_fn=lambda: torch.autograd.grad(old, leaves, gy,
+                                                   retain_graph=True),
+            flops_per_s=TF32_FLOPS_PER_S)
+    LINEAR_RESULTS["backward" if backward else "forward"] = per
+    return per
+
+
+def linear_calls(task: str, b: int, atoms: int, edges: int, bins: int,
+                 hidden: int = HIDDEN) -> list:
+    """(rows, K, N) of every linear of one forward of the flagship (LAYERS
+    processors, T_LAYERS layers a stack) at b graph slots of ``atoms`` node
+    and ``edges`` edge slots: the encoders, each processor's three edge
+    projections and its node MLP's two parts and second linear, the
+    decoder, the heads' fc, fc_prompt and out_layer, and the FFN's fc1 and
+    fc2 where #8 does not take them (nn/modules.py linear)."""
+    h, node, edge = hidden, b * atoms, b * edges
+    node_in, edge_in = (200, 41) if task == "edos" else (118, 4)
+    calls = [(node, node_in, h), (node, h, h), (edge, edge_in, h),
+             (edge, h, h)]
+    if task == "edos":
+        calls += [(b, 2, h), (b, h, h), (b, 2 * h, h)]  # global enc, decoder
+    else:
+        calls += [(b, h, h)]  # decoder
+    calls += LAYERS * [(node, h, 2 * h), (node, h, 2 * h), (edge, h, 2 * h),
+                       (node, h, 2 * h), (node, h, 2 * h), (node, 2 * h, h)]
+    calls += [(b * bins, 2 * h, h), (b * bins, 2 * h + h // 2, h),
+              (2 * b * bins, h, 1)]
+    for rows, stacks in ((b * bins, 1), (2 * b * bins, 2)):
+        if not ffn_plan(rows, h, torch.float32):
+            calls += stacks * T_LAYERS * [(rows, h, 4 * h), (rows, 4 * h, h)]
+    return calls
+
+
+def kernel_linears(task: str, b: int, atoms: int, edges: int,
+                   bins: int) -> int:
+    """How many of a forward's linears at this geometry take #9."""
+    return sum(linear_plan(rows, k, n, torch.float32) for rows, k, n in
+               linear_calls(task, b, atoms, edges, bins))
+
+
 def phase_kernels(dev):
     g = torch.Generator().manual_seed(0)
     rand = lambda *s: torch.randn(*s, generator=g).to(dev)
@@ -1145,6 +1269,7 @@ def phase_kernels(dev):
                                 per_shape[label])
     out["fused_attention"] = per_forward(per_shape)
     compare_ffn(dev, False)  # C: #8 at the benchmark cell's FFN calls
+    compare_linear(dev, False)  # D: #9 at the cell's linear sites
     return out
 
 
@@ -1198,6 +1323,7 @@ def phase_backward_kernels(dev):
             per_shape[label])
     out["fused_attention_bwd"] = per_forward(per_shape)
     compare_ffn(dev, True)  # C: #8's backward at the cell's FFN calls
+    compare_linear(dev, True)  # D: #9's backward at the cell's sites
     return out
 
 
@@ -1475,7 +1601,8 @@ def phase_card_vs_cpu(task: str, hidden=HIDDEN, samples=21, batch=BATCH,
     """Trainer.train_steps of one seeded model on both devices over
     ``samples`` samples at ``batch`` (21 at 8: 3 steps, the last batch short,
     with dummy graphs); eDOS clamps its targets, phDOS does not. ``levers``
-    are the model's LayerNorm switches."""
+    are the model's LayerNorm switches. Returns each card step's launches
+    of #9, (forward, backward), read around that step."""
     learnable = (synthetic_edos_learnable if task == "edos"
                  else synthetic_phdos_learnable)
     clamp = task == "edos"
@@ -1487,9 +1614,13 @@ def phase_card_vs_cpu(task: str, hidden=HIDDEN, samples=21, batch=BATCH,
     batches = list(GraphLoader(learnable(samples, seed=5), batch))
     cpu = Trainer(cpu_model, clamp_targets=clamp, eval_clamp=clamp)
     gpu = Trainer(gpu_model, clamp_targets=clamp, eval_clamp=clamp)
+    linears = []
     for step, batch in enumerate(batches):
         lc = cpu.train_step(batch)["loss"].item()
+        lin = linear_op.launches, linear_bwd_kernel.launches
         lg = gpu.train_step(batch)["loss"].item()
+        linears.append((linear_op.launches - lin[0],
+                        linear_bwd_kernel.launches - lin[1]))
         print(f"  step {step}: loss card {lg:.7f}, CPU {lc:.7f}")
         check(abs(lg - lc) <= LOSS_RTOL * abs(lc),
               f"{task} step {step}: card loss {lg} vs CPU {lc}")
@@ -1508,6 +1639,7 @@ def phase_card_vs_cpu(task: str, hidden=HIDDEN, samples=21, batch=BATCH,
             print(f"  first-step gradients: card vs CPU max abs err "
                   f"{worst:.3e} ({worst_name}; atol {GRAD_ATOL} + rtol "
                   f"{GRAD_RTOL})")
+    return linears
 
 
 def phase_train_rate(task: str, steps: int = 20, hidden=HIDDEN,
@@ -2776,13 +2908,17 @@ def port_kernel_names() -> set:
 
 def phase_replayed_kernels():
     """43b, profiled (after 16): the kernels a replayed step runs, by name.
-    For eDOS and phDOS at the flagship width, batch 8, bucketed (atom
-    buckets 8-64, the last batch of each padded): two Trainers from one seed,
+    For eDOS at the flagship width, batch 24 (its edge products take #9),
+    and phDOS at batch 8, bucketed (atom buckets 8-64, the last batch of
+    each padded): two Trainers from one seed,
     one eager (graphs=False), one replaying, each through a first epoch
     (builds, warms, captures), then a second epoch under torch.profiler.
     The eager epoch's wrapper counts are its steps times one step's
-    launches; the replayed epoch launches each of the port's kernels by
-    name (ops/kernels.py SOURCES) as often as the eager epoch, none is
+    launches (#9's: each linear its plan admits at the bucket's geometry,
+    forward and backward, and by name a GEMM for each forward, dX and dW,
+    a reduce for each dW); the replayed epoch launches each of the port's
+    kernels by name (ops/kernels.py SOURCES) as often as the eager epoch,
+    none is
     missing or stands in for another, and its losses and parameters equal
     the eager epoch's bit for bit. Returns {task: {kernel: launches a
     step}}."""
@@ -2794,11 +2930,17 @@ def phase_replayed_kernels():
 
     port = port_kernel_names()
     out = {}
-    for task, learnable in (("edos", synthetic_edos_learnable),
-                            ("phdos", synthetic_phdos_learnable)):
+    # eDOS at batch 24, where its edge products take #9
+    for task, learnable, batch, n in (
+            ("edos", synthetic_edos_learnable, 3 * BATCH, 72),
+            ("phdos", synthetic_phdos_learnable, BATCH, 36)):
         data = BucketedDeviceDataset.from_samples(
-            learnable(36, seed=11, max_atoms=40), BATCH, device="cuda")
+            learnable(n, seed=11, max_atoms=40), batch, device="cuda")
         steps = sum(d.steps_per_epoch for _, d in data.buckets)
+        bins = BINS if task == "edos" else PH_BINS
+        linears = sum(d.steps_per_epoch * kernel_linears(
+            task, batch, d.data.nodes.shape[1], d.data.senders.shape[1], bins)
+            for _, d in data.buckets)
         got = {}
         for graphs in (False, True):
             model = build_model(task, layers=LAYERS, t_layers=T_LAYERS,
@@ -2815,12 +2957,15 @@ def phase_replayed_kernels():
             # first one's losses, launches and parameters are compared
             for attempt in range(3):
                 reset_launches()
+                lin = linear_op.launches, linear_bwd_kernel.launches
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     losses = trainer.train_epochs_buckets(data, 0,
                                                           [1 + attempt])
                     torch.cuda.synchronize()
                 if not attempt:
-                    first = (losses, read_launches(),
+                    first = (losses, {**read_launches(), "linear": (
+                                 linear_op.launches - lin[0],
+                                 linear_bwd_kernel.launches - lin[1])},
                              [p.detach().clone() for p in model.parameters()])
                 names = {}
                 for name, _ in device_events(prof):
@@ -2833,7 +2978,10 @@ def phase_replayed_kernels():
         (eager, eager_losses, wrapped, eager_params), \
             (replay, replay_losses, ticked, replay_params) = (got[False],
                                                               got[True])
-        want = {k: steps * v for k, v in step_launches(task, False).items()}
+        # #9's wrappers: each admitted linear's forward and backward
+        want = {**{k: steps * v
+                   for k, v in step_launches(task, False).items()},
+                "linear": (linears, linears)}
         per_step = {k: v / steps for k, v in sorted(replay.items())}
         print(f"43b: {task}, {steps} steps an epoch over "
               f"{len(data.buckets)} atom buckets: the port's kernels a "
@@ -2842,8 +2990,15 @@ def phase_replayed_kernels():
               f"{wrapped}")
         check(wrapped == want, f"{task}: the eager epoch launched "
                                f"{wrapped}, expected {want}")
-        check(ticked == launch_counts(), f"{task}: the replayed epoch "
-                                         f"captured again: {ticked}")
+        check(ticked == {**launch_counts(), "linear": (0, 0)},
+              f"{task}: the replayed epoch captured again: {ticked}")
+        if task == "edos":  # #9 by name: a GEMM for each forward, dX and
+            # dW, a split for each forward and dX, a reduce for each dW
+            check(linears > 0
+                  and eager.get("linear_reduce_kernel", 0) == linears
+                  and eager.get("linear_gemm_kernel", 0)
+                  == eager.get("linear_split_kernel", 0) + linears,
+                  f"{task}: #9's kernels {eager} for {linears} linears")
         check(eager and replay == eager,
               f"{task}: a replayed epoch ran {replay}, the eager epoch "
               f"{eager}")
@@ -4361,7 +4516,8 @@ def phase_export(edos_served, phdos_served, workdir):
     its predictions equal the live Predictor's at the artifact's geometry,
     it imports no module of models/ or train/, the program holds 3 fused-MP
     and 6 attention ops (phDOS also 3 segment sums; eDOS the FFN op where
-    ffn_plan takes #8 at batch 8); the artifact served in
+    ffn_plan takes #8 at batch 8; the linear op for each linear
+    linear_plan takes at the artifact's geometry); the artifact served in
     this process eagerly (exact launches a batch) and through its graph; an
     artifact exported on the CPU served on the card (move_to_device_pass).
     Returns (launch counts by path, the eDOS artifact's directory)."""
@@ -4400,6 +4556,14 @@ def phase_export(edos_served, phdos_served, workdir):
                            + 2 * (2 * bins * BATCH >= FFN_MIN_ROWS))
         if ffns:
             want["ffn_fwd"] = ffns
+        # #9 where ops/linear.py linear_plan takes a linear at the
+        # artifact's geometry
+        with open(os.path.join(art, "serving_meta.json")) as f:
+            geo = json.load(f)
+        linears = kernel_linears(task, BATCH, geo["atoms_per_graph"],
+                                 geo["edges_per_graph"], bins)
+        if linears:
+            want["linear_fwd"] = linears
         print(f"{task} artifact: {size / 2**20:.2f} MiB ({size} bytes; the "
               f"weights {nbytes(*model.state_dict().values())} bytes) in "
               f"{sorted(os.listdir(art))}, exported in {seconds:.1f} s, "
@@ -4662,18 +4826,31 @@ RANK_SCRIPT = ("import sys\nsys.path.insert(0, {repo!r})\nimport chip_smoke\n"
 # the global batches of phase 38: 21 learnable samples at batch 8, the last
 # batch 5 real graphs and 3 dummies, which fall unevenly over the ranks
 PARALLEL_SAMPLES, PARALLEL_STEPS = 21, 3
-# the parallel runs against the single-process run on the card: losses
-# rtol 1e-5; the first step's gradients (summed over 'data', shards
-# gathered) PARAM_GRAD_RTOL x max(1, max|g|) a tensor, as the kernels'
-# parameter gradients. Parameters element by element: AdamW moves an
-# element lr g / (|g| + eps) a step, so a relative error r in g moves it by
-# about 2 lr min(1, r); with g's error held to PARAM_GRAD_RTOL of its
-# tensor's largest (10x that for the steps after the first, whose inputs
-# already differ), an element may differ by 2 lr sum_t min(1, 10
-# PARAM_GRAD_RTOL max|g_t| / (|g_t| + eps)), and by 1e-5 x max(1, |p|)
-# where that is smaller. Near eps or far below its tensor's largest
-# gradient the direction is the gradient's noise (ROADMAP.md queue 3:
-# tests/test_torch_baselines.py holds such elements within two steps)
+# the single process on the card and each mesh, each against one
+# reference: the same 3 Trainer steps computed in f64 on the CPU (the
+# parameters and AdamW f32 on every side). A side's f32 rounding depends on
+# its rows (#9 takes the edge projections at the single process's 3,072
+# rows and not at a DP rank's 1,536), so two sides are no reference for
+# each other; each against f64 does not depend on which the other took.
+# Losses within F64_LOSS_RTOL relative a step; the first step's gradients
+# (summed over 'data', shards gathered) within F64_GRAD_RTOL x max(1,
+# max|g|) a tensor. Parameters element by element: AdamW moves an element
+# lr g / (|g| + eps) a step, so a relative error r in g moves it by about
+# 2 lr min(1, r); with g's error held to F64_GRAD_RTOL of its tensor's
+# largest (10x that for the steps after the first, whose inputs already
+# differ), an element may differ by 2 lr sum_t min(1, 10 F64_GRAD_RTOL
+# max|g_t| / (|g_t| + eps)), and by 1e-5 x max(1, |p|) where that is
+# smaller. Near eps or far below its tensor's largest gradient the
+# direction is the gradient's noise (ROADMAP.md queue 3:
+# tests/test_torch_baselines.py holds such elements within two steps).
+# The limits lie between what the f32 sides read and what the same single
+# process reads with its linears' products in 1xTF32 (cuBLAS, allow_tf32)
+# or the model computing in bf16, two controls each run makes and requires
+# to fail every limit. On the H100 the f32 sides read losses 2.5e-6 to
+# 1.3e-5, gradients 4.3e-5 to 1.07e-4 and parameters 0.90 to 0.94 of their
+# allowance; 1xTF32 4.4e-4, 9.1e-3 and 2.1; bf16 3.3e-3, 1.8e-2 and 6.2
+# (PERF.md section 6)
+F64_LOSS_RTOL, F64_GRAD_RTOL = 4e-5, 4e-4
 PARALLEL_RTOL = 1e-5
 ADAMW_LR, ADAMW_EPS = 1e-4, 1e-8
 # a rank's wait for the rendezvous, and a launch's whole time
@@ -4929,32 +5106,74 @@ def phase_nccl_one_card(workdir):
                     if k in r} for label, r in runs.items()}
 
 
+def steps_on(model, batches) -> dict:
+    """Trainer steps of ``model`` over ``batches`` in this process: the
+    losses, each step's gradients and the final parameters, on the host."""
+    trainer = Trainer(model)
+    losses, grads = [], []
+    for b in batches:
+        losses.append(trainer.train_step(b)["loss"].item())
+        grads.append({k: p.grad.detach().cpu().clone()
+                      for k, p in model.named_parameters()})
+    return {"losses": losses, "grads": grads[0], "step_grads": grads,
+            "params": whole_params(model)}
+
+
+def f64_gaps(side, ref, allowed) -> dict:
+    """One side's 3 steps against the f64 reference: losses' largest
+    relative error, the first step's gradients' largest error over max(1,
+    max|g|) a tensor, the parameters' largest over max(1, |p|), and their
+    largest share of each element's allowance."""
+    grads, params = side["grads"], side["params"]
+    diff = {k: (params[k] - v).abs() for k, v in ref["params"].items()}
+    return {
+        "loss_err": max(abs(a - b) / abs(b) for a, b in
+                        zip(side["losses"], ref["losses"])),
+        "grad_err": max(float((grads[k].double() - g.double()).abs().max())
+                        / max(1.0, float(g.abs().max()))
+                        for k, g in ref["grads"].items()),
+        "param_err": max(float((d / ref["params"][k].abs().clamp(min=1.0))
+                               .max()) for k, d in diff.items()),
+        "param_ratio": max(float((d / allowed[k]).max())
+                           for k, d in diff.items())}
+
+
 def phase_shared_card(workdir):
     """38: several gloo ranks sharing the one card
     (initialize_multihost(backend="gloo")): DP x 2 and TP x 2 (one after
     the other in one world of 2 ranks) and dp x tp 2 x 2 (a world of 4) run
     3 Trainer steps at full width over the global batches of one process;
-    every rank launches kernels #1-#4 (exact counts a step);
-    losses and final parameters (FFN shards gathered) against the single
-    process on the card; the TP x 2 run's checkpoint (written by rank 0)
-    served and resumed in this process."""
+    every rank launches kernels #1-#4 (exact counts a step); the single
+    process on the card and each mesh hold losses, first-step gradients and
+    final parameters (FFN shards gathered) to the same steps in f64 on the
+    CPU, and two controls (the single process's linears in 1xTF32, the
+    model in bf16) must not; the TP x 2 run's checkpoint (written by rank
+    0) served and resumed in this process."""
+    from dostransformer_tpu_torch.nn import modules
+
     batches = parallel_batches()
+    t0 = time.perf_counter()
+    ref = steps_on(flagship(device="cpu", dtype="float64"), batches)
+    ref_s = time.perf_counter() - t0
+    allowed = {}
+    for grads in ref["step_grads"]:
+        for name, g in grads.items():
+            g = g.abs()
+            r = (10 * F64_GRAD_RTOL * g.max() / (g + ADAMW_EPS)).clamp(
+                max=1.0)
+            allowed[name] = allowed.get(name, 0.0) + 2 * ADAMW_LR * r
+    allowed = {k: torch.maximum(v, PARALLEL_RTOL
+                                * ref["params"][k].abs().clamp(min=1.0))
+               for k, v in allowed.items()}
+    tight = sum(int((v <= PARALLEL_RTOL * ref["params"][k].abs().clamp(
+        min=1.0)).sum()) for k, v in allowed.items())
+    total = sum(v.numel() for v in allowed.values())
+    print(f"38 f64 reference (CPU, {ref_s:.1f} s): losses {ref['losses']}")
     model = flagship()
-    trainer = Trainer(model)
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want, allowed, want_grads = [], {}, None
-    for b in batches:
-        want.append(trainer.train_step(b)["loss"].item())
-        for name, p in model.named_parameters():  # the step's gradient
-            g = p.grad.abs()
-            r = (10 * PARAM_GRAD_RTOL * g.max() / (g + ADAMW_EPS)).clamp(
-                max=1.0)
-            allowed[name] = allowed.get(name, 0.0) + 2 * ADAMW_LR * r
-        if want_grads is None:
-            want_grads = {k: p.grad.cpu().clone()
-                          for k, p in model.named_parameters()}
+    sides = {"single": steps_on(model, batches)}
     torch.cuda.synchronize()
     single_ms = 1e3 * (time.perf_counter() - t0) / len(batches)
     single_launches = read_launches()
@@ -4962,15 +5181,18 @@ def phase_shared_card(workdir):
     check(single_launches == {k: PARALLEL_STEPS * v
                               for k, v in per_step.items()},
           f"38 single process: launches {single_launches}")
-    want_params = whole_params(model)
-    allowed = {k: torch.maximum(v.cpu(), PARALLEL_RTOL
-                                * want_params[k].abs().clamp(min=1.0))
-               for k, v in allowed.items()}
-    tight = sum(int((v <= PARALLEL_RTOL * want_params[k].abs().clamp(
-        min=1.0)).sum()) for k, v in allowed.items())
-    total = sum(v.numel() for v in allowed.values())
-    print(f"38 single process: losses {want}, {single_ms:.1f} ms a step "
-          f"on {CARD}")
+    print(f"38 single process: losses {sides['single']['losses']}, "
+          f"{single_ms:.1f} ms a step on {CARD}")
+    # the controls: every linear on cuBLAS in 1xTF32; the model in bf16
+    plan = modules.linear_plan
+    modules.linear_plan = lambda *args: False
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        sides["control_tf32"] = steps_on(flagship(), batches)
+    finally:
+        modules.linear_plan = plan
+        torch.backends.cuda.matmul.allow_tf32 = False
+    sides["control_bf16"] = steps_on(flagship(dtype="bfloat16"), batches)
     readings, ckpt = {}, os.path.join(workdir, "tp2_ckpt")
     # DP x 2 and TP x 2 one after the other in one world of 2 ranks, then
     # dp x tp 2 x 2 in a world of 4
@@ -4986,54 +5208,59 @@ def phase_shared_card(workdir):
             if dp * tp == world:
                 per_rank[label] = [r[path_of[label]] | {"rank": r["rank"]}
                                    for r in ranked]
-    for label, (dp, tp) in meshes:
-        path = path_of[label]
+    for label, _ in meshes:
         results = per_rank[label]
-        saved = torch.load(path, weights_only=True)
-        params = saved["params"]
-        loss_err = max(abs(a - b) / abs(b) for r in results
-                       for a, b in zip(r["losses"], want))
-        grad_err = max(float((saved["grads"][k] - g).abs().max())
-                       / max(1.0, float(g.abs().max()))
-                       for k, g in want_grads.items())
-        diff = {k: (params[k] - v).abs() for k, v in want_params.items()}
-        param_err = max(float((d / want_params[k].abs().clamp(min=1.0))
-                              .max()) for k, d in diff.items())
-        param_ratio = max(float((d / allowed[k]).max())
-                          for k, d in diff.items())
+        saved = torch.load(path_of[label], weights_only=True)
         for r in results:
             check(r["launches"] == single_launches,
                   f"38 {label} rank {r['rank']}: launches {r['launches']}, "
                   f"expected {single_launches}")
-        check(loss_err <= PARALLEL_RTOL, f"38 {label}: losses "
-              f"{[r['losses'] for r in results]} vs {want}")
-        check(grad_err <= PARAM_GRAD_RTOL,
-              f"38 {label}: first-step gradients off by {grad_err:.3e}")
-        check(param_ratio <= 1.0,
-              f"38 {label}: parameters off by {param_ratio:.3f} of their "
-              f"limit")
-        readings[label] = {
-            "launches_per_rank": [r["launches"] for r in results],
-            "ms_per_step_per_rank": [r["ms_per_step"] for r in results],
-            "loss_max_rel_err": loss_err, "grad_max_err": grad_err,
-            "param_max_err": param_err, "param_err_of_limit": param_ratio}
-        print(f"38 {label}: {dp * tp} gloo ranks on one card, losses max "
-              f"rel err {loss_err:.3e}, first-step gradients {grad_err:.3e} "
-              f"(x max(1, max|g|)), parameters {param_err:.3e} (x max(1, "
-              f"|p|)), {param_ratio:.3f} of their limit ({tight} of "
-              f"{total} elements held to 1e-5 x max(1, |p|)); "
-              f"{max(r['ms_per_step'] for r in results):.1f} ms a step "
-              f"(ranks share the card: no measure of scaling) on {CARD}")
+        # every rank's losses: the largest error of any
+        worst = max(results, key=lambda r: max(
+            abs(a - b) / abs(b) for a, b in zip(r["losses"], ref["losses"])))
+        sides[label] = {"losses": worst["losses"], "grads": saved["grads"],
+                        "params": saved["params"]}
+    limits = (f"limits: losses {F64_LOSS_RTOL:g}, gradients "
+              f"{F64_GRAD_RTOL:g} x max(1, max|g|), parameters 1 of their "
+              f"allowance, {tight} of {total} elements held to 1e-5 x "
+              f"max(1, |p|)")
+    print(f"38 against the f64 reference ({limits}):")
+    for label, side in sides.items():
+        gap = readings[label] = f64_gaps(side, ref, allowed)
+        ranks = next((m for m in meshes if m[0] == label), None)
+        where = (f"{ranks[1][0] * ranks[1][1]} gloo ranks on one card, "
+                 f"{max(r['ms_per_step'] for r in per_rank[label]):.1f} ms "
+                 f"a step (ranks share the card: no measure of scaling)"
+                 if ranks else "one process")
+        print(f"38 {label}: losses max rel err {gap['loss_err']:.3e}, "
+              f"first-step gradients {gap['grad_err']:.3e} (x max(1, "
+              f"max|g|)), parameters {gap['param_err']:.3e} (x max(1, "
+              f"|p|)), {gap['param_ratio']:.3f} of their allowance; "
+              f"{where} on {CARD}")
+        if label in per_rank:
+            gap["launches_per_rank"] = [r["launches"]
+                                        for r in per_rank[label]]
+            gap["ms_per_step_per_rank"] = [r["ms_per_step"]
+                                           for r in per_rank[label]]
+    for label, gap in readings.items():
+        sound = (gap["loss_err"] <= F64_LOSS_RTOL,
+                 gap["grad_err"] <= F64_GRAD_RTOL, gap["param_ratio"] <= 1.0)
+        if label.startswith("control"):
+            check(not any(sound), f"38 {label} passes an f64 limit: it "
+                                  f"cannot tell f32 from it ({gap})")
+        else:
+            check(all(sound), f"38 {label}: off the f64 reference by "
+                              f"{gap} ({limits})")
     # the 2-process checkpoint in one process: served, and resumed
     request = synthetic_edos_samples(5, seed=1)
     served = Predictor.from_checkpoint(
         ckpt, task="edos", example=request[0], layers=LAYERS,
         t_layers=T_LAYERS, hidden=HIDDEN, batch_size=BATCH, graphs=False,
         prefer="latest", device="cuda").predict(request)
-    ref = Predictor(model, batch_size=BATCH, clamp=True,
-                    graphs=False).predict(request)
-    err = float(np.abs(served - ref).max())
-    check(np.allclose(served, ref, atol=MODEL_ATOL, rtol=MODEL_RTOL),
+    want = Predictor(model, batch_size=BATCH, clamp=True,
+                     graphs=False).predict(request)
+    err = float(np.abs(served - want).max())
+    check(np.allclose(served, want, atol=MODEL_ATOL, rtol=MODEL_RTOL),
           f"38: the TP x 2 checkpoint serves off by {err:.3e}")
     import contextlib
     import io
@@ -5053,7 +5280,7 @@ def phase_shared_card(workdir):
           f"38: resumed run's test metrics {result['test']}")
     print(f"38: the TP x 2 checkpoint served in one process (max abs err "
           f"{err:.3e} against the single-process model) and resumed")
-    readings["single"] = {"ms_per_step": single_ms}
+    readings["single"]["ms_per_step"] = single_ms
     return readings
 
 
@@ -5729,7 +5956,7 @@ def main():
             subdir("edos_training_host"))
         print("card vs CPU, 3 eDOS train steps:")
         before = ffn.launches, ffn_bwd_kernel.launches
-        phase_card_vs_cpu("edos")
+        linears = phase_card_vs_cpu("edos")
         # the steps' FFN calls at batch 8: the heads' 3,216 rows, and the
         # cross stack's 1,608 where the plan's threshold lets them
         calls = (1 if BINS * BATCH >= FFN_MIN_ROWS else 0) + 2
@@ -5738,6 +5965,16 @@ def main():
         check(got == (want, want), f"ffn launches over 3 eDOS steps {got}, "
                                    f"expected {want} each way")
         FFN_RESULTS["launches_step"] = T_LAYERS * calls
+        # #9: each step's launches, read around it, against each linear its
+        # plan admits at that step's geometry (the batches
+        # phase_card_vs_cpu takes), forward and backward
+        steps = list(GraphLoader(synthetic_edos_learnable(21, seed=5), BATCH))
+        want = [kernel_linears("edos", *g.nodes.shape[:2],
+                               g.senders.shape[1], BINS) for g in steps]
+        check(linears == [(n, n) for n in want],
+              f"linear launches of the 3 eDOS steps {linears}, expected "
+              f"{want} each way")
+        LINEAR_RESULTS["launches_step"] = [list(n) for n in linears]
         rate = phase_train_rate("edos")
         print(f"{rate:.1f} samples/s training (eDOS flagship, batch {BATCH}, "
               f"f32, 20 steps, host collation and upload included) on {smi}")
@@ -6092,6 +6329,24 @@ def main():
                 "bound_by": ("bytes" if r["bytes_ms"] >= r["ops_ms"]
                              else "operations")}
     rows.append(ffn_row)
+    linear_row = {"name": "linear", "route": "cuda",
+                  "source": f"{csrc}/linear.cu", "replaces": None,
+                  "launches": LINEAR_RESULTS["launches_step"],
+                  "launches_path": "edos_training (3 card-vs-CPU steps, "
+                                   f"batch {BATCH}), [forward, backward] "
+                                   "each step as read around it; the "
+                                   "cell's sites in phases 3, 3b"}
+    for way, per in (("", LINEAR_RESULTS["forward"]),
+                     ("_bwd", LINEAR_RESULTS["backward"])):
+        for label, r in per.items():
+            linear_row[f"{label}{way}"] = {
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "library_ms": r["library_ms"], "err": r["err"],
+                "bound_ms": max(r["bytes_ms"], r["ops_ms"]),
+                "bound_by": ("bytes" if r["bytes_ms"] >= r["ops_ms"]
+                             else "operations"),
+                "bound_3xtf32_ms": max(r["bytes_ms"], 3 * r["ops_ms"])}
+    rows.append(linear_row)
     print(f"chip_smoke: {time.perf_counter() - START:.1f} s in all, the "
           f"build {seconds:.1f} s of it; phases 35-38 "
           f"{trimmed_seconds:.1f} s")

@@ -50,10 +50,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from dostransformer_tpu_torch import tracing
 from dostransformer_tpu_torch.nn.init import torch_linear_
 from dostransformer_tpu_torch.nn.layernorm import LayerNorm
 from dostransformer_tpu_torch.ops.fused_mp import fused_mp_edge, gather_rows
 from dostransformer_tpu_torch.ops.kernels import takes_kernels
+from dostransformer_tpu_torch.ops.linear import linear_op, linear_plan
 from dostransformer_tpu_torch.ops.segment import (
     batched_segment_sum,
     segment_sum_reference,
@@ -64,16 +66,29 @@ Parts = Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]]
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """x @ weight^T + bias with the parameters cast to x's dtype. In bf16
-    the product is rounded before the bias is added, as the JAX package
-    rounds it (``y = x @ k; y + b``); a fused call would round once. f32
-    keeps the one fused call (the two differ by an f32 rounding)."""
+    """x @ weight^T + bias with the parameters cast to x's dtype: the
+    product of every linear of the model but the transformer's FFN on #8.
+    In bf16 the product is rounded before the bias is added, as the JAX
+    package rounds it (``y = x @ k; y + b``); a fused call would round
+    once. f32 keeps the one fused call (the two differ by an f32 rounding):
+    kernel #9 where :func:`~dostransformer_tpu_torch.ops.linear.linear_plan`
+    says so (``linear_op``: ``F.linear`` itself on the CPU), else
+    ``F.linear``; f64 takes ``F.linear``. ``weight`` may be a column slice
+    of a parameter. ``tracing`` counts every call's rows
+    (``linear.rows``) and the rows that took #9 (``linear.kernel_rows``)."""
     weight = weight.to(x.dtype)
-    if bias is None:
-        return F.linear(x, weight)
+    k = weight.shape[1]
+    rows = x.numel() // k
+    tracing.count("linear.rows", rows)
     if x.dtype == torch.bfloat16:
-        return F.linear(x, weight) + bias.to(x.dtype)
-    return F.linear(x, weight, bias.to(x.dtype))
+        y = F.linear(x, weight)
+        return y if bias is None else y + bias.to(x.dtype)
+    bias = None if bias is None else bias.to(x.dtype)
+    if linear_plan(rows, k, weight.shape[0], x.dtype):
+        if x.is_cuda:
+            tracing.count("linear.kernel_rows", rows)
+        return linear_op(x, weight, bias)
+    return F.linear(x, weight, bias)
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -107,7 +122,7 @@ class TorchLinear(nn.Linear):
         weight = self.weight.to(dtype)
         off, y = 0, None
         for t, idx in x:
-            part = F.linear(t, weight[:, off:off + t.shape[-1]])
+            part = linear(t, weight[:, off:off + t.shape[-1]], None)
             if idx is not None:
                 part = gather_rows(part, idx)
             y = part if y is None else y + part
@@ -150,8 +165,8 @@ class MLPBlock(nn.Sequential):
         lin0, ln, prelu, lin1 = self
         h = x.shape[-1]
         w0 = lin0.weight.to(x.dtype)
-        src_proj = F.linear(x, w0[:, :h])
-        dst_proj = F.linear(x, w0[:, h:2 * h])
+        src_proj = linear(x, w0[:, :h], None)
+        dst_proj = linear(x, w0[:, h:2 * h], None)
         edge_proj = linear(edge_attr, w0[:, 2 * h:], lin0.bias)
         return fused_mp_edge(src_proj, dst_proj, edge_proj, senders,
                              receivers, edge_mask, ln.weight, ln.bias,

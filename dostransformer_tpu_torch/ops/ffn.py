@@ -3,8 +3,8 @@
 ``relu(x W1^T + b1) W2^T + b2`` over the rows of x [..., D], with W1
 [4D, D] and W2 [D, 4D] (the layer's fc1 and fc2). In the JAX package XLA
 runs it; no Pallas kernel stands behind it. :func:`ffn_reference` is the
-plain version, today's composition exactly (``linear``, ``F.relu``,
-``linear``); :func:`ffn_bwd_reference` the backward's, from the forward's
+plain version, today's composition exactly (``F.linear``, ``F.relu``,
+``F.linear``); :func:`ffn_bwd_reference` the backward's, from the forward's
 H. :func:`ffn` is the op: CPU tensors run the plain version
 itself (autograd through it, so the CPU's bits are the plain
 composition's); CUDA tensors run ``csrc/ffn.cu`` (f32 only; anything else
@@ -22,7 +22,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from dostransformer_tpu_torch.nn.modules import linear
 from dostransformer_tpu_torch.ops import kernels
 
 # the fewest rows that take #8: measured on the H100 (see ffn_plan)
@@ -55,9 +54,9 @@ def ffn_plan(rows: int, d: int, dtype: torch.dtype) -> bool:
 
 def ffn_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                   w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """The plain version: the layer's composition before #8, bit for
-    bit."""
-    return linear(F.relu(linear(x, w1, b1)), w2, b2)
+    """The plain version: the layer's composition before #8, bit for bit
+    (f32: ``F.linear`` by cuBLAS on the card, not #9)."""
+    return F.linear(F.relu(F.linear(x, w1, b1)), w2, b2)
 
 
 def ffn_bwd_reference(x, h, w1, w2, gy):
@@ -151,8 +150,8 @@ def ffn_fwd_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 @ffn_fwd_op.register_kernel("cpu")
 def _(x, w1, b1, w2, b2):
-    h = F.relu(linear(x, w1, b1))
-    return linear(h, w2, b2), h
+    h = F.relu(F.linear(x, w1, b1))
+    return F.linear(h, w2, b2), h
 
 
 @ffn_fwd_op.register_fake

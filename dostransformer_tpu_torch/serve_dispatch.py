@@ -189,6 +189,7 @@ def _register_ops() -> None:
         attention,
         ffn,
         fused_mp,
+        linear,
         segment,
     )
 

@@ -24,7 +24,8 @@ where the plain version rounds it: the JAX package's own bound).
 
 #8, the FFN GEMM (3xTF32 on the tensor cores), is held to f64 beside
 cuBLAS's f32 path: each output's norm-wise error within 2x cuBLAS's and 20x
-under the same path's in 1xTF32, each path on its own side of ReLU's 0."""
+under the same path's in 1xTF32, each path on its own side of ReLU's 0.
+#9, the linear GEMM on the same core, likewise at the eDOS cell's sites."""
 
 import ctypes
 
@@ -1589,6 +1590,217 @@ def test_ffn_layer_keeps_todays_path_where_the_plan_says(dev, case,
     hid = F.relu(layer.fc1(ln1(x1)))
     want = x1 + layer.fc2(apply_keep(hid, masks.relu, layer.relu_dropout))
     assert torch.equal(got, want)
+
+
+# --- #9, the linear GEMM (csrc/linear.cu) ---------------------------------
+# (rows, K, N, the weight's columns, the slice's first column, bias) at the
+# eDOS cell's sites: the processors' edge projection (w0[:, 2h:] and b0) at
+# the smallest and largest buckets' edge slots, src_proj (w0[:, :h]) at
+# bucket 8's 512 node rows and dst_proj (w0[:, h:2h]) at bucket 256's,
+# node_mlp_2's second linear, the edge encoder's second layer, the heads'
+# fc and fc_prompt at 12,864 rows, the node encoder's K = 200
+LINEAR_SITES = {
+    "edge_proj_8192": (8192, 256, 512, 768, 512, True),
+    "edge_proj_180224": (180224, 256, 512, 768, 512, True),
+    "src_proj_512": (512, 256, 512, 768, 0, False),
+    "dst_proj_16384": (16384, 256, 512, 768, 256, False),
+    "node_mlp_2_lin1": (16384, 512, 256, 512, 0, True),
+    "edge_encoder_2": (180224, 256, 256, 256, 0, True),
+    "heads_fc": (12864, 512, 256, 512, 0, True),
+    "heads_fc_prompt": (12864, 640, 256, 640, 0, True),
+    "node_encoder_1": (16384, 200, 256, 200, 0, True),
+}
+
+
+def _linear_case(dev, site, seed=0):
+    """f64 operands on the card at a site: x [M, K], the weight as a slice
+    of a wider one (torch's default init scale), bias or None, and an
+    upstream gradient."""
+    m, k, n, cols, lo, has_bias = LINEAR_SITES[site]
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev,
+                           dtype=torch.float64) * scale
+
+    x, gy = randn(m, k), randn(m, n)
+    wide = randn(n, cols, scale=k ** -0.5)
+    bias = randn(n, scale=0.1) if has_bias else None
+    return x, wide, lo, bias, gy
+
+
+def _linear_paths(x, wide, lo, bias, gy, fn):
+    """y, gx, gw, gb of ``fn(x, w, b)`` with w = wide[:, lo:lo + K] (its
+    gradient as the slice's), in the operands' dtype."""
+    k = x.shape[1]
+    xs = x.clone().requires_grad_(True)
+    ws = wide.clone().requires_grad_(True)
+    bs = None if bias is None else bias.clone().requires_grad_(True)
+    y = fn(xs, ws[:, lo:lo + k], bs)
+    y.backward(gy)
+    return dict(y=y.detach(), gx=xs.grad, gw=ws.grad[:, lo:lo + k],
+                **({} if bs is None else {"gb": bs.grad}))
+
+
+@pytest.mark.parametrize("site", list(LINEAR_SITES))
+def test_linear_kernel_has_f32_accuracy_and_repeats_its_bits(dev, site):
+    """Y, dX, dW and db of #9 (the weight a strided slice where the site
+    has one) against f64: no further off than 2x cuBLAS's f32 F.linear and
+    its autograd backward against the same f64, and at least 20x closer
+    than the same path in 1xTF32 for every output made by a product (db
+    sums dY alone). A second run repeats every bit; one launch a call each
+    way; the backward without dX gives the same dW and db."""
+    import torch.nn.functional as F
+
+    from dostransformer_tpu_torch.ops.linear import (
+        linear_bwd_kernel,
+        linear_op,
+    )
+
+    x, wide, lo, bias, gy = _linear_case(dev, site)
+    f32 = [None if t is None else t.float() for t in (x, wide, bias, gy)]
+    before = linear_op.launches, linear_bwd_kernel.launches
+    got = _linear_paths(*f32[:2], lo, *f32[2:], linear_op)
+    assert (linear_op.launches, linear_bwd_kernel.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = _linear_paths(x, wide, lo, bias, gy, F.linear)
+    lib = _linear_paths(*f32[:2], lo, *f32[2:], F.linear)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = _linear_paths(*f32[:2], lo, *f32[2:], F.linear)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for name in want:
+        err, lib_err = _rel(got[name], want[name]), _rel(lib[name],
+                                                         want[name])
+        assert err <= 2 * lib_err, (name, err, lib_err)
+        if name != "gb":
+            tf32_err = _rel(tf32[name], want[name])
+            assert 20 * err <= tf32_err, (name, err, tf32_err)
+    again = _linear_paths(*f32[:2], lo, *f32[2:], linear_op)
+    assert all(torch.equal(got[k], again[k]) for k in got)
+    k = x.shape[1]
+    w = f32[1][:, lo:lo + k]
+    gx, gw, gb = linear_bwd_kernel(f32[0], w, f32[3], need_x=False,
+                                   need_b=bias is not None)
+    assert gx is None and torch.equal(gw, got["gw"])
+    assert gb is None if bias is None else torch.equal(gb, got["gb"])
+
+
+def test_linear_kernel_replays_in_a_captured_graph_bit_for_bit(dev):
+    """Forward and backward (dX, dW, db) captured in one CUDA graph replay
+    to the eager bits, the weight a slice."""
+    from dostransformer_tpu_torch.ops.linear import (
+        linear_bwd_kernel,
+        linear_fwd_kernel,
+    )
+
+    x, wide, lo, bias, gy = _linear_case(dev, "edge_proj_8192", seed=1)
+    x, wide, bias, gy = (t.float() for t in (x, wide, bias, gy))
+    w = wide[:, lo:lo + x.shape[1]]
+
+    def run():
+        return (linear_fwd_kernel(x, w, bias),
+                *linear_bwd_kernel(x, w, gy))
+
+    eager = run()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
+
+
+@pytest.mark.parametrize("case", ["k41", "n_odd", "f64", "bf16", "cpu"])
+def test_linear_kernel_rejects_what_it_does_not_take(dev, case):
+    from dostransformer_tpu_torch.ops.linear import linear_fwd_kernel
+
+    k, n = (41, 256) if case == "k41" else (256, 18 if case == "n_odd" else 256)
+    dtype = {"f64": torch.float64, "bf16": torch.bfloat16}.get(
+        case, torch.float32)
+    device = "cpu" if case == "cpu" else dev
+    x = torch.zeros(64, k, device=device, dtype=dtype)
+    w = torch.zeros(n, k, device=device, dtype=dtype)
+    err = TypeError if case in ("f64", "bf16") else ValueError
+    with pytest.raises(err):
+        linear_fwd_kernel(x, w, None)
+
+
+def test_cell_model_step_runs_every_admitted_linear_on_the_kernel(dev,
+                                                                  monkeypatch):
+    """The benchmark cell's model (eDOS, hidden 256, 3 processors, 2
+    transformer layers a stack, 201 bins) at batch 64: every linear the
+    plan admits runs on #9, one forward and one backward launch each, and
+    the counters agree (linear.kernel_rows = the admitted rows); the
+    admitted widths are the cell's sites; by torch.profiler name the
+    step runs #9's GEMM once for each forward, dX and dW, its split for
+    each forward and dX, its reduce for each dW."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dostransformer_tpu_torch import tracing
+    from dostransformer_tpu_torch.data.graph import collate
+    from dostransformer_tpu_torch.data.synthetic import synthetic_edos_samples
+    from dostransformer_tpu_torch.models.registry import build_model
+    from dostransformer_tpu_torch.nn import modules
+    from dostransformer_tpu_torch.ops.linear import (
+        linear_bwd_kernel,
+        linear_op,
+        linear_plan,
+    )
+
+    asked = []
+
+    def plan(rows, k, n, dtype):
+        ok = linear_plan(rows, k, n, dtype)
+        asked.append((rows, k, n, ok))
+        return ok
+
+    monkeypatch.setattr(modules, "linear_plan", plan)
+    model = build_model("edos", layers=3, t_layers=2, hidden=256, device=dev,
+                        generator=torch.Generator().manual_seed(4))
+    batch = collate(synthetic_edos_samples(64, seed=3, max_atoms=100),
+                    num_graphs=64).to(dev)
+    dg, _, ds = model(batch)  # warm: builds the library
+    (dg.square().sum() + ds.sum()).backward()
+    torch.cuda.synchronize()
+    model.zero_grad()
+    asked.clear()
+    counters = tracing.record().counters
+    rows0 = (counters.get("linear.rows", 0),
+             counters.get("linear.kernel_rows", 0))
+    before = linear_op.launches, linear_bwd_kernel.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dg, _, ds = model(batch)
+        (dg.square().sum() + ds.sum()).backward()
+        torch.cuda.synchronize()
+    admitted = [a for a in asked if a[3]]
+    assert linear_op.launches - before[0] == len(admitted)
+    assert linear_bwd_kernel.launches - before[1] == len(admitted)
+    assert counters["linear.rows"] - rows0[0] == sum(a[0] for a in asked)
+    assert counters["linear.kernel_rows"] - rows0[1] == sum(
+        a[0] for a in admitted)
+    widths = {(k, n) for _, k, n, _ in admitted}
+    assert {(256, 512), (512, 256), (256, 256), (640, 256)} <= widths
+    refused = {(k, n) for _, k, n, ok in asked if not ok}
+    assert (41, 256) in refused and (256, 1) in refused
+    names = {}
+    for ev in prof.events():
+        short = ev.name.replace("(anonymous namespace)::", "")
+        short = short.removeprefix("void ").split("<")[0].split("(")[0]
+        names[short] = names.get(short, 0) + 1
+    # every admitted call's backward asks for dW (the weights are trained);
+    # dX is skipped for the encoders' first layers (their input is data)
+    reduce = names.get("linear_reduce_kernel", 0)
+    split = names.get("linear_split_kernel", 0)
+    assert reduce == len(admitted)
+    assert len(admitted) <= split <= 2 * len(admitted)
+    assert names.get("linear_gemm_kernel", 0) == split + reduce
 
 
 # --- the train step through CUDA graphs (train/trainer.py) ------------------

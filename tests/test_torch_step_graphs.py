@@ -418,3 +418,59 @@ def test_static_inputs_are_the_batch_geometry():
         t = getattr(inputs, name)
         assert tuple(t.shape) == (4,) + shape and t.dtype == dtype
     assert dict((n, d) for n, _, d in key[1:])["nodes"] == torch.bfloat16
+
+
+@pytest.mark.cuda
+def test_replayed_epoch_at_the_cell_sizes_runs_the_linear_kernel_bit_equal():
+    """On the card, the cell's model (eDOS at hidden 256, 3 processors, 2
+    layers a stack, 201 bins) at batch 64 over the atom buckets 16 and 128,
+    2 steps each: the eager epoch sends the processors', encoders' and
+    heads' f32 linears to kernel #9 (``linear.kernel_rows``, launches);
+    the replayed epoch (captured in its first, replayed in its second)
+    runs #9's kernels by torch.profiler name as often as the eager epoch
+    and gives its losses, parameters and AdamW state bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: kernel #9 has no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+
+    from dostransformer_tpu_torch.ops.linear import linear_op
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    samples = [s for lo, hi, seed in ((8, 15, 31), (64, 127, 32))
+               for s in synthetic_edos_learnable(128, seed=seed, min_atoms=lo,
+                                                 max_atoms=hi)]
+    data = BucketedDeviceDataset.from_samples(samples, 64, device="cuda")
+    assert [a for a, _ in data.buckets] == [16, 128]
+    trainers = []
+    for graphs in (False, True):
+        model = build_model("edos", layers=3, t_layers=2, hidden=256,
+                            device="cuda",
+                            generator=torch.Generator().manual_seed(5))
+        trainers.append(Trainer(model, seed=3, graphs=graphs,
+                                clamp_targets=True))
+    eager, replayed = trainers
+    counters = tracing.record().counters
+    kernel_rows = counters.get("linear.kernel_rows", 0)
+    launches = linear_op.launches
+    want = eager.train_epochs_buckets(data, 0, [0])
+    assert linear_op.launches - launches >= 4 * 6
+    assert counters["linear.kernel_rows"] > kernel_rows
+    assert torch.equal(replayed.train_epochs_buckets(data, 0, [0]), want)
+    names = []
+    for trainer in trainers:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            losses = trainer.train_epochs_buckets(data, 0, [1])
+            torch.cuda.synchronize()
+        names.append(sorted(
+            e.name for e in prof.events()
+            if any(k in e.name for k in ("linear_gemm_kernel",
+                                         "linear_split_kernel",
+                                         "linear_reduce_kernel"))))
+        if trainer is eager:
+            want = losses
+    assert names[0] and names[0] == names[1]
+    assert torch.equal(losses, want)
+    for p, q in zip(eager.model.parameters(), replayed.model.parameters()):
+        assert torch.equal(p, q)
+    assert torch.equal(eager.optimizer.mu, replayed.optimizer.mu)
+    assert torch.equal(eager.optimizer.nu, replayed.optimizer.nu)

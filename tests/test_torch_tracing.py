@@ -183,9 +183,26 @@ def test_forward_span_holds_its_forward_events_on_the_profiler_clock(
         assert hi <= us(b.start.host_ns)
 
 
+def linear_rows(b, atoms, edges, bins, layers=1, t_layers=1):
+    """The rows of every linear of one eDOS forward at b graph slots of
+    ``atoms`` node and ``edges`` edge slots, where no FFN call takes #8:
+    the node and edge encoders (two layers each, at node and edge count),
+    the global encoder and decoder (b rows each, three layers), each
+    processor's edge projections (two at node count, one at edge count) and
+    node MLP (three at node count), the heads' fc and fc_prompt (b bins
+    each) and out_layer (2b bins), and the FFN's fc1 and fc2 in the cross
+    stack (b bins) and the self and source stacks (2b bins)."""
+    return b * (atoms * (2 + 5 * layers) + edges * (2 + layers) + 3
+                + bins * (4 + 10 * t_layers))
+
+
 @pytest.mark.parametrize("kind", ["buckets", "device", "host"])
 def test_counters_are_the_counts_of_the_samples(kind):
     trainer, samples = _trainer(), _samples()
+    shapes = []
+    trainer.model.register_forward_pre_hook(
+        lambda m, args: shapes.append((*args[0].nodes.shape[:2],
+                                       args[0].edges.shape[1])))
     _profiled(lambda: _epoch(trainer, kind, samples, 0))
     want = dict.fromkeys(["train.steps", "train.graphs",
                           "train.graph_slots", "train.atom_rows",
@@ -201,6 +218,11 @@ def test_counters_are_the_counts_of_the_samples(kind):
     # stack and, twice, through each head's stack (one layer a stack); on
     # the CPU none takes kernel #8, so ffn.kernel_rows stays unset
     want["ffn.rows"] = want["train.graph_slots"] * BINS * 5
+    # every linear's rows, at each step's node and edge slots; on the CPU
+    # none takes kernel #9, so linear.kernel_rows stays unset
+    assert len(shapes) == want["train.steps"]
+    want["linear.rows"] = sum(linear_rows(b, a, e, BINS)
+                              for b, a, e in shapes)
     want["train.steps_replayed"] = 0  # the CPU replays no step
     assert tracing.record().counters == want
     assert want["train.atom_rows"] < want["train.atom_slots"]
