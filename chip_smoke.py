@@ -1196,7 +1196,7 @@ def linear_calls(task: str, b: int, atoms: int, edges: int, bins: int,
     and ``edges`` edge slots: the encoders, each processor's three edge
     projections and its node MLP's two parts and second linear, the
     decoder, the heads' fc, fc_prompt and out_layer, and the FFN's fc1 and
-    fc2 where #8 does not take them (nn/modules.py linear)."""
+    fc2 where #8 does not take them (ops/linear.py linear)."""
     h, node, edge = hidden, b * atoms, b * edges
     node_in, edge_in = (200, 41) if task == "edos" else (118, 4)
     calls = [(node, node_in, h), (node, h, h), (edge, edge_in, h),
@@ -5149,7 +5149,7 @@ def phase_shared_card(workdir):
     CPU, and two controls (the single process's linears in 1xTF32, the
     model in bf16) must not; the TP x 2 run's checkpoint (written by rank
     0) served and resumed in this process."""
-    from dostransformer_tpu_torch.nn import modules
+    from dostransformer_tpu_torch.ops import linear as linear_ops
 
     batches = parallel_batches()
     t0 = time.perf_counter()
@@ -5184,13 +5184,13 @@ def phase_shared_card(workdir):
     print(f"38 single process: losses {sides['single']['losses']}, "
           f"{single_ms:.1f} ms a step on {CARD}")
     # the controls: every linear on cuBLAS in 1xTF32; the model in bf16
-    plan = modules.linear_plan
-    modules.linear_plan = lambda *args: False
+    plan = linear_ops.linear_plan
+    linear_ops.linear_plan = lambda *args: False
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         sides["control_tf32"] = steps_on(flagship(), batches)
     finally:
-        modules.linear_plan = plan
+        linear_ops.linear_plan = plan
         torch.backends.cuda.matmul.allow_tf32 = False
     sides["control_bf16"] = steps_on(flagship(dtype="bfloat16"), batches)
     readings, ckpt = {}, os.path.join(workdir, "tp2_ckpt")

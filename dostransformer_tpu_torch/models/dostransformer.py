@@ -62,11 +62,9 @@ backward the bf16 forms of the message-passing and attention backward
 kernels (with ``remat`` the recomputed forward runs the bf16 forward
 kernels again). A float64 model (the JAX package's x64 parity mode) casts
 the same way to f64, runs its LayerNorm statistics in f64 and its softmax at
-exactly f32 (``DOSTPU_SOFTMAX_WIDE=1``: f64), and returns f64 outputs; by
-the f64 rule (ops/kernels.py ``takes_kernels``, which the layers apply to
-their f64 operands) it runs the plain functions (the unfused message
-passing, the plain segment sum, attention and LayerNorm; ``use_fused_mp``
-and the levers have no effect) and launches no kernel on either device. Its gradients reach the f32 parameters in f32.
+exactly f32 (``DOSTPU_SOFTMAX_WIDE=1``: f64), and returns f64 outputs; it
+launches no kernel on either device (the f64 rule, stated in
+ops/kernels.py). Its gradients reach the f32 parameters in f32.
 
 ``attn_drop`` is the attention-weight dropout of the three stacks (one
 head, as in the JAX model). It is active in training mode when the forward

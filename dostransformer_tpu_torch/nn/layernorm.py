@@ -25,10 +25,9 @@ join through a thread-block cluster's shared memory, in a fixed order),
 for CPU tensors the plain :func:`ln_bwd_reference`. Nothing else chooses the
 path. Both take a second operand form, the raw x with ``mean`` and rstd,
 for a caller that has no xhat in memory (the LayerNorm-fused attention's
-backward); :func:`layer_norm_lp`'s own backward keeps the saved xhat. f64
-operands stay f64 on the plain path; the kernel refuses them, and
-:class:`LayerNormLP` hands them to :func:`layer_norm` (the f64 rule,
-``ops/kernels.py takes_kernels``).
+backward); :func:`layer_norm_lp`'s own backward keeps the saved xhat. The
+kernel refuses f64; :func:`layer_norm_lp` hands f64 operands to
+:func:`layer_norm` (the f64 rule, stated in ops/kernels.py).
 """
 
 from __future__ import annotations
@@ -169,14 +168,9 @@ def layer_norm_bwd(xhat: torch.Tensor, rstd: torch.Tensor,
     dx = torch.empty_like(dy)
     dscale = torch.empty(d, device=dy.device, dtype=torch.float32)
     dbias = torch.empty_like(dscale)
-    with torch.cuda.device(dy.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = kernels.library().dostpu_layer_norm_bwd(
-            xhat.data_ptr(), None if mean is None else mean.data_ptr(),
-            rstd.data_ptr(), dy.data_ptr(), scale.data_ptr(), dx.data_ptr(),
-            dscale.data_ptr(), dbias.data_ptr(), rows, d,
-            int(dy.dtype == torch.bfloat16), stream)
-    kernels.check(code, "layer_norm_bwd")
+    kernels.launch("layer_norm_bwd", "dostpu_layer_norm_bwd", xhat, mean,
+                   rstd, dy, scale, dx, dscale, dbias, rows, d,
+                   int(dy.dtype == torch.bfloat16))
     layer_norm_bwd.launches += 1
     return dx, dscale, dbias
 
@@ -214,16 +208,16 @@ def layer_norm_lp(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   eps: float = LN_EPS) -> torch.Tensor:
     """LayerNorm over the last dimension with the low-precision-residual
     backward (see the module docstring); differentiable in x, weight and
-    bias."""
+    bias. Operands the kernel does not take (f64) go to :func:`layer_norm`
+    on every device (the f64 rule, stated in ops/kernels.py)."""
+    if x.dtype not in kernels.KERNEL_DTYPES:
+        return layer_norm(x, weight, bias, eps)
     return _LayerNormLP.apply(x, weight, bias, eps)
 
 
 class LayerNormLP(nn.LayerNorm):
     """:class:`LayerNorm`'s parameters and state_dict keys, normalising with
-    :func:`layer_norm_lp`; f64 operands with :func:`layer_norm` (the f64
-    rule, ops/kernels.py ``takes_kernels``: f64 statistics)."""
+    :func:`layer_norm_lp`."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not kernels.takes_kernels(x.dtype):
-            return layer_norm(x, self.weight, self.bias, self.eps)
         return layer_norm_lp(x, self.weight, self.bias, self.eps)

@@ -26,19 +26,12 @@ Mixed precision, as in the JAX package: parameters stay float32 and each
 is cast to the operand's dtype where it is used (the Linear weights and
 biases, the PReLU slope), so bf16 activations run the products in bf16;
 LayerNorm statistics are f32 and its output is cast back. bf16 rounds where
-the JAX package rounds (:func:`linear`, :func:`leaky_relu`). The fused edge
-pipeline takes its LayerNorm parameters, slope, W1 and b1 uncast (f32), as
-the TPU kernel does.
+the JAX package rounds (:func:`~dostransformer_tpu_torch.ops.linear.linear`,
+:func:`leaky_relu`). The fused edge pipeline takes its LayerNorm
+parameters, slope, W1 and b1 uncast (f32), as the TPU kernel does.
 
-The f64 rule (ops/kernels.py ``takes_kernels``): the kernels take f32 and
-bf16 and their public entries refuse f64 on the card. A float64 model is
-the JAX package's f64 parity mode, which it runs with ``use_pallas=False``;
-so the layers look at their operands' dtype at each call, and f64 operands
-take the plain functions on every device: the unfused EdgeModel with
-:func:`~dostransformer_tpu_torch.ops.segment.segment_sum_reference` in
-place of the segment-sum op here, the plain attention and LayerNorm in the
-transformer (nn/transformer.py). Their LayerNorm statistics are then f64
-("f32 or wider").
+The ops choose kernel, cuBLAS or plain version from their operands (the
+f64 rule is stated in ops/kernels.py).
 """
 
 from __future__ import annotations
@@ -50,45 +43,14 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from dostransformer_tpu_torch import tracing
 from dostransformer_tpu_torch.nn.init import torch_linear_
 from dostransformer_tpu_torch.nn.layernorm import LayerNorm
 from dostransformer_tpu_torch.ops.fused_mp import fused_mp_edge, gather_rows
 from dostransformer_tpu_torch.ops.kernels import takes_kernels
-from dostransformer_tpu_torch.ops.linear import linear_op, linear_plan
-from dostransformer_tpu_torch.ops.segment import (
-    batched_segment_sum,
-    segment_sum_reference,
-)
+from dostransformer_tpu_torch.ops.linear import linear
+from dostransformer_tpu_torch.ops.segment import batched_segment_sum
 
 Parts = Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]]
-
-
-def linear(x: torch.Tensor, weight: torch.Tensor,
-           bias: Optional[torch.Tensor]) -> torch.Tensor:
-    """x @ weight^T + bias with the parameters cast to x's dtype: the
-    product of every linear of the model but the transformer's FFN on #8.
-    In bf16 the product is rounded before the bias is added, as the JAX
-    package rounds it (``y = x @ k; y + b``); a fused call would round
-    once. f32 keeps the one fused call (the two differ by an f32 rounding):
-    kernel #9 where :func:`~dostransformer_tpu_torch.ops.linear.linear_plan`
-    says so (``linear_op``: ``F.linear`` itself on the CPU), else
-    ``F.linear``; f64 takes ``F.linear``. ``weight`` may be a column slice
-    of a parameter. ``tracing`` counts every call's rows
-    (``linear.rows``) and the rows that took #9 (``linear.kernel_rows``)."""
-    weight = weight.to(x.dtype)
-    k = weight.shape[1]
-    rows = x.numel() // k
-    tracing.count("linear.rows", rows)
-    if x.dtype == torch.bfloat16:
-        y = F.linear(x, weight)
-        return y if bias is None else y + bias.to(x.dtype)
-    bias = None if bias is None else bias.to(x.dtype)
-    if linear_plan(rows, k, weight.shape[0], x.dtype):
-        if x.is_cuda:
-            tracing.count("linear.kernel_rows", rows)
-        return linear_op(x, weight, bias)
-    return F.linear(x, weight, bias)
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -173,22 +135,12 @@ class MLPBlock(nn.Sequential):
                              prelu.weight, lin1.weight, lin1.bias)
 
 
-def _segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
-                 num_segments: int) -> torch.Tensor:
-    """The segment-sum op, or its plain version for f64 ``data`` (the f64
-    rule)."""
-    op = (batched_segment_sum if takes_kernels(data.dtype)
-          else segment_sum_reference)
-    return op(data, segment_ids, num_segments)
-
-
 class EdgeModel(nn.Module):
     """e' = MLP([x_src, x_dst, e]); also returns the masked sum of e' onto
     the receivers, which the NodeModel aggregates: through the fused op
     (``fused``, the default), or as the plain composition (project, gather,
-    the MLP, then the masked segment sum; the JAX package's
-    ``use_fused_mp=False``). f64 operands take the plain composition with
-    the plain segment sum (the f64 rule)."""
+    the MLP, then the masked segment sum): the JAX package's
+    ``use_fused_mp=False``, and what f64 operands take (the f64 rule)."""
 
     def __init__(self, hidden: int, fused: bool = True):
         super().__init__()
@@ -202,7 +154,7 @@ class EdgeModel(nn.Module):
         e_out = self.edge_mlp(((x, senders), (x, receivers),
                                (edge_attr, None)))
         masked = e_out * edge_mask[..., None].to(e_out.dtype)
-        return e_out, _segment_sum(masked, receivers, x.shape[1])
+        return e_out, batched_segment_sum(masked, receivers, x.shape[1])
 
 
 class NodeModel(nn.Module):
@@ -210,8 +162,7 @@ class NodeModel(nn.Module):
     receivers: their masked sum as the EdgeModel returns it ("sum", eDOS's
     scatter_sum), or that sum over the count of real edges per receiver
     ("mean", phDOS's scatter_mean; a node with no edge gets 0). The count is
-    the segment-sum op on the edge mask: the kernel on the card (its plain
-    version for f64 operands)."""
+    the segment-sum op on the edge mask."""
 
     def __init__(self, hidden: int, aggregation: str = "sum"):
         super().__init__()
@@ -223,8 +174,8 @@ class NodeModel(nn.Module):
 
     def forward(self, x, agg, receivers, edge_mask):
         if self.aggregation == "mean":
-            count = _segment_sum(edge_mask[..., None].to(agg.dtype),
-                                 receivers, x.shape[1])
+            count = batched_segment_sum(edge_mask[..., None].to(agg.dtype),
+                                        receivers, x.shape[1])
             agg = agg / torch.clamp(count, min=1.0)
         return self.node_mlp_2(((x, None), (agg, None)))
 
@@ -249,9 +200,7 @@ def run_message_passing(processors: Sequence[Processor], g, x, edge_attr,
     """The reference's processor loop with CALLER-side residuals. With
     ``remat``, while gradients are recorded each processor keeps only its
     inputs and is run again in the backward (``torch.utils.checkpoint``, as
-    the JAX package wraps its Processor in ``flax.linen.remat``). The
-    processors run the kernel ops on f32 and bf16 operands and the plain
-    functions on f64 ones (the f64 rule, see the module docstring)."""
+    the JAX package wraps its Processor in ``flax.linen.remat``)."""
     for proc in processors:
         args = (x, g.senders, g.receivers, edge_attr, g.edge_mask)
         if remat and torch.is_grad_enabled():

@@ -65,23 +65,17 @@ input enters through ``tp_enter``, and ``tp_exit`` completes fc2's product
 BEFORE the bias is added (adding it on every rank would count it tp times).
 Unsharded, the layer computes the plain FFN.
 
-The FFN (unsharded, with no ReLU dropout mask in the call) goes through
-:func:`~dostransformer_tpu_torch.ops.ffn.ffn` where
-:func:`~dostransformer_tpu_torch.ops.ffn.ffn_plan` says so (f32 operands,
-widths a multiple of 32, enough rows): kernel #8 on the card, the plain
-composition itself on the CPU. Every other case (bf16, f64, the
-tensor-parallel FFN, a ReLU dropout mask, other widths, few rows) runs the
-composition as before. ``tracing`` counts every call's rows
-(``ffn.rows``) and the rows that took #8 (``ffn.kernel_rows``).
+The layer chooses which ops run; each op chooses kernel, cuBLAS or plain
+version from its operands (the f64 rule is stated in ops/kernels.py). The
+FFN, unsharded and with no ReLU dropout mask in the call, is one op,
+:func:`~dostransformer_tpu_torch.ops.ffn.ffn`; the tensor-parallel FFN and
+a ReLU dropout mask run the composition of two linears.
 
 In a bf16 model the stack runs on bf16 activations: the FFN's weights are
 cast at use, the LayerNorms take f32 statistics and cast back, and the
 attention's scores and softmax are f32 (the bf16 forms of the attention
-forward kernels on the card). f64 operands (an f64 model) take the plain
-attention and LayerNorm on every device, whatever the levers say (the f64
-rule, ops/kernels.py ``takes_kernels``, applied to the operands at each
-call): f64 LayerNorm statistics, the softmax at f32 unless
-``DOSTPU_SOFTMAX_WIDE=1``.
+forward kernels on the card). An f64 model runs the LN-fused lever
+unfused; its softmax is f32 unless ``DOSTPU_SOFTMAX_WIDE=1``.
 """
 
 from __future__ import annotations
@@ -96,16 +90,14 @@ from torch.utils.checkpoint import checkpoint
 from dostransformer_tpu_torch.nn.dropout import apply_keep, draw_keep, dropout
 from dostransformer_tpu_torch.nn.init import xavier_linear_
 from dostransformer_tpu_torch.nn.layernorm import LayerNorm, LayerNormLP
-from dostransformer_tpu_torch import tracing
-from dostransformer_tpu_torch.nn.modules import linear
-from dostransformer_tpu_torch.ops.ffn import ffn, ffn_plan
-from dostransformer_tpu_torch.ops.kernels import takes_kernels
 from dostransformer_tpu_torch.ops.attention import (
-    dot_product_attention,
     fused_attention,
     fused_attention_ln,
     masked_attention,
 )
+from dostransformer_tpu_torch.ops.ffn import ffn
+from dostransformer_tpu_torch.ops.kernels import takes_kernels
+from dostransformer_tpu_torch.ops.linear import linear
 from dostransformer_tpu_torch.parallel.megatron import (
     shard_parameter,
     tp_enter,
@@ -189,9 +181,9 @@ class TransformerEncoderLayer(nn.Module):
             for name, (rate, shape) in shapes.items() if rate > 0.0})
 
     def _attend(self, q, k, v, key_mask, keep):
-        """Attention of q over (k, v), split into heads: the attention op,
-        or the plain attention for f64 operands (the f64 rule); with a keep
-        mask the plain attention with dropout (the masks are per head)."""
+        """Attention of q over (k, v), split into heads: the attention op;
+        with a keep mask the plain attention with dropout (the masks are
+        per head)."""
         h = self.num_heads
         if h > 1:
             v = None if v is k else split_heads(v, h)
@@ -200,9 +192,7 @@ class TransformerEncoderLayer(nn.Module):
             if key_mask is not None:
                 key_mask = key_mask.repeat_interleave(h, dim=0)
         if keep is None:
-            attention = (fused_attention if takes_kernels(q.dtype)
-                         else dot_product_attention)
-            a = attention(q, k, v, key_mask)
+            a = fused_attention(q, k, v, key_mask)
         else:
             a = masked_attention(q, k, v, key_mask, keep, self.attn_dropout)
         return merge_heads(a, h) if h > 1 else a
@@ -223,13 +213,9 @@ class TransformerEncoderLayer(nn.Module):
             a = self._attend(ln0(x), k, v, key_mask, masks.attn)
         x = x + apply_keep(a, masks.res0, self.res_dropout)
         group = self.tp_group
-        rows = x.numel() // x.shape[-1]
-        tracing.count("ffn.rows", rows)
         if group is None:
             y = ln1(x)
-            if masks.relu is None and ffn_plan(rows, y.shape[-1], y.dtype):
-                if y.is_cuda:
-                    tracing.count("ffn.kernel_rows", rows)
+            if masks.relu is None:
                 h = ffn(y, self.fc1.weight, self.fc1.bias, self.fc2.weight,
                         self.fc2.bias)
             else:

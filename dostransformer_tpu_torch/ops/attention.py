@@ -14,9 +14,10 @@ tensors its forward is the kernel in ``csrc/attention.cu`` and its backward
 the kernel in ``csrc/attention_bwd.cu`` (tensor-core products, 3xTF32 at
 f32 accuracy for f32 operands, bf16 products summed in f32 for bf16 ones;
 the forward hands its row max and sum to the backward), at every shape; for
-CPU tensors
-they are :func:`dot_product_attention` and :func:`attention_bwd_reference`.
-Nothing else chooses the path. Layout is batch-first ``[B, L, D]`` as in the
+CPU tensors they are :func:`dot_product_attention` and
+:func:`attention_bwd_reference`. f64 operands take
+:func:`dot_product_attention` on every device. Nothing else chooses the
+path. Layout is batch-first ``[B, L, D]`` as in the
 JAX package.
 
 :func:`fused_attention_ln` is the LayerNorm-fused variant (the JAX package's
@@ -280,13 +281,9 @@ def fused_attention_fwd(q, k, v, bias, want_stats=False):
     out = torch.empty_like(q)
     stats = (torch.empty((2, b, lq), device=q.device, dtype=torch.float32)
              if want_stats else None)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = kernels.library().dostpu_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), stats.data_ptr() if want_stats else None, b, lq,
-            lk, d, d ** -0.5, int(q.dtype == torch.bfloat16), -1, stream)
-    kernels.check(code, "fused_attention")
+    kernels.launch("fused_attention", "dostpu_attention_fwd", q, k, v, bias,
+                   out, stats, b, lq, lk, d, d ** -0.5,
+                   int(q.dtype == torch.bfloat16), -1)
     fused_attention.launches += 1
     return out, stats
 
@@ -323,21 +320,14 @@ def fused_attention_bwd(q, k, v, bias, o, g, stats=None):
         kernels.require("fused_attention_bwd", arg, t, device=q.device,
                         dtype=dtype, shape=shape)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib = kernels.library()
     # row statistics and delta, and the query chunks' partial dk and dv
     scratch = torch.empty(
-        (lib.dostpu_attention_bwd_scratch_floats(b, lq, lk, d, int(bf16),
-                                                 -1),),
+        (kernels.library().dostpu_attention_bwd_scratch_floats(
+            b, lq, lk, d, int(bf16), -1),),
         device=q.device, dtype=torch.float32)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.dostpu_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            None if bf16 else o.data_ptr(), g.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(),
-            None if stats is None else stats.data_ptr(), scratch.data_ptr(),
-            b, lq, lk, d, d ** -0.5, int(bf16), -1, stream)
-    kernels.check(code, "fused_attention_bwd")
+    kernels.launch("fused_attention_bwd", "dostpu_attention_bwd", q, k, v,
+                   bias, None if bf16 else o, g, dq, dk, dv, stats, scratch,
+                   b, lq, lk, d, d ** -0.5, int(bf16), -1)
     fused_attention_bwd.launches += 1
     return dq, dk, dv
 
@@ -420,10 +410,14 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Same contract as :func:`dot_product_attention` without dropout,
     differentiable in q, k and v.
 
-    CUDA tensors go through the kernels (float32, or the forward's bf16
-    form for bf16 operands; contiguous, any D >= 1; anything else raises),
-    CPU tensors through the plain versions.
+    f32 and bf16 operands on the card go through the kernels (the forward's
+    bf16 form for bf16 operands; contiguous, any D >= 1; anything else
+    raises), on the CPU through the plain versions; other dtypes (f64)
+    through :func:`dot_product_attention` on every device (the f64 rule,
+    ``ops/kernels.py takes_kernels``).
     ``fused_attention.launches`` counts forward kernel launches."""
+    if not kernels.takes_kernels(q.dtype):
+        return dot_product_attention(q, k, v, key_mask)
     return _FusedAttention.apply(q, k, v, key_mask)
 
 
@@ -477,15 +471,9 @@ def _fused_attention_ln_fwd(x, x_k, x_v, ln_scale, ln_bias, key_mask):
                 f"{tuple(key_mask.shape)} on {key_mask.device}")
         key_mask = key_mask.contiguous()  # bytes: no alignment needed
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = kernels.library().dostpu_attention_ln_fwd(
-            x.data_ptr(), x_k.data_ptr(), x_v.data_ptr(), ln_scale.data_ptr(),
-            ln_bias.data_ptr(),
-            None if key_mask is None else key_mask.data_ptr(),
-            out.data_ptr(), b, lq, lk, d, d ** -0.5, LN_EPS_ATTN,
-            int(x.dtype == torch.bfloat16), stream)
-    kernels.check(code, "fused_attention_ln")
+    kernels.launch("fused_attention_ln", "dostpu_attention_ln_fwd", x, x_k,
+                   x_v, ln_scale, ln_bias, key_mask, out, b, lq, lk, d,
+                   d ** -0.5, LN_EPS_ATTN, int(x.dtype == torch.bfloat16))
     fused_attention_ln.launches += 1
     return out
 

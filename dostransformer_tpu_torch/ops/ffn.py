@@ -3,18 +3,19 @@
 ``relu(x W1^T + b1) W2^T + b2`` over the rows of x [..., D], with W1
 [4D, D] and W2 [D, 4D] (the layer's fc1 and fc2). In the JAX package XLA
 runs it; no Pallas kernel stands behind it. :func:`ffn_reference` is the
-plain version, today's composition exactly (``F.linear``, ``F.relu``,
-``F.linear``); :func:`ffn_bwd_reference` the backward's, from the forward's
-H. :func:`ffn` is the op: CPU tensors run the plain version
-itself (autograd through it, so the CPU's bits are the plain
-composition's); CUDA tensors run ``csrc/ffn.cu`` (f32 only; anything else
-raises): the forward through :func:`ffn_fwd_op`, the ``dostpu::ffn_fwd``
-custom op (graph capture and ``torch.export`` see one node), the backward
-through the backward kernels (dX, dW1, db1, dW2, db2 from the forward's x
-and H). Nothing falls back.
+plain version (``F.linear``, ``F.relu``, ``F.linear``);
+:func:`ffn_bwd_reference` the backward's, from the forward's H.
 
-:func:`ffn_plan` says where the layer takes the op: a pure function of the
-rows, the width and the dtype (see its docstring for the measurements).
+:func:`ffn` is the op the layer calls for every unsharded FFN with no ReLU
+dropout mask. It picks from its operands: where :func:`ffn_plan` holds (a
+pure function of the rows, the width and the dtype; see its docstring for
+the measurements), CUDA tensors run ``csrc/ffn.cu`` (the forward through
+:func:`ffn_fwd_op`, the ``dostpu::ffn_fwd`` custom op, so that graph
+capture and ``torch.export`` see one node; the backward through
+:func:`ffn_bwd_kernel`: dX, dW1, db1, dW2, db2 from the forward's x and H)
+and CPU tensors the plain version itself (autograd through it); elsewhere
+(bf16, f64, other widths, fewer rows) the two linears of
+:func:`~dostransformer_tpu_torch.ops.linear.linear` around the ReLU.
 """
 
 from __future__ import annotations
@@ -22,20 +23,21 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from dostransformer_tpu_torch import tracing
 from dostransformer_tpu_torch.ops import kernels
+from dostransformer_tpu_torch.ops.linear import linear
 
 # the fewest rows that take #8: measured on the H100 (see ffn_plan)
 MIN_ROWS = 1224
 
 
 def ffn_plan(rows: int, d: int, dtype: torch.dtype) -> bool:
-    """True where the layer's FFN at ``rows`` rows of width ``d`` and
-    operand ``dtype`` goes to :func:`ffn`: f32 operands, d a multiple of
-    32 (the kernel's K chunks; hidden 256 and 1,024 among them), and at
-    least ``MIN_ROWS`` rows. bf16 (ROADMAP item 4), f64 (the plain
-    functions), widths such as phDOS's hidden 50, and fewer rows keep
-    today's path. The layer adds its own conditions: no tensor-parallel
-    split, no ReLU dropout mask in the call.
+    """True where :func:`ffn` at ``rows`` rows of width ``d`` and operand
+    ``dtype`` takes #8 (its plain version on the CPU): f32 operands, d a
+    multiple of 32 (the kernel's K chunks; hidden 256 and 1,024 among
+    them), and at least ``MIN_ROWS`` rows. bf16 (ROADMAP item 4), f64 (the
+    plain functions), widths such as phDOS's hidden 50, and fewer rows take
+    the two linears.
 
     The threshold, timed on an NVIDIA H100 80GB HBM3 at 700 W (device ms,
     #8 against F.linear, F.relu, F.linear by cuBLAS in f32; forward, then
@@ -94,15 +96,10 @@ def ffn_fwd_kernel(x, w1, b1, w2, b2):
     _require("ffn", x, w1, w2, b1=(b1, (4 * d,)), b2=(b2, (d,)))
     h = x.new_empty((m, 4 * d))
     y = torch.empty_like(x)
-    lib = kernels.library()
-    scratch = x.new_empty((lib.dostpu_ffn_scratch_floats(m, d, 0),))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.dostpu_ffn_fwd(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                                  w2.data_ptr(), b2.data_ptr(), h.data_ptr(),
-                                  y.data_ptr(), scratch.data_ptr(), m, d,
-                                  stream)
-    kernels.check(code, "ffn")
+    scratch = x.new_empty(
+        (kernels.library().dostpu_ffn_scratch_floats(m, d, 0),))
+    kernels.launch("ffn", "dostpu_ffn_fwd", x, w1, b1, w2, b2, h, y, scratch,
+                   m, d)
     ffn.launches += 1
     return y, h
 
@@ -119,16 +116,10 @@ def ffn_bwd_kernel(x, h, w1, w2, gy):
     gx = torch.empty_like(x)
     gw1, gw2 = torch.empty_like(w1), torch.empty_like(w2)
     gb1, gb2 = w1.new_empty(4 * d), w2.new_empty(d)
-    lib = kernels.library()
-    scratch = x.new_empty((lib.dostpu_ffn_scratch_floats(m, d, 1),))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.dostpu_ffn_bwd(x.data_ptr(), h.data_ptr(), w1.data_ptr(),
-                                  w2.data_ptr(), gy.data_ptr(), gx.data_ptr(),
-                                  gw1.data_ptr(), gb1.data_ptr(),
-                                  gw2.data_ptr(), gb2.data_ptr(),
-                                  scratch.data_ptr(), m, d, stream)
-    kernels.check(code, "ffn_bwd")
+    scratch = x.new_empty(
+        (kernels.library().dostpu_ffn_scratch_floats(m, d, 1),))
+    kernels.launch("ffn_bwd", "dostpu_ffn_bwd", x, h, w1, w2, gy, gx, gw1,
+                   gb1, gw2, gb2, scratch, m, d)
     ffn_bwd_kernel.launches += 1
     return gx, gw1, gb1, gw2, gb2
 
@@ -178,12 +169,19 @@ class _FFN(torch.autograd.Function):
 def ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """Same contract as :func:`ffn_reference` for x [..., D], differentiable
-    in every argument. CPU tensors run the plain version; CUDA tensors the
-    kernel (f32, D a multiple of 32, parameters contiguous; anything else
-    raises). ``ffn.launches`` counts forward kernel launches."""
+    in every argument: #8 where :func:`ffn_plan` holds on the card, its
+    plain version where it holds on the CPU, the two linears elsewhere (see
+    the module docstring). ``tracing`` counts every call's rows
+    (``ffn.rows``) and the rows that took #8 (``ffn.kernel_rows``);
+    ``ffn.launches`` counts forward kernel launches."""
+    d = x.shape[-1]
+    rows = x.numel() // d
+    tracing.count("ffn.rows", rows)
+    if not ffn_plan(rows, d, x.dtype):
+        return linear(F.relu(linear(x, w1, b1)), w2, b2)
     if not x.is_cuda:
         return ffn_reference(x, w1, b1, w2, b2)
-    d = x.shape[-1]
+    tracing.count("ffn.kernel_rows", rows)
     y = _FFN.apply(x.reshape(-1, d).contiguous(), w1, b1, w2, b2)
     return y.reshape(x.shape)
 

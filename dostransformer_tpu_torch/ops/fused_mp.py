@@ -282,16 +282,10 @@ def _fused_mp_edge_fwd(src_proj, dst_proj, edge_proj, senders, receivers,
     # the bf16 form's unrounded e_out, which agg sums
     e32 = (torch.empty((b, e, h), device=src_proj.device,
                        dtype=torch.float32) if bf16 else None)
-    with torch.cuda.device(src_proj.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.dostpu_fused_mp_edge_fwd(
-            src_proj.data_ptr(), dst_proj.data_ptr(), edge_proj.data_ptr(),
-            senders.data_ptr(), receivers.data_ptr(), edge_mask.data_ptr(),
-            ln_scale.data_ptr(), ln_bias.data_ptr(), alpha.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), e_out.data_ptr(), agg.data_ptr(),
-            None if e32 is None else e32.data_ptr(), b, a, e, m, h, form,
-            int(bf16), stream)
-    kernels.check(code, "fused_mp_edge")
+    kernels.launch("fused_mp_edge", "dostpu_fused_mp_edge_fwd", src_proj,
+                   dst_proj, edge_proj, senders, receivers, edge_mask,
+                   ln_scale, ln_bias, alpha, w1, b1, e_out, agg, e32, b, a, e,
+                   m, h, form, int(bf16))
     fused_mp_edge.launches += 1
     return e_out, agg
 
@@ -332,16 +326,11 @@ def fused_mp_edge_bwd(src_proj, dst_proj, edge_proj, senders, receivers,
     scratch = torch.empty(
         (lib.dostpu_fused_mp_edge_bwd_scratch_floats(b, e, m, h, form),),
         **f32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.dostpu_fused_mp_edge_bwd(
-            *(t.data_ptr() for t in (
-                src_proj, dst_proj, edge_proj, senders, receivers, edge_mask,
-                ln_scale, ln_bias, alpha, w1, g_eout, g_agg, g_src, g_dst,
-                g_edge, g_scale, g_bias, g_alpha, g_w1, g_b1, scratch)),
-            b, a, e, m, h, form, int(src_proj.dtype == torch.bfloat16),
-            stream)
-    kernels.check(code, "fused_mp_edge_bwd")
+    kernels.launch("fused_mp_edge_bwd", "dostpu_fused_mp_edge_bwd", src_proj,
+                   dst_proj, edge_proj, senders, receivers, edge_mask,
+                   ln_scale, ln_bias, alpha, w1, g_eout, g_agg, g_src, g_dst,
+                   g_edge, g_scale, g_bias, g_alpha, g_w1, g_b1, scratch, b,
+                   a, e, m, h, form, int(src_proj.dtype == torch.bfloat16))
     fused_mp_edge_bwd.launches += 1
     return g_src, g_dst, g_edge, g_scale, g_bias, g_alpha, g_w1, g_b1
 

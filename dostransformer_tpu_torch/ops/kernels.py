@@ -9,12 +9,10 @@ every file under ``csrc/``, and loaded with ``ctypes``. A later process finds
 the library and skips the build. Nothing here runs at import: the CPU
 tests import every module on machines without ``nvcc``.
 
-The wrappers in ``ops/fused_mp.py``, ``ops/attention.py`` (forward and
-backward kernels alike), ``ops/segment.py``, ``ops/ffn.py``,
-``ops/linear.py`` and ``nn/layernorm.py`` pass
-every pointer, and
-PyTorch's current CUDA stream, as ``c_void_p``; each entry point returns the
-CUDA error code of its launches, and :func:`check` raises on a non-zero code.
+The kernel wrappers in ``ops/*.py`` and ``nn/layernorm.py`` launch
+through :func:`launch`, which passes every pointer, and PyTorch's current
+CUDA stream, as ``c_void_p``; each entry point returns the CUDA error code
+of its launches, and :func:`launch` raises on a non-zero code.
 """
 
 from __future__ import annotations
@@ -186,13 +184,16 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def takes_kernels(dtype: torch.dtype) -> bool:
-    """The f64 rule, in one place: operands of ``dtype`` go to the kernel
-    ops (f32, bf16: the kernels on the card, their plain versions on the
-    CPU) or, for any other dtype (f64, the JAX package's ``use_pallas=False``
-    parity mode), to the plain functions on every device. The layers apply
-    it to their operands at each call (nn/modules.py, nn/transformer.py,
-    nn/layernorm.py); the ops' public entries keep refusing f64 on the
-    card."""
+    """The f64 rule, stated here once. Operands of ``dtype`` f32 or bf16
+    take the kernel ops (the kernels on the card, their plain versions on
+    the CPU); any other dtype (f64, the JAX package's ``use_pallas=False``
+    parity mode) takes the plain functions on every device, with statistics
+    and sums in f64. The op entries apply it to their operands at each call
+    (``linear``, ``ffn``, ``fused_attention``, ``batched_segment_sum``,
+    ``layer_norm_lp``); the kernel entries behind them refuse f64. Two
+    layer sites apply it too, where the JAX package runs another
+    composition in f64: the fused edge pipeline (nn/modules.py EdgeModel)
+    and the LN-fused attention (nn/transformer.py)."""
     return dtype in KERNEL_DTYPES
 
 
@@ -217,8 +218,17 @@ def require(kernel: str, arg: str, t, *, device, dtype, shape) -> None:
                          f"aligned")
 
 
-def check(code: int, kernel: str) -> None:
+def launch(kernel: str, entry: str, *args) -> None:
+    """Call the library's ``entry`` on the device of the first argument (a
+    tensor) with ``args`` (tensors as their data pointers, None as a null
+    pointer) and the device's current stream; raise, naming ``kernel``, on
+    a non-zero CUDA error code."""
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    lib = library()
+    with torch.cuda.device(args[0].device):
+        code = getattr(lib, entry)(*ptrs,
+                                   torch.cuda.current_stream().cuda_stream)
     if code != 0:
-        msg = library().dostpu_error_string(code).decode()
+        msg = lib.dostpu_error_string(code).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
                            f"{code} ({msg})")

@@ -1,21 +1,23 @@
-"""The product of an f32 linear: kernel #9 on the card, ``F.linear`` itself
-on the CPU.
+"""The model's linears: ``x W^T (+ b)`` over the rows of x [..., K], with
+W [N, K] (a parameter, or a column slice of one: the processors'
+``w0[:, :h]``, the parts form's ``weight[:, off:off + k]``; read through
+its row stride, not copied). In the JAX package XLA runs them (flax
+Dense); no Pallas kernel stands behind them.
 
-``x W^T (+ b)`` over the rows of x [..., K], with W [N, K] (a parameter,
-or a column slice of one: the processors' ``w0[:, :h]``, the parts form's
-``weight[:, off:off + k]``; read through its row stride, not copied). In
-the JAX package XLA runs it (flax Dense); no Pallas kernel stands behind
-it. :func:`linear_op` is the op: CPU tensors run ``F.linear`` itself
+:func:`linear` is the op every linear of the model but the FFN on #8 calls.
+It picks from its operands: bf16 rounds the product before the bias, as
+the JAX package does; f64 takes ``F.linear`` (the f64 rule,
+``ops/kernels.py takes_kernels``); f32 takes :func:`linear_op` where
+:func:`linear_plan` says so (a pure function of the rows, the widths and
+the dtype; see its docstring for the measurements), else ``F.linear``.
+
+:func:`linear_op` is the kernel op: CPU tensors run ``F.linear`` itself
 (autograd through it, so the CPU's bits are today's); CUDA tensors run
-``csrc/linear.cu`` (f32 only; anything else raises): the forward through
-:func:`linear_fwd_op`, the ``dostpu::linear_fwd`` custom op (graph capture
-and ``torch.export`` see one node), the backward through
+kernel #9, ``csrc/linear.cu`` (f32 only; anything else raises): the
+forward through :func:`linear_fwd_op`, the ``dostpu::linear_fwd`` custom
+op (graph capture and ``torch.export`` see one node), the backward through
 :func:`linear_bwd_kernel` (dX, dW, db, each only where autograd asks for
 it). Nothing falls back.
-
-:func:`linear_plan` says where ``nn/modules.py linear`` takes the op: a
-pure function of the rows, the widths and the dtype (see its docstring for
-the measurements).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from dostransformer_tpu_torch import tracing
 from dostransformer_tpu_torch.ops import kernels
 
 # the fewest rows that take #9: measured on the H100 (see linear_plan)
@@ -35,10 +38,11 @@ MIN_WIDTH = 32
 
 
 def linear_plan(rows: int, k: int, n: int, dtype: torch.dtype) -> bool:
-    """True where an f32 linear of ``rows`` rows, ``k`` inputs and ``n``
-    outputs goes to :func:`linear_op`: f32 operands, K and N multiples of 4
-    (the 16-byte row strides of the kernel's TMA maps of x and dY) and at
-    least ``MIN_WIDTH``, and at least ``MIN_ROWS`` rows. bf16 (``F.linear``
+    """True where :func:`linear` sends an f32 linear of ``rows`` rows,
+    ``k`` inputs and ``n`` outputs to :func:`linear_op`: f32 operands, K
+    and N multiples of 4 (the 16-byte row strides of the kernel's TMA maps
+    of x and dY) and at least ``MIN_WIDTH``, and at least ``MIN_ROWS``
+    rows. bf16 (``F.linear``
     then ``+ bias``, the JAX package's rounding), f64 (the plain functions),
     the eDOS edge encoder's K = 41, phDOS's 118 and 4, the heads' N = 1
     and fewer rows keep ``F.linear``.
@@ -118,16 +122,11 @@ def linear_fwd_kernel(x, weight, bias):
     more = {} if bias is None else {"bias": (bias, (n,))}
     ldw = _require("linear", x, weight, **more)
     y = x.new_empty((m, n))
-    lib = kernels.library()
     k = x.shape[1]
-    scratch = x.new_empty((lib.dostpu_linear_scratch_floats(m, n, k, 0),))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.dostpu_linear_fwd(
-            x.data_ptr(), weight.data_ptr(), ldw,
-            None if bias is None else bias.data_ptr(), y.data_ptr(),
-            scratch.data_ptr(), m, n, k, stream)
-    kernels.check(code, "linear")
+    scratch = x.new_empty(
+        (kernels.library().dostpu_linear_scratch_floats(m, n, k, 0),))
+    kernels.launch("linear", "dostpu_linear_fwd", x, weight, ldw, bias, y,
+                   scratch, m, n, k)
     linear_op.launches += 1
     return y
 
@@ -150,18 +149,10 @@ def linear_bwd_kernel(x, weight, gy, need_x=True, need_w=True,
     gb = x.new_empty((n,)) if need_b else None
     if gx is None and gw is None:
         return None, None, None
-    lib = kernels.library()
-    scratch = x.new_empty((lib.dostpu_linear_scratch_floats(m, n, k, 1),))
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.dostpu_linear_bwd(
-            x.data_ptr(), weight.data_ptr(), ldw, gy.data_ptr(), ptr(gx),
-            ptr(gw), ptr(gb), scratch.data_ptr(), m, n, k, stream)
-    kernels.check(code, "linear_bwd")
+    scratch = x.new_empty(
+        (kernels.library().dostpu_linear_scratch_floats(m, n, k, 1),))
+    kernels.launch("linear_bwd", "dostpu_linear_bwd", x, weight, ldw, gy, gx,
+                   gw, gb, scratch, m, n, k)
     linear_bwd_kernel.launches += 1
     return gx, gw if need_w else None, gb
 
@@ -220,3 +211,29 @@ def linear_op(x: torch.Tensor, weight: torch.Tensor,
 
 
 linear_op.launches = 0
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """x @ weight^T + bias with the parameters cast to x's dtype. In bf16
+    the product is rounded before the bias is added, as the JAX package
+    rounds it (``y = x @ k; y + b``); a fused call would round once. f32
+    keeps the one fused call (the two differ by an f32 rounding): kernel #9
+    where :func:`linear_plan` says so (:func:`linear_op`: ``F.linear``
+    itself on the CPU), else ``F.linear``; f64 takes ``F.linear``.
+    ``weight`` may be a column slice of a parameter. ``tracing`` counts
+    every call's rows (``linear.rows``) and the rows that took #9 on the
+    card (``linear.kernel_rows``)."""
+    weight = weight.to(x.dtype)
+    k = weight.shape[1]
+    rows = x.numel() // k
+    tracing.count("linear.rows", rows)
+    if x.dtype == torch.bfloat16:
+        y = F.linear(x, weight)
+        return y if bias is None else y + bias.to(x.dtype)
+    bias = None if bias is None else bias.to(x.dtype)
+    if linear_plan(rows, k, weight.shape[0], x.dtype):
+        if x.is_cuda:
+            tracing.count("linear.kernel_rows", rows)
+        return linear_op(x, weight, bias)
+    return F.linear(x, weight, bias)

@@ -10,10 +10,11 @@ drops them), any edge count and feature width. Callers mask pad rows
 
 :func:`segment_sum_reference` is the plain version. :func:`batched_segment_sum`
 is the op, a ``torch.autograd.Function``: for CUDA tensors its forward is the
-kernel in ``csrc/segment_sum.cu``, for CPU tensors the plain version; nothing
-else chooses the path. Its backward gathers the upstream gradient at the
-segment ids (the VJP of ``jax.ops.segment_sum``; no kernel, as the JAX kernel
-has none). On the model's path the op counts phDOS's NodeModel edges per
+kernel in ``csrc/segment_sum.cu``, for CPU tensors the plain version, and for
+f64 data the plain version on every device; nothing else chooses the path.
+Its backward gathers the upstream gradient at the segment ids (the VJP of
+``jax.ops.segment_sum``; no kernel, as the JAX kernel has none). On the
+model's path the op counts phDOS's NodeModel edges per
 receiver (the scatter-mean's denominator), at F = 1.
 :func:`segment_sum_plan` is the Python mirror of the kernel's partition
 (which the card run holds equal to the library's). The plain versions of
@@ -99,14 +100,10 @@ def _segment_sum_kernel(data, segment_ids, num_segments):
     out = torch.empty((b, num_segments, f), device=dev, dtype=data.dtype)
     if out.numel() == 0:
         return out
-    lib = kernels.library()
-    entry = (lib.dostpu_segment_sum_bf16 if data.dtype == torch.bfloat16
-             else lib.dostpu_segment_sum)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = entry(data.data_ptr(), segment_ids.data_ptr(), out.data_ptr(),
-                     b, e, f, num_segments, stream)
-    kernels.check(code, "batched_segment_sum")
+    entry = ("dostpu_segment_sum_bf16" if data.dtype == torch.bfloat16
+             else "dostpu_segment_sum")
+    kernels.launch("batched_segment_sum", entry, data, segment_ids, out, b, e,
+                   f, num_segments)
     batched_segment_sum.launches += 1
     return out
 
@@ -154,9 +151,13 @@ def batched_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     """Same contract as :func:`segment_sum_reference`, differentiable in
     ``data``.
 
-    CUDA tensors go through the kernel (data float32 or bfloat16
-    [B, E, F], ids int32, both contiguous; anything else raises), CPU
-    tensors through the plain version. ``batched_segment_sum.launches`` counts kernel launches."""
+    f32 and bf16 data on the card go through the kernel ([B, E, F], ids
+    int32, both contiguous; anything else raises), on the CPU through the
+    plain version; other dtypes (f64) through :func:`segment_sum_reference`
+    on every device (the f64 rule, ``ops/kernels.py takes_kernels``).
+    ``batched_segment_sum.launches`` counts kernel launches."""
+    if not kernels.takes_kernels(data.dtype):
+        return segment_sum_reference(data, segment_ids, num_segments)
     return _SegmentSum.apply(data, segment_ids, num_segments)
 
 

@@ -69,6 +69,7 @@ from dostransformer_tpu_torch.ops.fused_mp import (  # noqa: E402
     mp_edge_reference,
 )
 from dostransformer_tpu_torch.ops.segment import (  # noqa: E402
+    _segment_sum_kernel,
     batched_segment_sum,
     segment_sum_reference,
 )
@@ -282,9 +283,18 @@ def test_fused_attention_matches_plain(dev, shape):
 
 
 def test_fused_attention_rejects_wrong_dtype_and_width(dev):
+    """The forward kernel refuses f64 (the op hands f64 operands to the
+    plain attention, bit for bit, launching nothing); the op refuses a
+    width of 0."""
     q = torch.randn(2, 4, 64, device=dev)
+    bias = torch.zeros(2, 4, device=dev)
     with pytest.raises(TypeError):
-        fused_attention(q.double(), q.double(), q.double())
+        fused_attention_fwd(q.double(), q.double(), q.double(), bias)
+    qd = q.double()
+    before = fused_attention.launches
+    assert torch.equal(fused_attention(qd, qd, qd),
+                       dot_product_attention(qd, qd, qd))
+    assert fused_attention.launches == before
     q = torch.randn(2, 4, 0, device=dev)  # no feature at all
     with pytest.raises(ValueError):
         fused_attention(q, q, q)
@@ -554,8 +564,12 @@ def test_batched_segment_sum_is_differentiable_and_checked(dev):
     assert torch.equal(leaf.grad, ref.grad)  # a gather: exact
     with pytest.raises(TypeError):
         batched_segment_sum(data, ids.long(), 13)
-    with pytest.raises(TypeError):
-        batched_segment_sum(data.double(), ids, 13)
+    with pytest.raises(TypeError):  # the kernel is f32/bf16
+        _segment_sum_kernel(data.double(), ids, 13)
+    before = batched_segment_sum.launches  # the op: f64 to the plain sum
+    assert torch.equal(batched_segment_sum(data.double(), ids, 13),
+                       segment_sum_reference(data.double(), ids, 13))
+    assert batched_segment_sum.launches == before
 
 
 def _ln_attn_inputs(dev, b, lq, lk, d, dtype=torch.float32, seed=6):
@@ -685,9 +699,14 @@ def test_layer_norm_lp_on_the_card_and_rejections(dev):
         grads.append([y.detach()] + [t.grad for t in leaves])
     for got, want in zip(*grads):
         _close_scaled(got, want, 1e-4)
-    xd = x.double().requires_grad_()
+    xd = x.double()
     with pytest.raises(TypeError):  # the kernel is f32/bf16
-        layer_norm_lp(xd, w.double(), b.double()).sum().backward()
+        layer_norm_bwd(xd, torch.ones(4, 9, 1, device=dev, dtype=xd.dtype),
+                       w, xd)
+    before = layer_norm_bwd.launches  # the op: f64 to the plain LayerNorm
+    y = layer_norm_lp(xd, w.double(), b.double())
+    assert torch.equal(y, layer_norm(xd, w.double(), b.double()))
+    assert layer_norm_bwd.launches == before
     q = torch.randn(5, 40, device=dev)  # any width runs through the kernel
     got = layer_norm_bwd(q, torch.ones(5, device=dev),
                          torch.ones(40, device=dev), q)
@@ -1062,8 +1081,9 @@ def test_batched_segment_sum_bf16_matches_plain(dev, shape):
 
 
 def test_bf16_rejections(dev):
-    """f64 and f16 go nowhere, forward and backward kernels alike; the bf16
-    backward kernels take one operand dtype (bf16 operands with f32
+    """f64 and f16 go nowhere, forward and backward kernels alike (the
+    attention and segment-sum ops hand them to their plain versions); the
+    bf16 backward kernels take one operand dtype (bf16 operands with f32
     cotangents raise rather than widen silently)."""
     args = _mp_args(dev, 2, 5, 9, 32, 16)
     q = torch.randn(2, 4, 64, device=dev)
@@ -1077,12 +1097,12 @@ def test_bf16_rejections(dev):
             fused_mp_edge_bwd(*[t.to(dtype) for t in args[:3]], *args[3:10],
                               *(c.to(dtype) for c in cot))
         with pytest.raises(TypeError):
-            fused_attention(q.to(dtype), q.to(dtype), q.to(dtype))
+            fused_attention_fwd(q.to(dtype), q.to(dtype), q.to(dtype), bias)
         with pytest.raises(TypeError):
             x = q.to(dtype)
             fused_attention_bwd(x, x, x, bias, x, x)
         with pytest.raises(TypeError):
-            batched_segment_sum(data.to(dtype), ids, 13)
+            _segment_sum_kernel(data.to(dtype), ids, 13)
     bf = [t.bfloat16() for t in args[:3]]
     with pytest.raises(TypeError):
         fused_mp_edge_bwd(*bf, *args[3:10], *cot)
@@ -1563,12 +1583,13 @@ def test_ffn_layer_keeps_todays_path_where_the_plan_says(dev, case,
 
     from dostransformer_tpu_torch.nn import transformer
     from dostransformer_tpu_torch.nn.dropout import apply_keep
+    from dostransformer_tpu_torch.ops import ffn as ffn_ops
     from dostransformer_tpu_torch.ops.ffn import MIN_ROWS
 
     def refuse(*args):
         raise AssertionError("the FFN kernel was called")
 
-    monkeypatch.setattr(transformer, "ffn", refuse)
+    monkeypatch.setattr(ffn_ops, "ffn_fwd_kernel", refuse)
     layer = transformer.TransformerEncoderLayer(
         32, relu_dropout=0.5 if case == "relu_dropout" else 0.0).to(dev)
     dtype = {"bf16": torch.bfloat16, "f64": torch.float64}.get(
@@ -1583,8 +1604,7 @@ def test_ffn_layer_keeps_todays_path_where_the_plan_says(dev, case,
             relu=torch.rand(rows, 64, 128, generator=g).to(dev) > 0.5)
     got = layer(x, x, x, None, masks)
     ln0, ln1 = layer.layer_norms
-    attend = (transformer.dot_product_attention if case == "f64"
-              else transformer.fused_attention)
+    attend = dot_product_attention if case == "f64" else fused_attention
     k = ln0(x)
     x1 = x + attend(ln0(x), k, k, None)
     hid = F.relu(layer.fc1(ln1(x1)))
@@ -1747,7 +1767,7 @@ def test_cell_model_step_runs_every_admitted_linear_on_the_kernel(dev,
     from dostransformer_tpu_torch.data.graph import collate
     from dostransformer_tpu_torch.data.synthetic import synthetic_edos_samples
     from dostransformer_tpu_torch.models.registry import build_model
-    from dostransformer_tpu_torch.nn import modules
+    from dostransformer_tpu_torch.ops import linear as linear_ops
     from dostransformer_tpu_torch.ops.linear import (
         linear_bwd_kernel,
         linear_op,
@@ -1761,7 +1781,7 @@ def test_cell_model_step_runs_every_admitted_linear_on_the_kernel(dev,
         asked.append((rows, k, n, ok))
         return ok
 
-    monkeypatch.setattr(modules, "linear_plan", plan)
+    monkeypatch.setattr(linear_ops, "linear_plan", plan)
     model = build_model("edos", layers=3, t_layers=2, hidden=256, device=dev,
                         generator=torch.Generator().manual_seed(4))
     batch = collate(synthetic_edos_samples(64, seed=3, max_atoms=100),

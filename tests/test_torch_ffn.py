@@ -1,7 +1,7 @@
 """The transformer FFN's op (dostransformer_tpu_torch/ops/ffn.py) on the
 CPU: its plain version is the layer's composition before kernel #8 bit for
-bit, ``ffn_plan`` sends only f32 layers of supported widths and enough rows
-to the op, every other path of the layer computes as before, the CPU
+bit, ``ffn_plan`` sends only f32 calls of supported widths and enough rows
+to #8's path, every other path of the layer computes as before, the CPU
 model's outputs and gradients keep their bits, and the FFN counters add up.
 The kernel itself runs only on the card (tests/test_torch_cuda.py)."""
 
@@ -14,6 +14,7 @@ import torch.nn.functional as F  # noqa: E402
 from dostransformer_tpu_torch import tracing  # noqa: E402
 from dostransformer_tpu_torch.nn import transformer  # noqa: E402
 from dostransformer_tpu_torch.nn.dropout import apply_keep  # noqa: E402
+from dostransformer_tpu_torch.ops import attention as attention_ops  # noqa: E402
 from dostransformer_tpu_torch.ops import ffn as ffn_ops  # noqa: E402
 
 
@@ -82,7 +83,7 @@ def test_ffn_plan(rows, d, dtype, want):
 
 
 def _refuse(*args):
-    raise AssertionError("the FFN op was called")
+    raise AssertionError("the FFN took #8's path")
 
 
 @pytest.mark.parametrize("case", ["bf16", "f64", "relu_dropout", "tp",
@@ -90,9 +91,10 @@ def _refuse(*args):
 def test_layer_keeps_todays_path_where_the_plan_or_the_layer_says(
         case, monkeypatch):
     """bf16, f64, a ReLU dropout mask, the tensor-parallel branch, a width
-    the kernel does not take and few rows never call the op, and give the
-    composition's bits."""
-    monkeypatch.setattr(transformer, "ffn", _refuse)
+    the kernel does not take and few rows never take #8's path (its plain
+    version on the CPU), and give the composition's bits."""
+    monkeypatch.setattr(ffn_ops, "ffn_reference", _refuse)
+    monkeypatch.setattr(ffn_ops, "ffn_fwd_kernel", _refuse)
     d = 48 if case == "width_48" else 32
     dtype = {"bf16": torch.bfloat16, "f64": torch.float64}.get(
         case, torch.float32)
@@ -113,8 +115,8 @@ def test_layer_keeps_todays_path_where_the_plan_or_the_layer_says(
     got = layer(x, x, x, None, masks)
     ln0, ln1 = layer.layer_norms
     k = ln0(x)
-    attend = (transformer.dot_product_attention if case == "f64"
-              else transformer.fused_attention)
+    attend = (attention_ops.dot_product_attention if case == "f64"
+              else attention_ops.fused_attention)
     x1 = x + attend(ln0(x), k, k, None)
     want = x1 + _old_ffn(layer, ln1(x1), masks.relu)
     if case == "tp":  # the bias after the product, as the branch adds it
@@ -142,7 +144,7 @@ def _edos_model(ffn_on: bool, monkeypatch):
     from dostransformer_tpu_torch.models.registry import build_model
 
     if not ffn_on:
-        monkeypatch.setattr(transformer, "ffn_plan", lambda *a: False)
+        monkeypatch.setattr(ffn_ops, "ffn_plan", lambda *a: False)
     return build_model("edos", layers=1, t_layers=1, hidden=32,
                        generator=torch.Generator().manual_seed(3))
 
@@ -171,10 +173,10 @@ def test_cpu_model_outputs_and_gradients_keep_their_bits(monkeypatch):
 
 
 def test_ffn_counters_add_up(monkeypatch):
-    """ffn.rows counts every FFN call's rows: a forward of the eDOS model
-    runs the cross stack over B x bins rows and the self and source stacks
-    over 2B x bins, t_layers each, so 5 t_layers bins B in all;
-    ffn.kernel_rows counts the rows that took #8, none on the CPU."""
+    """ffn.rows counts the rows of every call of the op: a forward of the
+    eDOS model runs the cross stack over B x bins rows and the self and
+    source stacks over 2B x bins, t_layers each, so 5 t_layers bins B in
+    all; ffn.kernel_rows counts the rows that took #8, none on the CPU."""
     batch = _edos_batch(3)
     model = _edos_model(True, monkeypatch)
     counters = tracing.record().counters

@@ -119,8 +119,8 @@ def _spy(monkeypatch):
         calls.append((x.numel() // x.shape[-1], weight))
         return F.linear(x, weight, bias)
 
-    monkeypatch.setattr(modules, "linear_op", spy)
-    monkeypatch.setattr(modules, "linear_plan",
+    monkeypatch.setattr(linear_ops, "linear_op", spy)
+    monkeypatch.setattr(linear_ops, "linear_plan",
                         lambda rows, k, n, dtype: dtype == torch.float32)
     return calls
 
@@ -209,7 +209,7 @@ def test_cpu_models_keep_their_bits(task, monkeypatch):
     runs = []
     for on in (True, False):
         with monkeypatch.context() as mp:
-            mp.setattr(modules, "linear_plan",
+            mp.setattr(linear_ops, "linear_plan",
                        lambda rows, k, n, dtype: on and dtype == torch.float32)
             model = _model(task)
             outs = model(batch)
