@@ -13,7 +13,11 @@
 // A second operand form takes the raw x with (mean, rstd) and forms
 // xhat = (x - mean) * rstd in the kernel, rounded to the operand dtype as
 // the plain version rounds it: the caller that only has x (the LayerNorm-
-// fused attention's backward) then writes no xhat to memory.
+// fused attention's backward) then writes no xhat to memory. With `wide`
+// set, that xhat stays in f32 (the default LayerNorm's backward, whose
+// forward is csrc/layernorm_fwd.cu: bf16 operands round dx alone). Only
+// bf16 operands tell the two apart, so only they take the WIDE
+// instantiation.
 //
 // What bounds it on an H100: bytes from device memory. xhat and dy are read
 // and dx is written (3 * rows * D elements; 9.9 MB at 3,216 x 256 f32: 3 us
@@ -180,6 +184,13 @@ struct Operands {
   int rows, D;
 };
 
+// xhat of a raw x value, rounded to the operand dtype unless WIDE
+template <typename T, bool WIDE>
+__device__ __forceinline__ float xhat_of(float x, float mu, float rs) {
+  const float v = (x - mu) * rs;
+  return WIDE ? v : rounded<T>(v);
+}
+
 // A column block: dscale and dbias of the slab blockIdx.x / cluster size,
 // over the rows of this block's rank in the cluster. The cluster's barrier
 // is split: every block arrives when it starts ("my shared memory exists")
@@ -187,7 +198,7 @@ struct Operands {
 // the loads; the blocks then push their sums into the first block's shared
 // memory, and one more barrier stands between the rows and the result. A
 // cluster of one block takes no barrier at all.
-template <typename T, int V, bool RAW>
+template <typename T, int V, bool RAW, bool WIDE>
 __device__ __forceinline__ void column_block(const Operands& a,
                                              int rows_per_rank) {
   // the slab: 128 bytes of columns in the vector form (eight threads a
@@ -239,7 +250,7 @@ __device__ __forceinline__ void column_block(const Operands& a,
 #pragma unroll
           for (int e = 0; e < V; ++e) {
             const float xh =
-                RAW ? rounded<T>((xf[e] - mu[j]) * rs[j]) : xf[e];
+                RAW ? xhat_of<T, WIDE>(xf[e], mu[j], rs[j]) : xf[e];
             sx[e] = fmaf(df[e], xh, sx[e]);
             sd[e] += df[e];
           }
@@ -289,7 +300,7 @@ __device__ __forceinline__ void column_block(const Operands& a,
 
 // dx of row r by the calling warp, vector form: lane l holds the 16-byte
 // vectors l + 32 i (i < NCH) of the row; D a multiple of V, D <= 32 V NCH.
-template <typename T, int NCH, bool RAW>
+template <typename T, int NCH, bool RAW, bool WIDE>
 __device__ __forceinline__ void row_vector(const Operands& a, int r,
                                            int lane) {
   constexpr int V = 16 / (int)sizeof(T);
@@ -322,7 +333,7 @@ __device__ __forceinline__ void row_vector(const Operands& a, int r,
       }
 #pragma unroll
       for (int e = 0; e < V; ++e) {
-        if (RAW) xh[i][e] = rounded<T>((xh[i][e] - mu) * rs);
+        if (RAW) xh[i][e] = xhat_of<T, WIDE>(xh[i][e], mu, rs);
         s1 += g[i][e];
         s2 = fmaf(g[i][e], xh[i][e], s2);
       }
@@ -344,7 +355,7 @@ __device__ __forceinline__ void row_vector(const Operands& a, int r,
 
 // dx of row r by the calling warp, scalar form, any D: the row is read for
 // its two means and again (from cache) for dx.
-template <typename T, bool RAW>
+template <typename T, bool RAW, bool WIDE>
 __device__ __forceinline__ void row_scalar(const Operands& a, int r,
                                            int lane) {
   const int D = a.D;
@@ -355,7 +366,7 @@ __device__ __forceinline__ void row_scalar(const Operands& a, int r,
   const float rs = a.rstd[r];
   auto xhat_at = [&](int c) {
     const float x = to_float(xin[c]);
-    return RAW ? rounded<T>((x - mu) * rs) : x;
+    return RAW ? xhat_of<T, WIDE>(x, mu, rs) : x;
   };
   float s1 = 0.f, s2 = 0.f;
   for (int c = lane; c < D; c += 32) {
@@ -373,20 +384,22 @@ __device__ __forceinline__ void row_scalar(const Operands& a, int r,
 
 // Blocks [0, column_blocks) are column blocks, the rest row blocks of
 // kWarps rows each. NCH: vectors a lane holds of a row, 0 for the scalar
-// form. RAW: xin is x and xhat is formed from (mean, rstd).
-template <typename T, int NCH, bool RAW>
+// form. RAW: xin is x and xhat is formed from (mean, rstd); WIDE: that
+// xhat is not rounded to T.
+template <typename T, int NCH, bool RAW, bool WIDE>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 ln_bwd_kernel(Operands a, int column_blocks, int rows_per_rank) {
   if ((int)blockIdx.x < column_blocks) {
-    column_block<T, NCH == 0 ? 1 : 16 / (int)sizeof(T), RAW>(a, rows_per_rank);
+    column_block<T, NCH == 0 ? 1 : 16 / (int)sizeof(T), RAW, WIDE>(
+        a, rows_per_rank);
     return;
   }
   const int r = ((int)blockIdx.x - column_blocks) * kWarps + threadIdx.x / 32;
   if (r >= a.rows) return;
   if constexpr (NCH == 0)
-    row_scalar<T, RAW>(a, r, threadIdx.x % 32);
+    row_scalar<T, RAW, WIDE>(a, r, threadIdx.x % 32);
   else
-    row_vector<T, NCH, RAW>(a, r, threadIdx.x % 32);
+    row_vector<T, NCH, RAW, WIDE>(a, r, threadIdx.x % 32);
 }
 
 // 16-byte vectors a lane must hold for width D (1, 2, 4 or 8), or 0 when
@@ -425,7 +438,7 @@ Plan make_plan(int rows, int D, int bf16) {
   return p;
 }
 
-template <typename T, int NCH, bool RAW>
+template <typename T, int NCH, bool RAW, bool WIDE>
 cudaError_t launch(const Operands& a, const Plan& p, cudaStream_t st) {
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(p.grid);
@@ -438,18 +451,18 @@ cudaError_t launch(const Operands& a, const Plan& p, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  return cudaLaunchKernelEx(&config, ln_bwd_kernel<T, NCH, RAW>, a,
+  return cudaLaunchKernelEx(&config, ln_bwd_kernel<T, NCH, RAW, WIDE>, a,
                             p.slabs * p.cluster, p.rows_per_rank);
 }
 
-template <typename T, bool RAW>
+template <typename T, bool RAW, bool WIDE = false>
 cudaError_t dispatch(const Operands& a, const Plan& p, cudaStream_t st) {
   switch (p.chunks) {
-    case 1: return launch<T, 1, RAW>(a, p, st);
-    case 2: return launch<T, 2, RAW>(a, p, st);
-    case 4: return launch<T, 4, RAW>(a, p, st);
-    case 8: return launch<T, 8, RAW>(a, p, st);
-    default: return launch<T, 0, RAW>(a, p, st);
+    case 1: return launch<T, 1, RAW, WIDE>(a, p, st);
+    case 2: return launch<T, 2, RAW, WIDE>(a, p, st);
+    case 4: return launch<T, 4, RAW, WIDE>(a, p, st);
+    case 8: return launch<T, 8, RAW, WIDE>(a, p, st);
+    default: return launch<T, 0, RAW, WIDE>(a, p, st);
   }
 }
 
@@ -475,22 +488,27 @@ extern "C" void dostpu_layer_norm_bwd_plan(int rows, int D, int bf16,
 // xin, dy and dx [rows, D] (float32, or bfloat16 when `bf16` is non-zero);
 // rstd [rows], scale, dscale and dbias [D] float32. `mean` is null (xin is
 // xhat) or [rows] float32 (xin is the raw x; xhat = (x - mean) * rstd is
-// formed in the kernel, rounded to the operand dtype). Any rows >= 1 and
-// D >= 1. One launch, no scratch memory. Returns the CUDA error code of the
-// launch (0 on success).
+// formed in the kernel, rounded to the operand dtype unless `wide` is
+// non-zero). Any rows >= 1 and D >= 1. One launch, no scratch memory.
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int dostpu_layer_norm_bwd(const void* xin, const float* mean,
                                      const float* rstd, const void* dy,
                                      const float* scale, void* dx,
                                      float* dscale, float* dbias, int rows,
-                                     int D, int bf16, void* stream) {
+                                     int D, int bf16, int wide,
+                                     void* stream) {
   if (rows <= 0 || D <= 0) return cudaErrorInvalidValue;
   const Plan p = make_plan(rows, D, bf16);
   const Operands a = {xin, mean, rstd, dy, scale, dx, dscale, dbias, rows, D};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool raw = mean != nullptr;
-  if (bf16)
-    return raw ? dispatch<__nv_bfloat16, true>(a, p, st)
-               : dispatch<__nv_bfloat16, false>(a, p, st);
+  // f32 operands: rounding xhat to T is the identity, so `wide` changes
+  // nothing
+  if (bf16) {
+    if (!raw) return dispatch<__nv_bfloat16, false>(a, p, st);
+    return wide ? dispatch<__nv_bfloat16, true, true>(a, p, st)
+                : dispatch<__nv_bfloat16, true>(a, p, st);
+  }
   return raw ? dispatch<float, true>(a, p, st)
              : dispatch<float, false>(a, p, st);
 }

@@ -77,7 +77,7 @@ from typing import NamedTuple
 import torch
 
 from dostransformer_tpu_torch.nn.dropout import apply_keep, draw_keep
-from dostransformer_tpu_torch.nn.layernorm import ln_backward
+from dostransformer_tpu_torch.ops.layernorm import ln_backward
 from dostransformer_tpu_torch.ops import kernels
 
 NEG_INF = -1e30

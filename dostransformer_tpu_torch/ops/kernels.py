@@ -9,10 +9,10 @@ every file under ``csrc/``, and loaded with ``ctypes``. A later process finds
 the library and skips the build. Nothing here runs at import: the CPU
 tests import every module on machines without ``nvcc``.
 
-The kernel wrappers in ``ops/*.py`` and ``nn/layernorm.py`` launch
-through :func:`launch`, which passes every pointer, and PyTorch's current
-CUDA stream, as ``c_void_p``; each entry point returns the CUDA error code
-of its launches, and :func:`launch` raises on a non-zero code.
+The kernel wrappers in ``ops/*.py`` launch through :func:`launch`, which
+passes every pointer, and PyTorch's current CUDA stream, as ``c_void_p``;
+each entry point returns the CUDA error code of its launches, and
+:func:`launch` raises on a non-zero code.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("runtime.cu", "fused_mp.cu", "fused_mp_bwd.cu", "attention.cu",
            "attention_bwd.cu", "segment_sum.cu", "attention_ln.cu",
-           "layernorm_bwd.cu", "ffn.cu", "linear.cu")
+           "layernorm_bwd.cu", "layernorm_fwd.cu", "ffn.cu", "linear.cu")
 # -split-compile 0 (nvcc >= 12.1): the kernels of one source are optimised on
 # every core; the attention sources instantiate 16 widths, and the whole
 # build waits for the slowest (51 s without the flag, 26 s with it, 8 cores)
@@ -85,8 +85,11 @@ _SIGNATURES = {
                                 + [_I, _P], _I),
     # rows D bf16 -> vector_form slabs cluster rows_per_rank grid
     "dostpu_layer_norm_bwd_plan": ([_I] * 3 + [_IP] * 5, None),
-    # xhat|x mean|null rstd dy scale dx dscale dbias rows D bf16 stream
-    "dostpu_layer_norm_bwd": ([_P] * 8 + [_I] * 3 + [_P], _I),
+    # xhat|x mean|null rstd dy scale dx dscale dbias rows D bf16 wide stream
+    "dostpu_layer_norm_bwd": ([_P] * 8 + [_I] * 4 + [_P], _I),
+    # x scale bias y mean rstd rows D eps bf16 stream
+    "dostpu_layer_norm_fwd": ([_P] * 6 + [_I] * 2 + [ctypes.c_float, _I, _P],
+                              _I),
     # M D backward -> floats
     "dostpu_ffn_scratch_floats": ([_I] * 3, ctypes.c_size_t),
     # x w1 b1 w2 b2 h y scratch M D stream
@@ -190,10 +193,10 @@ def takes_kernels(dtype: torch.dtype) -> bool:
     parity mode) takes the plain functions on every device, with statistics
     and sums in f64. The op entries apply it to their operands at each call
     (``linear``, ``ffn``, ``fused_attention``, ``batched_segment_sum``,
-    ``layer_norm_lp``); the kernel entries behind them refuse f64. Two
-    layer sites apply it too, where the JAX package runs another
-    composition in f64: the fused edge pipeline (nn/modules.py EdgeModel)
-    and the LN-fused attention (nn/transformer.py)."""
+    ``layer_norm``, ``layer_norm_lp``); the kernel entries behind them
+    refuse f64. Two layer sites apply it too, where the JAX package runs
+    another composition in f64: the fused edge pipeline (nn/modules.py
+    EdgeModel) and the LN-fused attention (nn/transformer.py)."""
     return dtype in KERNEL_DTYPES
 
 

@@ -37,8 +37,12 @@ torch.set_num_threads(1)
 
 from dostransformer_tpu_torch.nn.layernorm import (  # noqa: E402
     layer_norm,
-    layer_norm_bwd,
     layer_norm_lp,
+)
+from dostransformer_tpu_torch.ops.layernorm import (  # noqa: E402
+    layer_norm_bwd,
+    layer_norm_fwd_kernel,
+    layer_norm_reference,
     ln_bwd_reference,
 )
 from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
@@ -695,7 +699,7 @@ def test_layer_norm_lp_on_the_card_and_rejections(dev):
         before = layer_norm_bwd.launches
         y = fn(*leaves)
         y.square().sum().backward()
-        assert layer_norm_bwd.launches == before + (fn is layer_norm_lp)
+        assert layer_norm_bwd.launches == before + 1  # #7 for both
         grads.append([y.detach()] + [t.grad for t in leaves])
     for got, want in zip(*grads):
         _close_scaled(got, want, 1e-4)
@@ -775,6 +779,165 @@ def test_layer_norm_bwd_scalar_form(dev, rows, d, dtype):
         assert err <= tol * max(floor, w.float().abs().max().item())
     assert all(torch.equal(a, b) for a, b in
                zip(got, layer_norm_bwd(x, rstd, scale, dy, mean)))
+
+
+# --- the default LayerNorm: #10 forward, #7 backward (ops/layernorm.py) -----
+# The cell's LayerNorm calls at batch 64 (the cross stack's 12,864 query
+# rows, atom bucket 256's 16,384 key rows, the heads' 25,728 query rows and
+# the source stack's 32,768 keys at width 256; the processors' node rows at
+# 512), and the scalar form's widths 50 and 1,040 (f32).
+LN_SHAPES = [(12864, 256), (16384, 256), (25728, 256), (32768, 256),
+             (16384, 512), (300, 50), (40, 1040)]
+
+
+def _ln_case(dev, rows, d, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(rows, d, generator=g) * 3 + 1).to(dev, dtype)
+    scale = (torch.rand(d, generator=g) + 0.5).to(dev)
+    bias = torch.randn(d, generator=g).to(dev)
+    dy = torch.randn(rows, d, generator=g).to(dev, dtype)
+    return x, scale, bias, dy
+
+
+def _ln_grads(fn, x, scale, bias, dy):
+    """fn's output and its gradients in x, scale and bias for upstream dy."""
+    leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+    y = fn(*leaves)
+    y.backward(dy)
+    return [y.detach()] + [t.grad for t in leaves]
+
+
+def _widened_layer_norm(x, scale, bias):
+    """The default LayerNorm before the kernels: F.layer_norm in f32 on the
+    widened operands, cast back (PyTorch's own backward)."""
+    import torch.nn.functional as F
+
+    return F.layer_norm(x.float(), x.shape[-1:], scale, bias,
+                        1e-5).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LN_SHAPES)
+def test_layer_norm_kernels_against_f64(dev, shape, dtype):
+    """#10's y, mean and rstd and the op's dx, dscale and dbias (through
+    #7) against f64 on the same operands: each norm-wise error within 2x
+    that of F.layer_norm and its autograd in f32 on the widened operands
+    (ATen's kernels; a floor of f32's unit roundoff where those are exact).
+    One #10 and one #7 launch a call; a rerun repeats every bit."""
+    import torch.nn.functional as F
+
+    x, scale, bias, dy = _ln_case(dev, *shape, dtype)
+    before = layer_norm.launches, layer_norm_bwd.launches
+    got = _ln_grads(layer_norm, x, scale, bias, dy)
+    assert (layer_norm.launches - before[0],
+            layer_norm_bwd.launches - before[1]) == (1, 1)
+    assert got[0].dtype == got[1].dtype == dtype
+    assert got[2].dtype == got[3].dtype == torch.float32
+    _, mean, rstd = layer_norm_fwd_kernel(x, scale, bias)
+    lib = _ln_grads(_widened_layer_norm, x, scale, bias, dy)
+    _, lib_mean, lib_rstd = torch.native_layer_norm(x.float(), shape[-1:],
+                                                    scale, bias, 1e-5)
+    leaves64 = [t.double().requires_grad_() for t in (x, scale, bias)]
+    y64 = F.layer_norm(leaves64[0], shape[-1:], leaves64[1], leaves64[2],
+                       1e-5)
+    y64.backward(dy.double())
+    var64, mean64 = torch.var_mean(x.double(), -1, correction=0)
+    want = {"y": y64.detach(), "dx": leaves64[0].grad,
+            "dscale": leaves64[1].grad, "dbias": leaves64[2].grad,
+            "mean": mean64, "rstd": torch.rsqrt(var64 + 1e-5)}
+    ours = dict(zip(("y", "dx", "dscale", "dbias"), got[:1] + got[1:]),
+                mean=mean, rstd=rstd)
+    theirs = dict(zip(("y", "dx", "dscale", "dbias"), lib),
+                  mean=lib_mean.reshape(-1), rstd=lib_rstd.reshape(-1))
+    for name, w in want.items():
+        err, lib_err = _rel(ours[name], w), _rel(theirs[name], w)
+        assert err <= 2 * max(lib_err, 2.0 ** -24), (name, err, lib_err)
+    again = _ln_grads(layer_norm, x, scale, bias, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in
+               zip((mean, rstd), layer_norm_fwd_kernel(x, scale, bias)[1:]))
+
+
+def test_layer_norm_kernel_replays_in_a_captured_graph_bit_for_bit(dev):
+    """Forward and backward of the op captured in one CUDA graph replay to
+    the eager bits."""
+    x, scale, bias, dy = _ln_case(dev, 3216, 256, torch.float32, seed=2)
+    leaves = [t.clone().requires_grad_() for t in (x, scale, bias)]
+
+    def run():
+        for t in leaves:
+            t.grad = None
+        y = layer_norm(*leaves)
+        y.backward(dy)
+        return [y.detach()] + [t.grad for t in leaves]
+
+    eager = [t.clone() for t in run()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
+
+
+def test_layer_norm_kernel_rejects_what_it_does_not_take(dev):
+    x, scale, bias, _ = _ln_case(dev, 8, 64, torch.float32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        layer_norm_fwd_kernel(x.double(), scale, bias)
+    with pytest.raises(TypeError):  # f32 parameters
+        layer_norm_fwd_kernel(x, scale.bfloat16(), bias.bfloat16())
+    with pytest.raises(ValueError):  # one scale a column
+        layer_norm_fwd_kernel(x, scale[:32], bias)
+    with pytest.raises(ValueError):  # rows of a matrix
+        layer_norm_fwd_kernel(x[None], scale, bias)
+    with pytest.raises(ValueError):
+        layer_norm_fwd_kernel(x.cpu(), scale.cpu(), bias.cpu())
+    # a view at an odd offset is copied by the op, not refused
+    odd = torch.randn(8 * 64 + 1, device=dev)[1:].view(8, 64)
+    got = layer_norm(odd, scale, bias)
+    assert torch.equal(got, layer_norm(odd.clone(), scale, bias))
+
+
+def test_default_edos_train_step_launches_each_layer_norm_kernel_24_times(
+        dev):
+    """A default eDOS training step (3 processors, 2 layers a stack, batch
+    64) runs its 24 LayerNorms on #10 and #7, one launch each, and counts
+    64 x (9A + 5,829) rows, all on the kernels (A the padded atoms of a
+    crystal); the same step on the CPU and an f64 step on the card launch
+    neither kernel (the f64 step's edge MLPs, unfused, add a LayerNorm of
+    64 E rows a processor, E the padded edges of a crystal)."""
+    from dostransformer_tpu_torch import tracing
+    from dostransformer_tpu_torch.data.graph import collate
+    from dostransformer_tpu_torch.data.synthetic import synthetic_edos_samples
+    from dostransformer_tpu_torch.models.registry import build_model
+    from dostransformer_tpu_torch.train.trainer import Trainer
+
+    batch = collate(synthetic_edos_samples(64, seed=3), num_graphs=64)
+    rows = 64 * (9 * batch.nodes.shape[1] + 5829)
+    edge_rows = 3 * 64 * batch.senders.shape[1]
+    for device, dtype, launched, extra in (
+            (dev, "float32", 24, 0), (torch.device("cpu"), "float32", 0, 0),
+            (dev, "float64", 0, edge_rows)):
+        model = build_model("edos", layers=3, t_layers=2, hidden=64,
+                            device=device, dtype=dtype,
+                            generator=torch.Generator().manual_seed(4))
+        counters = tracing.record().counters
+        names = ("layer_norm.rows", "layer_norm.kernel_rows")
+        rows0 = [counters.get(k, 0) for k in names]
+        before = layer_norm.launches, layer_norm_bwd.launches
+        Trainer(model, graphs=False).train_step(batch.to(device))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        assert (layer_norm.launches - before[0],
+                layer_norm_bwd.launches - before[1]) == (launched, launched)
+        counters = tracing.record().counters
+        assert [counters.get(k, 0) - n for k, n in zip(names, rows0)] == [
+            rows + extra, rows if launched else 0]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1249,7 +1412,7 @@ def test_bf16_train_step_on_the_card(dev, task, levers):
     clamp = task == "edos"
     loss = Trainer(card, clamp_targets=clamp).train_step(batch)["loss"]
     launches = [c.launches - n for c, n in zip(counters, before)]
-    assert launches == ([2, 2, 0, 3, 3, 11] if levers else [2, 2, 3, 3, 0, 0])
+    assert launches == ([2, 2, 0, 3, 3, 13] if levers else [2, 2, 3, 3, 0, 14])
     losses = [Trainer(m, clamp_targets=clamp).train_step(batch)["loss"].item()
               for m in (cpu, cpu32)]
     grads = [torch.cat([p.grad.float().cpu().flatten()

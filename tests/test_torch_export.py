@@ -31,7 +31,12 @@ from dostransformer_tpu_torch.cli import main_predict  # noqa: E402
 from dostransformer_tpu_torch.data.graph import GraphSample, RequestError  # noqa: E402
 from dostransformer_tpu_torch.data.io import save_samples  # noqa: E402
 from dostransformer_tpu_torch.models.import_torch import state_dict_from_jax  # noqa: E402
-from dostransformer_tpu_torch.ops import attention, fused_mp, segment  # noqa: E402
+from dostransformer_tpu_torch.ops import (  # noqa: E402
+    attention,
+    fused_mp,
+    layernorm,
+    segment,
+)
 from dostransformer_tpu_torch.serve import ExportedPredictor, Predictor  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -288,6 +293,8 @@ def _op_cases():
               None)),
             ("segment_sum", segment.segment_sum_op,
              (f(r(b, e, 3)), idx(), a)),
+            ("layer_norm_fwd", layernorm.layer_norm_fwd_op,
+             (f(r(lq, d)), r(d), r(d), 1e-5)),
         ]
     return {(name, str(dtype).split(".")[1]): (op, args)
             for dtype in (torch.float32, torch.bfloat16)

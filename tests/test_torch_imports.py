@@ -41,6 +41,7 @@ MODULES = [
     "dostransformer_tpu_torch.ops.segment",
     "dostransformer_tpu_torch.ops.fused_mp",
     "dostransformer_tpu_torch.ops.attention",
+    "dostransformer_tpu_torch.ops.layernorm",
     "dostransformer_tpu_torch.ops.geometry",
     "dostransformer_tpu_torch.parallel",
     "dostransformer_tpu_torch.parallel.mesh",

@@ -45,10 +45,7 @@ from dostransformer_tpu_torch.nn.layernorm import (  # noqa: E402
     LayerNorm,
     LayerNormLP,
     layer_norm,
-    layer_norm_bwd,
     layer_norm_lp,
-    ln_bwd_plan,
-    ln_bwd_reference,
 )
 from dostransformer_tpu_torch.nn.transformer import TransformerEncoder  # noqa: E402
 from dostransformer_tpu_torch.ops import attention as port_attention  # noqa: E402
@@ -56,6 +53,11 @@ from dostransformer_tpu_torch.ops.attention import (  # noqa: E402
     attention_plan,
     fused_attention_ln,
     ln_attention_reference,
+)
+from dostransformer_tpu_torch.ops.layernorm import (  # noqa: E402
+    layer_norm_bwd,
+    ln_bwd_plan,
+    ln_bwd_reference,
 )
 from dostransformer_tpu_torch.serve import Predictor  # noqa: E402
 from dostransformer_tpu_torch.train import loss as tloss  # noqa: E402

@@ -12,7 +12,9 @@ import torch.nn.functional as F  # noqa: E402
 
 from dostransformer_tpu_torch.nn import layernorm  # noqa: E402
 from dostransformer_tpu_torch.ops import attention  # noqa: E402
+from dostransformer_tpu_torch import tracing  # noqa: E402
 from dostransformer_tpu_torch.ops import ffn as ffn_ops  # noqa: E402
+from dostransformer_tpu_torch.ops import layernorm as ln_ops  # noqa: E402
 from dostransformer_tpu_torch.ops import linear as linear_ops  # noqa: E402
 from dostransformer_tpu_torch.ops import segment  # noqa: E402
 
@@ -116,17 +118,83 @@ def _run(fn, leaves):
 def test_op_takes_the_plain_version_for_operands_the_kernels_refuse(
         case, monkeypatch):
     counters = (linear_ops.linear_op, ffn_ops.ffn, attention.fused_attention,
-                segment.batched_segment_sum, layernorm.layer_norm_bwd)
+                segment.batched_segment_sum, ln_ops.layer_norm,
+                ln_ops.layer_norm_bwd)
     before = [c.launches for c in counters]
     for target, name in ((linear_ops, "linear_op"),
                          (ffn_ops, "ffn_reference"),
                          (ffn_ops._FFN, "apply"),
                          (attention._FusedAttention, "apply"),
                          (segment._SegmentSum, "apply"),
-                         (layernorm._LayerNormLP, "apply")):
+                         (layernorm._LayerNormLP, "apply"),
+                         (ln_ops._LayerNorm, "apply")):
         monkeypatch.setattr(target, name, _refuse)
     leaves, got, want = CASES[case](torch.Generator().manual_seed(0))
     runs = [_run(got, leaves), _run(want, leaves)]
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     assert runs[0][0].dtype == leaves[0].dtype
     assert [c.launches for c in counters] == before
+
+
+def _widened_layer_norm(x, w, b):
+    """The default LayerNorm as the layers composed it before the op: the
+    widened ``F.layer_norm`` cast back."""
+    f = torch.promote_types(x.dtype, torch.float32)
+    return F.layer_norm(x.to(f), x.shape[-1:], w.to(f), b.to(f),
+                        ln_ops.LN_EPS).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_layer_norm_takes_f_layer_norm_on_the_cpu_and_for_f64(dtype,
+                                                             monkeypatch):
+    """On the CPU (every dtype) and for f64 the op is the widened
+    ``F.layer_norm`` bit for bit, gradients too; the kernels' Function is
+    never entered and nothing is launched."""
+    monkeypatch.setattr(ln_ops._LayerNorm, "apply", _refuse)
+    monkeypatch.setattr(ln_ops, "layer_norm_fwd_op", _refuse)
+    before = (ln_ops.layer_norm.launches, ln_ops.layer_norm_bwd.launches)
+    g = torch.Generator().manual_seed(3)
+    leaves = [(_rand(g, 4, 9, D) * 3 + 1).to(dtype),
+              torch.rand(D, generator=g) + 0.5, _rand(g, D)]
+    runs = [_run(ln_ops.layer_norm, leaves),
+            _run(_widened_layer_norm, leaves)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert runs[0][0].dtype == dtype
+    assert (ln_ops.layer_norm.launches,
+            ln_ops.layer_norm_bwd.launches) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("shape", [(7, 50), (3, 5, 256), (2, 1040)])
+def test_layer_norm_reference_gives_f_layer_norm_and_var_mean(dtype, shape):
+    """The plain forward with statistics: y is the widened F.layer_norm,
+    mean and rstd are torch.var_mean's (biased) in f32 or wider."""
+    g = torch.Generator().manual_seed(5)
+    x = (_rand(g, *shape) * 2 + 0.5).to(dtype)
+    w, b = torch.rand(shape[-1], generator=g) + 0.5, _rand(g, shape[-1])
+    y, mean, rstd = ln_ops.layer_norm_reference(x, w, b)
+    f = torch.promote_types(dtype, torch.float32)
+    var, want_mean = torch.var_mean(x.to(f), -1, correction=0)
+    assert torch.equal(y, _widened_layer_norm(x, w, b))
+    assert mean.dtype == rstd.dtype == f and mean.shape == shape[:-1]
+    assert torch.equal(mean, want_mean)
+    assert torch.equal(rstd, torch.rsqrt(var + ln_ops.LN_EPS))
+
+
+def test_layer_norm_counts_every_calls_rows():
+    """``layer_norm.rows`` counts the rows of every call, whatever its
+    dtype; on the CPU no call counts ``layer_norm.kernel_rows``."""
+    names = ("layer_norm.rows", "layer_norm.kernel_rows")
+
+    def read():
+        return [tracing.record().counters.get(k, 0) for k in names]
+
+    before = read()
+    w, b = torch.ones(D), torch.zeros(D)
+    for dtype, shape in ((torch.float32, (4, 9, D)),
+                         (torch.bfloat16, (3, D)),
+                         (torch.float64, (2, 5, 7, D))):
+        ln_ops.layer_norm(torch.randn(shape).to(dtype), w, b)
+    assert read() == [before[0] + 36 + 3 + 70, before[1]]

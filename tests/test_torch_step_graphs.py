@@ -428,11 +428,17 @@ def test_replayed_epoch_at_the_cell_sizes_runs_the_linear_kernel_bit_equal():
     heads' f32 linears to kernel #9 (``linear.kernel_rows``, launches);
     the replayed epoch (captured in its first, replayed in its second)
     runs #9's kernels by torch.profiler name as often as the eager epoch
-    and gives its losses, parameters and AdamW state bit for bit."""
+    and gives its losses, parameters and AdamW state bit for bit. The
+    LayerNorms take #10 and #7 likewise: 24 of each a step, eager and
+    replayed, every row on the kernels (``layer_norm.kernel_rows``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: kernel #9 has no CPU mode")
     from torch.profiler import ProfilerActivity, profile
 
+    from dostransformer_tpu_torch.ops.layernorm import (
+        layer_norm,
+        layer_norm_bwd,
+    )
     from dostransformer_tpu_torch.ops.linear import linear_op
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -451,10 +457,17 @@ def test_replayed_epoch_at_the_cell_sizes_runs_the_linear_kernel_bit_equal():
     eager, replayed = trainers
     counters = tracing.record().counters
     kernel_rows = counters.get("linear.kernel_rows", 0)
+    ln_rows = [counters.get(k, 0)
+               for k in ("layer_norm.rows", "layer_norm.kernel_rows")]
     launches = linear_op.launches
+    ln_launches = layer_norm.launches, layer_norm_bwd.launches
     want = eager.train_epochs_buckets(data, 0, [0])
     assert linear_op.launches - launches >= 4 * 6
     assert counters["linear.kernel_rows"] > kernel_rows
+    assert (layer_norm.launches - ln_launches[0],
+            layer_norm_bwd.launches - ln_launches[1]) == (4 * 24, 4 * 24)
+    assert (counters["layer_norm.rows"] - ln_rows[0]
+            == counters["layer_norm.kernel_rows"] - ln_rows[1] > 0)
     assert torch.equal(replayed.train_epochs_buckets(data, 0, [0]), want)
     names = []
     for trainer in trainers:
@@ -465,10 +478,15 @@ def test_replayed_epoch_at_the_cell_sizes_runs_the_linear_kernel_bit_equal():
             e.name for e in prof.events()
             if any(k in e.name for k in ("linear_gemm_kernel",
                                          "linear_split_kernel",
-                                         "linear_reduce_kernel"))))
+                                         "linear_reduce_kernel",
+                                         "ln_fwd_kernel",
+                                         "ln_bwd_kernel"))))
         if trainer is eager:
             want = losses
     assert names[0] and names[0] == names[1]
+    for kernel in ("ln_fwd_kernel", "ln_bwd_kernel"):
+        got = [sum(kernel in n for n in side) for side in names]
+        assert got == [4 * 24] * 2, (kernel, got, sorted(set(names[0])))
     assert torch.equal(losses, want)
     for p, q in zip(eager.model.parameters(), replayed.model.parameters()):
         assert torch.equal(p, q)

@@ -196,6 +196,18 @@ def linear_rows(b, atoms, edges, bins, layers=1, t_layers=1):
                 + bins * (4 + 10 * t_layers))
 
 
+def layer_norm_rows(b, atoms, bins, layers=1, t_layers=1):
+    """The rows of every default LayerNorm of one eDOS forward at b graph
+    slots of ``atoms`` node slots: each processor's node MLP (node count),
+    per layer ln0 on the keys (the cross stack's atoms, the source stack's
+    twice as many) and, in bins rows a slot, ln0 on the queries and ln1 in
+    the cross stack, ln0 on keys and queries and ln1 in the self stack and
+    ln0 and ln1 in the source stack (the heads' stacks at 2b slots), and
+    each stack's final LayerNorm."""
+    return b * ((layers + 3 * t_layers) * atoms
+                + bins * (12 * t_layers + 5))
+
+
 @pytest.mark.parametrize("kind", ["buckets", "device", "host"])
 def test_counters_are_the_counts_of_the_samples(kind):
     trainer, samples = _trainer(), _samples()
@@ -223,6 +235,10 @@ def test_counters_are_the_counts_of_the_samples(kind):
     assert len(shapes) == want["train.steps"]
     want["linear.rows"] = sum(linear_rows(b, a, e, BINS)
                               for b, a, e in shapes)
+    # every LayerNorm's rows; on the CPU none takes the kernels, so
+    # layer_norm.kernel_rows stays unset
+    want["layer_norm.rows"] = sum(layer_norm_rows(b, a, BINS)
+                                  for b, a, _ in shapes)
     want["train.steps_replayed"] = 0  # the CPU replays no step
     assert tracing.record().counters == want
     assert want["train.atom_rows"] < want["train.atom_slots"]
